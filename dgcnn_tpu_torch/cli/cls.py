@@ -1,9 +1,12 @@
-"""ModelNet40 classification CLI, eval mode (port of dgcnn_tpu/cli/cls.py).
+"""ModelNet40 classification CLI (port of dgcnn_tpu/cli/cls.py): training
+and evaluation.
 
 Same flags as the JAX CLI apart from its TPU-only ones, and the same
-``Test :: test acc: ..., test avg acc: ...`` line.  Training is not ported
-yet: ``--eval=False`` raises.
+``Train %d, ...``, ``Test %d, ...`` and ``Test :: test acc: ...`` lines.
+Training keeps the best test accuracy's model in the reference state-dict
+layout at ``outputs/<exp>/models/model.t7``.
 
+    python -m dgcnn_tpu_torch.cli.cls --eval=False --exp_name=cls1024
     python -m dgcnn_tpu_torch.cli.cls --eval=True \
         --model_path=pretrained/model.cls.1024.t7 --test_batch_size=32
 """
@@ -21,37 +24,57 @@ from dgcnn_tpu_torch.cli.common import (
     str2bool,
 )
 from dgcnn_tpu_torch.convert import load_checkpoint
-from dgcnn_tpu_torch.data import ModelNet40
-from dgcnn_tpu_torch.models import DGCNNCls, PointNet
+from dgcnn_tpu_torch.data import ModelNet40, make_loader
+from dgcnn_tpu_torch.models import DGCNNCls, PointNet, init_like_flax_
 from dgcnn_tpu_torch.train import (
     accuracy_score,
     balanced_accuracy_score,
-    cross_entropy,
+    make_cls_steps,
+    make_optimizer,
+    make_schedule,
+    save_model,
 )
-from dgcnn_tpu_torch.utils import IOStream
+from dgcnn_tpu_torch.utils import IOStream, ThroughputMeter
 
 
 def build_model(args, device):
     if args.model == "pointnet":
-        return PointNet(emb_dims=args.emb_dims, device=device)
+        return PointNet(emb_dims=args.emb_dims, dropout=args.dropout,
+                        device=device)
     if args.model == "dgcnn":
-        return DGCNNCls(emb_dims=args.emb_dims, k=args.k, device=device)
+        return DGCNNCls(emb_dims=args.emb_dims, k=args.k,
+                        dropout=args.dropout, device=device)
     raise Exception("Not implemented")
 
 
-@torch.no_grad()
 def evaluate(model, points: np.ndarray, labels: np.ndarray, batch_size: int,
              device) -> MeterAccumulator:
     """The eval loop: ``points`` (n, N, 3) and ``labels`` (n,) in batches of
     ``batch_size`` through ``model`` on ``device``; returns the filled
     meter (smoothed cross entropy, labels and argmax predictions)."""
+    _, eval_step = make_cls_steps()
     meter = MeterAccumulator()
     for start in range(0, len(points), batch_size):
         x = torch.from_numpy(points[start:start + batch_size]).to(device)
-        y = torch.from_numpy(labels[start:start + batch_size]).long()
-        logits = model(x).cpu()
-        meter.add_cls(cross_entropy(logits, y).item(),
-                      logits.argmax(-1).numpy(), y.numpy())
+        y = labels[start:start + batch_size]
+        m = eval_step(model, x, torch.from_numpy(y).long().to(device))
+        meter.add_cls(m["loss"].item(), m["preds"].cpu().numpy(), y)
+    return meter
+
+
+def train_epoch(model, opt, loader, device,
+                generator: torch.Generator) -> MeterAccumulator:
+    """One pass of the train loop over ``loader``'s batches: one optimizer
+    step each, dropout drawn from ``generator``; returns the filled meter
+    (each step's loss, labels and argmax predictions)."""
+    train_step, _ = make_cls_steps()
+    meter = MeterAccumulator()
+    for batch in loader:
+        labels = batch["label"][:, 0]
+        m = train_step(model, opt, torch.from_numpy(batch["points"]).to(device),
+                       torch.from_numpy(labels).to(device), generator)
+        meter.add_cls(m["loss"].item(), m["preds"].cpu().numpy(), labels,
+                      batch["mask"])
     return meter
 
 
@@ -59,6 +82,60 @@ def test_line(meter: MeterAccumulator) -> str:
     t, p = meter.concat()
     return ("Test :: test acc: %.6f, test avg acc: %.6f"
             % (accuracy_score(t, p), balanced_accuracy_score(t, p)))
+
+
+def run_training(args, io: IOStream, train_ds, test_ds, device):
+    """The train loop of the JAX CLI (dgcnn_tpu/cli/cls.py ``train``) over
+    the datasets given: flax-like initialization from ``--seed``, one
+    ``Train`` and one ``Test`` line an epoch, and the model of the best
+    test accuracy so far saved.  Returns (model, best test accuracy)."""
+    train_loader = make_loader(train_ds, ["points", "label"],
+                               batch_size=args.batch_size, shuffle=True,
+                               drop_last=True, seed=args.seed)
+    test_points, test_labels = test_ds.arrays()
+    io.cprint(f"Using 1 device(s): {torch.device(device).type}")
+    model = build_model(args, "cpu")
+    init_like_flax_(model, torch.Generator().manual_seed(args.seed))
+    model.to(device)
+    schedule = make_schedule(args.scheduler, args.lr, epochs=args.epochs,
+                             steps_per_epoch=len(train_loader),
+                             use_sgd=args.use_sgd)
+    opt = make_optimizer(model.parameters(), use_sgd=args.use_sgd,
+                         schedule=schedule, momentum=args.momentum)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    best_test_acc = 0.0
+    tput = ThroughputMeter()
+    for epoch in range(args.epochs):
+        train_loader.set_epoch(epoch)
+        tput.start()
+        meter = train_epoch(model, opt, train_loader, device, generator)
+        rate = tput.tick(meter.count)
+        t, p = meter.concat()
+        io.cprint(
+            "Train %d, loss: %.6f, train acc: %.6f, train avg acc: %.6f, "
+            "throughput: %.1f clouds/sec"
+            % (epoch, meter.mean_loss, accuracy_score(t, p),
+               balanced_accuracy_score(t, p), rate))
+
+        meter = evaluate(model, test_points, test_labels,
+                         args.test_batch_size, device)
+        t, p = meter.concat()
+        test_acc = accuracy_score(t, p)
+        io.cprint(
+            "Test %d, loss: %.6f, test acc: %.6f, test avg acc: %.6f"
+            % (epoch, meter.mean_loss, test_acc, balanced_accuracy_score(t, p))
+        )
+        if test_acc >= best_test_acc:
+            best_test_acc = test_acc
+            save_model(f"outputs/{args.exp_name}/models/model.t7", model)
+    return model, best_test_acc
+
+
+def train(args, io: IOStream):
+    train_ds = ModelNet40(num_points=args.num_points, partition="train")
+    test_ds = ModelNet40(num_points=args.num_points, partition="test")
+    run_training(args, io, train_ds, test_ds, pick_device(args.no_cuda))
 
 
 def test(args, io: IOStream):
@@ -103,16 +180,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if not args.eval:
-        raise NotImplementedError(
-            "training is not ported to dgcnn_tpu_torch yet (see ROADMAP.md); "
-            "pass --eval=True")
     init_output_dir(args.exp_name, __file__)
     io = IOStream("outputs/" + args.exp_name + "/run.log")
     io.cprint(str(args))
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
-    test(args, io)
+    if not args.eval:
+        train(args, io)
+    else:
+        test(args, io)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Shared CLI plumbing (the parts of dgcnn_tpu/cli/common.py the cls eval
+"""Shared CLI plumbing (the parts of dgcnn_tpu/cli/common.py the cls CLI
 needs).  Boolean flags parse "true/false/1/0" properly, unlike the
 reference's ``type=bool``."""
 from __future__ import annotations
@@ -45,7 +45,8 @@ def pick_device(no_cuda: bool = False) -> torch.device:
 
 
 class MeterAccumulator:
-    """Host-side loss and label/prediction accumulation of an eval loop."""
+    """Host-side loss and label/prediction accumulation of a train or eval
+    loop, padded rows masked out."""
 
     def __init__(self):
         self.loss_sum = 0.0
@@ -53,13 +54,17 @@ class MeterAccumulator:
         self.true: list[np.ndarray] = []
         self.pred: list[np.ndarray] = []
 
-    def add_cls(self, loss: float, preds: np.ndarray,
-                labels: np.ndarray) -> None:
-        n = len(labels)
-        self.loss_sum += float(loss) * n
-        self.count += n
-        self.true.append(np.asarray(labels))
-        self.pred.append(np.asarray(preds))
+    def add_cls(self, loss: float, preds: np.ndarray, labels: np.ndarray,
+                mask: np.ndarray | None = None) -> None:
+        """``loss``: the mean over the batch's real rows, those where
+        ``mask`` is True (every row when it is None)."""
+        if mask is None:
+            mask = np.ones(len(labels), dtype=bool)
+        real = int(mask.sum())
+        self.loss_sum += float(loss) * real
+        self.count += real
+        self.true.append(np.asarray(labels)[mask])
+        self.pred.append(np.asarray(preds)[mask])
 
     @property
     def mean_loss(self) -> float:

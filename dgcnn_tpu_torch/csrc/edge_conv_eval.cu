@@ -19,16 +19,13 @@
 //   1. sqnorm_kernel   |g_j|^2 per point, into scratch.
 //   2. project_kernel  [a | c] = x @ [W_nbr | W_ctr] with the tiled GEMM of
 //                      tile_gemm.cuh, into a (B*N, 2*Co) scratch.
-//   3. select_kernel   one warp per query row, QB = 16 rows per block.  The
-//                      block stages the graph of its cloud through shared
-//                      memory CC channels at a time; each lane keeps the
-//                      scores of its N/32 columns (j = 32*t + lane) in
-//                      registers, so the N x N score matrix never leaves
-//                      the SM.  Then k rounds of a warp arg-max on
-//                      (score, -index) pick the neighbours in torch.topk
-//                      order; each winner's row of a is read (coalesced)
-//                      into a running max/min over the Co channels, and the
-//                      epilogue applies the affine and LeakyReLU.
+//   3. select_kernel   the kNN selection of knn_select.cuh: one warp per
+//                      query row with its N scores in registers, then k
+//                      rounds of a warp arg-max on (score, -index) pick the
+//                      neighbours in torch.topk order; each winner's row of
+//                      a is read (coalesced) into a running max/min over the
+//                      Co channels, and the epilogue applies the affine and
+//                      LeakyReLU.
 // No idx, no (B, N, k, Co) edge tensor and no score matrix reach device
 // memory.  The scores run on the CUDA cores in f32 (the exact mode needs
 // f32 products, which rules out TF32); each graph value read from shared
@@ -37,15 +34,14 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "knn_select.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
-constexpr int QB = 16;       // query rows (warps) per block
-constexpr int CC = 8;        // graph channels staged per pass
-constexpr int CS = CC + 1;   // padded shared-memory row stride (no bank conflicts)
-constexpr int MAXCPL = 8;    // output channels per lane: Co <= 256
-constexpr int MAX_N = 2048;  // scores per lane: N / 32 <= 64 registers
+using dg::MAX_N;
+using dg::MAXCPL;
+using dg::QB;
 
 __global__ void sqnorm_kernel(const float* __restrict__ g, int rows, int C,
                               float* __restrict__ out) {
@@ -90,41 +86,9 @@ __global__ void __launch_bounds__(QB * 32)
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * QB + warp;
-  const float* G = graph + (size_t)b * N * Cg;
-
   float s[NPL];
-#pragma unroll
-  for (int t = 0; t < NPL; ++t) s[t] = 0.f;
-  for (int c0 = 0; c0 < Cg; c0 += CC) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < N * CC; e += blockDim.x) {
-      const int j = e / CC, c = e - j * CC;
-      sg[j * CS + c] = (c0 + c < Cg) ? G[(size_t)j * Cg + c0 + c] : 0.f;
-    }
-    __syncthreads();
-    float q[CC];
-#pragma unroll
-    for (int c = 0; c < CC; ++c) q[c] = sg[i * CS + c];
-#pragma unroll
-    for (int t = 0; t < NPL; ++t) {
-      const int j = t * 32 + lane;
-      if (j < N) {
-        const float* r = sg + j * CS;
-#pragma unroll
-        for (int c = 0; c < CC; ++c) s[t] = fmaf(q[c], r[c], s[t]);
-      }
-    }
-  }
-
-  // scores in the reference's operation order: (2 * inner - |g_i|^2) - |g_j|^2
-  const float* SQ = sq + (size_t)b * N;
-  const float qq = SQ[i];
-#pragma unroll
-  for (int t = 0; t < NPL; ++t) {
-    const int j = t * 32 + lane;
-    s[t] = (j < N) ? __fsub_rn(__fsub_rn(__fmul_rn(2.f, s[t]), qq), SQ[j])
-                   : -INFINITY;
-  }
+  dg::row_scores<NPL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
+                      i, lane, sg, s);
 
   const int row = 2 * Co;
   const float* A = ac + (size_t)b * N * row;
@@ -135,30 +99,7 @@ __global__ void __launch_bounds__(QB * 32)
     mn[u] = INFINITY;
   }
   for (int r = 0; r < k; ++r) {
-    // lane-local best; t ascending, so the first maximum has the lowest index
-    float best = s[0];
-    int bj = lane;
-#pragma unroll
-    for (int t = 1; t < NPL; ++t) {
-      if (s[t] > best) {
-        best = s[t];
-        bj = t * 32 + lane;
-      }
-    }
-    // warp arg-max on (score, -index): every lane ends with the winner
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oj = __shfl_xor_sync(0xffffffffu, bj, off);
-      if (ob > best || (ob == best && oj < bj)) {
-        best = ob;
-        bj = oj;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < NPL; ++t)
-      if (t * 32 + lane == bj) s[t] = -INFINITY;
-    const float* arow = A + (size_t)bj * row;
+    const float* arow = A + (size_t)dg::pop_nearest<NPL>(s, lane) * row;
 #pragma unroll
     for (int u = 0; u < MAXCPL; ++u) {
       const int c = lane + 32 * u;
@@ -184,22 +125,24 @@ __global__ void __launch_bounds__(QB * 32)
   }
 }
 
-template <int NPL>
-cudaError_t launch_select(const float* graph, int Cg, const float* sq,
-                          const float* ac, int Co, const float* scale,
-                          const float* bias, float slope, int B, int N, int k,
-                          float* out, cudaStream_t st) {
-  const size_t smem = (size_t)N * CS * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      select_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  select_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
-      graph, Cg, sq, ac, Co, scale, bias, slope, N, k, out);
+}  // namespace
+
+namespace dg {
+
+cudaError_t launch_sqnorm(const float* g, int rows, int C, float* out,
+                          cudaStream_t st) {
+  sqnorm_kernel<<<(rows + 255) / 256, 256, 0, st>>>(g, rows, C, out);
   return cudaGetLastError();
 }
 
-}  // namespace
+cudaError_t launch_project(const float* x, int M, int K, const float* w,
+                           int ncols, float* out, cudaStream_t st) {
+  const dim3 grid((M + GEMM_BM - 1) / GEMM_BM, (ncols + GEMM_BN - 1) / GEMM_BN);
+  project_kernel<<<grid, GEMM_THREADS, 0, st>>>(x, M, K, w, ncols, out);
+  return cudaGetLastError();
+}
+
+}  // namespace dg
 
 extern "C" const char* dg_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -218,27 +161,20 @@ extern "C" int dg_edge_conv_eval(const float* graph, const float* x,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * N;
-  sqnorm_kernel<<<(rows + 255) / 256, 256, 0, st>>>(graph, rows, Cg, sq);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = dg::launch_sqnorm(graph, rows, Cg, sq, st);
   if (e != cudaSuccess) return (int)e;
-  const dim3 pg((rows + dg::GEMM_BM - 1) / dg::GEMM_BM,
-                (2 * Co + dg::GEMM_BN - 1) / dg::GEMM_BN);
-  project_kernel<<<pg, dg::GEMM_THREADS, 0, st>>>(x, rows, Cin, wcat, 2 * Co,
-                                                  ac);
-  e = cudaGetLastError();
+  e = dg::launch_project(x, rows, Cin, wcat, 2 * Co, ac, st);
   if (e != cudaSuccess) return (int)e;
-  const int npl = N / 32;
-  if (npl <= 4)
-    e = launch_select<4>(graph, Cg, sq, ac, Co, scale, bias, slope, B, N, k, out, st);
-  else if (npl <= 8)
-    e = launch_select<8>(graph, Cg, sq, ac, Co, scale, bias, slope, B, N, k, out, st);
-  else if (npl <= 16)
-    e = launch_select<16>(graph, Cg, sq, ac, Co, scale, bias, slope, B, N, k, out, st);
-  else if (npl <= 32)
-    e = launch_select<32>(graph, Cg, sq, ac, Co, scale, bias, slope, B, N, k, out, st);
-  else if (npl <= 48)
-    e = launch_select<48>(graph, Cg, sq, ac, Co, scale, bias, slope, B, N, k, out, st);
-  else
-    e = launch_select<64>(graph, Cg, sq, ac, Co, scale, bias, slope, B, N, k, out, st);
+  e = dg::with_npl(N, [&](auto npl) {
+    constexpr int NPL = decltype(npl)::value;
+    const size_t smem = dg::select_smem_bytes(N);
+    cudaError_t err = cudaFuncSetAttribute(
+        select_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    select_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
+        graph, Cg, sq, ac, Co, scale, bias, slope, N, k, out);
+    return cudaGetLastError();
+  });
   return (int)e;
 }

@@ -1,9 +1,10 @@
-"""ModelNet40 h5 reader (port of the cls part of dgcnn_tpu/data/datasets.py).
+"""ModelNet40 (port of the cls part of dgcnn_tpu/data/datasets.py).
 
 Same file glob and fields (``data``/``label``) as the reference.  The data
 root is ``$DGCNN_TPU_DATA``, else ``<repo>/data``.  Nothing is downloaded:
 a missing dataset raises with the path it was looked for at.  ``h5py`` is
-imported only inside the reader.
+imported only inside the reader.  A dataset can also be built from arrays
+in memory.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import glob
 import os
 
 import numpy as np
+
+from dgcnn_tpu_torch.data import augment
 
 
 def data_root() -> str:
@@ -47,19 +50,38 @@ def load_data_cls(partition: str):
 
 
 class ModelNet40:
-    """The ModelNet40 test partition: the first ``num_points`` points of
-    each cloud, no augmentation (reference data.py ModelNet40 with
-    partition='test'; the train partition comes with training)."""
+    """Reference data.py ModelNet40: the first ``num_points`` points of
+    each cloud.  ``batch`` assembles a batch as the JAX package's
+    vectorized loader path does: the train partition adds a per-cloud
+    random scale and shift and a random point order.  ``data`` (n, P, 3)
+    and ``label`` (n, 1) given in memory take the place of the h5 files."""
 
-    def __init__(self, num_points: int, partition: str = "test"):
-        if partition != "test":
-            raise NotImplementedError(
-                "only the test partition is ported; see ROADMAP.md")
-        self.data, self.label = load_data_cls(partition)
+    def __init__(self, num_points: int, partition: str = "test",
+                 data: np.ndarray | None = None,
+                 label: np.ndarray | None = None):
+        if data is None:
+            data, label = load_data_cls(partition)
+        self.data = np.asarray(data, dtype=np.float32)
+        self.label = np.asarray(label).reshape(-1, 1).astype(np.int64)
         self.num_points = num_points
         self.partition = partition
 
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def batch(self, idxs: np.ndarray, rng: np.random.Generator):
+        """(points (b, num_points, 3) f32, labels (b, 1) i64) of clouds
+        ``idxs``, augmented from ``rng`` in the train partition."""
+        pc = self.data[idxs, : self.num_points]
+        if self.partition == "train":
+            pc = augment.translate_batch(pc, rng)
+            order = augment.shuffle_points_batch(rng, *pc.shape[:2])
+            pc = np.take_along_axis(pc, order[:, :, None], axis=1)
+        else:
+            pc = pc.copy()
+        return pc, self.label[idxs]
+
     def arrays(self):
-        """(points (n, num_points, 3) f32, labels (n,) i64)."""
+        """(points (n, num_points, 3) f32, labels (n,) i64), unaugmented."""
         return (np.ascontiguousarray(self.data[:, : self.num_points]),
                 self.label.reshape(-1))

@@ -1,4 +1,9 @@
-"""Models (eval mode) in the reference state-dict layout."""
-from dgcnn_tpu_torch.models.dgcnn import DGCNNCls, PointNet, init_random_
+"""Models in the reference state-dict layout."""
+from dgcnn_tpu_torch.models.dgcnn import (
+    DGCNNCls,
+    PointNet,
+    init_like_flax_,
+    init_random_,
+)
 
-__all__ = ["DGCNNCls", "PointNet", "init_random_"]
+__all__ = ["DGCNNCls", "PointNet", "init_like_flax_", "init_random_"]

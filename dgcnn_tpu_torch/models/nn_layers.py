@@ -1,4 +1,4 @@
-"""Building-block layers, eval mode (port of dgcnn_tpu/models/nn_layers.py).
+"""Building-block layers (port of dgcnn_tpu/models/nn_layers.py).
 
 Channels-last throughout: a reference 1x1 Conv1d/Conv2d is a product over
 the trailing feature axis.  Parameters keep the reference state-dict layout
@@ -7,27 +7,50 @@ reference checkpoint, or a flax model exported by
 ``dgcnn_tpu/convert/torch_export.py``, loads with a strict
 ``load_state_dict``.
 
-Training is not ported yet (see ROADMAP.md): ``train=True`` raises.
+``train=True`` follows torch's BatchNorm: the batch's mean and biased
+variance normalize, and the running statistics move by momentum 0.1 with
+the unbiased variance.  The updates happen in place under ``no_grad``.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from dgcnn_tpu_torch.ops.edge_conv import edge_conv_fused, fold_bn
+from dgcnn_tpu_torch.ops.edge_conv import (
+    _project,
+    edge_conv_batch_stats,
+    edge_conv_fused,
+    fold_bn,
+)
 from dgcnn_tpu_torch.ops.edge_conv_kernel import edge_conv_eval
-
-TRAIN_NOT_PORTED = ("training is not ported to dgcnn_tpu_torch yet; "
-                    "see ROADMAP.md")
-
-
-def reject_train(train: bool) -> None:
-    if train:
-        raise NotImplementedError(TRAIN_NOT_PORTED)
+from dgcnn_tpu_torch.ops.knn_edge_reduce import (
+    knn_edge_reduce,
+    knn_edge_reduce_xw,
+)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: in training, keep each value with probability
+    ``1 - rate`` (drawn from the caller's ``generator``, on the values'
+    device) and scale it by ``1 / (1 - rate)``; the identity otherwise."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training needs a torch.Generator")
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < 1.0 - self.rate
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
 
 
 class Weight(nn.Module):
@@ -53,8 +76,10 @@ class Linear(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """torch BatchNorm in eval mode over the trailing channel axis: running
-    statistics, eps 1e-5."""
+    """torch BatchNorm over the trailing channel axis, eps 1e-5, momentum
+    0.1."""
+
+    momentum = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -71,9 +96,27 @@ class BatchNorm(nn.Module):
         return fold_bn(self.weight, self.bias, self.running_mean,
                        self.running_var, self.eps)
 
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor,
+                       count: int) -> None:
+        """Move the running statistics towards a batch's ``mean`` and
+        biased ``var`` over ``count`` values: the running variance takes
+        the unbiased one."""
+        m = self.momentum
+        unbiased = var * (count / max(count - 1, 1))
+        self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
+        self.num_batches_tracked.add_(1)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        reject_train(train)
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = (x.square().mean(dim=axes) - mean.square()).clamp(min=0.0)
+            self.update_running(mean, var, x.numel() // x.shape[-1])
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 
@@ -133,16 +176,52 @@ class EdgeConv(nn.Sequential):
                 train: bool = False, *, graph: torch.Tensor | None = None,
                 k: int | None = None) -> torch.Tensor:
         """Either neighbour ``idx`` (B, N, k), or ``graph`` + ``k`` to build
-        the graph in the layer: then a CUDA tensor runs the whole stage as
-        one kernel (ops/edge_conv_kernel.py), which raises on shapes it does
-        not take, and a CPU tensor runs the kernel's plain version."""
-        reject_train(train)
+        the graph in the layer.  With ``graph``, eval runs the whole stage
+        as one kernel (ops/edge_conv_kernel.py) and training runs the
+        differentiable kNN reductions (ops/knn_edge_reduce.py): kernels for
+        CUDA tensors, which raise on shapes they do not take, and their
+        plain versions for CPU tensors."""
         w_nbr, w_ctr = self.split_weights()
-        s, t = self[1].folded()
+        bn = self[1]
         if idx is None:
             if graph is None or k is None:
                 raise ValueError("EdgeConv needs either idx or (graph, k)")
+            if train:
+                return self._train_fused(x, graph, k, w_nbr, w_ctr)
+            s, t = bn.folded()
             return edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
                                   self.negative_slope)
-        return edge_conv_fused(x, idx, w_nbr, w_ctr, s, t,
-                               self.negative_slope)
+        if train:
+            mean, var = edge_conv_batch_stats(x, idx, w_nbr, w_ctr)
+            bn.update_running(mean, var,
+                              x.shape[0] * x.shape[1] * idx.shape[-1])
+            s, t = fold_bn(bn.weight, bn.bias, mean, var, bn.eps)
+        else:
+            s, t = bn.folded()
+        return edge_conv_fused(x, idx, w_nbr, w_ctr, s, t, self.negative_slope)
+
+    def _train_fused(self, x, graph, k: int, w_nbr, w_ctr) -> torch.Tensor:
+        """Training stage from the kernel sums: kNN + max/min/sum/sum² over
+        the neighbours of ``a = x @ W_nbr``, the BatchNorm statistics of the
+        virtual edge tensor in closed form from them, then the affine and
+        LeakyReLU of max over k (dgcnn_tpu nn_layers.py:226-248, 280-282).
+        Stages whose raw input needs fewer 128-lane passes than the
+        projection (128 -> 256) select raw rows (the select-x form)."""
+        bn = self[1]
+        b = _project(x, w_ctr)
+        cin, co = w_nbr.shape
+        if -(-cin // 128) < -(-co // 128):
+            _, amax, amin, asum, asumsq = knn_edge_reduce_xw(
+                graph, x, w_nbr.contiguous(), k)
+        else:
+            _, amax, amin, asum, asumsq = knn_edge_reduce(
+                graph, _project(x, w_nbr), k)
+        mean = asum.mean(dim=(0, 1)) / k + b.mean(dim=(0, 1))
+        e_ag2 = asumsq.mean(dim=(0, 1)) / k
+        e_ab = (asum / k * b).mean(dim=(0, 1))
+        e_b2 = b.square().mean(dim=(0, 1))
+        var = (e_ag2 + 2 * e_ab + e_b2 - mean.square()).clamp(min=0.0)
+        bn.update_running(mean, var, x.shape[0] * x.shape[1] * k)
+        s, t = fold_bn(bn.weight, bn.bias, mean, var, bn.eps)
+        sel = torch.where(s > 0, amax, amin) + b
+        return leaky_relu(sel * s + t, self.negative_slope)

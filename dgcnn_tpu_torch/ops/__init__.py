@@ -1,29 +1,62 @@
-"""Graph ops (plain torch) and the CUDA kernels of the eval path."""
+"""Graph ops (plain torch) and the CUDA kernels of the eval and training
+paths."""
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool, conv_pool_plain
 from dgcnn_tpu_torch.ops.edge_conv import (
+    edge_conv_batch_stats,
     edge_conv_fused,
     edge_conv_naive,
+    edge_linear,
     fold_bn,
 )
 from dgcnn_tpu_torch.ops.edge_conv_kernel import (
     edge_conv_eval,
     edge_conv_eval_plain,
 )
+from dgcnn_tpu_torch.ops.edge_reduce_bwd_kernel import (
+    edge_reduce_bwd,
+    edge_reduce_bwd_plain,
+)
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
 from dgcnn_tpu_torch.ops.knn import knn, pairwise_neg_sqdist
+from dgcnn_tpu_torch.ops.knn_edge_reduce import (
+    KnnEdgeReduce,
+    KnnEdgeReduceXW,
+    knn_edge_reduce,
+    knn_edge_reduce_xw,
+)
+from dgcnn_tpu_torch.ops.knn_reduce_kernel import (
+    knn_reduce,
+    knn_reduce_plain,
+    knn_reduce_xw,
+    knn_reduce_xw_plain,
+    xw_project,
+)
 from dgcnn_tpu_torch.ops.pool import global_max, global_mean
 
 __all__ = [
+    "KnnEdgeReduce",
+    "KnnEdgeReduceXW",
     "conv_pool",
     "conv_pool_plain",
+    "edge_conv_batch_stats",
     "edge_conv_eval",
     "edge_conv_eval_plain",
     "edge_conv_fused",
     "edge_conv_naive",
+    "edge_linear",
+    "edge_reduce_bwd",
+    "edge_reduce_bwd_plain",
     "fold_bn",
     "gather_neighbors",
     "global_max",
     "global_mean",
     "knn",
+    "knn_edge_reduce",
+    "knn_edge_reduce_xw",
+    "knn_reduce",
+    "knn_reduce_plain",
+    "knn_reduce_xw",
+    "knn_reduce_xw_plain",
     "pairwise_neg_sqdist",
+    "xw_project",
 ]

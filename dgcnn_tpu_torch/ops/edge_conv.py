@@ -24,6 +24,29 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.float(), w.float())
 
 
+def edge_linear(x, idx, w_nbr, w_ctr) -> torch.Tensor:
+    """Per-edge pre-activation ``conv1x1(concat(x_j, x_i))`` without the
+    concat: (B, N, k, Co)."""
+    a_g = gather_neighbors(_project(x, w_nbr), idx)
+    return a_g + _project(x, w_ctr)[:, :, None]
+
+
+def edge_conv_batch_stats(x, idx, w_nbr, w_ctr):
+    """Per-channel (mean, biased var) of the virtual edge tensor
+    ``a[idx] + b`` over (B, N, k), the training BatchNorm statistics,
+    without building it: its cross moment factors through the per-point
+    mean over k of the gathered ``a``."""
+    a = _project(x, w_nbr)
+    b = _project(x, w_ctr)
+    a_g = gather_neighbors(a, idx)
+    mean = a_g.mean(dim=(0, 1, 2)) + b.mean(dim=(0, 1))
+    e_ag2 = a_g.square().mean(dim=(0, 1, 2))
+    e_b2 = b.square().mean(dim=(0, 1))
+    e_ab = (a_g.mean(dim=2) * b).mean(dim=(0, 1))
+    var = e_ag2 + 2.0 * e_ab + e_b2 - mean.square()
+    return mean, var.clamp(min=0.0)
+
+
 def edge_conv_fused(x, idx, w_nbr, w_ctr, scale, bias,
                     negative_slope: float = 0.2) -> torch.Tensor:
     """Conv + folded-BN affine + LeakyReLU + max over k -> (B, N, Co)."""
@@ -40,8 +63,7 @@ def edge_conv_fused(x, idx, w_nbr, w_ctr, scale, bias,
 def edge_conv_naive(x, idx, w_nbr, w_ctr, scale, bias,
                     negative_slope: float = 0.2) -> torch.Tensor:
     """Reference-shaped version that builds every edge, for tests."""
-    z = gather_neighbors(_project(x, w_nbr), idx) + _project(x, w_ctr)[:, :, None]
-    y = z * scale + bias
+    y = edge_linear(x, idx, w_nbr, w_ctr) * scale + bias
     return torch.where(y >= 0, y, negative_slope * y).amax(dim=2)
 
 

@@ -1,0 +1,178 @@
+"""Kernels 3 and 4: kNN and the max/min/sum/sum-of-squares over the k
+neighbours, the forward of a training EdgeConv stage, hand-written CUDA.
+
+Replace ``dgcnn_tpu/ops/pallas_knn.py::fused_knn_reduce`` (body
+``_knn_reduce_kernel``) and ``::fused_knn_reduce_xw`` (body
+``_knn_reduce_xw_kernel``) with ``with_sumsq=True``, in their exact f32
+mode.  The kernels are ``csrc/knn_reduce.cu``; its note states the bound on
+an H100 and what the design does about it.  ``knn_reduce_plain`` and
+``knn_reduce_xw_plain`` beside them are the same functions in plain torch
+(kNN, gather, then the reductions over k): the wrappers run them for CPU
+tensors and launch the kernels for CUDA tensors.
+
+``xw_project`` is the one projection routine of the select-x form: the
+backward of ``knn_reduce_xw`` recomputes ``a = x @ w`` through it, and on
+CUDA it launches the projection that ``knn_reduce_xw``'s kernel runs, so
+the backward's ties (``a == amax``) are found on the same bits.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.graph import gather_neighbors
+from dgcnn_tpu_torch.ops.knn import knn
+
+MAX_N = 2048
+MAX_CO = 256
+
+
+def knn_reduce_plain(graph: torch.Tensor, a: torch.Tensor, k: int):
+    """Plain torch version of kernel 3: (idx (B, N, k) int32, amax, amin,
+    asum, asumsq (B, N, Co))."""
+    idx = knn(graph, k)
+    ag = gather_neighbors(a, idx)
+    return (idx.int(), ag.amax(dim=2), ag.amin(dim=2), ag.sum(dim=2),
+            ag.square().sum(dim=2))
+
+
+def knn_reduce_xw_plain(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                        k: int):
+    """Plain torch version of kernel 4: ``knn_reduce_plain`` over
+    ``a = x @ w``."""
+    return knn_reduce_plain(graph, torch.matmul(x, w), k)
+
+
+def _fn(name: str, argtypes):
+    fn = getattr(_build.load_library(), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _require(name: str, cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {msg}")
+
+
+def _check_select(name, graph, feats, co: int, k: int) -> None:
+    """The checks both select kernels share: device, f32, contiguity and
+    the shapes the kernels take."""
+    _require(name, graph.is_cuda, f"no kernel for device {graph.device}")
+    _require(name, all(t.device == graph.device for t in feats),
+             "all tensors must be on one device")
+    _require(name, all(t.dtype == torch.float32 for t in (graph, *feats)),
+             "tensors must be float32")
+    _require(name, all(t.is_contiguous() for t in (graph, *feats)),
+             "tensors must be contiguous")
+    _require(name, graph.dim() == 3, "graph must be (B, N, Cg)")
+    n = graph.shape[1]
+    _require(name, n % 128 == 0 and n <= MAX_N,
+             f"N={n} must be a multiple of 128 and <= {MAX_N}")
+    _require(name, 1 <= co <= MAX_CO, f"Co={co} out of 1..{MAX_CO}")
+    _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
+
+
+def _outputs(graph: torch.Tensor, co: int, k: int):
+    b, n, _ = graph.shape
+    idx = torch.empty((b, n, k), device=graph.device, dtype=torch.int32)
+    red = [torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
+           for _ in range(4)]
+    sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)
+    return idx, red, sq
+
+
+def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int):
+    """kNN over ``graph`` (B, N, Cg), then the max, min, sum and sum of
+    squares over the k neighbours of ``a`` (B, N, Co).
+
+    Returns (idx (B, N, k) int32, self first, lowest index first among
+    equal scores; amax, amin, asum, asumsq (B, N, Co) f32).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel, which takes f32
+    contiguous tensors with N a multiple of 128, N <= 2048 and Co <= 256,
+    and raises on anything else."""
+    if graph.device.type == "cpu":
+        return knn_reduce_plain(graph, a, k)
+    co = a.shape[-1]
+    _check_select("knn_reduce", graph, (a,), co, k)
+    b, n, cg = graph.shape
+    _require("knn_reduce", a.shape == (b, n, co),
+             f"a {tuple(a.shape)} vs graph {tuple(graph.shape)}")
+    fn = _fn("dg_knn_reduce", [_P] * 8 + [_I] * 5 + [_P])
+    idx, red, sq = _outputs(graph, co, k)
+    p = _build.ptr
+    with torch.cuda.device(graph.device):
+        rc = fn(p(graph), p(a), p(sq), p(idx), *map(p, red), b, n, cg, co, k,
+                _build.stream_of(graph))
+    _build.check(rc, "knn_reduce")
+    knn_reduce.launches += 1
+    return (idx, *red)
+
+
+def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                  k: int):
+    """``knn_reduce(graph, x @ w, k)`` with the projection inside the
+    kernel's launch: ``x`` (B, N, Cin), ``w`` (Cin, Co).  Same outputs and
+    the same rules for CPU and CUDA tensors as ``knn_reduce``."""
+    if graph.device.type == "cpu":
+        return knn_reduce_xw_plain(graph, x, w, k)
+    cin, co = w.shape
+    _check_select("knn_reduce_xw", graph, (x, w), co, k)
+    b, n, cg = graph.shape
+    _require("knn_reduce_xw", x.shape == (b, n, cin),
+             f"x {tuple(x.shape)} vs graph {tuple(graph.shape)} and w "
+             f"{tuple(w.shape)}")
+    fn = _fn("dg_knn_reduce_xw", [_P] * 10 + [_I] * 6 + [_P])
+    idx, red, sq = _outputs(graph, co, k)
+    a = torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
+    p = _build.ptr
+    # the launch is asynchronous on torch's current stream: scratch made
+    # here and freed on return is reused by the caching allocator only for
+    # work queued after it on that stream
+    with torch.cuda.device(graph.device):
+        rc = fn(p(graph), p(x), p(w), p(a), p(sq), p(idx), *map(p, red), b, n,
+                cg, cin, co, k, _build.stream_of(graph))
+    _build.check(rc, "knn_reduce_xw")
+    knn_reduce_xw.launches += 1
+    return (idx, *red)
+
+
+def xw_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, N, Cin) @ ``w`` (Cin, Co) by the routine
+    ``knn_reduce_xw`` projects with: ``torch.matmul`` for CPU tensors (as
+    ``knn_reduce_xw_plain``), for CUDA tensors the kernel's own projection
+    (f32 contiguous tensors, else it raises)."""
+    if x.device.type == "cpu":
+        return torch.matmul(x, w)
+    name = "xw_project"
+    _require(name, x.is_cuda and w.device == x.device,
+             f"no kernel for devices {x.device}, {w.device}")
+    _require(name, x.dtype == torch.float32 and w.dtype == torch.float32,
+             "tensors must be float32")
+    _require(name, x.is_contiguous() and w.is_contiguous(),
+             "tensors must be contiguous")
+    cin, co = w.shape
+    _require(name, x.dim() == 3 and x.shape[2] == cin,
+             f"x {tuple(x.shape)} vs w {tuple(w.shape)}")
+    fn = _fn("dg_project", [_P] * 3 + [_I] * 3 + [_P])
+    out = torch.empty(x.shape[:2] + (co,), device=x.device,
+                      dtype=torch.float32)
+    p = _build.ptr
+    with torch.cuda.device(x.device):
+        rc = fn(p(x), p(w), p(out), x.shape[0] * x.shape[1], cin, co,
+                _build.stream_of(x))
+    _build.check(rc, name)
+    xw_project.launches += 1
+    return out
+
+
+# launches of each kernel since its count was last set to 0
+knn_reduce.launches = 0
+knn_reduce_xw.launches = 0
+xw_project.launches = 0

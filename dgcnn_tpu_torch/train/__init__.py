@@ -1,5 +1,36 @@
-"""Loss and metrics of the eval loop (training itself is not ported yet)."""
+"""Loss, metrics, schedules, optimizers, train/eval steps and
+checkpoints."""
+from dgcnn_tpu_torch.train.checkpoint import (
+    load_model,
+    load_train_checkpoint,
+    save_model,
+    save_train_checkpoint,
+)
+from dgcnn_tpu_torch.train.engine import (
+    ScheduledOptimizer,
+    make_cls_steps,
+    make_optimizer,
+)
 from dgcnn_tpu_torch.train.loss import cross_entropy
 from dgcnn_tpu_torch.train.metrics import accuracy_score, balanced_accuracy_score
+from dgcnn_tpu_torch.train.schedules import (
+    cosine_annealing,
+    make_schedule,
+    step_decay,
+)
 
-__all__ = ["accuracy_score", "balanced_accuracy_score", "cross_entropy"]
+__all__ = [
+    "ScheduledOptimizer",
+    "accuracy_score",
+    "balanced_accuracy_score",
+    "cosine_annealing",
+    "cross_entropy",
+    "load_model",
+    "load_train_checkpoint",
+    "make_cls_steps",
+    "make_optimizer",
+    "make_schedule",
+    "save_model",
+    "save_train_checkpoint",
+    "step_decay",
+]

@@ -1,7 +1,9 @@
 """The PyTorch port's cls CLI against the JAX CLI, on the CPU: the same
 synthetic ModelNet40 h5 fixture and the same exported ``.t7`` weights give
-the same ``Test :: test acc`` line."""
+the same ``Test :: test acc`` line; training writes the JAX CLI's line
+formats and a checkpoint that evaluation reloads."""
 import os
+import re
 
 import numpy as np
 import pytest
@@ -81,13 +83,50 @@ def test_synthetic_arrays_match_jax_fixture(fixture_dir):
 
 
 def test_cls_cli_refuses_what_is_not_ported(fixture_dir, monkeypatch):
+    """What the CLI still refuses: the CUDA card where there is none, and a
+    dataset that is not there (nothing is downloaded).  ``--eval=False``
+    is ported now and trains (test_cls_cli_trains_and_reloads)."""
     from dgcnn_tpu_torch.cli import cls, common
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls.main(["--exp_name=t", "--eval=False"])
+    with pytest.raises(SystemExit):  # the cycle scheduler waits for partseg
+        cls.main(["--exp_name=t", "--eval=False", "--scheduler=cycle"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no_cuda"):
+        cls.main(["--exp_name=t", "--eval=False"])
     with pytest.raises(RuntimeError, match="no_cuda"):
         common.pick_device(False)
     monkeypatch.setenv("DGCNN_TPU_DATA", str(fixture_dir / "absent"))
     with pytest.raises(FileNotFoundError, match="absent"):
         cls.main(["--exp_name=t", "--no_cuda=True"] + ARGS)
+    with pytest.raises(FileNotFoundError, match="absent"):
+        cls.main(["--exp_name=t", "--no_cuda=True", "--eval=False"])
+
+
+# the JAX CLI's per-epoch lines (dgcnn_tpu/cli/cls.py train)
+TRAIN_LINE = re.compile(
+    r"Train 0, loss: -?\d+\.\d{6}, train acc: \d\.\d{6}, "
+    r"train avg acc: \d\.\d{6}, throughput: \d+\.\d clouds/sec")
+TEST_LINE = re.compile(
+    r"Test 0, loss: -?\d+\.\d{6}, test acc: (\d\.\d{6}), "
+    r"test avg acc: (\d\.\d{6})")
+
+
+def test_cls_cli_trains_and_reloads(fixture_dir):
+    from dgcnn_tpu_torch.cli import cls
+
+    size = ["--num_points=128", "--k=8", "--emb_dims=32",
+            "--test_batch_size=8", "--no_cuda=True"]
+    cls.main(["--exp_name=tr", "--eval=False", "--epochs=1",
+              "--batch_size=2", "--dropout=0.5"] + size)
+    with open(os.path.join("outputs", "tr", "run.log")) as f:
+        lines = f.read().splitlines()
+    train = [ln for ln in lines if ln.startswith("Train 0")]
+    test = [ln for ln in lines if ln.startswith("Test 0")]
+    assert len(train) == 1 and TRAIN_LINE.fullmatch(train[0]), lines
+    assert len(test) == 1 and TEST_LINE.fullmatch(test[0]), lines
+    model_path = os.path.join("outputs", "tr", "models", "model.t7")
+    cls.main(["--exp_name=ev", "--eval=True", f"--model_path={model_path}"]
+             + size)
+    acc, avg = TEST_LINE.fullmatch(test[0]).groups()
+    assert _last_line("ev") == (f"Test :: test acc: {acc}, "
+                                f"test avg acc: {avg}")

@@ -160,6 +160,9 @@ def test_load_checkpoint_strips_prefix_and_bn_aliases(tmp_path):
 
 
 def test_models_are_seeded_and_eval_only():
+    """Models are seeded.  Training is ported now, so the train forward no
+    longer raises; its dropout draws only from an explicit generator, and
+    the same seeds give the same training forward."""
     a = DGCNNCls(emb_dims=32, k=4, device="cpu",
                  generator=torch.Generator().manual_seed(3))
     b = DGCNNCls(emb_dims=32, k=4, device="cpu",
@@ -168,8 +171,11 @@ def test_models_are_seeded_and_eval_only():
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     x = torch.from_numpy(_clouds(9, n=64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="Generator"):
         a(x, train=True)
+    ya = a(x, train=True, generator=torch.Generator().manual_seed(5))
+    yb = b(x, train=True, generator=torch.Generator().manual_seed(5))
+    assert torch.equal(ya, yb)
 
 
 def test_cross_entropy_and_metrics_match_jax():

@@ -21,18 +21,29 @@ import jax.numpy as jnp
 from dgcnn_tpu.ops import edge_conv as jedge
 from dgcnn_tpu.ops import graph as jgraph
 from dgcnn_tpu_torch.ops import (
+    KnnEdgeReduce,
+    KnnEdgeReduceXW,
     conv_pool,
     conv_pool_plain,
+    edge_conv_batch_stats,
     edge_conv_eval,
     edge_conv_eval_plain,
     edge_conv_fused,
     edge_conv_naive,
+    edge_linear,
+    edge_reduce_bwd,
+    edge_reduce_bwd_plain,
     fold_bn,
     gather_neighbors,
     global_max,
     global_mean,
     knn,
+    knn_reduce,
+    knn_reduce_plain,
+    knn_reduce_xw,
+    knn_reduce_xw_plain,
     pairwise_neg_sqdist,
+    xw_project,
 )
 
 # the package re-exports a function named knn over the module of that name
@@ -64,6 +75,29 @@ def _duplicate_cloud(seed, b=2, n=128, c=4):
     rng = np.random.default_rng(seed)
     base = rng.standard_normal((b, n // 4, c)).astype(np.float32)
     return np.concatenate([base] * 4, axis=1)
+
+
+@pytest.fixture
+def pallas_exact(monkeypatch):
+    """The JAX package's fused training path in its exact f32 mode
+    (interpret mode on the CPU), as tests/test_pallas_train_path.py sets
+    it."""
+    monkeypatch.setenv("DGCNN_TPU_PALLAS", "1")
+    monkeypatch.setenv("DGCNN_TPU_PALLAS_EXACT", "1")
+
+
+def _reduce_inputs(seed, b=2, n=128, c=8, co=16, dup=False):
+    """Graph, features and cotangents; with ``dup`` point 30 repeats point
+    10 in the graph and in ``a`` (exact distance ties and tied values)."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((b, n, c)).astype(np.float32)
+    a = rng.standard_normal((b, n, co)).astype(np.float32)
+    if dup:
+        g[:, 30] = g[:, 10]
+        a[:, 30] = a[:, 10]
+    cts = [rng.standard_normal((b, n, co)).astype(np.float32)
+           for _ in range(4)]
+    return g, a, cts
 
 
 @pytest.fixture
@@ -190,6 +224,132 @@ def test_conv_pool_matches_pallas_interpret(with_mean):
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
 
 
+def test_edge_linear_and_batch_stats_match_jax():
+    x, wn, wc, _, _ = _stage_inputs(12, 2, 128, 16, 24)
+    idx = np.asarray(jknn.knn(jnp.asarray(x), 6))
+    jargs = tuple(jnp.asarray(a) for a in (x, idx, wn, wc))
+    targs = (_t(x), _t(idx).long(), _t(wn), _t(wc))
+    with jax.default_matmul_precision("float32"):
+        want = [_np(jedge.edge_linear(*jargs)),
+                *map(_np, jedge.edge_conv_batch_stats(*jargs))]
+    got = [edge_linear(*targs), *edge_conv_batch_stats(*targs)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("c,co,k,dup", [(3, 16, 8, False), (16, 32, 6, False),
+                                        (4, 8, 6, True)])
+def test_knn_reduce_matches_pallas_interpret(c, co, k, dup):
+    from dgcnn_tpu.ops.pallas_knn import fused_knn_reduce
+
+    g, a, _ = _reduce_inputs(13 + c, c=c, co=co, dup=dup)
+    want = fused_knn_reduce(jnp.asarray(g), jnp.asarray(a), k,
+                            select_dtype=jnp.float32, with_sumsq=True,
+                            interpret=True)
+    before = knn_reduce.launches
+    got = knn_reduce(_t(g), _t(a), k)
+    assert knn_reduce.launches == before  # CPU: the plain version
+    assert got[0].dtype == torch.int32
+    np.testing.assert_array_equal(got[0].numpy(), _np(want[0]))
+    for gv, wv in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(gv.numpy(), _np(wv), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("cin,co,k", [(8, 32, 6), (16, 24, 8)])
+def test_knn_reduce_xw_matches_pallas_interpret(cin, co, k):
+    from dgcnn_tpu.ops.pallas_knn import fused_knn_reduce_xw
+
+    g, _, _ = _reduce_inputs(14, c=3)
+    x, w, _, _, _ = _stage_inputs(15 + cin, 2, 128, cin, co)
+    with jax.default_matmul_precision("float32"):
+        want = fused_knn_reduce_xw(
+            jnp.asarray(g), jnp.asarray(x), jnp.asarray(w), k,
+            select_dtype=jnp.float32, with_sumsq=True, interpret=True)
+    before = knn_reduce_xw.launches
+    got = knn_reduce_xw(_t(g), _t(x), _t(w), k)
+    assert knn_reduce_xw.launches == before
+    np.testing.assert_array_equal(got[0].numpy(), _np(want[0]))
+    for gv, wv in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(gv.numpy(), _np(wv), rtol=1e-5, atol=1e-5)
+    # the backward's projection routine gives the forward's bits
+    again = knn_reduce_plain(_t(g), xw_project(_t(x), _t(w)), k)
+    for gv, av in zip(got, again):
+        assert torch.equal(gv, av)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_edge_reduce_bwd_matches_pallas_interpret(dup):
+    """Duplicate points give tied distances and tied values: the max/min
+    cotangent splits evenly among the tied members on both sides."""
+    from dgcnn_tpu.ops.pallas_knn import _ker_bwd_xla, edge_reduce_bwd as jbwd
+    from dgcnn_tpu.ops.pallas_knn import fused_knn_reduce
+
+    k = 6
+    g, a, cts = _reduce_inputs(16, c=4, co=8, dup=dup)
+    out = fused_knn_reduce(jnp.asarray(g), jnp.asarray(a), k,
+                           select_dtype=jnp.float32, with_sumsq=True,
+                           interpret=True)
+    jcts = tuple(jnp.asarray(c) for c in cts)
+    want = _np(jbwd(out[0], jnp.asarray(a), out[1], out[2], *jcts, k,
+                    exact=True, interpret=True))
+    np.testing.assert_allclose(
+        _np(_ker_bwd_xla(jnp.asarray(a), out[0], (None,) + jcts)), want,
+        rtol=1e-5, atol=1e-5)
+    idx, amax, amin = (_t(o) for o in out[:3])
+    before = edge_reduce_bwd.launches
+    got = edge_reduce_bwd(idx, _t(a), amax, amin, *map(_t, cts))
+    assert edge_reduce_bwd.launches == before
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if dup:  # the copies' rows of a are tied in every neighbourhood
+        assert (np.asarray(out[0]) == 30).any()
+
+
+def test_knn_edge_reduce_grad_matches_jax_vjp(pallas_exact):
+    from dgcnn_tpu.ops.pallas_knn import knn_edge_reduce
+
+    k = 6
+    g, a, cts = _reduce_inputs(17, c=4, co=16, dup=True)
+    with jax.default_matmul_precision("float32"):
+        outs, vjp = jax.vjp(
+            lambda a_: knn_edge_reduce(jnp.asarray(g), a_, k)[1:],
+            jnp.asarray(a))
+        (want,) = vjp(tuple(jnp.asarray(c) for c in cts))
+    at = _t(a).requires_grad_(True)
+    got = KnnEdgeReduce.apply(_t(g), at, k)
+    assert not got[0].requires_grad
+    for gv, wv in zip(got[1:], outs):
+        np.testing.assert_allclose(gv.detach().numpy(), _np(wv), rtol=1e-5,
+                                   atol=1e-5)
+    torch.autograd.backward(got[1:], [_t(c) for c in cts])
+    np.testing.assert_allclose(at.grad.numpy(), _np(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_knn_edge_reduce_xw_grads_match_jax_vjp(pallas_exact):
+    from dgcnn_tpu.ops.pallas_knn import knn_edge_reduce_xw
+
+    k = 6
+    g, _, cts = _reduce_inputs(18, c=3, co=24)
+    x, w, _, _, _ = _stage_inputs(19, 2, 128, 16, 24)
+    with jax.default_matmul_precision("float32"):
+        outs, vjp = jax.vjp(
+            lambda x_, w_: knn_edge_reduce_xw(jnp.asarray(g), x_, w_, k)[1:],
+            jnp.asarray(x), jnp.asarray(w))
+        want = vjp(tuple(jnp.asarray(c) for c in cts))
+    xt, wt = _t(x).requires_grad_(True), _t(w).requires_grad_(True)
+    gt = _t(g).requires_grad_(True)
+    got = KnnEdgeReduceXW.apply(gt, xt, wt, k)
+    for gv, wv in zip(got[1:], outs):
+        np.testing.assert_allclose(gv.detach().numpy(), _np(wv), rtol=1e-5,
+                                   atol=1e-5)
+    torch.autograd.backward(got[1:], [_t(c) for c in cts])
+    assert gt.grad is None  # the graph takes no gradient
+    for gv, wv in zip((xt.grad, wt.grad), want):
+        wv = _np(wv)
+        np.testing.assert_allclose(gv.numpy(), wv, rtol=1e-4,
+                                   atol=1e-5 * np.abs(wv).max())
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     """No silent fallback: a tensor that is neither on the CPU nor on a
     CUDA card raises instead of taking the plain version."""
@@ -200,6 +360,21 @@ def test_wrappers_refuse_devices_without_a_kernel():
         edge_conv_eval(x, x, w, w, s, s, 4)
     with pytest.raises(ValueError, match="no kernel"):
         conv_pool((x,), w, s, s)
+
+
+def test_training_kernel_wrappers_refuse_devices_without_a_kernel():
+    x = torch.zeros((1, 128, 3), device="meta")
+    a = torch.zeros((1, 128, 8), device="meta")
+    w = torch.zeros((3, 8), device="meta")
+    idx = torch.zeros((1, 128, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        knn_reduce(x, a, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        knn_reduce_xw(x, x, w, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        xw_project(x, w)
+    with pytest.raises(ValueError, match="no kernel"):
+        edge_reduce_bwd(idx, a, a, a, a, a, a, a)
 
 
 def test_port_imports_no_jax():
@@ -269,3 +444,79 @@ def test_conv_pool_kernel_matches_plain(cuda_device):
     want = conv_pool_plain(xs, w, sc, bi)
     assert ((got - want).abs()
             <= 1e-4 * (want.abs() + want.pow(2).mean().sqrt())).all()
+
+
+def _row_match(got, want, rtol=1e-4):
+    """Mask of the (b, i) rows whose every channel is within rtol of the
+    plain version's, scaled by |want| + rms(want) (chip_smoke.row_match)."""
+    scale = want.pow(2).mean().sqrt()
+    return ((got - want).abs() <= rtol * (want.abs() + scale)).all(-1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,co", [(3, 64), (64, 64), (64, 128)])
+def test_knn_reduce_kernel_matches_plain(cuda_device, c, co):
+    g, a, _ = _reduce_inputs(20 + c, b=4, n=1024, c=c, co=co)
+    g, a = _t(g).to(cuda_device), _t(a).to(cuda_device)
+    before = knn_reduce.launches
+    got = knn_reduce(g, a, 20)
+    torch.cuda.synchronize()
+    assert knn_reduce.launches == before + 1
+    want = knn_reduce_plain(g, a, 20)
+    same = (got[0] == want[0]).all(-1)
+    assert same.float().mean().item() >= 0.999
+    for gv, wv in zip(got[1:], want[1:]):
+        assert torch.isfinite(gv).all()
+        assert _row_match(gv, wv)[same].all()
+
+
+@pytest.mark.cuda
+def test_knn_reduce_xw_kernel_matches_plain(cuda_device):
+    g, _, _ = _reduce_inputs(21, b=4, n=1024, c=128)
+    x, w = (_t(v).to(cuda_device)
+            for v in _stage_inputs(22, 4, 1024, 128, 256)[:2])
+    g = _t(g).to(cuda_device)
+    got = knn_reduce_xw(g, x, w, 20)
+    want = knn_reduce_xw_plain(g, x, w, 20)
+    same = (got[0] == want[0]).all(-1)
+    assert same.float().mean().item() >= 0.999
+    for gv, wv in zip(got[1:], want[1:]):
+        assert _row_match(gv, wv)[same].all()
+    # the backward's projection reproduces the forward's maxima bit for bit
+    a = xw_project(x, w)
+    amax = gather_neighbors(a, got[0].long()).amax(2)
+    assert torch.equal(amax, got[1])
+
+
+@pytest.mark.cuda
+def test_edge_reduce_bwd_kernel_matches_plain(cuda_device):
+    g, a, cts = _reduce_inputs(23, b=4, n=1024, c=64, co=128)
+    g, a, *cts = (_t(v).to(cuda_device) for v in (g, a, *cts))
+    idx, amax, amin, _, _ = knn_reduce(g, a, 20)
+    before = edge_reduce_bwd.launches
+    got = edge_reduce_bwd(idx, a, amax, amin, *cts)
+    torch.cuda.synchronize()
+    assert edge_reduce_bwd.launches == before + 1
+    want = edge_reduce_bwd_plain(idx, a, amax, amin, *cts)
+    assert torch.isfinite(got).all()
+    assert _row_match(got, want).all()
+
+
+@pytest.mark.cuda
+def test_training_kernels_duplicates_exact(cuda_device):
+    """Integer-valued duplicate points: every sum is exact, so kernel and
+    plain version agree bit for bit iff they pick the same neighbours in
+    the same order and split tied cotangents the same way."""
+    rng = np.random.default_rng(24)
+    base = rng.integers(-4, 5, (2, 64, 3))
+    g = _t(np.concatenate([base] * 4, 1).astype(np.float32)).to(cuda_device)
+    a = _t(rng.integers(-3, 4, (2, 256, 16)).astype(np.float32)).to(
+        cuda_device)
+    got = knn_reduce(g, a, 6)
+    want = knn_reduce_plain(g, a, 6)
+    for gv, wv in zip(got, want):
+        assert torch.equal(gv, wv)
+    cts = [_t(rng.integers(-3, 4, (2, 256, 16)).astype(np.float32) * 60)
+           .to(cuda_device) for _ in range(4)]
+    assert torch.equal(edge_reduce_bwd(got[0], a, got[1], got[2], *cts),
+                       edge_reduce_bwd_plain(got[0], a, got[1], got[2], *cts))
