@@ -1,5 +1,5 @@
-"""Shared CLI plumbing (the parts of dgcnn_tpu/cli/common.py the cls CLI
-needs).  Boolean flags parse "true/false/1/0" properly, unlike the
+"""Shared CLI plumbing (the parts of dgcnn_tpu/cli/common.py the cls and
+semseg CLIs need).  Boolean flags parse "true/false/1/0" properly, unlike the
 reference's ``type=bool``."""
 from __future__ import annotations
 
@@ -53,6 +53,8 @@ class MeterAccumulator:
         self.count = 0
         self.true: list[np.ndarray] = []
         self.pred: list[np.ndarray] = []
+        self.true_seg: list[np.ndarray] = []
+        self.pred_seg: list[np.ndarray] = []
 
     def add_cls(self, loss: float, preds: np.ndarray, labels: np.ndarray,
                 mask: np.ndarray | None = None) -> None:
@@ -66,9 +68,30 @@ class MeterAccumulator:
         self.true.append(np.asarray(labels)[mask])
         self.pred.append(np.asarray(preds)[mask])
 
+    def add_seg(self, loss: float, preds: np.ndarray, seg: np.ndarray,
+                mask: np.ndarray) -> None:
+        """Per-point ``preds`` and labels ``seg`` (B, N) of a batch whose
+        real rows are those where ``mask`` is True; ``loss`` is their
+        mean.  The points count flat for accuracy and per block for the
+        IoU."""
+        real = int(mask.sum())
+        self.loss_sum += float(loss) * real
+        self.count += real
+        p = np.asarray(preds)[mask]
+        t = np.asarray(seg)[mask]
+        self.true.append(t.reshape(-1))
+        self.pred.append(p.reshape(-1))
+        self.true_seg.append(t)
+        self.pred_seg.append(p)
+
     @property
     def mean_loss(self) -> float:
         return self.loss_sum / max(self.count, 1)
 
     def concat(self):
         return np.concatenate(self.true), np.concatenate(self.pred)
+
+    def concat_seg(self):
+        """(labels, predictions), each (blocks, N)."""
+        return (np.concatenate(self.true_seg, 0),
+                np.concatenate(self.pred_seg, 0))

@@ -1,11 +1,11 @@
 """Checkpoints for the port's models.
 
-* ``state_dict_from_flax``: flax ``DGCNNCls``/``PointNet`` variables (as
-  numpy) -> the reference state dict, the port's own copy of the ``_put_*``
-  logic of ``dgcnn_tpu/convert/torch_export.py`` (Dense kernels (Ci, Co) ->
-  weights (Co, Ci[, 1[, 1]]); EdgeConv ``w_nbr``/``w_ctr`` re-joined in the
-  [neighbour, centre] order; BN scale/bias + batch_stats -> weight/bias +
-  running stats).
+* ``state_dict_from_flax``: flax ``DGCNNCls``/``PointNet``/``DGCNNSemSeg``
+  variables (as numpy) -> the reference state dict, the port's own copy of
+  the ``_put_*`` logic of ``dgcnn_tpu/convert/torch_export.py`` (Dense
+  kernels (Ci, Co) -> weights (Co, Ci[, 1[, 1]]); EdgeConv
+  ``w_nbr``/``w_ctr`` re-joined in the [neighbour, centre] order; BN
+  scale/bias + batch_stats -> weight/bias + running stats).
 * ``load_checkpoint``: a reference ``.t7`` state dict into a model.
 
 Flax ``.msgpack`` checkpoints are not read yet (see ROADMAP.md).
@@ -44,16 +44,29 @@ def _put_edgeconv(sd, name: str, p: dict, s: dict) -> None:
     _put_bn(sd, name + ".1", {"scale": p["scale"], "bias": p["bias"]}, s)
 
 
+def _put_convbn(sd, name: str, p: dict, s: dict, dims: int) -> None:
+    _put_dense(sd, name + ".0", p["conv"], dims)
+    _put_bn(sd, name + ".1", p["bn"], s["bn"])
+
+
 def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
-    """``{"params": ..., "batch_stats": ...}`` of a flax ``DGCNNCls`` or
-    ``PointNet`` -> the reference state dict of the port's model."""
+    """``{"params": ..., "batch_stats": ...}`` of a flax ``DGCNNCls``,
+    ``PointNet`` or ``DGCNNSemSeg`` -> the reference state dict of the
+    port's model."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
+    if "conv9" in params:                                         # DGCNNSemSeg
+        for name in ["conv1", "conv3", "conv5"]:
+            _put_edgeconv(sd, name, params[name], stats[name])
+        for name, dims in [("conv2", 2), ("conv4", 2), ("conv6", 1),
+                           ("conv7", 1), ("conv8", 1)]:
+            _put_convbn(sd, name, params[name], stats[name], dims)
+        _put_dense(sd, "conv9", params["conv9"], dims=1)
+        return sd
     if "w_nbr" in params["conv1"]:                                # DGCNNCls
         for name in ["conv1", "conv2", "conv3", "conv4"]:
             _put_edgeconv(sd, name, params[name], stats[name])
-        _put_dense(sd, "conv5.0", params["conv5"]["conv"], dims=1)
-        _put_bn(sd, "conv5.1", params["conv5"]["bn"], stats["conv5"]["bn"])
+        _put_convbn(sd, "conv5", params["conv5"], stats["conv5"], dims=1)
         _put_dense(sd, "linear1", params["linear1"]["linear"])
         _put_bn(sd, "bn6", params["linear1"]["bn"], stats["linear1"]["bn"])
         _put_dense(sd, "linear2", params["linear2"])

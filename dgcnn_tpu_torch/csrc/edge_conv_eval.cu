@@ -40,8 +40,6 @@
 namespace {
 
 using dg::MAX_N;
-using dg::MAXCPL;
-using dg::QB;
 
 __global__ void sqnorm_kernel(const float* __restrict__ g, int rows, int C,
                               float* __restrict__ out) {
@@ -76,32 +74,33 @@ __global__ void __launch_bounds__(dg::GEMM_THREADS)
 }
 
 template <int NPL>
-__global__ void __launch_bounds__(QB * 32)
+__global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
     select_kernel(const float* __restrict__ graph, int Cg,
                   const float* __restrict__ sq, const float* __restrict__ ac,
                   int Co, const float* __restrict__ scale,
                   const float* __restrict__ bias, float slope, int N, int k,
                   float* __restrict__ out) {
   extern __shared__ float sg[];  // N rows x CS: CC channels of the cloud
+  constexpr int CPL = dg::Bucket<NPL>::CPL;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * QB + warp;
+  const int i = blockIdx.x * dg::Bucket<NPL>::QB + warp;
   float s[NPL];
   dg::row_scores<NPL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
                       i, lane, sg, s);
 
   const int row = 2 * Co;
   const float* A = ac + (size_t)b * N * row;
-  float mx[MAXCPL], mn[MAXCPL];
+  float mx[CPL], mn[CPL];
 #pragma unroll
-  for (int u = 0; u < MAXCPL; ++u) {
+  for (int u = 0; u < CPL; ++u) {
     mx[u] = -INFINITY;
     mn[u] = INFINITY;
   }
   for (int r = 0; r < k; ++r) {
     const float* arow = A + (size_t)dg::pop_nearest<NPL>(s, lane) * row;
 #pragma unroll
-    for (int u = 0; u < MAXCPL; ++u) {
+    for (int u = 0; u < CPL; ++u) {
       const int c = lane + 32 * u;
       if (c < Co) {
         const float v = arow[c];
@@ -114,7 +113,7 @@ __global__ void __launch_bounds__(QB * 32)
   const float* crow = A + (size_t)i * row + Co;
   float* orow = out + ((size_t)b * N + i) * Co;
 #pragma unroll
-  for (int u = 0; u < MAXCPL; ++u) {
+  for (int u = 0; u < CPL; ++u) {
     const int c = lane + 32 * u;
     if (c < Co) {
       const float sc = scale[c];
@@ -156,8 +155,8 @@ extern "C" int dg_edge_conv_eval(const float* graph, const float* x,
                                  const float* bias, float* ac, float* sq,
                                  float* out, int B, int N, int Cg, int Cin,
                                  int Co, int k, float slope, void* stream) {
-  if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 || Co > 32 * MAXCPL ||
-      Cg < 1 || Cin < 1 || k < 1 || k > N)
+  if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
+      Co > dg::max_co(N) || Cg < 1 || Cin < 1 || k < 1 || k > N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * N;
@@ -167,7 +166,8 @@ extern "C" int dg_edge_conv_eval(const float* graph, const float* x,
   if (e != cudaSuccess) return (int)e;
   e = dg::with_npl(N, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    const size_t smem = dg::select_smem_bytes(N);
+    const size_t smem = dg::select_smem_bytes<NPL>(N);
+    constexpr int QB = dg::Bucket<NPL>::QB;
     cudaError_t err = cudaFuncSetAttribute(
         select_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

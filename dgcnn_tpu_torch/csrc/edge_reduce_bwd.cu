@@ -114,8 +114,8 @@ extern "C" int dg_edge_reduce_bwd(const int* idx, const float* a,
                                   const float* ct_sum, const float* ct_sumsq,
                                   float* da, int B, int N, int Co, int k,
                                   void* stream) {
-  if (B < 1 || N % 128 != 0 || N > 2048 || Co < 1 || Co > 32 * MAXCPL ||
-      k < 1 || k > N)
+  if (B < 1 || N % 128 != 0 || Co < 1 || Co > 32 * MAXCPL || k < 1 ||
+      k > N)
     return (int)cudaErrorInvalidValue;
   edge_reduce_bwd_kernel<<<B * N / QB, QB * 32, 0, (cudaStream_t)stream>>>(
       idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq, N, Co, k, da);

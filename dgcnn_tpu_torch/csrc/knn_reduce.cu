@@ -42,11 +42,9 @@
 namespace {
 
 using dg::MAX_N;
-using dg::MAXCPL;
-using dg::QB;
 
 template <int NPL>
-__global__ void __launch_bounds__(QB * 32)
+__global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
     knn_reduce_kernel(const float* __restrict__ graph, int Cg,
                       const float* __restrict__ sq,
                       const float* __restrict__ a, int Co, int N, int k,
@@ -54,9 +52,10 @@ __global__ void __launch_bounds__(QB * 32)
                       float* __restrict__ amin, float* __restrict__ asum,
                       float* __restrict__ asumsq) {
   extern __shared__ float sg[];  // N rows x CS: CC channels of the cloud
+  constexpr int CPL = dg::Bucket<NPL>::CPL;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * QB + warp;
+  const int i = blockIdx.x * dg::Bucket<NPL>::QB + warp;
   float s[NPL];
   dg::row_scores<NPL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
                       i, lane, sg, s);
@@ -64,9 +63,9 @@ __global__ void __launch_bounds__(QB * 32)
   const float* A = a + (size_t)b * N * Co;
   const size_t row = (size_t)b * N + i;
   int* irow = idx + row * k;
-  float mx[MAXCPL], mn[MAXCPL], sm[MAXCPL], s2[MAXCPL];
+  float mx[CPL], mn[CPL], sm[CPL], s2[CPL];
 #pragma unroll
-  for (int u = 0; u < MAXCPL; ++u) {
+  for (int u = 0; u < CPL; ++u) {
     mx[u] = -INFINITY;
     mn[u] = INFINITY;
     sm[u] = 0.f;
@@ -77,7 +76,7 @@ __global__ void __launch_bounds__(QB * 32)
     if (lane == 0) irow[r] = j;
     const float* arow = A + (size_t)j * Co;
 #pragma unroll
-    for (int u = 0; u < MAXCPL; ++u) {
+    for (int u = 0; u < CPL; ++u) {
       const int c = lane + 32 * u;
       if (c < Co) {
         const float v = arow[c];
@@ -89,7 +88,7 @@ __global__ void __launch_bounds__(QB * 32)
     }
   }
 #pragma unroll
-  for (int u = 0; u < MAXCPL; ++u) {
+  for (int u = 0; u < CPL; ++u) {
     const int c = lane + 32 * u;
     if (c < Co) {
       const size_t o = row * Co + c;
@@ -109,7 +108,8 @@ cudaError_t reduce(const float* graph, const float* a, float* sq, int* idx,
   if (e != cudaSuccess) return e;
   return dg::with_npl(N, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    const size_t smem = dg::select_smem_bytes(N);
+    const size_t smem = dg::select_smem_bytes<NPL>(N);
+    constexpr int QB = dg::Bucket<NPL>::QB;
     cudaError_t err = cudaFuncSetAttribute(
         knn_reduce_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -121,8 +121,8 @@ cudaError_t reduce(const float* graph, const float* a, float* sq, int* idx,
 }
 
 bool bad_shape(int B, int N, int Cg, int Co, int k) {
-  return B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 || Co > 32 * MAXCPL ||
-         Cg < 1 || k < 1 || k > N;
+  return B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
+         Co > dg::max_co(N) || Cg < 1 || k < 1 || k > N;
 }
 
 }  // namespace

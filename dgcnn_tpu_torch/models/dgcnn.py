@@ -1,10 +1,12 @@
-"""Classification models (port of dgcnn_tpu/models/dgcnn.py: ``DGCNNCls``
-and ``PointNet``), for evaluation and training.
+"""Models of dgcnn_tpu/models/dgcnn.py (``DGCNNCls``, ``PointNet``,
+``DGCNNSemSeg``), for evaluation and training.
 
-Parameters use the reference ``model.cls.1024.t7`` state-dict layout
-(``conv1.0.weight`` (64, 6, 1, 1), ``conv1.1.*``, ..., ``conv5.0.weight``
-(emb, 512, 1), ``linear1``, ``bn6``, ``linear2``, ``bn7``, ``linear3``), the
-layout ``dgcnn_tpu/convert/torch_export.py::export_dgcnn_cls`` writes.
+Parameters use the reference state-dict layouts, the ones
+``dgcnn_tpu/convert/torch_export.py`` writes: ``export_dgcnn_cls``
+(``model.cls.1024.t7``: ``conv1.0.weight`` (64, 6, 1, 1), ``conv1.1.*``,
+..., ``conv5.0.weight`` (emb, 512, 1), ``linear1``, ``bn6``, ``linear2``,
+``bn7``, ``linear3``) and ``export_dgcnn_semseg`` (``conv1``-``conv8`` as
+Conv + BatchNorm pairs, ``conv9.weight`` (classes, 256, 1)).
 """
 from __future__ import annotations
 
@@ -23,6 +25,10 @@ from dgcnn_tpu_torch.models.nn_layers import (
     leaky_relu,
 )
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool
+from dgcnn_tpu_torch.ops.edge2_kernel import knn_edge2
+from dgcnn_tpu_torch.ops.edge2_reduce import edge2_reduce
+from dgcnn_tpu_torch.ops.edge_conv import _project, edge_stats_from_sums
+from dgcnn_tpu_torch.ops.knn_edge_reduce import knn_edge_reduce
 from dgcnn_tpu_torch.ops.pool import global_max, global_mean
 
 
@@ -80,6 +86,51 @@ def init_like_flax_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
     return model
+
+
+def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
+                graph: torch.Tensor, k: int, train: bool,
+                slope: float = 0.2) -> torch.Tensor:
+    """Two-conv EdgeConv stage (port of ``_edge_block2``, the upstream
+    partseg/semseg block): conv ``ec`` on [neighbour, centre] edge features
+    -> BN -> LeakyReLU -> conv ``cb`` -> BN -> LeakyReLU -> max over the k
+    neighbours in ``graph``'s kNN.  No per-edge tensor is built: eval runs
+    one kernel (``knn_edge2``); training runs ``knn_edge_reduce`` for the
+    neighbours and the first BatchNorm's statistics in closed form, then
+    ``edge2_reduce`` for the second's and the max/min the output selects
+    from.  CUDA tensors launch the kernels, CPU tensors take their plain
+    versions."""
+    w_nbr, w_ctr = ec.split_weights()
+    w2 = cb.kernel()
+    a1 = _project(x, w_nbr)
+    b1 = _project(x, w_ctr)
+    if not train:
+        s1, t1 = ec[1].folded()
+        s2, t2 = cb[1].folded()
+        return knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k, slope)
+    idx, _, _, asum1, asumsq1 = knn_edge_reduce(graph, a1, k)
+    count = x.shape[0] * x.shape[1] * k
+    s1, t1 = ec[1].push_stats(
+        *edge_stats_from_sums(asum1, asumsq1, b1, k), count)
+    mx2, mn2, sm2, sq2 = edge2_reduce(a1, b1, s1, t1, w2, idx, slope)
+    mean2 = sm2.mean(dim=(0, 1)) / k
+    var2 = (sq2.mean(dim=(0, 1)) / k - mean2.square()).clamp(min=0.0)
+    s2, t2 = cb[1].push_stats(mean2, var2, count)
+    # max over k of LReLU(s2 * z2 + t2) = LReLU(s2 * (s2 > 0 ? max : min)
+    # + t2): LReLU is monotone
+    return leaky_relu(torch.where(s2 > 0, mx2, mn2) * s2 + t2, slope)
+
+
+def embed_max_pool(cb: ConvBN, x: torch.Tensor, train: bool) -> torch.Tensor:
+    """Embedding conv ``cb`` -> BN -> LeakyReLU -> max over the N points,
+    (B, 1, E) (port of ``_embed_max_pool`` with keepdims): one
+    ``conv_pool`` launch in eval on CUDA, plain torch otherwise (training
+    too, as in the JAX package)."""
+    if x.is_cuda and not train:
+        s, t = cb[1].folded()
+        return conv_pool((x,), cb.kernel(), s, t, cb.negative_slope,
+                         with_mean=False)
+    return global_max(cb(x, train), keepdims=True)
 
 
 def _seeded(generator: torch.Generator | None) -> torch.Generator:
@@ -173,3 +224,53 @@ class PointNet(nn.Module):
         x = torch.relu(self.bn6(self.linear1(x), train))
         x = self.dp1(x, train, generator)
         return self.linear2(x)
+
+
+class DGCNNSemSeg(nn.Module):
+    """Canonical semantic-segmentation network (upstream DGCNN_semseg):
+    9-channel S3DIS blocks, the first graph over the normalized room
+    coordinates (channels 6:9), two two-conv EdgeConv stages (each 64, 64)
+    and one EdgeConv 64 -> 64, conv6 192 -> emb + max over the points, then
+    per point [global feature, the three stage outputs] -> conv7 512 ->
+    conv8 256 -> dropout ``dp1`` -> conv9 to the classes (no bias).
+
+    Input (B, N, 9) -> per-point logits (B, N, classes).  In eval on CUDA
+    the two-conv stages run knn_edge2, conv5 edge_conv_eval and conv6 +
+    pool conv_pool; in training on CUDA the two-conv stages run
+    knn_edge_reduce + edge2_reduce and conv5 knn_edge_reduce (backward:
+    edge_reduce_bwd and edge2_bwd), conv6 + pool plain torch, as in the JAX
+    package.  On the CPU the kernels' plain versions run."""
+
+    def __init__(self, emb_dims: int = 1024, k: int = 20,
+                 dropout: float = 0.5, num_classes: int = 13,
+                 device="cuda", generator: torch.Generator | None = None):
+        super().__init__()
+        self.k = k
+        self.conv1 = EdgeConv(9, 64)
+        self.conv2 = ConvBN(64, 64, dims=2)
+        self.conv3 = EdgeConv(64, 64)
+        self.conv4 = ConvBN(64, 64, dims=2)
+        self.conv5 = EdgeConv(64, 64)
+        self.conv6 = ConvBN(192, emb_dims, dims=1)
+        self.conv7 = ConvBN(emb_dims + 192, 512, dims=1)
+        self.conv8 = ConvBN(512, 256, dims=1)
+        self.dp1 = Dropout(dropout)
+        self.conv9 = Weight((num_classes, 256, 1))
+        init_random_(self, _seeded(generator))
+        self.to(device)
+        self.eval()
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        kk = self.k
+        # first graph: neighbours by the normalized room coordinates
+        x1 = edge_block2(self.conv1, self.conv2, x,
+                         x[..., 6:9].contiguous(), kk, train)
+        x2 = edge_block2(self.conv3, self.conv4, x1, x1, kk, train)
+        x3 = self.conv5(x2, train=train, graph=x2, k=kk)
+        cat = torch.cat([x1, x2, x3], dim=-1)                 # (B, N, 192)
+        g = embed_max_pool(self.conv6, cat, train)            # (B, 1, emb)
+        h = torch.cat([g.expand(-1, x.shape[1], -1), cat], dim=-1)
+        h = self.conv8(self.conv7(h, train), train)
+        h = self.dp1(h, train, generator)
+        return torch.matmul(h, self.conv9.weight[:, :, 0].t())

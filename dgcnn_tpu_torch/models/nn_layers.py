@@ -20,6 +20,7 @@ from dgcnn_tpu_torch.ops.edge_conv import (
     _project,
     edge_conv_batch_stats,
     edge_conv_fused,
+    edge_stats_from_sums,
     fold_bn,
 )
 from dgcnn_tpu_torch.ops.edge_conv_kernel import edge_conv_eval
@@ -108,6 +109,13 @@ class BatchNorm(nn.Module):
         self.running_var.copy_((1 - m) * self.running_var + m * unbiased)
         self.num_batches_tracked.add_(1)
 
+    def push_stats(self, mean: torch.Tensor, var: torch.Tensor, count: int):
+        """A batch's statistics computed elsewhere (the fused training
+        paths): move the running statistics and return the (scale, bias)
+        that normalizes with them."""
+        self.update_running(mean, var, count)
+        return fold_bn(self.weight, self.bias, mean, var, self.eps)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             axes = tuple(range(x.dim() - 1))
@@ -193,9 +201,8 @@ class EdgeConv(nn.Sequential):
                                   self.negative_slope)
         if train:
             mean, var = edge_conv_batch_stats(x, idx, w_nbr, w_ctr)
-            bn.update_running(mean, var,
-                              x.shape[0] * x.shape[1] * idx.shape[-1])
-            s, t = fold_bn(bn.weight, bn.bias, mean, var, bn.eps)
+            s, t = bn.push_stats(mean, var,
+                                 x.shape[0] * x.shape[1] * idx.shape[-1])
         else:
             s, t = bn.folded()
         return edge_conv_fused(x, idx, w_nbr, w_ctr, s, t, self.negative_slope)
@@ -216,12 +223,7 @@ class EdgeConv(nn.Sequential):
         else:
             _, amax, amin, asum, asumsq = knn_edge_reduce(
                 graph, _project(x, w_nbr), k)
-        mean = asum.mean(dim=(0, 1)) / k + b.mean(dim=(0, 1))
-        e_ag2 = asumsq.mean(dim=(0, 1)) / k
-        e_ab = (asum / k * b).mean(dim=(0, 1))
-        e_b2 = b.square().mean(dim=(0, 1))
-        var = (e_ag2 + 2 * e_ab + e_b2 - mean.square()).clamp(min=0.0)
-        bn.update_running(mean, var, x.shape[0] * x.shape[1] * k)
-        s, t = fold_bn(bn.weight, bn.bias, mean, var, bn.eps)
+        mean, var = edge_stats_from_sums(asum, asumsq, b, k)
+        s, t = bn.push_stats(mean, var, x.shape[0] * x.shape[1] * k)
         sel = torch.where(s > 0, amax, amin) + b
         return leaky_relu(sel * s + t, self.negative_slope)

@@ -8,6 +8,18 @@ from dgcnn_tpu_torch.ops.edge_conv import (
     edge_linear,
     fold_bn,
 )
+from dgcnn_tpu_torch.ops.edge2_kernel import (
+    edge2_z2,
+    knn_edge2,
+    knn_edge2_plain,
+)
+from dgcnn_tpu_torch.ops.edge2_reduce import Edge2Reduce, edge2_reduce
+from dgcnn_tpu_torch.ops.edge2_reduce_kernel import (
+    edge2_bwd,
+    edge2_bwd_plain,
+    edge2_fwd,
+    edge2_fwd_plain,
+)
 from dgcnn_tpu_torch.ops.edge_conv_kernel import (
     edge_conv_eval,
     edge_conv_eval_plain,
@@ -34,10 +46,17 @@ from dgcnn_tpu_torch.ops.knn_reduce_kernel import (
 from dgcnn_tpu_torch.ops.pool import global_max, global_mean
 
 __all__ = [
+    "Edge2Reduce",
     "KnnEdgeReduce",
     "KnnEdgeReduceXW",
     "conv_pool",
     "conv_pool_plain",
+    "edge2_bwd",
+    "edge2_bwd_plain",
+    "edge2_fwd",
+    "edge2_fwd_plain",
+    "edge2_reduce",
+    "edge2_z2",
     "edge_conv_batch_stats",
     "edge_conv_eval",
     "edge_conv_eval_plain",
@@ -51,6 +70,8 @@ __all__ = [
     "global_max",
     "global_mean",
     "knn",
+    "knn_edge2",
+    "knn_edge2_plain",
     "knn_edge_reduce",
     "knn_edge_reduce_xw",
     "knn_reduce",

@@ -1,0 +1,159 @@
+"""Kernels 7 and 8: the neighbour reductions of the training two-conv
+EdgeConv block and their backward, hand-written CUDA.
+
+Replace ``dgcnn_tpu/ops/pallas_knn.py::_edge2_fwd_call`` (body
+``_edge2_train_kernel``) and ``::_edge2_bwd_call`` (body
+``_edge2_bwd_kernel``) in their exact f32 mode.  The kernels are
+``csrc/edge2_reduce.cu`` and ``csrc/edge2_bwd.cu``; their notes state the
+bounds on an H100, what the designs do about them and why ``da1``'s last
+bits vary from run to run (f32 atomics).  ``edge2_fwd_plain`` and
+``edge2_bwd_plain`` beside them are the same functions in plain torch (the
+backward by autograd through the forward, ties of max and min splitting
+their cotangent evenly): the wrappers run them for CPU tensors and launch
+the kernels for CUDA tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.edge2_kernel import MAX_C, edge2_z2
+
+
+def edge2_fwd_plain(a1, b1, s1, t1, w2, idx, slope: float = 0.2):
+    """Plain torch version of kernel 7: (max, min, sum, sum of squares)
+    over the k neighbours of ``edge2_z2``, each (B, N, C2)."""
+    z2 = edge2_z2(a1, b1, s1, t1, w2, idx, slope)
+    return z2.amax(dim=2), z2.amin(dim=2), z2.sum(dim=2), z2.square().sum(
+        dim=2)
+
+
+def edge2_bwd_plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max, ct_min,
+                    ct_sum, ct_sumsq, slope: float = 0.2):
+    """Plain torch version of kernel 8: (da1, db1, ds1, dt1, dw2).
+    ``amax`` and ``amin`` are not read: autograd recomputes them."""
+    del amax, amin
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (a1, b1, s1, t1,
+                                                             w2)]
+        outs = edge2_fwd_plain(*leaves, idx, slope)
+        return torch.autograd.grad(outs, leaves,
+                                   (ct_max, ct_min, ct_sum, ct_sumsq))
+
+
+def _require(name: str, cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {msg}")
+
+
+def _check(name: str, a1, b1, s1, t1, w2, idx, feats=()) -> tuple:
+    """The checks both kernels share; returns (B, N, C1, C2, k)."""
+    _require(name, a1.is_cuda, f"no kernel for device {a1.device}")
+    tensors = (a1, b1, s1, t1, w2, *feats)
+    _require(name, all(t.device == a1.device for t in (*tensors, idx)),
+             "all tensors must be on one device")
+    _require(name, idx.dtype == torch.int32, "idx must be int32")
+    _require(name, all(t.dtype == torch.float32 for t in tensors),
+             "tensors must be float32")
+    _require(name, all(t.is_contiguous() for t in (a1, b1, idx, *feats)),
+             "a1, b1, idx and the (B, N, C2) tensors must be contiguous")
+    _require(name, a1.dim() == 3 and w2.dim() == 2, "a1 (B, N, C1), w2 "
+             "(C1, C2)")
+    b, n, c1 = a1.shape
+    c2 = w2.shape[1]
+    _require(name, b1.shape == a1.shape and w2.shape[0] == c1,
+             f"b1 {tuple(b1.shape)}, w2 {tuple(w2.shape)} vs a1 "
+             f"{tuple(a1.shape)}")
+    _require(name, s1.shape == (c1,) and t1.shape == (c1,),
+             "s1/t1 must be (C1,)")
+    _require(name, idx.dim() == 3 and idx.shape[:2] == (b, n),
+             f"idx {tuple(idx.shape)} vs a1 {tuple(a1.shape)}")
+    _require(name, all(t.shape == (b, n, c2) for t in feats),
+             "amax, amin and the cotangents must be (B, N, C2)")
+    _require(name, c1 <= MAX_C and c2 <= MAX_C, f"C1, C2 must be <= {MAX_C}")
+    k = idx.shape[2]
+    _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
+    return b, n, c1, c2, k
+
+
+def _fn(name: str, argtypes):
+    fn = getattr(_build.load_library(), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
+              t1: torch.Tensor, w2: torch.Tensor, idx: torch.Tensor,
+              slope: float = 0.2):
+    """Max, min, sum and sum of squares over the k neighbours ``idx`` (B,
+    N, k) of ``z2 = LReLU((a1[idx] + b1) * s1 + t1) @ w2`` -> four (B, N,
+    C2) tensors.  ``a1``/``b1`` (B, N, C1), ``s1``/``t1`` (C1,), ``w2``
+    (C1, C2).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes an int32 ``idx``, f32 tensors (a1, b1 and idx contiguous)
+    and C1, C2 <= 128, and raises on anything else."""
+    if a1.device.type == "cpu":
+        return edge2_fwd_plain(a1, b1, s1, t1, w2, idx, slope)
+    b, n, c1, c2, k = _check("edge2_fwd", a1, b1, s1, t1, w2, idx)
+    fn = _fn("dg_edge2_fwd", [_P] * 10 + [_I] * 5 + [_F, _P])
+    small = [t.contiguous() for t in (s1, t1, w2)]
+    red = [torch.empty((b, n, c2), device=a1.device, dtype=torch.float32)
+           for _ in range(4)]
+    p = _build.ptr
+    with torch.cuda.device(a1.device):
+        rc = fn(p(idx), p(a1), p(b1), *map(p, small), *map(p, red), b, n,
+                c1, c2, k, float(slope), _build.stream_of(a1))
+    _build.check(rc, "edge2_fwd")
+    edge2_fwd.launches += 1
+    return tuple(red)
+
+
+def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
+              t1: torch.Tensor, w2: torch.Tensor, idx: torch.Tensor,
+              amax: torch.Tensor, amin: torch.Tensor, ct_max: torch.Tensor,
+              ct_min: torch.Tensor, ct_sum: torch.Tensor,
+              ct_sumsq: torch.Tensor, slope: float = 0.2):
+    """The gradients (da1, db1, ds1, dt1, dw2) of ``edge2_fwd``'s four
+    reductions given their cotangents and its ``amax``/``amin``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (the same rules as ``edge2_fwd``; amax, amin and the cotangents f32
+    contiguous (B, N, C2)), which raises on anything else."""
+    if a1.device.type == "cpu":
+        return edge2_bwd_plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max,
+                               ct_min, ct_sum, ct_sumsq, slope)
+    feats = (amax, amin, ct_max, ct_min, ct_sum, ct_sumsq)
+    b, n, c1, c2, k = _check("edge2_bwd", a1, b1, s1, t1, w2, idx, feats)
+    fn = _fn("dg_edge2_bwd", [_P] * 16 + [_I] * 6 + [_F, _P])
+    small = [t.contiguous() for t in (s1, t1, w2)]
+    # a few blocks per SM stride over the B*N/8 row groups; each leaves one
+    # row of partial dW2/ds1/dt1 sums, which a second launch adds up
+    sms = torch.cuda.get_device_properties(a1.device).multi_processor_count
+    g = max(1, min((b * n + 7) // 8, 4 * sms))
+    width = c1 * c2 + 2 * c1
+    part = torch.empty((g, width), device=a1.device, dtype=torch.float32)
+    dflat = torch.empty((width,), device=a1.device, dtype=torch.float32)
+    da1 = torch.zeros_like(a1)  # the kernel adds into da1
+    db1 = torch.empty_like(a1)
+    p = _build.ptr
+    with torch.cuda.device(a1.device):
+        rc = fn(p(idx), p(a1), p(b1), *map(p, small), *map(p, feats), p(da1),
+                p(db1), p(part), p(dflat), b, n, c1, c2, k, g, float(slope),
+                _build.stream_of(a1))
+    _build.check(rc, "edge2_bwd")
+    edge2_bwd.launches += 1
+    dw2 = dflat[:c1 * c2].view(c1, c2)
+    return da1, db1, dflat[c1 * c2:c1 * c2 + c1], dflat[c1 * c2 + c1:], dw2
+
+
+# launches of each kernel since its count was last set to 0
+edge2_fwd.launches = 0
+edge2_bwd.launches = 0

@@ -47,6 +47,19 @@ def edge_conv_batch_stats(x, idx, w_nbr, w_ctr):
     return mean, var.clamp(min=0.0)
 
 
+def edge_stats_from_sums(asum, asumsq, b, k: int):
+    """The same (mean, biased var) from the neighbour sums that the
+    training kernels return: ``asum``/``asumsq`` (B, N, Co), the sum and
+    sum of squares of the k gathered rows of ``a``, and ``b`` (B, N, Co),
+    the centre term."""
+    mean = asum.mean(dim=(0, 1)) / k + b.mean(dim=(0, 1))
+    e_ag2 = asumsq.mean(dim=(0, 1)) / k
+    e_ab = (asum / k * b).mean(dim=(0, 1))
+    e_b2 = b.square().mean(dim=(0, 1))
+    var = e_ag2 + 2 * e_ab + e_b2 - mean.square()
+    return mean, var.clamp(min=0.0)
+
+
 def edge_conv_fused(x, idx, w_nbr, w_ctr, scale, bias,
                     negative_slope: float = 0.2) -> torch.Tensor:
     """Conv + folded-BN affine + LeakyReLU + max over k -> (B, N, Co)."""

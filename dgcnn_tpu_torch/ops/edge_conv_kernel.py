@@ -16,9 +16,7 @@ import torch
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.edge_conv import edge_conv_fused
 from dgcnn_tpu_torch.ops.knn import knn
-
-MAX_N = 2048
-MAX_CO = 256
+from dgcnn_tpu_torch.ops.knn_reduce_kernel import MAX_N, max_co
 
 
 def edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
@@ -52,8 +50,9 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     folded-BN affine ``scale``/``bias`` (Co,) and LeakyReLU -> (B, N, Co).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes f32 contiguous tensors with N a multiple of 128, N <= 2048
-    and Co <= 256, and raises on anything else."""
+    which takes f32 contiguous tensors with N a multiple of 128, N <= 4096
+    and Co <= 256 (Co <= 128 above N=2048), and raises on anything
+    else."""
     if graph.device.type == "cpu":
         return edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k,
                                     slope)
@@ -74,7 +73,7 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
              "scale/bias must be (Co,)")
     _require(n % 128 == 0 and n <= MAX_N,
              f"N={n} must be a multiple of 128 and <= {MAX_N}")
-    _require(co <= MAX_CO, f"Co={co} > {MAX_CO}")
+    _require(co <= max_co(n), f"Co={co} > {max_co(n)} for N={n}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
     fn = _lib()
     # the launch is asynchronous on torch's current stream: tensors made here

@@ -20,7 +20,6 @@ import torch
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
 
-MAX_N = 2048
 MAX_CO = 256
 
 
@@ -54,7 +53,7 @@ def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes an int32 ``idx``, f32 contiguous tensors, N a multiple of
-    128, N <= 2048 and Co <= 256, and raises on anything else."""
+    128 and Co <= 256, and raises on anything else."""
     if a.device.type == "cpu":
         return edge_reduce_bwd_plain(idx, a, amax, amin, ct_max, ct_min,
                                      ct_sum, ct_sumsq)
@@ -73,8 +72,7 @@ def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
     _require(idx.dim() == 3 and idx.shape[:2] == (b, n),
              f"idx {tuple(idx.shape)} vs a {tuple(a.shape)}")
     k = idx.shape[2]
-    _require(n % 128 == 0 and n <= MAX_N,
-             f"N={n} must be a multiple of 128 and <= {MAX_N}")
+    _require(n % 128 == 0, f"N={n} must be a multiple of 128")
     _require(1 <= co <= MAX_CO, f"Co={co} out of 1..{MAX_CO}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
     fn = _build.load_library().dg_edge_reduce_bwd

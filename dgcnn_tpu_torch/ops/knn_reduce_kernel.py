@@ -25,8 +25,13 @@ from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
 from dgcnn_tpu_torch.ops.knn import knn
 
-MAX_N = 2048
-MAX_CO = 256
+MAX_N = 4096
+
+
+def max_co(n: int) -> int:
+    """The widest Co the selection kernels take at N points: 256 up to
+    N=2048, 128 above (csrc/knn_select.cuh, Bucket)."""
+    return 256 if n <= 2048 else 128
 
 
 def knn_reduce_plain(graph: torch.Tensor, a: torch.Tensor, k: int):
@@ -75,7 +80,8 @@ def _check_select(name, graph, feats, co: int, k: int) -> None:
     n = graph.shape[1]
     _require(name, n % 128 == 0 and n <= MAX_N,
              f"N={n} must be a multiple of 128 and <= {MAX_N}")
-    _require(name, 1 <= co <= MAX_CO, f"Co={co} out of 1..{MAX_CO}")
+    _require(name, 1 <= co <= max_co(n),
+             f"Co={co} out of 1..{max_co(n)} for N={n}")
     _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
 
 
@@ -95,8 +101,8 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int):
     Returns (idx (B, N, k) int32, self first, lowest index first among
     equal scores; amax, amin, asum, asumsq (B, N, Co) f32).  CPU tensors
     take the plain version; CUDA tensors launch the kernel, which takes f32
-    contiguous tensors with N a multiple of 128, N <= 2048 and Co <= 256,
-    and raises on anything else."""
+    contiguous tensors with N a multiple of 128, N <= 4096 and Co <= 256
+    (Co <= 128 above N=2048), and raises on anything else."""
     if graph.device.type == "cpu":
         return knn_reduce_plain(graph, a, k)
     co = a.shape[-1]

@@ -10,9 +10,18 @@ from dgcnn_tpu_torch.train.engine import (
     ScheduledOptimizer,
     make_cls_steps,
     make_optimizer,
+    make_seg_steps,
 )
-from dgcnn_tpu_torch.train.loss import cross_entropy
-from dgcnn_tpu_torch.train.metrics import accuracy_score, balanced_accuracy_score
+from dgcnn_tpu_torch.train.loss import (
+    cross_entropy,
+    cross_entropy_per_example,
+    masked_mean_loss,
+)
+from dgcnn_tpu_torch.train.metrics import (
+    accuracy_score,
+    balanced_accuracy_score,
+    calculate_sem_IoU,
+)
 from dgcnn_tpu_torch.train.schedules import (
     cosine_annealing,
     make_schedule,
@@ -23,13 +32,17 @@ __all__ = [
     "ScheduledOptimizer",
     "accuracy_score",
     "balanced_accuracy_score",
+    "calculate_sem_IoU",
     "cosine_annealing",
     "cross_entropy",
+    "cross_entropy_per_example",
     "load_model",
     "load_train_checkpoint",
     "make_cls_steps",
     "make_optimizer",
     "make_schedule",
+    "make_seg_steps",
+    "masked_mean_loss",
     "save_model",
     "save_train_checkpoint",
     "step_decay",

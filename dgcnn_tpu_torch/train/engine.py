@@ -1,5 +1,7 @@
-"""Optimizers and the classification train/eval steps (port of the cls
-part of dgcnn_tpu/train/engine.py).
+"""Optimizers and the train/eval steps of classification and semantic
+segmentation (port of dgcnn_tpu/train/engine.py: ``make_optimizer``,
+``make_cls_steps``, ``make_seg_steps`` for models taking the points
+only).
 
 The JAX package's optax chains map onto torch's optimizers with the same
 L2 coupling: SGD is ``add_decayed_weights(1e-4)`` -> momentum trace ->
@@ -15,7 +17,11 @@ from typing import Callable
 
 import torch
 
-from dgcnn_tpu_torch.train.loss import cross_entropy
+from dgcnn_tpu_torch.train.loss import (
+    cross_entropy,
+    cross_entropy_per_example,
+    masked_mean_loss,
+)
 
 
 class ScheduledOptimizer:
@@ -92,6 +98,38 @@ def make_cls_steps():
     def eval_step(model, points: torch.Tensor, labels: torch.Tensor) -> dict:
         logits = model(points)
         return {"loss": cross_entropy(logits, labels),
+                "preds": logits.argmax(-1)}
+
+    return train_step, eval_step
+
+
+def make_seg_steps():
+    """(train_step, eval_step) for segmentation models taking (points,)
+    (DGCNNSemSeg), with per-point logits (B, N, classes) and the
+    label-smoothed cross entropy over all points.
+
+    ``train_step(model, opt, points, seg, generator=None)``: forward in
+    training mode (dropout drawn from ``generator``), loss, backward and
+    one optimizer step -> {"loss", "preds"}.
+    ``eval_step(model, points, seg, mask=None)``: eval forward -> {"loss":
+    the mean over the rows where ``mask`` is True, "preds"}."""
+
+    def train_step(model, opt: ScheduledOptimizer, points: torch.Tensor,
+                   seg: torch.Tensor,
+                   generator: torch.Generator | None = None) -> dict:
+        logits = model(points, train=True, generator=generator)
+        loss = cross_entropy(logits, seg)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach(), "preds": logits.detach().argmax(-1)}
+
+    @torch.no_grad()
+    def eval_step(model, points: torch.Tensor, seg: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> dict:
+        logits = model(points)
+        return {"loss": masked_mean_loss(
+                    cross_entropy_per_example(logits, seg), mask),
                 "preds": logits.argmax(-1)}
 
     return train_step, eval_step

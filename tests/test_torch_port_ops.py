@@ -21,10 +21,16 @@ import jax.numpy as jnp
 from dgcnn_tpu.ops import edge_conv as jedge
 from dgcnn_tpu.ops import graph as jgraph
 from dgcnn_tpu_torch.ops import (
+    Edge2Reduce,
     KnnEdgeReduce,
     KnnEdgeReduceXW,
     conv_pool,
     conv_pool_plain,
+    edge2_bwd,
+    edge2_bwd_plain,
+    edge2_fwd,
+    edge2_fwd_plain,
+    edge2_z2,
     edge_conv_batch_stats,
     edge_conv_eval,
     edge_conv_eval_plain,
@@ -38,6 +44,8 @@ from dgcnn_tpu_torch.ops import (
     global_max,
     global_mean,
     knn,
+    knn_edge2,
+    knn_edge2_plain,
     knn_reduce,
     knn_reduce_plain,
     knn_reduce_xw,
@@ -520,3 +528,233 @@ def test_training_kernels_duplicates_exact(cuda_device):
            .to(cuda_device) for _ in range(4)]
     assert torch.equal(edge_reduce_bwd(got[0], a, got[1], got[2], *cts),
                        edge_reduce_bwd_plain(got[0], a, got[1], got[2], *cts))
+
+
+def test_knn_index_exact_at_4096_points():
+    """The plain selection at the S3DIS block size, N=4096 (one cloud over
+    three channels, as the first graph's normalized coordinates).  The
+    coordinates are multiples of 1/64, so that every score is exact in any
+    summation order and equal distances tie exactly: the lowest index wins
+    on both sides."""
+    x = (np.random.default_rng(25).integers(0, 64, (1, 4096, 3)) / 64
+         ).astype(np.float32)
+    want = _np(jknn.knn(jnp.asarray(x), 20))
+    np.testing.assert_array_equal(knn(_t(x), 20).numpy(), want)
+
+
+def _edge2_inputs(seed, b=2, n=128, cg=3, c1=16, c2=24, k=6, dup=False,
+                  ints=False):
+    """Graph, a1/b1, the two folded affines, w2, the kNN idx and four
+    cotangents of a two-conv block.  ``dup``: every point four times in
+    the graph and in a1 (tied distances and tied z2).  ``ints``: small
+    integers, scales of +-1 and +-1/2, max/min cotangents that are
+    multiples of 60 (every tie count up to 6 divides them): with a
+    LeakyReLU slope of 1/4 every product and sum is exact."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        if ints:
+            return rng.integers(-2, 3, shape).astype(np.float64)
+        return rng.standard_normal(shape)
+
+    if dup:
+        g = np.concatenate([draw((b, n // 4, cg))] * 4, 1)
+        a1 = np.concatenate([draw((b, n // 4, c1))] * 4, 1)
+    else:
+        g, a1 = draw((b, n, cg)), draw((b, n, c1))
+    b1 = draw((b, n, c1))
+    sign1 = np.where(rng.random(c1) < 0.2, -1.0, 1.0)
+    sign2 = np.where(rng.random(c2) < 0.2, -1.0, 1.0)
+    if ints:
+        w2 = rng.integers(-1, 2, (c1, c2)).astype(np.float64)
+        s1, s2 = np.where(sign1 > 0, 1.0, -0.5), np.where(sign2 > 0, 1.0, -1.0)
+        t1, t2 = draw(c1), draw(c2)
+        cts = [60.0 * draw((b, n, c2)) for _ in range(2)] + [
+            draw((b, n, c2)) for _ in range(2)]
+    else:
+        w2 = rng.standard_normal((c1, c2)) / np.sqrt(c1)
+        s1 = sign1 * rng.uniform(0.5, 1.5, c1)
+        s2 = sign2 * rng.uniform(0.5, 1.5, c2)
+        t1, t2 = 0.1 * draw(c1), 0.1 * draw(c2)
+        cts = [draw((b, n, c2)) for _ in range(4)]
+    f32 = [np.asarray(v, np.float32) for v in (g, a1, b1, s1, t1, w2, s2,
+                                               t2)]
+    idx = _np(jknn.knn(jnp.asarray(f32[0]), k))
+    return f32, idx, [c.astype(np.float32) for c in cts]
+
+
+@pytest.mark.parametrize("cg,c1,c2,k,dup", [(3, 16, 24, 6, False),
+                                            (8, 32, 16, 8, False),
+                                            (4, 16, 16, 6, True)])
+def test_knn_edge2_matches_pallas_interpret(pallas_exact, cg, c1, c2, k,
+                                            dup):
+    """Kernel 6's plain version against fused_knn_edge2 in its exact mode;
+    with duplicate points the boundary of the k nearest falls inside a
+    group of copies, so agreement pins the lowest-index rule."""
+    from dgcnn_tpu.ops.pallas_knn import fused_knn_edge2
+
+    (g, a1, b1, s1, t1, w2, s2, t2), _, _ = _edge2_inputs(
+        40 + cg, cg=cg, c1=c1, c2=c2, k=k, dup=dup)
+    with jax.default_matmul_precision("float32"):
+        want = fused_knn_edge2.__wrapped__(
+            *(jnp.asarray(v) for v in (g, a1, b1, s1, t1, w2, s2, t2)), k,
+            interpret=True)
+    before = knn_edge2.launches
+    got = knn_edge2(*(_t(v) for v in (g, a1, b1, s1, t1, w2, s2, t2)), k)
+    assert knn_edge2.launches == before  # CPU: the plain version
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_edge2_fwd_and_bwd_match_pallas_interpret(dup):
+    """Kernels 7 and 8's plain versions against _edge2_fwd_call and
+    _edge2_bwd_call (exact mode, interpret): the reductions, then every
+    gradient; duplicate points give tied z2 whose max/min cotangent both
+    sides split evenly."""
+    from dgcnn_tpu.ops.pallas_knn import _edge2_bwd_call, _edge2_fwd_call
+
+    k = 6
+    (_, a1, b1, s1, t1, w2, _, _), idx, cts = _edge2_inputs(
+        44, k=k, dup=dup)
+    jin = [jnp.asarray(v) for v in (a1, b1, s1, t1, w2, idx)]
+    with jax.default_matmul_precision("float32"):
+        want = _edge2_fwd_call(*jin, k, 0.2, True, interpret=True)
+        want_g = _edge2_bwd_call(*jin, want[0], want[1],
+                                 *(jnp.asarray(c) for c in cts), k, 0.2,
+                                 True, interpret=True)
+    tin = [_t(v) for v in (a1, b1, s1, t1, w2)] + [_t(idx)]
+    before = (edge2_fwd.launches, edge2_bwd.launches)
+    got = edge2_fwd(*tin)
+    for gv, wv in zip(got, want):
+        np.testing.assert_allclose(gv.numpy(), _np(wv), rtol=1e-5, atol=1e-5)
+    got_g = edge2_bwd(*tin, *(_t(v) for v in want[:2]), *map(_t, cts))
+    assert (edge2_fwd.launches, edge2_bwd.launches) == before
+    for gv, wv in zip(got_g, want_g):
+        wv = _np(wv)
+        assert np.isfinite(gv.numpy()).all()
+        np.testing.assert_allclose(gv.numpy(), wv, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(wv).max()))
+    if dup:  # the copies' equal z2 tie for the max in every row
+        z2 = edge2_z2(*tin)
+        assert (z2 == z2.amax(2, keepdim=True)).sum(2).min() >= 2
+
+
+@pytest.mark.parametrize("ints", [False, True])
+def test_edge2_reduce_grads_match_jax_vjp(pallas_exact, ints):
+    """Edge2Reduce (forward kernel 7, backward kernel 8) against jax.vjp
+    of the JAX package's edge2_reduce on duplicate points.  With integer
+    values (and a slope of 1/4) every z2 is exact, so edges of different
+    neighbours whose z2 are equal tie in both frameworks, whatever order
+    each sums in, and the tie splits agree."""
+    from dgcnn_tpu.ops.pallas_knn import edge2_reduce as jedge2
+
+    k, slope = 6, (0.25 if ints else 0.2)
+    (_, a1, b1, s1, t1, w2, _, _), idx, cts = _edge2_inputs(
+        45, k=k, dup=True, ints=ints)
+    with jax.default_matmul_precision("float32"):
+        outs, vjp = jax.vjp(
+            lambda *p: jedge2(*p, jnp.asarray(idx), k, slope),
+            *(jnp.asarray(v) for v in (a1, b1, s1, t1, w2)))
+        want = vjp(tuple(jnp.asarray(c) for c in cts))
+    leaves = [_t(v).requires_grad_(True) for v in (a1, b1, s1, t1, w2)]
+    got = Edge2Reduce.apply(*leaves, _t(idx), slope)
+    for gv, wv in zip(got, outs):
+        np.testing.assert_allclose(gv.detach().numpy(), _np(wv), rtol=1e-5,
+                                   atol=1e-5)
+    torch.autograd.backward(got, [_t(c) for c in cts])
+    for leaf, wv in zip(leaves, want):
+        wv = _np(wv)
+        assert torch.isfinite(leaf.grad).all()
+        np.testing.assert_allclose(leaf.grad.numpy(), wv, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(wv).max()))
+
+
+def test_two_conv_kernel_wrappers_refuse_devices_without_a_kernel():
+    g = torch.zeros((1, 128, 3), device="meta")
+    a = torch.zeros((1, 128, 8), device="meta")
+    w = torch.zeros((8, 8), device="meta")
+    s = torch.zeros(8, device="meta")
+    idx = torch.zeros((1, 128, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        knn_edge2(g, a, a, s, s, w, s, s, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        edge2_fwd(a, a, s, s, w, idx)
+    with pytest.raises(ValueError, match="no kernel"):
+        edge2_bwd(a, a, s, s, w, idx, a, a, a, a, a, a)
+
+
+@pytest.mark.cuda
+def test_selection_kernels_at_4096_points_match_plain(cuda_device):
+    """Kernels 1, 3 and 5 at the semseg conv5 shapes (N=4096, Cg=Co=64)."""
+    g, a, cts = _reduce_inputs(26, b=2, n=4096, c=64, co=64)
+    g, a, *cts = (_t(v).to(cuda_device) for v in (g, a, *cts))
+    got = knn_reduce(g, a, 20)
+    want = knn_reduce_plain(g, a, 20)
+    same = (got[0] == want[0]).all(-1)
+    assert same.float().mean().item() >= 0.999
+    for gv, wv in zip(got[1:], want[1:]):
+        assert _row_match(gv, wv)[same].all()
+    idx, amax, amin = got[:3]
+    da = edge_reduce_bwd(idx, a, amax, amin, *cts)
+    assert _row_match(da, edge_reduce_bwd_plain(idx, a, amax, amin,
+                                                *cts)).all()
+    x, wn, wc, sc, bi = (_t(v).to(cuda_device)
+                         for v in _stage_inputs(27, 2, 4096, 64, 64))
+    out = edge_conv_eval(x, x, wn, wc, sc, bi, 20)
+    ok = _row_match(out, edge_conv_eval_plain(x, x, wn, wc, sc, bi, 20))
+    assert ok.float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cg", [3, 64])
+def test_knn_edge2_kernel_matches_plain(cuda_device, cg):
+    (g, a1, b1, s1, t1, w2, s2, t2), _, _ = _edge2_inputs(
+        46, b=2, n=4096, cg=cg, c1=64, c2=64, k=20)
+    args = [_t(v).to(cuda_device) for v in (g, a1, b1, s1, t1, w2, s2, t2)]
+    before = knn_edge2.launches
+    got = knn_edge2(*args, 20)
+    torch.cuda.synchronize()
+    assert knn_edge2.launches == before + 1
+    ok = _row_match(got, knn_edge2_plain(*args, 20))
+    assert ok.float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+def test_edge2_kernels_match_plain(cuda_device):
+    (g, a1, b1, s1, t1, w2, _, _), _, cts = _edge2_inputs(
+        47, b=2, n=4096, cg=64, c1=64, c2=64, k=20)
+    g = _t(g).to(cuda_device)
+    idx = knn_reduce(g, g, 20)[0]
+    tin = [_t(v).to(cuda_device) for v in (a1, b1, s1, t1, w2)] + [idx]
+    got = edge2_fwd(*tin)
+    for gv, wv in zip(got, edge2_fwd_plain(*tin)):
+        assert _row_match(gv, wv).all()
+    cts = [_t(c).to(cuda_device) for c in cts]
+    grads = edge2_bwd(*tin, *got[:2], *cts)
+    want = edge2_bwd_plain(*tin, *got[:2], *cts)
+    for gv, wv in zip(grads[:2], want[:2]):
+        assert torch.isfinite(gv).all()
+        assert _row_match(gv, wv).float().mean().item() >= 0.999
+    for gv, wv in zip(grads[2:], want[2:]):
+        assert torch.isfinite(gv).all()
+        assert ((gv - wv).norm() <= 1e-4 * wv.norm()).item()
+
+
+@pytest.mark.cuda
+def test_edge2_kernels_duplicates_exact(cuda_device):
+    """Integer-valued duplicate points: kernel 6, 7 and 8 equal their
+    plain versions bit for bit (da1 too: its atomics add integers)."""
+    (g, a1, b1, s1, t1, w2, s2, t2), _, cts = _edge2_inputs(
+        48, b=2, n=128, cg=3, c1=16, c2=16, k=6, dup=True, ints=True)
+    dev = [_t(v).to(cuda_device) for v in (g, a1, b1, s1, t1, w2, s2, t2)]
+    assert torch.equal(knn_edge2(*dev, 6, 0.25),
+                       knn_edge2_plain(*dev, 6, 0.25))
+    idx = knn_reduce(dev[0], dev[1], 6)[0]
+    tin = dev[1:6] + [idx]
+    got = edge2_fwd(*tin, 0.25)
+    for gv, wv in zip(got, edge2_fwd_plain(*tin, 0.25)):
+        assert torch.equal(gv, wv)
+    cts = [_t(c).to(cuda_device) for c in cts]
+    for gv, wv in zip(edge2_bwd(*tin, *got[:2], *cts, 0.25),
+                      edge2_bwd_plain(*tin, *got[:2], *cts, 0.25)):
+        assert torch.equal(gv, wv)
