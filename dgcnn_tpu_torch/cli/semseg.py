@@ -1,17 +1,19 @@
 """S3DIS semantic segmentation CLI (port of dgcnn_tpu/cli/semseg.py):
 training and the 6-fold evaluation.
 
-Same flags as the JAX CLI apart from its TPU-only and visualization ones,
-and the same ``Train %d, ...``, ``Test %d, ...``, ``Test :: test area:
+Same flags as the JAX CLI apart from its point sharding, device
+pipeline, export and visualization ones, and the same ``Train %d, ...``,
+``Test %d, ...``, ``Test :: test area:
 ...`` and ``Overall Test :: ...`` lines.  Training for ``--test_area=<a>``
 keeps the best test IoU's model in the reference state-dict layout at
 ``outputs/<exp>/models/model_<a>.t7``; evaluation loads
 ``<model_root>/model_<a>.t7`` for each area it tests (``--test_area=all``:
-areas 1-6 and the overall line).
+areas 1-6 and the overall line).  ``--fast_extract BAND`` runs the eval
+forwards (a training run's test passes too) through the banded kernels.
 
     python -m dgcnn_tpu_torch.cli.semseg --exp_name=s3dis6 --test_area=6
     python -m dgcnn_tpu_torch.cli.semseg --eval=True --test_area=all \
-        --model_root=outputs/s3dis6/models
+        --model_root=outputs/s3dis6/models [--fast_extract 1024]
 """
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ import torch
 
 from dgcnn_tpu_torch.cli.common import (
     MeterAccumulator,
+    band_arg,
     init_output_dir,
     pick_device,
+    resolve_band,
     str2bool,
 )
 from dgcnn_tpu_torch.convert import load_checkpoint
@@ -47,7 +51,10 @@ AREAS = ["1", "2", "3", "4", "5", "6"]
 def build_model(args, device):
     if args.model == "dgcnn":
         return DGCNNSemSeg(emb_dims=args.emb_dims, k=args.k,
-                           dropout=args.dropout, device=device)
+                           dropout=args.dropout,
+                           band=resolve_band(args.fast_extract,
+                                             args.num_points),
+                           device=device)
     raise Exception("Not implemented")
 
 
@@ -198,6 +205,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--emb_dims", type=int, default=1024, metavar="N")
     parser.add_argument("--k", type=int, default=20, metavar="N")
     parser.add_argument("--model_root", type=str, default="", metavar="N")
+    parser.add_argument("--fast_extract", type=band_arg, default=None,
+                        metavar="BAND",
+                        help="eval forwards (a training run's test passes "
+                             "too) with each point's kNN candidates pruned "
+                             "to a PC1-sorted band of this width (a "
+                             "positive multiple of 128; 0 = exact even if "
+                             "DGCNN_TPU_FAST_EXTRACT is set; unset = that "
+                             "variable, else exact)")
     return parser
 
 

@@ -1,12 +1,16 @@
 """Checkpoints for the port's models.
 
-* ``state_dict_from_flax``: flax ``DGCNNCls``/``PointNet``/``DGCNNSemSeg``
-  variables (as numpy) -> the reference state dict, the port's own copy of
-  the ``_put_*`` logic of ``dgcnn_tpu/convert/torch_export.py`` (Dense
-  kernels (Ci, Co) -> weights (Co, Ci[, 1[, 1]]); EdgeConv
-  ``w_nbr``/``w_ctr`` re-joined in the [neighbour, centre] order; BN
-  scale/bias + batch_stats -> weight/bias + running stats).
-* ``load_checkpoint``: a reference ``.t7`` state dict into a model.
+* ``state_dict_from_flax``: flax ``DGCNNCls``/``PointNet``/
+  ``DGCNNPartSeg``/``DGCNNSemSeg`` variables (as numpy) -> the reference
+  state dict, the port's own copy of the ``_put_*`` logic of
+  ``dgcnn_tpu/convert/torch_export.py`` (Dense kernels (Ci, Co) -> weights
+  (Co, Ci[, 1[, 1]]); EdgeConv ``w_nbr``/``w_ctr`` re-joined in the
+  [neighbour, centre] order; BN scale/bias + batch_stats -> weight/bias +
+  running stats).  The TransformNet's ``bn1``-``bn3`` aliases of
+  ``export_transform_net`` are left out: the port's model registers each
+  BatchNorm once.
+* ``load_checkpoint``: a reference ``.t7`` state dict (or a checkpoint
+  holding one) into a model.
 
 Flax ``.msgpack`` checkpoints are not read yet (see ROADMAP.md).
 """
@@ -49,12 +53,38 @@ def _put_convbn(sd, name: str, p: dict, s: dict, dims: int) -> None:
     _put_bn(sd, name + ".1", p["bn"], s["bn"])
 
 
+def _put_densebn(sd, lin_key: str, bn_key: str, p: dict, s: dict) -> None:
+    _put_dense(sd, lin_key, p["linear"])
+    _put_bn(sd, bn_key, p["bn"], s["bn"])
+
+
+def _put_transform_net(sd, prefix: str, p: dict, s: dict) -> None:
+    for name, dims in [("conv1", 2), ("conv2", 2), ("conv3", 1)]:
+        _put_convbn(sd, prefix + name, p[name], s[name], dims)
+    _put_densebn(sd, prefix + "linear.0", prefix + "linear.1", p["linear1"],
+                 s["linear1"])
+    _put_densebn(sd, prefix + "linear.3", prefix + "linear.4", p["linear2"],
+                 s["linear2"])
+    _put_dense(sd, prefix + "transform", p["transform"])
+
+
 def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` of a flax ``DGCNNCls``,
-    ``PointNet`` or ``DGCNNSemSeg`` -> the reference state dict of the
-    port's model."""
+    ``PointNet``, ``DGCNNPartSeg`` or ``DGCNNSemSeg`` -> the reference
+    state dict of the port's model."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
+    if "transform_net" in params:                             # DGCNNPartSeg
+        _put_transform_net(sd, "transform_net.", params["transform_net"],
+                           stats["transform_net"])
+        for name in ["conv1", "conv3", "conv5"]:
+            _put_edgeconv(sd, name, params[name], stats[name])
+        for name, dims in [("conv2", 2), ("conv4", 2), ("conv6", 1),
+                           ("conv7", 1), ("conv8", 1), ("conv9", 1),
+                           ("conv10", 1)]:
+            _put_convbn(sd, name, params[name], stats[name], dims)
+        _put_dense(sd, "conv11", params["conv11"], dims=1)
+        return sd
     if "conv9" in params:                                         # DGCNNSemSeg
         for name in ["conv1", "conv3", "conv5"]:
             _put_edgeconv(sd, name, params[name], stats[name])
@@ -67,8 +97,8 @@ def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
         for name in ["conv1", "conv2", "conv3", "conv4"]:
             _put_edgeconv(sd, name, params[name], stats[name])
         _put_convbn(sd, "conv5", params["conv5"], stats["conv5"], dims=1)
-        _put_dense(sd, "linear1", params["linear1"]["linear"])
-        _put_bn(sd, "bn6", params["linear1"]["bn"], stats["linear1"]["bn"])
+        _put_densebn(sd, "linear1", "bn6", params["linear1"],
+                     stats["linear1"])
         _put_dense(sd, "linear2", params["linear2"])
         _put_bn(sd, "bn7", params["bn7"], stats["bn7"])
         _put_dense(sd, "linear3", params["linear3"])
@@ -85,15 +115,23 @@ def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
 def load_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a reference ``.t7`` state dict into ``model``, strictly.
 
-    Strips DataParallel's ``module.`` prefix.  Upstream DGCNN_cls registers
-    its BatchNorms twice (``bnI`` and ``convI.1`` over shared storage), so
-    a ``bnI.*`` key whose ``convI.1.*`` twin is present is dropped first."""
+    A checkpoint dict holding the state dict under ``model_state_dict``
+    (the reference's training checkpoints) or ``state_dict``
+    (``train.checkpoint.save_train_checkpoint``) gives that.  Strips
+    DataParallel's ``module.`` prefix.  Upstream registers BatchNorms twice
+    (``bnI`` and ``convI.1`` over shared storage: DGCNN_cls, DGCNN_partseg
+    and its ``transform_net``), so a ``[prefix.]bnI.*`` key whose
+    ``[prefix.]convI.1.*`` twin is present is dropped first."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model_state_dict", "state_dict"):
+        if key in obj and isinstance(obj[key], dict):
+            obj = obj[key]
+            break
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in obj.items()}
     for key in list(sd):
-        m = re.fullmatch(r"bn(\d+)\.(.+)", key)
-        if m and f"conv{m.group(1)}.1.{m.group(2)}" in sd:
+        m = re.fullmatch(r"((?:[^.]+\.)*)bn(\d+)\.([^.]+)", key)
+        if m and f"{m.group(1)}conv{m.group(2)}.1.{m.group(3)}" in sd:
             del sd[key]
     model.load_state_dict(sd, strict=True)
     return model

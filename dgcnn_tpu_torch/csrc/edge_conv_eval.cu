@@ -31,6 +31,15 @@
 // f32 products, which rules out TF32); each graph value read from shared
 // memory feeds one FMA, so shared-memory bandwidth, not the FMA rate, is
 // the first limit of this simple design.
+//
+// The same kernels serve kernel 12, dgcnn_tpu/ops/pallas_banded.py::
+// banded_edge_conv_eval (the --fast_extract path): on a cloud in its
+// PC1-sorted order, each query tile scores only a window of `band` sorted
+// rows.  select_kernel stages that window instead of the whole cloud and
+// its scores cover band / 32 registers a lane, so the staging and the k
+// rounds of arg-max shrink by N / band; the exact stage is the window
+// [0, N).  At the DGCNNPartSeg conv5 shape (B=16, N=2048, Cg=64, band 512)
+// the bound falls with the scores, to 2*B*N*band*Cg flops.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -73,24 +82,33 @@ __global__ void __launch_bounds__(dg::GEMM_THREADS)
   }
 }
 
+// The candidates of query row i are the W rows [start, start + W) of its
+// cloud: start = 0 and W = N for the exact stage; for the banded stage
+// (kernel 12) the cloud is in its PC1-sorted order, start is the window
+// start of i's query tile (starts[(block's first row) / tile]) and W the
+// band.  The window holds every row of its tile, so the query row is one of
+// the staged rows, and a window-local winner j is row start + j of ac.
 template <int NPL>
 __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
     select_kernel(const float* __restrict__ graph, int Cg,
                   const float* __restrict__ sq, const float* __restrict__ ac,
                   int Co, const float* __restrict__ scale,
                   const float* __restrict__ bias, float slope, int N, int k,
+                  const int* __restrict__ starts, int tile, int W,
                   float* __restrict__ out) {
-  extern __shared__ float sg[];  // N rows x CS: CC channels of the cloud
+  extern __shared__ float sg[];  // W rows x CS: CC channels of the window
   constexpr int CPL = dg::Bucket<NPL>::CPL;
+  constexpr int QB = dg::Bucket<NPL>::QB;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * dg::Bucket<NPL>::QB + warp;
+  const int i = blockIdx.x * QB + warp;
+  const int start = starts ? starts[blockIdx.x * QB / tile] : 0;
   float s[NPL];
-  dg::row_scores<NPL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
-                      i, lane, sg, s);
+  dg::row_scores<NPL>(graph + ((size_t)b * N + start) * Cg, Cg,
+                      sq + (size_t)b * N + start, W, i - start, lane, sg, s);
 
   const int row = 2 * Co;
-  const float* A = ac + (size_t)b * N * row;
+  const float* A = ac + ((size_t)b * N + start) * row;
   float mx[CPL], mn[CPL];
 #pragma unroll
   for (int u = 0; u < CPL; ++u) {
@@ -110,7 +128,7 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
     }
   }
 
-  const float* crow = A + (size_t)i * row + Co;
+  const float* crow = ac + ((size_t)b * N + i) * row + Co;
   float* orow = out + ((size_t)b * N + i) * Co;
 #pragma unroll
   for (int u = 0; u < CPL; ++u) {
@@ -122,6 +140,34 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
       orow[c] = y >= 0.f ? y : __fmul_rn(slope, y);
     }
   }
+}
+
+// sqnorm, projection and selection of one stage whose candidates are the
+// windows described above select_kernel.
+cudaError_t launch_stage(const float* graph, const float* x,
+                         const float* wcat, const float* scale,
+                         const float* bias, float* ac, float* sq, float* out,
+                         int B, int N, int Cg, int Cin, int Co, int k,
+                         float slope, const int* starts, int tile, int W,
+                         cudaStream_t st) {
+  const int rows = B * N;
+  cudaError_t e = dg::launch_sqnorm(graph, rows, Cg, sq, st);
+  if (e != cudaSuccess) return e;
+  e = dg::launch_project(x, rows, Cin, wcat, 2 * Co, ac, st);
+  if (e != cudaSuccess) return e;
+  return dg::with_npl(W, [&](auto npl) {
+    constexpr int NPL = decltype(npl)::value;
+    const size_t smem = dg::select_smem_bytes<NPL>(W);
+    constexpr int QB = dg::Bucket<NPL>::QB;
+    cudaError_t err = cudaFuncSetAttribute(
+        select_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    select_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
+        graph, Cg, sq, ac, Co, scale, bias, slope, N, k, starts, tile, W,
+        out);
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -158,23 +204,27 @@ extern "C" int dg_edge_conv_eval(const float* graph, const float* x,
   if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
       Co > dg::max_co(N) || Cg < 1 || Cin < 1 || k < 1 || k > N)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int rows = B * N;
-  cudaError_t e = dg::launch_sqnorm(graph, rows, Cg, sq, st);
-  if (e != cudaSuccess) return (int)e;
-  e = dg::launch_project(x, rows, Cin, wcat, 2 * Co, ac, st);
-  if (e != cudaSuccess) return (int)e;
-  e = dg::with_npl(N, [&](auto npl) {
-    constexpr int NPL = decltype(npl)::value;
-    const size_t smem = dg::select_smem_bytes<NPL>(N);
-    constexpr int QB = dg::Bucket<NPL>::QB;
-    cudaError_t err = cudaFuncSetAttribute(
-        select_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    select_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
-        graph, Cg, sq, ac, Co, scale, bias, slope, N, k, out);
-    return cudaGetLastError();
-  });
-  return (int)e;
+  return (int)launch_stage(graph, x, wcat, scale, bias, ac, sq, out, B, N,
+                           Cg, Cin, Co, k, slope, nullptr, N, N,
+                           (cudaStream_t)stream);
+}
+
+// Kernel 12, banded_edge_conv_eval: the same stage on a cloud in its
+// PC1-sorted order, the candidates of each query tile of `tile` rows the
+// `band` rows from starts[tile index] (the sort, the window starts and the
+// un-sort are the caller's).  starts (N / tile,) int32 on the device; the
+// other arguments as above.  Returns the first CUDA error.
+extern "C" int dg_banded_edge_conv_eval(
+    const float* graph, const float* x, const float* wcat,
+    const float* scale, const float* bias, const int* starts, float* ac,
+    float* sq, float* out, int B, int N, int Cg, int Cin, int Co, int k,
+    int tile, int band, float slope, void* stream) {
+  if (B < 1 || N % 128 != 0 || N > MAX_N || band % 128 != 0 || band < 128 ||
+      band > N || tile % 128 != 0 || tile < 128 || tile > band ||
+      N % tile != 0 || Co < 1 || Co > dg::max_co(band) || Cg < 1 ||
+      Cin < 1 || k < 1 || k > band)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_stage(graph, x, wcat, scale, bias, ac, sq, out, B, N,
+                           Cg, Cin, Co, k, slope, starts, tile, band,
+                           (cudaStream_t)stream);
 }

@@ -26,6 +26,12 @@
 // running max.  Neither the (B, N, k, C1) hidden tensor nor idx reaches
 // device memory.  Each w2 value read from shared memory feeds one FMA, so
 // the per-edge product is shared-memory bound in this simple form.
+//
+// The same kernel serves kernel 13, dgcnn_tpu/ops/pallas_banded.py::
+// banded_knn_edge2 (the --fast_extract path): on a cloud in its PC1-sorted
+// order each query tile's candidates are a window of `band` sorted rows
+// (see knn_edge2_kernel), so the staging, the scores and the arg-max
+// rounds shrink by N / band; the per-edge arithmetic is unchanged.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -45,6 +51,12 @@ struct E2Block {
   static constexpr int QB = NPL >= 64 ? 8 : dg::Bucket<NPL>::QB;
 };
 
+// The candidates of query row i are the W rows [start, start + W) of its
+// cloud: start = 0 and W = N for the exact block; for the banded block the
+// cloud is in its PC1-sorted order, start is the window start of i's query
+// tile (starts[(block's first row) / tile]) and W the band.  The window
+// holds every row of its tile, so the query row is one of the staged rows,
+// and a window-local winner j is row start + j of a1.
 template <int NPL>
 __global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
     knn_edge2_kernel(const float* __restrict__ graph, int Cg,
@@ -56,21 +68,23 @@ __global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
                      const float* __restrict__ t1,
                      const float* __restrict__ s2,
                      const float* __restrict__ t2, float slope, int N, int k,
+                     const int* __restrict__ starts, int tile, int W,
                      float* __restrict__ out) {
   constexpr int QB = E2Block<NPL>::QB;
   extern __shared__ float smem[];
   float* sg = smem;                                          // graph stage
-  float* ws = sg + dg::select_smem_bytes<NPL>(N) / sizeof(float);  // w2
+  float* ws = sg + dg::select_smem_bytes<NPL>(W) / sizeof(float);  // w2
   float* hb = ws + C1 * dg::e2_ldw(C2);                      // QB h1 rows
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * QB + warp;
+  const int start = starts ? starts[blockIdx.x * QB / tile] : 0;
   // row_scores synchronises the block before its first read of shared
   // memory and after its first write, which covers w2 too
   dg::e2_stage_w2(w2, C1, C2, ws);
   float s[NPL];
-  dg::row_scores<NPL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
-                      i, lane, sg, s);
+  dg::row_scores<NPL>(graph + ((size_t)b * N + start) * Cg, Cg,
+                      sq + (size_t)b * N + start, W, i - start, lane, sg, s);
 
   const size_t row = (size_t)b * N + i;
   const dg::E2Centre ctr = dg::e2_centre(b1 + row * C1, s1, t1, C1, lane);
@@ -82,7 +96,7 @@ __global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
     tc2[v] = c < C2 ? t2[c] : 0.f;
     mx[v] = -INFINITY;
   }
-  const float* A = a1 + (size_t)b * N * C1;
+  const float* A = a1 + ((size_t)b * N + start) * C1;
   float* hrow = hb + warp * C1;
   const int ldw = dg::e2_ldw(C2);
   for (int r = 0; r < k; ++r) {
@@ -108,6 +122,33 @@ __global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
   }
 }
 
+// sqnorm and the block kernel over the windows described above
+// knn_edge2_kernel.
+cudaError_t launch_block(const float* graph, const float* a1,
+                         const float* b1, const float* w2, const float* s1,
+                         const float* t1, const float* s2, const float* t2,
+                         float* sq, float* out, int B, int N, int Cg, int C1,
+                         int C2, int k, float slope, const int* starts,
+                         int tile, int W, cudaStream_t st) {
+  cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
+  if (e != cudaSuccess) return e;
+  return dg::with_npl(W, [&](auto npl) {
+    constexpr int NPL = decltype(npl)::value;
+    constexpr int QB = E2Block<NPL>::QB;
+    const size_t smem =
+        dg::select_smem_bytes<NPL>(W) +
+        sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)QB * C1);
+    cudaError_t err = cudaFuncSetAttribute(
+        knn_edge2_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    knn_edge2_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
+        graph, Cg, sq, a1, b1, C1, w2, C2, s1, t1, s2, t2, slope, N, k,
+        starts, tile, W, out);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 // graph (B, N, Cg), a1/b1 (B, N, C1), w2 (C1, C2), s1/t1 (C1,), s2/t2
@@ -122,22 +163,30 @@ extern "C" int dg_knn_edge2(const float* graph, const float* a1,
   if (B < 1 || N % 128 != 0 || N > dg::MAX_N || Cg < 1 || C1 < 1 ||
       C1 > E2_MAXC || C2 < 1 || C2 > E2_MAXC || k < 1 || k > N)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
-  if (e != cudaSuccess) return (int)e;
-  e = dg::with_npl(N, [&](auto npl) {
-    constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = E2Block<NPL>::QB;
-    const size_t smem =
-        dg::select_smem_bytes<NPL>(N) +
-        sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)QB * C1);
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_edge2_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    knn_edge2_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
-        graph, Cg, sq, a1, b1, C1, w2, C2, s1, t1, s2, t2, slope, N, k, out);
-    return cudaGetLastError();
-  });
-  return (int)e;
+  return (int)launch_block(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B, N,
+                           Cg, C1, C2, k, slope, nullptr, N, N,
+                           (cudaStream_t)stream);
+}
+
+// Kernel 13, banded_knn_edge2: the same block on a cloud in its PC1-sorted
+// order, the candidates of each query tile of `tile` rows the `band` rows
+// from starts[tile index] (the sort, the window starts and the un-sort are
+// the caller's).  starts (N / tile,) int32 on the device; the other
+// arguments as above.  Returns the first CUDA error.
+extern "C" int dg_banded_knn_edge2(const float* graph, const float* a1,
+                                   const float* b1, const float* w2,
+                                   const float* s1, const float* t1,
+                                   const float* s2, const float* t2,
+                                   const int* starts, float* sq, float* out,
+                                   int B, int N, int Cg, int C1, int C2,
+                                   int k, int tile, int band, float slope,
+                                   void* stream) {
+  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || band % 128 != 0 ||
+      band < 128 || band > N || tile % 128 != 0 || tile < 128 ||
+      tile > band || N % tile != 0 || Cg < 1 || C1 < 1 || C1 > E2_MAXC ||
+      C2 < 1 || C2 > E2_MAXC || k < 1 || k > band)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_block(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B, N,
+                           Cg, C1, C2, k, slope, starts, tile, band,
+                           (cudaStream_t)stream);
 }

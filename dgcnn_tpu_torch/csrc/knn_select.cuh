@@ -1,6 +1,7 @@
 // The kNN selection every neighbour-picking kernel of the port shares: the
 // select_kernel of edge_conv_eval.cu, the knn_reduce kernels of
-// knn_reduce.cu and knn_edge2.cu.
+// knn_reduce.cu, knn_edge2.cu and knn_idx.cu.  The banded kernels hand
+// row_scores a window of their sorted cloud as the cloud.
 //
 // A warp owns one query row i of a cloud and keeps the scores of its N
 // columns in registers, NPL = N / 32 a lane (column j = 32 * t + lane in

@@ -1,7 +1,9 @@
-"""ModelNet40 and S3DIS (port of those parts of dgcnn_tpu/data/datasets.py).
+"""ModelNet40, ShapeNetPart and S3DIS (port of those parts of
+dgcnn_tpu/data/datasets.py).
 
-Same file globs, lists and fields (``data``/``label``) as the reference,
-and S3DIS's Area-substring split of its rooms.  The data
+Same file globs, lists and fields (``data``/``label``/``pid``) as the
+reference, ShapeNetPart's trainval concat and S3DIS's Area-substring split
+of its rooms.  The data
 root is ``$DGCNN_TPU_DATA``, else ``<repo>/data``.  Nothing is downloaded:
 a missing dataset raises with the path it was looked for at.  ``h5py`` is
 imported only inside the reader.  A dataset can also be built from arrays
@@ -15,6 +17,7 @@ import os
 import numpy as np
 
 from dgcnn_tpu_torch.data import augment
+from dgcnn_tpu_torch.train.metrics import INDEX_START, SEG_NUM
 
 
 def data_root() -> str:
@@ -86,6 +89,141 @@ class ModelNet40:
         """(points (n, num_points, 3) f32, labels (n,) i64), unaugmented."""
         return (np.ascontiguousarray(self.data[:, : self.num_points]),
                 self.label.reshape(-1))
+
+
+def load_data_partseg(partition: str):
+    """ShapeNetPart h5 concat -> (data (n, 2048, 3) f32, label (n, 1) i64,
+    seg (n, 2048) i64); ``trainval`` is the train files, then the val
+    files (reference data.py:98-122)."""
+    base = os.path.join(data_root(), "shapenet_part_seg_hdf5_data")
+    if partition == "trainval":
+        files = (sorted(glob.glob(os.path.join(base, "*train*.h5")))
+                 + sorted(glob.glob(os.path.join(base, "*val*.h5"))))
+    else:
+        files = sorted(glob.glob(os.path.join(base, f"*{partition}*.h5")))
+    if not files:
+        raise FileNotFoundError(
+            f"no ShapeNetPart {partition} files under {base} (set "
+            f"DGCNN_TPU_DATA; this package downloads nothing)")
+    datas, labels, segs = [], [], []
+    for p in files:
+        d, lab, seg = _read_h5(p, ("data", "label", "pid"))
+        datas.append(d.astype("float32"))
+        labels.append(lab.astype("int64"))
+        segs.append(seg.astype("int64"))
+    return (np.concatenate(datas, 0), np.concatenate(labels, 0),
+            np.concatenate(segs, 0))
+
+
+class ShapeNetPart:
+    """Reference data.py ShapeNetPart: the first ``num_points`` points of
+    each shape, its category and its part labels; with ``class_choice``
+    only that category's shapes, whose part labels then start at
+    ``seg_start_index``.  ``batch`` assembles a batch as the JAX package's
+    vectorized loader path does: the trainval partition draws a random
+    point order per shape.  ``data`` (n, P, 3), ``label`` (n, 1) and
+    ``seg`` (n, P) given in memory take the place of the h5 files."""
+
+    CAT2ID = {
+        "airplane": 0, "bag": 1, "cap": 2, "car": 3, "chair": 4,
+        "earphone": 5, "guitar": 6, "knife": 7, "lamp": 8, "laptop": 9,
+        "motor": 10, "mug": 11, "pistol": 12, "rocket": 13,
+        "skateboard": 14, "table": 15,
+    }
+    SEG_NUM = SEG_NUM
+    INDEX_START = INDEX_START
+
+    def __init__(self, num_points: int, partition: str = "train",
+                 class_choice: str | None = None,
+                 data: np.ndarray | None = None,
+                 label: np.ndarray | None = None,
+                 seg: np.ndarray | None = None):
+        if data is None:
+            data, label, seg = load_data_partseg(partition)
+        self.data = np.asarray(data, dtype=np.float32)
+        self.label = np.asarray(label).reshape(-1, 1).astype(np.int64)
+        self.seg = np.asarray(seg).astype(np.int64)
+        self.num_points = num_points
+        self.partition = partition
+        self.class_choice = class_choice
+        if class_choice is not None:
+            cid = self.CAT2ID[class_choice]
+            keep = (self.label == cid).squeeze(1)
+            self.data = self.data[keep]
+            self.label = self.label[keep]
+            self.seg = self.seg[keep]
+            self.seg_num_all = self.SEG_NUM[cid]
+            self.seg_start_index = self.INDEX_START[cid]
+        else:
+            self.seg_num_all = 50
+            self.seg_start_index = 0
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def batch(self, idxs: np.ndarray, rng: np.random.Generator):
+        """(points (b, num_points, 3) f32, labels (b, 1) i64, seg (b,
+        num_points) i64) of shapes ``idxs``, their point order shuffled
+        from ``rng`` in the trainval partition."""
+        pc = self.data[idxs, : self.num_points]
+        seg = self.seg[idxs, : self.num_points]
+        if self.partition == "trainval":
+            order = augment.shuffle_points_batch(rng, *pc.shape[:2])
+            pc = np.take_along_axis(pc, order[:, :, None], axis=1)
+            seg = np.take_along_axis(seg, order, axis=1)
+        else:
+            pc, seg = pc.copy(), seg.copy()
+        return pc, self.label[idxs], seg
+
+
+class ShapeNetPartAugmented:
+    """Reference data.py ShapeNetPartAugmented: whole shapes of
+    ``shapenetpart_{train,test}_dataset.npz`` under the data root (the
+    ShapeNetPart h5s when it is absent), and in the train partition a
+    random order of {translate, jitter, rotate}, each applied or not, per
+    shape.  ``batch`` draws them as the JAX package's vectorized loader
+    path does.  ``data``, ``label`` and ``seg`` given in memory take the
+    place of the files."""
+
+    def __init__(self, partition: str, data: np.ndarray | None = None,
+                 label: np.ndarray | None = None,
+                 seg: np.ndarray | None = None):
+        if partition not in ("train", "trainval", "test"):
+            raise ValueError(f"unknown partition {partition!r}")
+        if partition == "trainval":
+            partition = "train"
+        self.partition = partition
+        if data is None:
+            path = os.path.join(data_root(),
+                                f"shapenetpart_{partition}_dataset.npz")
+            if os.path.exists(path):
+                z = np.load(path)
+                data, label, seg = z["data"], z["label"], z["seg"]
+            else:
+                data, label, seg = load_data_partseg(
+                    "trainval" if partition == "train" else "test")
+        self.data, self.label, self.seg = data, label, seg
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def batch(self, idxs: np.ndarray, rng: np.random.Generator):
+        """(points, labels, seg) of shapes ``idxs``: each train shape draws
+        an order of the three augmentations and an on/off choice for each,
+        run as three slots of three masked whole-batch passes."""
+        pc = np.asarray(self.data[idxs], dtype=np.float32).copy()
+        b = pc.shape[0]
+        if self.partition == "train":
+            batched = [augment.translate_batch, augment.jitter_batch,
+                       augment.rotate_batch]
+            order = np.argsort(rng.random((b, 3)), axis=1)
+            choices = rng.integers(0, 2, size=(b, 3)).astype(bool)
+            for slot in range(3):
+                for f in range(3):
+                    apply = (order[:, slot] == f) & choices[:, f]
+                    if apply.any():
+                        pc = batched[f](pc, rng, apply=apply)
+        return pc, self.label[idxs], self.seg[idxs]
 
 
 def _s3dis_dir(partition: str) -> str:

@@ -1,12 +1,21 @@
 """Models of dgcnn_tpu/models/dgcnn.py (``DGCNNCls``, ``PointNet``,
-``DGCNNSemSeg``), for evaluation and training.
+``TransformNet``, ``DGCNNPartSeg``, ``DGCNNSemSeg``), for evaluation and
+training.
 
 Parameters use the reference state-dict layouts, the ones
 ``dgcnn_tpu/convert/torch_export.py`` writes: ``export_dgcnn_cls``
 (``model.cls.1024.t7``: ``conv1.0.weight`` (64, 6, 1, 1), ``conv1.1.*``,
 ..., ``conv5.0.weight`` (emb, 512, 1), ``linear1``, ``bn6``, ``linear2``,
-``bn7``, ``linear3``) and ``export_dgcnn_semseg`` (``conv1``-``conv8`` as
-Conv + BatchNorm pairs, ``conv9.weight`` (classes, 256, 1)).
+``bn7``, ``linear3``), ``export_dgcnn_partseg`` (``transform_net.*`` in
+``export_transform_net``'s layout without its ``bn1``-``bn3`` aliases,
+``conv1``-``conv10`` as Conv + BatchNorm pairs, ``conv11.weight`` (parts,
+128, 1)) and ``export_dgcnn_semseg`` (``conv1``-``conv8`` as Conv +
+BatchNorm pairs, ``conv9.weight`` (classes, 256, 1)).
+
+The eval forwards of ``DGCNNPartSeg`` and ``DGCNNSemSeg`` take a ``band``
+(their attribute): one that prunes the N points (``banded_applicable``)
+runs the EdgeConv stages of the backbone through the banded kernels of
+ops/banded.py, the JAX package's ``--fast_extract`` path; 0 is exact.
 """
 from __future__ import annotations
 
@@ -24,10 +33,12 @@ from dgcnn_tpu_torch.models.nn_layers import (
     Weight,
     leaky_relu,
 )
+from dgcnn_tpu_torch.ops.banded import banded_applicable, banded_knn_edge2
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool
 from dgcnn_tpu_torch.ops.edge2_kernel import knn_edge2
 from dgcnn_tpu_torch.ops.edge2_reduce import edge2_reduce
 from dgcnn_tpu_torch.ops.edge_conv import _project, edge_stats_from_sums
+from dgcnn_tpu_torch.ops.graph import get_graph_feature
 from dgcnn_tpu_torch.ops.knn_edge_reduce import knn_edge_reduce
 from dgcnn_tpu_torch.ops.pool import global_max, global_mean
 
@@ -38,7 +49,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     CPU from ``generator`` (a CPU generator, so the same seed gives the same
     weights on any device):
     weights N(0, 1/fan_in), biases N(0, 0.1^2), BN scales of either sign,
-    running means near 0 and running variances in [0.5, 2)."""
+    running means near 0 and running variances in [0.5, 2).  A
+    TransformNet's 3x3 bias gets the identity added, as its flax init
+    has."""
 
     for mod in model.modules():
         if isinstance(mod, BatchNorm):
@@ -58,6 +71,9 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             std = (1.0 / math.sqrt(math.prod(p.shape[1:]))
                    if name == "weight" else 0.1)
             p.normal_(0.0, std, generator=generator)
+    for mod in model.modules():
+        if isinstance(mod, TransformNet):
+            mod.transform.bias.add_(torch.eye(3).reshape(9))
     return model
 
 
@@ -68,7 +84,8 @@ def init_like_flax_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     stream): every weight lecun-normal (normal with std sqrt(1 / fan_in)
     / 0.8796, truncated at two of those std; each half of an EdgeConv
     weight has its own fan_in, as ``w_nbr`` and ``w_ctr`` do), biases 0,
-    BatchNorm weight 1, bias 0 and running statistics 0 and 1."""
+    BatchNorm weight 1, bias 0 and running statistics 0 and 1; a
+    TransformNet's 3x3 layer weight 0 and bias the identity."""
     edge_weights = {id(m[0]) for m in model.modules()
                     if isinstance(m, EdgeConv)}
     for mod in model.modules():
@@ -85,17 +102,22 @@ def init_like_flax_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
                 nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
                                       generator=generator)
+    for mod in model.modules():
+        if isinstance(mod, TransformNet):
+            mod.transform.weight.zero_()
+            mod.transform.bias.copy_(torch.eye(3).reshape(9))
     return model
 
 
 def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
                 graph: torch.Tensor, k: int, train: bool,
-                slope: float = 0.2) -> torch.Tensor:
+                slope: float = 0.2, band: int = 0) -> torch.Tensor:
     """Two-conv EdgeConv stage (port of ``_edge_block2``, the upstream
     partseg/semseg block): conv ``ec`` on [neighbour, centre] edge features
     -> BN -> LeakyReLU -> conv ``cb`` -> BN -> LeakyReLU -> max over the k
     neighbours in ``graph``'s kNN.  No per-edge tensor is built: eval runs
-    one kernel (``knn_edge2``); training runs ``knn_edge_reduce`` for the
+    one kernel (``knn_edge2``, or ``banded_knn_edge2`` with a ``band``
+    that prunes the N points); training runs ``knn_edge_reduce`` for the
     neighbours and the first BatchNorm's statistics in closed form, then
     ``edge2_reduce`` for the second's and the max/min the output selects
     from.  CUDA tensors launch the kernels, CPU tensors take their plain
@@ -107,6 +129,9 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
     if not train:
         s1, t1 = ec[1].folded()
         s2, t2 = cb[1].folded()
+        if banded_applicable(graph.shape[1], band):
+            return banded_knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k,
+                                    band, slope)
         return knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k, slope)
     idx, _, _, asum1, asumsq1 = knn_edge_reduce(graph, a1, k)
     count = x.shape[0] * x.shape[1] * k
@@ -135,6 +160,55 @@ def embed_max_pool(cb: ConvBN, x: torch.Tensor, train: bool) -> torch.Tensor:
 
 def _seeded(generator: torch.Generator | None) -> torch.Generator:
     return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+class TransformNet(nn.Module):
+    """Spatial transformer predicting a 3x3 alignment matrix (upstream
+    Transform_Net, ``dgcnn_tpu/models/dgcnn.py::TransformNet`` built from
+    the points): conv1 6 -> 64 and conv2 64 -> 128 over the [neighbour,
+    centre] edge features of the points' kNN graph, max over the k
+    neighbours, conv3 128 -> 1024 + max over the points, Linear 512 and
+    256 (BatchNorm, LeakyReLU), then the 3x3 layer ``transform``.
+
+    Input (B, N, 3) points -> (B, 3, 3).  In eval the two convs and the
+    max over k are one ``knn_edge2`` launch over the points (conv1 of the
+    concat factors into its row slices) and conv3 + max one ``conv_pool``
+    launch; in training ``get_graph_feature`` (kernel 11) builds the (B, N,
+    k, 6) edge tensor, which conv1 and conv2 run on in torch with their
+    BatchNorm over B*N*k, as in the JAX package.  CUDA tensors launch the
+    kernels, CPU tensors take their plain versions."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv1 = ConvBN(6, 64, dims=2)
+        self.conv2 = ConvBN(64, 128, dims=2)
+        self.conv3 = ConvBN(128, 1024, dims=1)
+        # the reference's Sequential(Linear, BN, LeakyReLU, Linear, BN,
+        # LeakyReLU): keys linear.0, linear.1, linear.3 and linear.4
+        self.linear = nn.Sequential(
+            Linear(1024, 512, bias=False), BatchNorm(512), nn.Identity(),
+            Linear(512, 256, bias=False), BatchNorm(256))
+        self.transform = Linear(256, 9)
+
+    def forward(self, x: torch.Tensor, k: int,
+                train: bool = False) -> torch.Tensor:
+        if train:
+            e = get_graph_feature(x, k)
+            t = self.conv2(self.conv1(e, train), train).amax(dim=2)
+        else:
+            c = x.shape[-1]
+            w1 = self.conv1.kernel()
+            s1, t1 = self.conv1[1].folded()
+            s2, t2 = self.conv2[1].folded()
+            # edge concat order [neighbour, centre]
+            t = knn_edge2(x, _project(x, w1[:c]), _project(x, w1[c:]), s1,
+                          t1, self.conv2.kernel(), s2, t2, k,
+                          self.conv1.negative_slope)
+        t = embed_max_pool(self.conv3, t, train)[:, 0]        # (B, 1024)
+        for lin, bn in ((self.linear[0], self.linear[1]),
+                        (self.linear[3], self.linear[4])):
+            t = leaky_relu(bn(lin(t), train))
+        return self.transform(t).reshape(-1, 3, 3)
 
 
 class DGCNNCls(nn.Module):
@@ -226,6 +300,69 @@ class PointNet(nn.Module):
         return self.linear2(x)
 
 
+class DGCNNPartSeg(nn.Module):
+    """Canonical part-segmentation network (upstream DGCNN_partseg): the
+    TransformNet's 3x3 applied to the points, two two-conv EdgeConv stages
+    (each 64, 64) and one EdgeConv 64 -> 64, conv6 192 -> emb + max over
+    the points, conv7 16 -> 64 on the category one-hot, then per point
+    [global feature, label feature, the three stage outputs] -> conv8 256
+    -> dropout ``dp1`` -> conv9 256 -> dropout ``dp2`` -> conv10 128 ->
+    conv11 to the part labels (no bias).
+
+    Input (B, N, 3) points and (B, 16) category one-hot -> per-point
+    logits (B, N, parts).  In eval on CUDA the TransformNet and the two
+    two-conv stages run knn_edge2 (with ``band``: the stages run
+    banded_knn_edge2), conv5 edge_conv_eval (banded_edge_conv_eval) and
+    conv3 / conv6 + pool conv_pool; in training on CUDA the TransformNet's
+    graph runs kernel 11 (knn), the two-conv stages knn_edge_reduce +
+    edge2_reduce and conv5 knn_edge_reduce (backward: edge_reduce_bwd and
+    edge2_bwd), the pools plain torch, as in the JAX package.  On the CPU
+    the kernels' plain versions run."""
+
+    def __init__(self, emb_dims: int = 1024, k: int = 40,
+                 dropout: float = 0.5, seg_num_all: int = 50, band: int = 0,
+                 device="cuda", generator: torch.Generator | None = None):
+        super().__init__()
+        self.k = k
+        self.band = band
+        self.transform_net = TransformNet()
+        self.conv1 = EdgeConv(3, 64)
+        self.conv2 = ConvBN(64, 64, dims=2)
+        self.conv3 = EdgeConv(64, 64)
+        self.conv4 = ConvBN(64, 64, dims=2)
+        self.conv5 = EdgeConv(64, 64)
+        self.conv6 = ConvBN(192, emb_dims, dims=1)
+        self.conv7 = ConvBN(16, 64, dims=1)
+        self.conv8 = ConvBN(emb_dims + 64 + 192, 256, dims=1)
+        self.dp1 = Dropout(dropout)
+        self.conv9 = ConvBN(256, 256, dims=1)
+        self.dp2 = Dropout(dropout)
+        self.conv10 = ConvBN(256, 128, dims=1)
+        self.conv11 = Weight((seg_num_all, 128, 1))
+        init_random_(self, _seeded(generator))
+        self.to(device)
+        self.eval()
+
+    def forward(self, x: torch.Tensor, label_one_hot: torch.Tensor,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        kk, band = self.k, self.band
+        t = self.transform_net(x, kk, train)                 # (B, 3, 3)
+        x = torch.einsum("bnc,bcd->bnd", x, t)
+        x1 = edge_block2(self.conv1, self.conv2, x, x, kk, train, band=band)
+        x2 = edge_block2(self.conv3, self.conv4, x1, x1, kk, train,
+                         band=band)
+        x3 = self.conv5(x2, train=train, graph=x2, k=kk, band=band)
+        cat = torch.cat([x1, x2, x3], dim=-1)                 # (B, N, 192)
+        g = embed_max_pool(self.conv6, cat, train)            # (B, 1, emb)
+        lbl = self.conv7(label_one_hot[:, None, :], train)    # (B, 1, 64)
+        g = torch.cat([g, lbl], dim=-1).expand(-1, x.shape[1], -1)
+        h = self.conv8(torch.cat([g, cat], dim=-1), train)
+        h = self.conv9(self.dp1(h, train, generator), train)
+        h = self.conv10(self.dp2(h, train, generator), train)
+        return torch.matmul(h, self.conv11.weight[:, :, 0].t())
+
+
 class DGCNNSemSeg(nn.Module):
     """Canonical semantic-segmentation network (upstream DGCNN_semseg):
     9-channel S3DIS blocks, the first graph over the normalized room
@@ -235,17 +372,19 @@ class DGCNNSemSeg(nn.Module):
     conv8 256 -> dropout ``dp1`` -> conv9 to the classes (no bias).
 
     Input (B, N, 9) -> per-point logits (B, N, classes).  In eval on CUDA
-    the two-conv stages run knn_edge2, conv5 edge_conv_eval and conv6 +
-    pool conv_pool; in training on CUDA the two-conv stages run
+    the two-conv stages run knn_edge2 (with ``band``: banded_knn_edge2),
+    conv5 edge_conv_eval (banded_edge_conv_eval) and conv6 + pool
+    conv_pool; in training on CUDA the two-conv stages run
     knn_edge_reduce + edge2_reduce and conv5 knn_edge_reduce (backward:
     edge_reduce_bwd and edge2_bwd), conv6 + pool plain torch, as in the JAX
     package.  On the CPU the kernels' plain versions run."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 20,
-                 dropout: float = 0.5, num_classes: int = 13,
+                 dropout: float = 0.5, num_classes: int = 13, band: int = 0,
                  device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         self.k = k
+        self.band = band
         self.conv1 = EdgeConv(9, 64)
         self.conv2 = ConvBN(64, 64, dims=2)
         self.conv3 = EdgeConv(64, 64)
@@ -262,12 +401,13 @@ class DGCNNSemSeg(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        kk = self.k
+        kk, band = self.k, self.band
         # first graph: neighbours by the normalized room coordinates
         x1 = edge_block2(self.conv1, self.conv2, x,
-                         x[..., 6:9].contiguous(), kk, train)
-        x2 = edge_block2(self.conv3, self.conv4, x1, x1, kk, train)
-        x3 = self.conv5(x2, train=train, graph=x2, k=kk)
+                         x[..., 6:9].contiguous(), kk, train, band=band)
+        x2 = edge_block2(self.conv3, self.conv4, x1, x1, kk, train,
+                         band=band)
+        x3 = self.conv5(x2, train=train, graph=x2, k=kk, band=band)
         cat = torch.cat([x1, x2, x3], dim=-1)                 # (B, N, 192)
         g = embed_max_pool(self.conv6, cat, train)            # (B, 1, emb)
         h = torch.cat([g.expand(-1, x.shape[1], -1), cat], dim=-1)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from dgcnn_tpu_torch.ops.banded import banded_applicable, banded_edge_conv_eval
 from dgcnn_tpu_torch.ops.edge_conv import (
     _project,
     edge_conv_batch_stats,
@@ -182,13 +183,15 @@ class EdgeConv(nn.Sequential):
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor | None = None,
                 train: bool = False, *, graph: torch.Tensor | None = None,
-                k: int | None = None) -> torch.Tensor:
+                k: int | None = None, band: int = 0) -> torch.Tensor:
         """Either neighbour ``idx`` (B, N, k), or ``graph`` + ``k`` to build
         the graph in the layer.  With ``graph``, eval runs the whole stage
-        as one kernel (ops/edge_conv_kernel.py) and training runs the
-        differentiable kNN reductions (ops/knn_edge_reduce.py): kernels for
-        CUDA tensors, which raise on shapes they do not take, and their
-        plain versions for CPU tensors."""
+        as one kernel (ops/edge_conv_kernel.py; with a ``band`` that prunes
+        N points, ``banded_applicable``, the banded kernel of
+        ops/banded.py) and training runs the differentiable kNN reductions
+        (ops/knn_edge_reduce.py): kernels for CUDA tensors, which raise on
+        shapes they do not take, and their plain versions for CPU
+        tensors."""
         w_nbr, w_ctr = self.split_weights()
         bn = self[1]
         if idx is None:
@@ -197,6 +200,9 @@ class EdgeConv(nn.Sequential):
             if train:
                 return self._train_fused(x, graph, k, w_nbr, w_ctr)
             s, t = bn.folded()
+            if banded_applicable(graph.shape[1], band):
+                return banded_edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
+                                             band, self.negative_slope)
             return edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
                                   self.negative_slope)
         if train:

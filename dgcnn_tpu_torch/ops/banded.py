@@ -1,0 +1,290 @@
+"""Banded (approximate) eval EdgeConv stages, the ``--fast_extract`` path
+(port of dgcnn_tpu/ops/pallas_banded.py), and kernels 12 and 13.
+
+Each stage's candidates are pruned to a band:
+
+  1. the points are ordered by their projection onto the leading principal
+     component of the stage's graph features (``pc1_key``: 8 power
+     iterations on the (C, C) covariance);
+  2. the query rows of each tile of that order score only a window of
+     ``band`` sorted rows centred on the tile and clamped at the ends
+     (``band_starts``), ties going to the lowest window position;
+  3. the stage output is un-sorted back to the input order (EdgeConv is
+     permutation-equivariant, so only the windowing approximates).
+
+The sort, the window starts and the un-sort are plain torch on either
+device, as they are XLA in the JAX package.  On sorted inputs,
+``banded_edge_conv_eval`` launches kernel 12 (``csrc/edge_conv_eval.cu``,
+``dg_banded_edge_conv_eval``; it replaces
+``dgcnn_tpu/ops/pallas_banded.py::banded_edge_conv_eval``) and
+``banded_knn_edge2`` kernel 13 (``csrc/knn_edge2.cu``,
+``dg_banded_knn_edge2``; it replaces ``::banded_knn_edge2``): the exact
+stage kernels with each query tile's window in the place of the cloud.
+The ``*_plain`` versions beside them build the (B, T, band, C) windows
+of the sorted graph as the JAX package does; CPU tensors take them.  Both
+take an ``order`` to share one sort between them (a sum taken in another
+order can swap two close keys, which moves a point to another window).
+
+The JAX package reads ``DGCNN_TPU_FAST_EXTRACT`` when it traces; here the
+band is an argument of the models (``cli.common.resolve_band`` reads the
+flag and the variable).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.edge2_kernel import MAX_C, edge2_z2
+from dgcnn_tpu_torch.ops.edge_conv import edge_conv_fused
+from dgcnn_tpu_torch.ops.knn import MAX_N, pairwise_neg_sqdist
+from dgcnn_tpu_torch.ops.knn_reduce_kernel import max_co
+
+TILE_N = 128
+
+
+def banded_applicable(n: int, band: int) -> bool:
+    """Whether a band prunes the candidates of an N-point cloud."""
+    return 0 < band < n and n % TILE_N == 0 and band % TILE_N == 0
+
+
+def pick_tile(n: int) -> int:
+    """The JAX package's query tile at N points
+    (``pallas_knn._pick_tile``): the largest of 512, 256 and 128 that
+    divides N and keeps a (tile, N) f32 score block within 2 MiB."""
+    for tile in (512, 256, 128):
+        if n % tile == 0 and tile * n * 4 <= 2 * 1024 * 1024:
+            return tile
+    return TILE_N
+
+
+def band_tile(n: int, band: int) -> int:
+    """The query tile whose rows share one window: ``pick_tile(n)``, at
+    most the band, lowered by 128 until it divides N (256 at N=2048, 128
+    at N=4096)."""
+    tile = min(pick_tile(n), band)
+    while n % tile:
+        tile -= TILE_N
+    return tile
+
+
+def band_starts(n: int, tile: int, band: int) -> np.ndarray:
+    """(N / tile,) int32 window starts: centred on each tile, clamped to
+    [0, N - band]."""
+    centers = np.arange(n // tile) * tile + tile // 2
+    return np.clip(centers - band // 2, 0, n - band).astype(np.int32)
+
+
+def pc1_key(g: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) -> (B, N) projection of the centred points onto the
+    leading principal component (8 power iterations on the covariance, in
+    f32 like every matmul of the port: torch's default, TF32 off; its sign
+    does not matter)."""
+    gf = g.detach().float()
+    gc = gf - gf.mean(dim=1, keepdim=True)
+    cov = torch.einsum("bnc,bnd->bcd", gc, gc)
+    v = torch.ones(g.shape[0], g.shape[2], device=g.device)
+    for _ in range(8):
+        v = torch.einsum("bcd,bd->bc", cov, v)
+        v = v / torch.linalg.norm(v, dim=-1, keepdim=True).clamp(min=1e-12)
+    return torch.einsum("bnc,bc->bn", gc, v)
+
+
+def sorted_order(graph: torch.Tensor) -> torch.Tensor:
+    """(B, N) int64: each cloud's points in ascending ``pc1_key`` order
+    (a stable sort, as ``jnp.argsort``)."""
+    return torch.sort(pc1_key(graph), dim=1, stable=True).indices
+
+
+def inverse_order(order: torch.Tensor) -> torch.Tensor:
+    inv = torch.empty_like(order)
+    pos = torch.arange(order.shape[1], device=order.device)
+    return inv.scatter_(1, order, pos.expand_as(order).contiguous())
+
+
+def sort_rows(arr: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) rows in ``order`` (B, N)."""
+    return torch.gather(arr, 1, order[..., None].expand(-1, -1, arr.shape[2]))
+
+
+def banded_knn_plain(gs: torch.Tensor, k: int, band: int) -> torch.Tensor:
+    """(B, N, k) int64 sorted-order neighbours of a PC1-sorted cloud ``gs``
+    (B, N, C): each query tile's k best of its window, lowest window
+    position first among equal scores."""
+    b, n, c = gs.shape
+    tile = band_tile(n, band)
+    starts = torch.from_numpy(band_starts(n, tile, band)).long().to(gs.device)
+    t = n // tile
+    cols = (starts[:, None] + torch.arange(band, device=gs.device)).reshape(-1)
+    win = gs[:, cols].reshape(b * t, band, c)
+    scores = pairwise_neg_sqdist(gs.reshape(b * t, tile, c), win)
+    local = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    idx = local[..., :k].reshape(b, t, tile, k) + starts[None, :, None, None]
+    return idx.reshape(b, n, k)
+
+
+def _require(name: str, cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {msg}")
+
+
+def _check(name: str, tensors, n: int, k: int, band: int) -> None:
+    graph = tensors[0]
+    _require(name, graph.is_cuda, f"no kernel for device {graph.device}")
+    _require(name, all(t.device == graph.device for t in tensors),
+             "all tensors must be on one device")
+    _require(name, all(t.dtype == torch.float32 for t in tensors),
+             "tensors must be float32")
+    _require(name, graph.dim() == 3, "graph must be (B, N, Cg)")
+    _require(name, n % TILE_N == 0 and n <= MAX_N,
+             f"N={n} must be a multiple of {TILE_N} and <= {MAX_N}")
+    _require(name, band % TILE_N == 0 and TILE_N <= band <= n,
+             f"band={band} must be a multiple of {TILE_N} in 128..N={n}")
+    _require(name, 1 <= k <= band, f"k={k} out of range for band={band}")
+
+
+def _launch_setup(graph: torch.Tensor, order, band: int):
+    """The order, its inverse, the tile and the window starts on the
+    device."""
+    if order is None:
+        order = sorted_order(graph)
+    n = graph.shape[1]
+    tile = band_tile(n, band)
+    starts = torch.from_numpy(band_starts(n, tile, band)).to(graph.device)
+    return order, inverse_order(order), tile, starts
+
+
+def banded_edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
+                                band: int, slope: float = 0.2,
+                                order: torch.Tensor | None = None):
+    """Plain torch version of kernel 12: (B, N, Co) f32 in the input
+    order."""
+    if order is None:
+        order = sorted_order(graph)
+    idx = banded_knn_plain(sort_rows(graph, order), k, band)
+    out = edge_conv_fused(sort_rows(x, order), idx, w_nbr, w_ctr, scale,
+                          bias, slope)
+    return sort_rows(out, inverse_order(order))
+
+
+def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
+                          w_nbr: torch.Tensor, w_ctr: torch.Tensor,
+                          scale: torch.Tensor, bias: torch.Tensor, k: int,
+                          band: int, slope: float = 0.2,
+                          order: torch.Tensor | None = None) -> torch.Tensor:
+    """``edge_conv_eval`` (kNN over ``graph`` (B, N, Cg), factorized conv of
+    ``x`` (B, N, Cin) with ``w_nbr``/``w_ctr`` (Cin, Co), max/min over the
+    k neighbours, folded-BN affine, LeakyReLU) with each point's candidates
+    pruned to the band of its query tile in ``order`` (B, N) (default:
+    ``sorted_order(graph)``) -> (B, N, Co) in the input order.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes f32 tensors with N a multiple of 128 up to 4096, a band
+    that is a multiple of 128 up to N, k <= band and Co <= 256, and raises
+    on anything else."""
+    if graph.device.type == "cpu":
+        return banded_edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale,
+                                           bias, k, band, slope, order)
+    name = "banded_edge_conv_eval"
+    b, n, cg = graph.shape
+    cin, co = w_nbr.shape
+    _check(name, (graph, x, w_nbr, w_ctr, scale, bias), n, k, band)
+    _require(name, x.shape == (b, n, cin) and w_ctr.shape == (cin, co)
+             and scale.shape == (co,) and bias.shape == (co,),
+             f"x {tuple(x.shape)}, w {tuple(w_nbr.shape)}/"
+             f"{tuple(w_ctr.shape)}, scale/bias (Co,) vs graph "
+             f"{tuple(graph.shape)}")
+    _require(name, co <= max_co(band), f"Co={co} > {max_co(band)}")
+    order, inv, tile, starts = _launch_setup(graph, order, band)
+    fn = _build.load_library().dg_banded_edge_conv_eval
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p]
+        fn.restype = i
+    # the launch is asynchronous on torch's current stream: tensors made here
+    # and freed on return are reused by the caching allocator only for work
+    # queued after it on that stream
+    gs = sort_rows(graph, order)
+    xs = sort_rows(x, order)
+    wcat = torch.cat([w_nbr, w_ctr], dim=1).contiguous()
+    scale, bias = scale.contiguous(), bias.contiguous()
+    ac = torch.empty((b * n, 2 * co), device=graph.device, dtype=torch.float32)
+    sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)
+    out = torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
+    p = _build.ptr
+    with torch.cuda.device(graph.device):
+        rc = fn(p(gs), p(xs), p(wcat), p(scale), p(bias), p(starts), p(ac),
+                p(sq), p(out), b, n, cg, cin, co, k, tile, band, float(slope),
+                _build.stream_of(graph))
+    _build.check(rc, name)
+    banded_edge_conv_eval.launches += 1
+    return sort_rows(out, inv)
+
+
+def banded_knn_edge2_plain(graph, a1, b1, s1, t1, w2, s2, t2, k: int,
+                           band: int, slope: float = 0.2,
+                           order: torch.Tensor | None = None):
+    """Plain torch version of kernel 13: (B, N, C2) f32 in the input
+    order."""
+    if order is None:
+        order = sorted_order(graph)
+    idx = banded_knn_plain(sort_rows(graph, order), k, band)
+    z2 = edge2_z2(sort_rows(a1, order), sort_rows(b1, order), s1, t1, w2,
+                  idx, slope) * s2 + t2
+    out = torch.where(z2 >= 0, z2, slope * z2).amax(dim=2)
+    return sort_rows(out, inverse_order(order))
+
+
+def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
+                     s1: torch.Tensor, t1: torch.Tensor, w2: torch.Tensor,
+                     s2: torch.Tensor, t2: torch.Tensor, k: int, band: int,
+                     slope: float = 0.2,
+                     order: torch.Tensor | None = None) -> torch.Tensor:
+    """``knn_edge2`` (the two-conv block: for each neighbour j of point i
+    ``LReLU((LReLU((a1[j] + b1[i]) * s1 + t1) @ w2) * s2 + t2)``, max over
+    the neighbours) with each point's candidates pruned to the band of its
+    query tile in ``order`` (B, N) (default: ``sorted_order(graph)``) ->
+    (B, N, C2) in the input order.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    which takes f32 tensors with N a multiple of 128 up to 4096, a band
+    that is a multiple of 128 up to N, k <= band and C1, C2 <= 128, and
+    raises on anything else."""
+    if graph.device.type == "cpu":
+        return banded_knn_edge2_plain(graph, a1, b1, s1, t1, w2, s2, t2, k,
+                                      band, slope, order)
+    name = "banded_knn_edge2"
+    b, n, cg = graph.shape
+    c1, c2 = w2.shape
+    _check(name, (graph, a1, b1, s1, t1, w2, s2, t2), n, k, band)
+    _require(name, a1.shape == (b, n, c1) and b1.shape == (b, n, c1)
+             and s1.shape == (c1,) and t1.shape == (c1,)
+             and s2.shape == (c2,) and t2.shape == (c2,),
+             f"a1 {tuple(a1.shape)}, b1 {tuple(b1.shape)}, affines vs graph "
+             f"{tuple(graph.shape)} and w2 {tuple(w2.shape)}")
+    _require(name, c1 <= MAX_C and c2 <= MAX_C, f"C1, C2 must be <= {MAX_C}")
+    order, inv, tile, starts = _launch_setup(graph, order, band)
+    fn = _build.load_library().dg_banded_knn_edge2
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 11 + [i] * 8 + [ctypes.c_float, p]
+        fn.restype = i
+    gs, a1s, b1s = (sort_rows(t, order) for t in (graph, a1, b1))
+    small = [t.contiguous() for t in (w2, s1, t1, s2, t2)]
+    sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)
+    out = torch.empty((b, n, c2), device=graph.device, dtype=torch.float32)
+    p = _build.ptr
+    with torch.cuda.device(graph.device):
+        rc = fn(p(gs), p(a1s), p(b1s), *map(p, small), p(starts), p(sq),
+                p(out), b, n, cg, c1, c2, k, tile, band, float(slope),
+                _build.stream_of(graph))
+    _build.check(rc, name)
+    banded_knn_edge2.launches += 1
+    return sort_rows(out, inv)
+
+
+# launches of the kernels since the counts were last set to 0
+banded_edge_conv_eval.launches = 0
+banded_knn_edge2.launches = 0

@@ -15,8 +15,7 @@ import torch
 
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import knn
-from dgcnn_tpu_torch.ops.knn_reduce_kernel import MAX_N
+from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
 
 MAX_C = 128
 
@@ -31,7 +30,7 @@ def edge2_z2(a1, b1, s1, t1, w2, idx, slope: float = 0.2) -> torch.Tensor:
 def knn_edge2_plain(graph, a1, b1, s1, t1, w2, s2, t2, k: int,
                     slope: float = 0.2) -> torch.Tensor:
     """Plain torch version of the kernel: (B, N, C2) f32."""
-    z2 = edge2_z2(a1, b1, s1, t1, w2, knn(graph, k), slope) * s2 + t2
+    z2 = edge2_z2(a1, b1, s1, t1, w2, knn_plain(graph, k), slope) * s2 + t2
     return torch.where(z2 >= 0, z2, slope * z2).amax(dim=2)
 
 

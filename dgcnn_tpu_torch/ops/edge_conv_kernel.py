@@ -15,14 +15,15 @@ import torch
 
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.edge_conv import edge_conv_fused
-from dgcnn_tpu_torch.ops.knn import knn
-from dgcnn_tpu_torch.ops.knn_reduce_kernel import MAX_N, max_co
+from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
+from dgcnn_tpu_torch.ops.knn_reduce_kernel import max_co
 
 
 def edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
                          slope: float = 0.2) -> torch.Tensor:
     """Plain torch version of the kernel: (B, N, Co) f32."""
-    return edge_conv_fused(x, knn(graph, k), w_nbr, w_ctr, scale, bias, slope)
+    return edge_conv_fused(x, knn_plain(graph, k), w_nbr, w_ctr, scale, bias,
+                           slope)
 
 
 def _lib():

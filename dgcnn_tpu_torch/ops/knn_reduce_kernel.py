@@ -23,9 +23,7 @@ import torch
 
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import knn
-
-MAX_N = 4096
+from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
 
 
 def max_co(n: int) -> int:
@@ -37,7 +35,7 @@ def max_co(n: int) -> int:
 def knn_reduce_plain(graph: torch.Tensor, a: torch.Tensor, k: int):
     """Plain torch version of kernel 3: (idx (B, N, k) int32, amax, amin,
     asum, asumsq (B, N, Co))."""
-    idx = knn(graph, k)
+    idx = knn_plain(graph, k)
     ag = gather_neighbors(a, idx)
     return (idx.int(), ag.amax(dim=2), ag.amin(dim=2), ag.sum(dim=2),
             ag.square().sum(dim=2))

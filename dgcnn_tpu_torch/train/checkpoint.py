@@ -4,8 +4,9 @@
   state-dict layout (``model.cls.1024.t7``), written with ``torch.save``;
   ``convert.load_checkpoint`` reads it, as it reads a reference ``.t7``.
 * ``save_train_checkpoint``/``load_train_checkpoint``: ``{epoch, step,
-  state_dict, optimizer, loss}``, enough to resume, the schedule's step
-  included.
+  micro, acc, state_dict, optimizer, loss}``, enough to resume, the
+  schedule's step and a gradient accumulation in progress included.
+  ``convert.load_checkpoint`` reads its ``state_dict`` into a model.
 
 Files are read with ``torch.load(weights_only=True)``.  Flax ``.msgpack``
 checkpoints are not read yet (see ROADMAP.md).
@@ -38,6 +39,7 @@ def save_train_checkpoint(path: str, model: torch.nn.Module, opt, epoch: int,
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     state = opt.state_dict()
     torch.save({"epoch": int(epoch), "step": state["step"],
+                "micro": state["micro"], "acc": state["acc"],
                 "state_dict": _host_state(model),
                 "optimizer": state["optimizer"], "loss": float(loss)}, path)
 
@@ -47,6 +49,6 @@ def load_train_checkpoint(path: str, model: torch.nn.Module,
     """Restore ``model`` and ``opt`` in place -> (epoch, loss)."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(payload["state_dict"], strict=True)
-    opt.load_state_dict({"optimizer": payload["optimizer"],
-                         "step": payload["step"]})
+    opt.load_state_dict({key: payload[key] for key in (
+        "optimizer", "step", "micro", "acc") if key in payload})
     return int(payload["epoch"]), float(payload["loss"])

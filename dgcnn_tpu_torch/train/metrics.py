@@ -1,9 +1,14 @@
-"""Classification metrics with sklearn semantics and the semantic
-segmentation IoU, in numpy (copy of the numpy part of
-dgcnn_tpu/train/metrics.py)."""
+"""Classification metrics with sklearn semantics, the part segmentation
+and semantic segmentation IoUs and the ShapeNetPart category tables, in
+numpy (copy of the numpy part of dgcnn_tpu/train/metrics.py)."""
 from __future__ import annotations
 
 import numpy as np
+
+# ShapeNetPart: the number of parts of each of the 16 categories and the
+# first part label of each (reference data.py:303-304)
+SEG_NUM = [4, 2, 2, 4, 4, 3, 3, 2, 4, 2, 6, 2, 3, 3, 3, 3]
+INDEX_START = [0, 4, 6, 8, 12, 16, 19, 22, 24, 28, 30, 36, 38, 41, 44, 47]
 
 
 def accuracy_score(y_true: np.ndarray, y_pred: np.ndarray) -> float:
@@ -40,3 +45,33 @@ def calculate_sem_IoU(pred_np: np.ndarray, seg_np: np.ndarray,
         u_all[empty] = 1
     with np.errstate(divide="ignore", invalid="ignore"):
         return i_all / u_all
+
+
+def calculate_shape_IoU(pred_np: np.ndarray, seg_np: np.ndarray,
+                        label: np.ndarray, class_choice: str | None,
+                        visual: bool = False) -> list[float]:
+    """Per shape, the mean over its category's parts of the part IoU
+    (reference main_partseg.py:57-80): ``pred_np``/``seg_np`` (shapes, N)
+    part labels, ``label`` the shapes' categories.  A part absent from
+    both counts as IoU 1.  With ``class_choice`` the labels are the
+    category's own 0..parts-1."""
+    label = np.asarray(label)
+    if not visual:
+        label = label.squeeze()
+    shape_ious: list[float] = []
+    for shape_idx in range(seg_np.shape[0]):
+        if not class_choice:
+            start = INDEX_START[int(np.ravel(label)[shape_idx])]
+            num = SEG_NUM[int(np.ravel(label)[shape_idx])]
+            parts = range(start, start + num)
+        else:
+            parts = range(SEG_NUM[int(np.ravel(label)[0])])
+        part_ious = []
+        for part in parts:
+            i = np.sum((pred_np[shape_idx] == part)
+                       & (seg_np[shape_idx] == part))
+            u = np.sum((pred_np[shape_idx] == part)
+                       | (seg_np[shape_idx] == part))
+            part_ious.append(1.0 if u == 0 else i / float(u))
+        shape_ious.append(float(np.mean(part_ious)))
+    return shape_ious

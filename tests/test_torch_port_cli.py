@@ -88,7 +88,7 @@ def test_cls_cli_refuses_what_is_not_ported(fixture_dir, monkeypatch):
     is ported now and trains (test_cls_cli_trains_and_reloads)."""
     from dgcnn_tpu_torch.cli import cls, common
 
-    with pytest.raises(SystemExit):  # the cycle scheduler waits for partseg
+    with pytest.raises(SystemExit):  # as the JAX cls CLI: no cycle scheduler
         cls.main(["--exp_name=t", "--eval=False", "--scheduler=cycle"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no_cuda"):

@@ -53,6 +53,20 @@ from dgcnn_tpu_torch.ops import (
     pairwise_neg_sqdist,
     xw_project,
 )
+from dgcnn_tpu_torch.ops.banded import (
+    band_starts,
+    band_tile,
+    banded_applicable,
+    banded_edge_conv_eval,
+    banded_edge_conv_eval_plain,
+    banded_knn_edge2,
+    banded_knn_edge2_plain,
+    inverse_order,
+    pc1_key,
+    sorted_order,
+)
+from dgcnn_tpu_torch.ops.graph import get_graph_feature
+from dgcnn_tpu_torch.ops.knn import knn_plain
 
 # the package re-exports a function named knn over the module of that name
 jknn = importlib.import_module("dgcnn_tpu.ops.knn")
@@ -758,3 +772,226 @@ def test_edge2_kernels_duplicates_exact(cuda_device):
     for gv, wv in zip(edge2_bwd(*tin, *got[:2], *cts, 0.25),
                       edge2_bwd_plain(*tin, *got[:2], *cts, 0.25)):
         assert torch.equal(gv, wv)
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_knn_matches_knn_pallas_at_k40(dup):
+    """Kernel 11's plain version (and ``knn`` on CPU tensors) against
+    knn_pallas in interpret mode at the partseg k=40, N=256; with
+    duplicate points (every point four times) the k-th neighbour falls
+    inside a group of copies, so agreement pins the lowest-index rule."""
+    from dgcnn_tpu.ops.pallas_knn import knn_pallas
+
+    x = (_duplicate_cloud(50, n=256, c=3) if dup else
+         np.random.default_rng(50).standard_normal((2, 256, 3)).astype(
+             np.float32))
+    want = _np(knn_pallas.__wrapped__(jnp.asarray(x), 40, interpret=True))
+    before = knn.launches
+    got = knn(_t(x), 40)
+    assert knn.launches == before  # CPU: the plain version
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(knn_plain(_t(x), 40).numpy(), want)
+
+
+@pytest.mark.parametrize("mode", [{}, {"knn_only": True},
+                                  {"disp_only": True}])
+def test_get_graph_feature_matches_jax(mode):
+    """The edge features of every mode, [neighbour, centre] order, from
+    the kNN (k=8) and from given indices."""
+    rng = np.random.default_rng(51)
+    x = rng.standard_normal((2, 128, 6)).astype(np.float32)
+    want = _np(jgraph.get_graph_feature(jnp.asarray(x), 8, **mode))
+    np.testing.assert_array_equal(get_graph_feature(_t(x), 8, **mode).numpy(),
+                                  want)
+    idx = rng.integers(0, 128, (2, 128, 5)).astype(np.int32)
+    want = _np(jgraph.get_graph_feature(jnp.asarray(x), 5, idx=jnp.asarray(
+        idx), **mode))
+    np.testing.assert_array_equal(
+        get_graph_feature(_t(x), 5, idx=_t(idx), **mode).numpy(), want)
+
+
+def _banded_graph(seed, b=2, n=256, c=3):
+    """Points spread along channel 0 (a permuted grid of spacing 6/N) with
+    noise of 0.3 elsewhere: the sorted PC1 keys of the two frameworks lie
+    far more than rel 1e-5 apart, so both sort the same way."""
+    rng = np.random.default_rng(seed)
+    g = 0.3 * rng.standard_normal((b, n, c))
+    g[:, :, 0] = np.stack([rng.permutation(np.linspace(-3, 3, n))
+                           for _ in range(b)])
+    return g.astype(np.float32)
+
+
+def test_banded_order_and_windows_match_jax():
+    """pc1_key within rel 1e-5 of JAX's, the same sorted order and its
+    inverse, band_starts equal, and the tile rule of pallas_banded."""
+    from dgcnn_tpu.ops import pallas_banded as jband
+    from dgcnn_tpu.ops.pallas_knn import TILE_N, _pick_tile
+
+    for c in (3, 64):
+        g = _banded_graph(52 + c, c=c)
+        with jax.default_matmul_precision("float32"):
+            want = _np(jband.pc1_key(jnp.asarray(g)))
+        got = pc1_key(_t(g)).numpy()
+        np.testing.assert_allclose(np.abs(got), np.abs(want), rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+        # the key's sign is free; both frameworks iterate from ones
+        assert np.sign(got[0, 0]) == np.sign(want[0, 0])
+        order = sorted_order(_t(g))
+        np.testing.assert_array_equal(order.numpy(), np.argsort(want, 1))
+        inv = inverse_order(order).numpy()
+        np.testing.assert_array_equal(inv, np.argsort(np.argsort(want, 1), 1))
+    for n, band in [(256, 128), (1024, 256), (2048, 512), (4096, 1024),
+                    (640, 384), (2048, 2048)]:
+        tile = min(_pick_tile(n), band)
+        while n % tile:
+            tile -= TILE_N
+        assert band_tile(n, band) == tile
+        np.testing.assert_array_equal(band_starts(n, tile, band),
+                                      jband.band_starts(n, tile, band))
+        assert banded_applicable(n, band) == jband.banded_applicable(n, band)
+    assert (band_tile(2048, 512), band_tile(4096, 1024)) == (256, 128)
+
+
+@pytest.mark.parametrize("cg,co,k", [(3, 32, 8), (16, 24, 6)])
+def test_banded_edge_conv_eval_matches_pallas_interpret(pallas_exact, cg,
+                                                        co, k):
+    """Kernel 12's plain version against banded_edge_conv_eval (f32
+    selection, interpret) at N=256, band 128 (tile 128), on equal orders;
+    with band = N both give the exact stage."""
+    from dgcnn_tpu.ops.pallas_banded import banded_edge_conv_eval as jfn
+    from dgcnn_tpu.ops.pallas_banded import pc1_key as jkey
+
+    g = _banded_graph(54 + cg, c=cg)
+    _, wn, wc, sc, bi = _stage_inputs(55 + cg, 2, 256, cg, co)
+    args = (g, g, wn, wc, sc, bi)
+    with jax.default_matmul_precision("float32"):
+        want_order = np.argsort(_np(jkey(jnp.asarray(g))), 1)
+    np.testing.assert_array_equal(sorted_order(_t(g)).numpy(), want_order)
+    for band in (128, 256):
+        with jax.default_matmul_precision("float32"):
+            want = _np(jfn.__wrapped__(*(jnp.asarray(a) for a in args), k,
+                                       band, select_dtype=jnp.float32,
+                                       interpret=True))
+        before = banded_edge_conv_eval.launches
+        got = banded_edge_conv_eval(*(_t(a) for a in args), k, band)
+        assert banded_edge_conv_eval.launches == before
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    exact = edge_conv_eval_plain(*(_t(a) for a in args), k)
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("cg,c1,c2,k", [(3, 16, 24, 6), (8, 32, 16, 8)])
+def test_banded_knn_edge2_matches_pallas_interpret(pallas_exact, cg, c1, c2,
+                                                   k):
+    """Kernel 13's plain version against banded_knn_edge2 in the exact
+    mode (DGCNN_TPU_PALLAS_EXACT=1, interpret) at N=256, band 128, on equal
+    orders; with band = N both give the exact block."""
+    from dgcnn_tpu.ops.pallas_banded import banded_knn_edge2 as jfn
+
+    from dgcnn_tpu.ops.pallas_banded import pc1_key as jkey
+
+    (_, a1, b1, s1, t1, w2, s2, t2), _, _ = _edge2_inputs(
+        56 + cg, n=256, cg=cg, c1=c1, c2=c2, k=k)
+    g = _banded_graph(57 + cg, c=cg)
+    args = (g, a1, b1, s1, t1, w2, s2, t2)
+    with jax.default_matmul_precision("float32"):
+        want_order = np.argsort(_np(jkey(jnp.asarray(g))), 1)
+    np.testing.assert_array_equal(sorted_order(_t(g)).numpy(), want_order)
+    for band in (128, 256):
+        with jax.default_matmul_precision("float32"):
+            want = _np(jfn.__wrapped__(*(jnp.asarray(a) for a in args), k,
+                                       band, interpret=True))
+        assert want.dtype == np.float32
+        before = banded_knn_edge2.launches
+        got = banded_knn_edge2(*(_t(a) for a in args), k, band)
+        assert banded_knn_edge2.launches == before
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    exact = knn_edge2_plain(*(_t(a) for a in args), k)
+    np.testing.assert_allclose(got.numpy(), exact.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_banded_plain_versions_share_an_order():
+    """Given an order, the banded plain versions window that order: with
+    the identity order and band = N they are the exact plain versions;
+    their windows hold every row of their tile."""
+    g = _banded_graph(58, c=4)
+    _, wn, wc, sc, bi = _stage_inputs(59, 2, 256, 4, 16)
+    ident = torch.arange(256).expand(2, 256).contiguous()
+    args = [_t(a) for a in (g, g, wn, wc, sc, bi)]
+    assert torch.equal(
+        banded_edge_conv_eval_plain(*args, 6, 256, order=ident),
+        edge_conv_eval_plain(*args, 6))
+    (_, a1, b1, s1, t1, w2, s2, t2), _, _ = _edge2_inputs(60, n=256, cg=4)
+    eargs = [_t(a) for a in (g, a1, b1, s1, t1, w2, s2, t2)]
+    assert torch.equal(banded_knn_edge2_plain(*eargs, 6, 256, order=ident),
+                       knn_edge2_plain(*eargs, 6))
+    for n, band in [(256, 128), (2048, 512), (4096, 1024), (640, 384)]:
+        tile = band_tile(n, band)
+        for t, start in enumerate(band_starts(n, tile, band)):
+            assert start <= t * tile and (t + 1) * tile <= start + band
+
+
+def test_new_kernel_wrappers_refuse_devices_without_a_kernel():
+    g = torch.zeros((1, 256, 3), device="meta")
+    a = torch.zeros((1, 256, 8), device="meta")
+    w = torch.zeros((8, 8), device="meta")
+    s = torch.zeros(8, device="meta")
+    order = torch.zeros((1, 256), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        knn(g, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        banded_knn_edge2(g, a, a, s, s, w, s, s, 4, 128, order=order)
+    w3 = torch.zeros((3, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        banded_edge_conv_eval(g, g, w3, w3, s, s, 4, 128, order=order)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_matches_plain(cuda_device):
+    """Kernel 11 at the TransformNet graph's shape (N=2048, C=3, k=40), at
+    N=4096, and exact on integer duplicate points."""
+    rng = np.random.default_rng(61)
+    for n in (2048, 4096):
+        x = _t(rng.standard_normal((2, n, 3)).astype(np.float32)).to(
+            cuda_device)
+        before = knn.launches
+        got = knn(x, 40)
+        torch.cuda.synchronize()
+        assert knn.launches == before + 1 and got.dtype == torch.int64
+        # neighbour sets: two summation orders may swap the ranks of
+        # neighbours whose scores lie a few rounding steps apart
+        want = knn_plain(x, 40)
+        same = (got.sort(-1).values == want.sort(-1).values).all(-1)
+        assert same.float().mean().item() >= 0.999
+    base = rng.integers(-4, 5, (2, 512, 3))
+    x = _t(np.concatenate([base] * 4, 1).astype(np.float32)).to(cuda_device)
+    assert torch.equal(knn(x, 40), knn_plain(x, 40))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,band,cg", [(2048, 512, 3), (2048, 512, 64),
+                                       (4096, 1024, 64)])
+def test_banded_kernels_match_plain(cuda_device, n, band, cg):
+    """Kernels 12 and 13 against their plain versions on one shared
+    order."""
+    g = _t(_banded_graph(62, n=n, c=cg)).to(cuda_device)
+    order = sorted_order(g)
+    (_, a1, b1, s1, t1, w2, s2, t2), _, _ = _edge2_inputs(
+        63, n=n, cg=cg, c1=64, c2=64, k=20)
+    args = [_t(v).to(cuda_device) for v in (a1, b1, s1, t1, w2, s2, t2)]
+    before = banded_knn_edge2.launches
+    got = banded_knn_edge2(g, *args, 20, band, order=order)
+    torch.cuda.synchronize()
+    assert banded_knn_edge2.launches == before + 1
+    ok = _row_match(got, banded_knn_edge2_plain(g, *args, 20, band,
+                                                order=order))
+    assert ok.float().mean().item() >= 0.999
+    _, wn, wc, sc, bi = (_t(v).to(cuda_device)
+                         for v in _stage_inputs(64, 2, n, cg, 64))
+    got = banded_edge_conv_eval(g, g, wn, wc, sc, bi, 20, band, order=order)
+    ok = _row_match(got, banded_edge_conv_eval_plain(g, g, wn, wc, sc, bi, 20,
+                                                     band, order=order))
+    assert ok.float().mean().item() >= 0.999

@@ -322,12 +322,14 @@ def test_semseg_cli_trains_and_reloads(s3dis_dir):
 
 @pytest.mark.parametrize("flag", ["--point_shard=True",
                                   "--device_pipeline=True",
-                                  "--fast_extract=128",
+                                  "--fast_extract=1000",
                                   "--export_model=a.stablehlo",
                                   "--visu=all"])
 def test_semseg_cli_refuses_what_is_not_ported(s3dis_dir, flag):
-    """The JAX CLI's TPU-only and visualization flags are not flags of the
-    port: argparse refuses each by name."""
+    """The JAX CLI's point sharding, device pipeline, export and
+    visualization flags are not flags of the port: argparse refuses each
+    by name; --fast_extract refuses a band that is not a multiple of
+    128."""
     from dgcnn_tpu_torch.cli import semseg
 
     with pytest.raises(SystemExit):
