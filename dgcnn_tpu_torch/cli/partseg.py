@@ -1,24 +1,30 @@
-"""ShapeNetPart part segmentation CLI (port of dgcnn_tpu/cli/partseg.py,
-its ``--model dgcnn`` branch): training and evaluation.
+"""ShapeNetPart part segmentation CLI (port of dgcnn_tpu/cli/partseg.py):
+training and evaluation of the canonical DGCNN (``--model dgcnn``), and
+evaluation of the fork's fusion Net (``--model transformer``, the parser's
+default: DGCNN + HOG + ``torch.nn.Transformer``).
 
 The JAX CLI's parser and defaults, apart from its runtime flags; the
-options the port does not have yet (``--model transformer``, the parser's
-default, ``--device_pipeline``, ``--export_model`` and ``--visu``) are
-refused by the parser.  The same ``Train %d, ...``, ``Test %d, ...`` and
-``Test: ...`` lines.  Training keeps a resumable checkpoint at
+options the port does not have yet are refused by the parser with a
+message: training the fusion Net (``--model transformer`` without
+``--eval=True``), ``--use_custom_attention``, a ``--fast_extract`` band
+with the fusion Net, ``--device_pipeline``, ``--export_model`` and
+``--visu``.  The same ``Train %d, ...``, ``Test %d, ...`` and ``Test:
+...`` lines.  Training keeps a resumable checkpoint at
 ``outputs/<exp>/checkpoints/ckpt.checkpoint`` and the best test IoU's at
 ``outputs/<exp>/models/transformer_<epoch>.checkpoint`` (the reference's
 naming), in torch's format; evaluation loads ``--model_path`` from under
 ``outputs/<exp>/`` first (the reference's quirk), else as given: a
-reference ``.t7`` or such a checkpoint.  ``--fast_extract BAND`` runs the
-eval forwards (a training run's test passes too) through the banded
-kernels.
+reference ``.t7`` / ``transformer.pt`` (``module.`` prefixes and all) or
+such a checkpoint.  ``--fast_extract BAND`` runs the DGCNN's eval forwards
+(a training run's test passes too) through the banded kernels.
 
     python -m dgcnn_tpu_torch.cli.partseg --model dgcnn --k 40 \
         --emb_dim 1024 --exp_name=part
     python -m dgcnn_tpu_torch.cli.partseg --model dgcnn --k 40 \
         --emb_dim 1024 --exp_name=part --eval=True \
         --model_path=models/transformer_199.checkpoint [--fast_extract 512]
+    python -m dgcnn_tpu_torch.cli.partseg --model transformer --eval=True \
+        --k 32 --n_heads 2 --n_blocks 2 --model_path=transformer.pt
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from dgcnn_tpu_torch.data import (
     ShapeNetPartAugmented,
     make_loader,
 )
-from dgcnn_tpu_torch.models import DGCNNPartSeg, init_like_flax_
+from dgcnn_tpu_torch.models import DGCNNPartSeg, Net, init_like_flax_
 from dgcnn_tpu_torch.train import (
     accuracy_score,
     balanced_accuracy_score,
@@ -61,6 +67,10 @@ FIELDS = ["points", "label", "seg"]
 
 
 def build_model(args, device):
+    if args.model == "transformer":
+        return Net(emb_dim=args.emb_dim, k=args.k, n_heads=args.n_heads,
+                   n_blocks=args.n_blocks, ff_dims=args.ff_dims,
+                   nclasses=args.nclasses, device=device)
     return DGCNNPartSeg(emb_dims=args.emb_dim, k=args.k, dropout=args.dropout,
                         seg_num_all=args.nclasses,
                         band=resolve_band(args.fast_extract, args.num_points),
@@ -217,9 +227,17 @@ class _Parser(argparse.ArgumentParser):
 
     def parse_args(self, args=None, namespace=None):
         ns = super().parse_args(args, namespace)
-        if ns.model != "dgcnn":
-            self.error(f"--model {ns.model} (the fusion Net) is not ported "
-                       "yet: pass --model dgcnn")
+        if ns.model == "transformer":
+            if not ns.eval:
+                self.error("training the fusion Net (--model transformer "
+                           "with --eval=False) is not ported yet: pass "
+                           "--eval=True to evaluate it, or --model dgcnn")
+            if resolve_band(ns.fast_extract):
+                self.error("--fast_extract (or DGCNN_TPU_FAST_EXTRACT) with "
+                           "--model transformer is not ported yet: the "
+                           "fusion Net evaluates exactly")
+        if ns.use_custom_attention:
+            self.error("--use_custom_attention is not ported yet")
         for flag in ("device_pipeline", "export_model", "visu"):
             if getattr(ns, flag):
                 self.error(f"--{flag} is not ported yet")

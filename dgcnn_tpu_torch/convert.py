@@ -1,14 +1,15 @@
 """Checkpoints for the port's models.
 
 * ``state_dict_from_flax``: flax ``DGCNNCls``/``PointNet``/
-  ``DGCNNPartSeg``/``DGCNNSemSeg`` variables (as numpy) -> the reference
-  state dict, the port's own copy of the ``_put_*`` logic of
+  ``DGCNNPartSeg``/``DGCNNSemSeg``/``Net`` variables (as numpy) -> the
+  reference state dict, the port's own copy of the ``_put_*`` logic of
   ``dgcnn_tpu/convert/torch_export.py`` (Dense kernels (Ci, Co) -> weights
   (Co, Ci[, 1[, 1]]); EdgeConv ``w_nbr``/``w_ctr`` re-joined in the
   [neighbour, centre] order; BN scale/bias + batch_stats -> weight/bias +
-  running stats).  The TransformNet's ``bn1``-``bn3`` aliases of
-  ``export_transform_net`` are left out: the port's model registers each
-  BatchNorm once.
+  running stats; attention ``in_proj_*`` as they are, LayerNorm
+  scale/bias -> weight/bias).  The TransformNet's ``bn1``-``bn3`` aliases
+  of ``export_transform_net`` are left out: the port's model registers
+  each BatchNorm once.
 * ``load_checkpoint``: a reference ``.t7`` state dict (or a checkpoint
   holding one) into a model.
 
@@ -48,9 +49,12 @@ def _put_edgeconv(sd, name: str, p: dict, s: dict) -> None:
     _put_bn(sd, name + ".1", {"scale": p["scale"], "bias": p["bias"]}, s)
 
 
-def _put_convbn(sd, name: str, p: dict, s: dict, dims: int) -> None:
-    _put_dense(sd, name + ".0", p["conv"], dims)
-    _put_bn(sd, name + ".1", p["bn"], s["bn"])
+def _put_convbn(sd, name: str, p: dict, s: dict, dims: int,
+                bn_name: str | None = None) -> None:
+    """A ConvBN under ``name.0`` / ``name.1``, or, with ``bn_name``, under
+    ``name`` / ``bn_name`` (slots of a reference Sequential)."""
+    _put_dense(sd, name if bn_name else name + ".0", p["conv"], dims)
+    _put_bn(sd, bn_name or name + ".1", p["bn"], s["bn"])
 
 
 def _put_densebn(sd, lin_key: str, bn_key: str, p: dict, s: dict) -> None:
@@ -68,12 +72,65 @@ def _put_transform_net(sd, prefix: str, p: dict, s: dict) -> None:
     _put_dense(sd, prefix + "transform", p["transform"])
 
 
+def _put_mha(sd, prefix: str, p: dict) -> None:
+    sd[prefix + ".in_proj_weight"] = _t(p["in_proj_weight"])
+    sd[prefix + ".in_proj_bias"] = _t(p["in_proj_bias"])
+    _put_dense(sd, prefix + ".out_proj", p["out_proj"])
+
+
+def _put_ln(sd, prefix: str, p: dict) -> None:
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def _put_net(sd, params: dict, stats: dict) -> None:
+    """The fusion Net's tree -> ``export_net``'s keys (the
+    PositionEmbedding's ``bnI`` aliases left out)."""
+    for name in ["conv1", "conv2", "conv3", "conv4"]:
+        _put_edgeconv(sd, f"emb_nn.{name}", params["emb_nn"][name],
+                      stats["emb_nn"][name])
+    _put_convbn(sd, "emb_nn.conv5", params["emb_nn"]["conv5"],
+                stats["emb_nn"]["conv5"], dims=2)
+    for j in range(4):
+        _put_convbn(sd, f"grads_emb.{3 * j}", params[f"grads_emb_{j}"],
+                    stats[f"grads_emb_{j}"], 1, f"grads_emb.{3 * j + 1}")
+    _put_transform_net(sd, "pos_mlp.0.", params["pos_embed"]["tnet"],
+                       stats["pos_embed"]["tnet"])
+    _put_convbn(sd, "pos_mlp.1", params["pos_conv"], stats["pos_conv"], 1,
+                "pos_mlp.2")
+    xf = params["transformer"]
+    layers = {"encoder": ["self_attn"],
+              "decoder": ["self_attn", "multihead_attn"]}
+    for stack, attns in layers.items():
+        for i in range(sum(key.startswith(stack) for key in xf) - 1):
+            p, lp = xf[f"{stack}_layer_{i}"], f"transformer.{stack}.layers.{i}"
+            for attn in attns:
+                _put_mha(sd, f"{lp}.{attn}", p[attn])
+            _put_dense(sd, f"{lp}.linear1", p["ff"]["linear1"])
+            _put_dense(sd, f"{lp}.linear2", p["ff"]["linear2"])
+            for j in range(len(attns) + 1):
+                _put_ln(sd, f"{lp}.norm{j + 1}", p[f"norm{j + 1}"])
+        _put_ln(sd, f"transformer.{stack}.norm", xf[f"{stack}_norm"])
+    _put_mha(sd, "attention", params["attention"])
+    head, hstats = params["head"], stats["head"]
+    for j, name in enumerate(["fc1", "fc2", "fc3"]):
+        _put_convbn(sd, f"head.nn.{4 * j}", head[name], hstats[name], 1,
+                    f"head.nn.{4 * j + 1}")
+    _put_dense(sd, "head.nn.12", head["fc4"], dims=1)
+    _put_convbn(sd, "head.label_conv", head["label_conv"],
+                hstats["label_conv"], dims=1)
+
+
 def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` of a flax ``DGCNNCls``,
-    ``PointNet``, ``DGCNNPartSeg`` or ``DGCNNSemSeg`` -> the reference
-    state dict of the port's model."""
+    ``PointNet``, ``DGCNNPartSeg``, ``DGCNNSemSeg`` or fusion ``Net`` (with
+    the torch-style transformer) -> the reference state dict of the port's
+    model."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
+    if "emb_nn" in params:                                        # Net
+        _put_net(sd, params, stats)
+        return sd
     if "transform_net" in params:                             # DGCNNPartSeg
         _put_transform_net(sd, "transform_net.", params["transform_net"],
                            stats["transform_net"])
@@ -120,8 +177,9 @@ def load_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
     (``train.checkpoint.save_train_checkpoint``) gives that.  Strips
     DataParallel's ``module.`` prefix.  Upstream registers BatchNorms twice
     (``bnI`` and ``convI.1`` over shared storage: DGCNN_cls, DGCNN_partseg
-    and its ``transform_net``), so a ``[prefix.]bnI.*`` key whose
-    ``[prefix.]convI.1.*`` twin is present is dropped first."""
+    and its ``transform_net``, the fusion Net's ``pos_mlp.0``), so a
+    ``[prefix.]bnI.*`` key whose ``[prefix.]convI.1.*`` twin is present is
+    dropped first."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("model_state_dict", "state_dict"):
         if key in obj and isinstance(obj[key], dict):

@@ -1,6 +1,8 @@
 """Models of dgcnn_tpu/models/dgcnn.py (``DGCNNCls``, ``PointNet``,
 ``TransformNet``, ``DGCNNPartSeg``, ``DGCNNSemSeg``), for evaluation and
-training.
+training, and the fusion Net's ``DGCNN`` backbone and ``PositionEmbedding``
+(``export_dgcnn_backbone``'s and ``export_transform_net``'s layouts), for
+evaluation.
 
 Parameters use the reference state-dict layouts, the ones
 ``dgcnn_tpu/convert/torch_export.py`` writes: ``export_dgcnn_cls``
@@ -33,6 +35,7 @@ from dgcnn_tpu_torch.models.nn_layers import (
     Weight,
     leaky_relu,
 )
+from dgcnn_tpu_torch.models.torch_transformer import TorchMultiheadAttention
 from dgcnn_tpu_torch.ops.banded import banded_applicable, banded_knn_edge2
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool
 from dgcnn_tpu_torch.ops.edge2_kernel import knn_edge2
@@ -49,11 +52,16 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     CPU from ``generator`` (a CPU generator, so the same seed gives the same
     weights on any device):
     weights N(0, 1/fan_in), biases N(0, 0.1^2), BN scales of either sign,
-    running means near 0 and running variances in [0.5, 2).  A
-    TransformNet's 3x3 bias gets the identity added, as its flax init
-    has."""
+    running means near 0 and running variances in [0.5, 2), LayerNorm
+    scales near 1.  A TransformNet's 3x3 bias gets the identity added, as
+    its flax init has."""
 
     for mod in model.modules():
+        if isinstance(mod, nn.LayerNorm):
+            f = mod.weight.shape
+            mod.weight.copy_(1.0 + 0.1 * torch.randn(f, generator=generator))
+            mod.bias.copy_(0.1 * torch.randn(f, generator=generator))
+            continue
         if isinstance(mod, BatchNorm):
             f = mod.weight.shape
             sign = torch.where(torch.rand(f, generator=generator) < 0.1,
@@ -69,7 +77,7 @@ def init_random_(model: nn.Module, generator: torch.Generator) -> nn.Module:
             continue
         for name, p in mod.named_parameters(recurse=False):
             std = (1.0 / math.sqrt(math.prod(p.shape[1:]))
-                   if name == "weight" else 0.1)
+                   if name.endswith("weight") else 0.1)
             p.normal_(0.0, std, generator=generator)
     for mod in model.modules():
         if isinstance(mod, TransformNet):
@@ -84,11 +92,21 @@ def init_like_flax_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     stream): every weight lecun-normal (normal with std sqrt(1 / fan_in)
     / 0.8796, truncated at two of those std; each half of an EdgeConv
     weight has its own fan_in, as ``w_nbr`` and ``w_ctr`` do), biases 0,
-    BatchNorm weight 1, bias 0 and running statistics 0 and 1; a
-    TransformNet's 3x3 layer weight 0 and bias the identity."""
+    BatchNorm weight 1, bias 0 and running statistics 0 and 1, LayerNorm
+    weight 1 and bias 0; an attention's packed ``in_proj_weight``
+    xavier-uniform; a TransformNet's 3x3 layer weight 0 and bias the
+    identity."""
     edge_weights = {id(m[0]) for m in model.modules()
                     if isinstance(m, EdgeConv)}
     for mod in model.modules():
+        if isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            continue
+        if isinstance(mod, TorchMultiheadAttention):
+            nn.init.xavier_uniform_(mod.in_proj_weight, generator=generator)
+            mod.in_proj_bias.zero_()
+            continue
         if isinstance(mod, BatchNorm):
             for name, v in [("weight", 1.0), ("bias", 0.0),
                             ("running_mean", 0.0), ("running_var", 1.0)]:
@@ -209,6 +227,42 @@ class TransformNet(nn.Module):
                         (self.linear[3], self.linear[4])):
             t = leaky_relu(bn(lin(t), train))
         return self.transform(t).reshape(-1, 3, 3)
+
+
+class PositionEmbedding(TransformNet):
+    """The fork's canonicalizer (reference models/layers.py:8-74): the
+    TransformNet's 3x3 applied to the points, (B, N, 3) -> (B, N, 3) in
+    f32.  Its keys are the TransformNet's."""
+
+    def forward(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        return torch.einsum("bnc,bcd->bnd", x, super().forward(x, k))
+
+
+class DGCNN(nn.Module):
+    """The fork's backbone (reference models/dgcnn.py:47-103): EdgeConv
+    3->64, 64->64, 64->128, 128->256 (each over its own input's kNN
+    graph), their concat through conv5 (512 -> emb, BatchNorm, LeakyReLU)
+    per point: (B, N, 3) -> (B, N, emb), eval forward.  The four stages
+    run the edge_conv_eval kernel on CUDA tensors (its plain version on CPU
+    ones) and conv5 is plain torch, as in the JAX package.  Its keys are
+    ``export_dgcnn_backbone``'s."""
+
+    def __init__(self, emb_dims: int = 512, k: int = 32):
+        super().__init__()
+        self.k = k
+        self.conv1 = EdgeConv(3, 64)
+        self.conv2 = EdgeConv(64, 64)
+        self.conv3 = EdgeConv(64, 128)
+        self.conv4 = EdgeConv(128, 256)
+        self.conv5 = ConvBN(512, emb_dims, dims=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kk = self.k
+        x1 = self.conv1(x, graph=x, k=kk)
+        x2 = self.conv2(x1, graph=x1, k=kk)
+        x3 = self.conv3(x2, graph=x2, k=kk)
+        x4 = self.conv4(x3, graph=x3, k=kk)
+        return self.conv5(torch.cat([x1, x2, x3, x4], dim=-1))
 
 
 class DGCNNCls(nn.Module):

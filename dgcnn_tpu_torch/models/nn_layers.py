@@ -56,12 +56,21 @@ class Dropout(nn.Module):
 
 
 class Weight(nn.Module):
-    """Holds one weight tensor under the key ``weight``: the ``.0`` slot of
-    a reference ``Sequential(Conv, BatchNorm, ...)``."""
+    """Holds one weight tensor under the key ``weight`` (and, with
+    ``bias``, a bias of its first axis's size): the ``.0`` slot of a
+    reference ``Sequential(Conv, BatchNorm, ...)``, or a lone conv."""
 
-    def __init__(self, shape):
+    def __init__(self, shape, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(shape))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(shape[0]))
+
+    def matmul(self, x: torch.Tensor) -> torch.Tensor:
+        """The 1x1 conv over the trailing axis of ``x``, plus the bias."""
+        w = self.weight
+        y = torch.matmul(x, w.reshape(w.shape[0], w.shape[1]).t())
+        return y + self.bias if hasattr(self, "bias") else y
 
 
 class Linear(nn.Module):

@@ -1,5 +1,6 @@
 """Graph ops (plain torch) and the CUDA kernels of the eval and training
 paths."""
+from dgcnn_tpu_torch.ops.attention import attention_plain, fused_attention
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool, conv_pool_plain
 from dgcnn_tpu_torch.ops.edge_conv import (
     edge_conv_batch_stats,
@@ -24,6 +25,7 @@ from dgcnn_tpu_torch.ops.edge_conv_kernel import (
     edge_conv_eval,
     edge_conv_eval_plain,
 )
+from dgcnn_tpu_torch.ops.edge_sum_kernel import edge_sum, edge_sum_plain
 from dgcnn_tpu_torch.ops.edge_reduce_bwd_kernel import (
     edge_reduce_bwd,
     edge_reduce_bwd_plain,
@@ -43,12 +45,14 @@ from dgcnn_tpu_torch.ops.knn_reduce_kernel import (
     knn_reduce_xw_plain,
     xw_project,
 )
+from dgcnn_tpu_torch.ops.knn_sum_kernel import knn_sum, knn_sum_plain
 from dgcnn_tpu_torch.ops.pool import global_max, global_mean
 
 __all__ = [
     "Edge2Reduce",
     "KnnEdgeReduce",
     "KnnEdgeReduceXW",
+    "attention_plain",
     "conv_pool",
     "conv_pool_plain",
     "edge2_bwd",
@@ -65,7 +69,10 @@ __all__ = [
     "edge_linear",
     "edge_reduce_bwd",
     "edge_reduce_bwd_plain",
+    "edge_sum",
+    "edge_sum_plain",
     "fold_bn",
+    "fused_attention",
     "gather_neighbors",
     "global_max",
     "global_mean",
@@ -78,6 +85,8 @@ __all__ = [
     "knn_reduce_plain",
     "knn_reduce_xw",
     "knn_reduce_xw_plain",
+    "knn_sum",
+    "knn_sum_plain",
     "pairwise_neg_sqdist",
     "xw_project",
 ]

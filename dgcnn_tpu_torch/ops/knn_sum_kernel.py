@@ -1,0 +1,92 @@
+"""Kernel 10, ``knn_sum``: the kNN graph and the sums of per-point rows
+over each point's neighbours, hand-written CUDA.
+
+Replaces ``dgcnn_tpu/ops/pallas_knn.py::fused_knn_sum`` (body
+``_knn_sum_kernel``) in its exact (v1) mode, the first half of the HOG
+moment form (the neighbourhood sums of the moments [x, vech(x x^T)]).  The
+kernel is ``csrc/knn_sum.cu``; its note states the bound on an H100 and
+what the design does about it.  The neighbours are those of ``knn``: self
+first, lowest index first among equal scores.  Each sum runs over them in
+the order t = 0..k-1 in f32, as the plain version ``knn_sum_plain`` sums;
+the TPU sums through a 3-way bf16 split on its matrix unit, whose last bits
+differ.  CPU tensors take the plain version; CUDA tensors launch the
+kernel, which raises on what it does not take.  No gradient: HOG is
+detached, as in the reference.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.edge_sum_kernel import ordered_neighbour_sum
+from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
+
+
+def knn_sum_plain(x: torch.Tensor, a: torch.Tensor,
+                  k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of kernel 10: (idx (B, N, k) int32, nearest
+    (self) first, lowest index first among equal scores; the ordered sums
+    (B, N, Ca) of ``a``'s rows over them)."""
+    idx = knn_plain(x, k)
+    return idx.int(), ordered_neighbour_sum(a.float(), idx)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"knn_sum: {msg}")
+
+
+def _lib():
+    fn = _build.load_library().dg_knn_sum
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def knn_sum(x: torch.Tensor, a: torch.Tensor,
+            k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """kNN over ``x`` (B, N, C) and the sums of ``a`` (B, N, Ca) over each
+    point's k neighbours -> (idx (B, N, k) int32, asum (B, N, Ca) f32).
+
+    CPU tensors take ``knn_sum_plain``; CUDA tensors launch the kernel,
+    which takes f32 contiguous tensors with N a multiple of 128, N <= 4096
+    and Ca <= 32, and raises on anything else."""
+    x, a = x.detach(), a.detach()
+    if x.device.type == "cpu":
+        return knn_sum_plain(x, a, k)
+    _require(x.is_cuda and a.device == x.device,
+             f"no kernel for devices {x.device}, {a.device}")
+    _require(x.dtype == torch.float32 and a.dtype == torch.float32,
+             "x and a must be float32")
+    _require(x.dim() == 3 and x.is_contiguous() and a.is_contiguous(),
+             "x and a must be contiguous (B, N, C) tensors")
+    b, n, c = x.shape
+    _require(a.dim() == 3 and a.shape[:2] == (b, n) and a.shape[2] <= 32,
+             f"a {tuple(a.shape)} must be (B, N, Ca <= 32) for x "
+             f"{tuple(x.shape)}")
+    _require(n % 128 == 0 and n <= MAX_N,
+             f"N={n} must be a multiple of 128 and <= {MAX_N}")
+    _require(1 <= k <= n, f"k={k} out of range for N={n}")
+    ca = a.shape[2]
+    fn = _lib()
+    # the launch is asynchronous on torch's current stream: tensors made here
+    # and freed on return are reused by the caching allocator only for work
+    # queued after it on that stream
+    sq = torch.empty((b * n,), device=x.device, dtype=torch.float32)
+    idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+    asum = torch.empty((b, n, ca), device=x.device, dtype=torch.float32)
+    q = _build.ptr
+    with torch.cuda.device(x.device):
+        rc = fn(q(x), q(a), q(sq), q(idx), q(asum), b, n, c, ca, k,
+                _build.stream_of(x))
+    _build.check(rc, "knn_sum")
+    knn_sum.launches += 1
+    return idx, asum
+
+
+# launches of the kernel since the count was last set to 0
+knn_sum.launches = 0

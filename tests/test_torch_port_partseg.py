@@ -582,23 +582,23 @@ def test_partseg_cli_trains_resumes_and_reloads(shapenet_dir):
                                   "--orbax=True", "--remat=True",
                                   "--debug_nans=True", "--fast_extract=1000"])
 def test_partseg_cli_refuses_what_is_not_ported(shapenet_dir, capsys, flag):
-    """The fusion Net (the parser's default model) and the JAX CLI's
-    device-pipeline, export and visualization options are refused by the
-    parser with a message; its runtime flags are not flags of the port;
-    a band the kernels do not take is refused."""
+    """Training the fusion Net (the parser's default model, whose eval is
+    ported) and the JAX CLI's device-pipeline, export and visualization
+    options are refused by the parser with a message; its runtime flags
+    are not flags of the port; a band the kernels do not take is
+    refused."""
     from dgcnn_tpu_torch.cli import partseg
 
     argv = ["--exp_name=t", "--no_cuda=True"]
-    if flag is None:
-        argv.append("--eval=True")
-    else:
+    if flag is not None:
         argv += ([] if flag.startswith("--model=") else ["--model=dgcnn"]) + [
             flag]
     with pytest.raises(SystemExit):
         partseg.main(argv)
     err = capsys.readouterr().err
     if flag is None or flag.startswith("--model="):
-        assert "not ported yet: pass --model dgcnn" in err
+        assert "training the fusion Net" in err
+        assert "not ported yet: pass --eval=True" in err
     elif flag.split("=")[0] in ("--device_pipeline", "--export_model",
                                 "--visu"):
         assert "is not ported yet" in err
