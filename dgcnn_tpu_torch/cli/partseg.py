@@ -1,15 +1,16 @@
 """ShapeNetPart part segmentation CLI (port of dgcnn_tpu/cli/partseg.py):
-training and evaluation of the canonical DGCNN (``--model dgcnn``), and
-evaluation of the fork's fusion Net (``--model transformer``, the parser's
-default: DGCNN + HOG + ``torch.nn.Transformer``).
+training and evaluation of the canonical DGCNN (``--model dgcnn``) and of
+the fork's fusion Net (``--model transformer``, the parser's default:
+DGCNN + HOG + ``torch.nn.Transformer``, dropout ``--dropout`` on its
+attention probabilities, feed-forward, residual branches and head), in
+exact f32 mode (no AMP yet).
 
 The JAX CLI's parser and defaults, apart from its runtime flags; the
 options the port does not have yet are refused by the parser with a
-message: training the fusion Net (``--model transformer`` without
-``--eval=True``), ``--use_custom_attention``, a ``--fast_extract`` band
-with the fusion Net, ``--device_pipeline``, ``--export_model`` and
-``--visu``.  The same ``Train %d, ...``, ``Test %d, ...`` and ``Test:
-...`` lines.  Training keeps a resumable checkpoint at
+message: ``--use_custom_attention``, a ``--fast_extract`` band with the
+fusion Net, ``--device_pipeline``, ``--export_model`` and ``--visu``.  The
+same ``Train %d, ...``, ``Test %d, ...`` and ``Test: ...`` lines.
+Training keeps a resumable checkpoint at
 ``outputs/<exp>/checkpoints/ckpt.checkpoint`` and the best test IoU's at
 ``outputs/<exp>/models/transformer_<epoch>.checkpoint`` (the reference's
 naming), in torch's format; evaluation loads ``--model_path`` from under
@@ -23,6 +24,8 @@ such a checkpoint.  ``--fast_extract BAND`` runs the DGCNN's eval forwards
     python -m dgcnn_tpu_torch.cli.partseg --model dgcnn --k 40 \
         --emb_dim 1024 --exp_name=part --eval=True \
         --model_path=models/transformer_199.checkpoint [--fast_extract 512]
+    python -m dgcnn_tpu_torch.cli.partseg --model transformer --k 32 \
+        --n_heads 2 --n_blocks 2 --exp_name=net
     python -m dgcnn_tpu_torch.cli.partseg --model transformer --eval=True \
         --k 32 --n_heads 2 --n_blocks 2 --model_path=transformer.pt
 """
@@ -70,7 +73,8 @@ def build_model(args, device):
     if args.model == "transformer":
         return Net(emb_dim=args.emb_dim, k=args.k, n_heads=args.n_heads,
                    n_blocks=args.n_blocks, ff_dims=args.ff_dims,
-                   nclasses=args.nclasses, device=device)
+                   nclasses=args.nclasses, dropout=args.dropout,
+                   device=device)
     return DGCNNPartSeg(emb_dims=args.emb_dim, k=args.k, dropout=args.dropout,
                         seg_num_all=args.nclasses,
                         band=resolve_band(args.fast_extract, args.num_points),
@@ -228,14 +232,10 @@ class _Parser(argparse.ArgumentParser):
     def parse_args(self, args=None, namespace=None):
         ns = super().parse_args(args, namespace)
         if ns.model == "transformer":
-            if not ns.eval:
-                self.error("training the fusion Net (--model transformer "
-                           "with --eval=False) is not ported yet: pass "
-                           "--eval=True to evaluate it, or --model dgcnn")
             if resolve_band(ns.fast_extract):
                 self.error("--fast_extract (or DGCNN_TPU_FAST_EXTRACT) with "
                            "--model transformer is not ported yet: the "
-                           "fusion Net evaluates exactly")
+                           "fusion Net runs exactly")
         if ns.use_custom_attention:
             self.error("--use_custom_attention is not ported yet")
         for flag in ("device_pipeline", "export_model", "visu"):

@@ -1,11 +1,21 @@
 // attention_fwd: multi-head softmax attention, forward, in f32 on Hopper
-// (sm_90a).
+// (sm_90a), with dropout on the probabilities in training.
 //
 // Replaces the TPU kernel dgcnn_tpu/ops/pallas_attention.py::_attn_fwd_impl
-// (body _attn_fwd_kernel) at dropout rate 0, the attention of every
-// TorchMultiheadAttention of the fusion Net:
+// (body _attn_fwd_kernel), the attention of every TorchMultiheadAttention
+// of the fusion Net:
 //
-//   o[b, h] = softmax(q[b, h] k[b, h]^T * scale) v[b, h]
+//   o[b, h] = dropout(softmax(q[b, h] k[b, h]^T * scale)) v[b, h]
+//
+// dropout keeps a probability when its bit of the stream of attention.cuh
+// says so and scales it by 1 / (1 - rate); the row's softmax sum is taken
+// over the probabilities before the mask, as the TPU kernel's _probs and
+// then its mask do.  In training the kernel also writes each row's
+// log-sum-exp lse = max + log(sum) of the scaled scores, from which the
+// backward (attention_bwd.cu) rebuilds the probabilities in one pass.
+// Dropout and the log-sum-exp are template flags: the eval instance
+// (<D, false, false>) is the code that the entry dg_attention_fwd has
+// always run.
 //
 // q (B, h, Nq, d), k and v (B, h, Nk, d), o (B, h, Nq, d), each given by
 // its base and its (b, h, row) strides with unit stride along d, so that
@@ -17,7 +27,9 @@
 // Bound on an H100 SXM: operations.  At the fusion Net's stacked shape
 // (B=32, h=2, N=2048, d=256) one call is 2 products of 2*B*h*N^2*d flops,
 // 2.7e11, ~4.1 ms at the f32 CUDA-core peak (67 TFLOP/s), plus B*h*N^2
-// exponentials; q, k, v and o are 4 * 134 MB, ~0.16 ms at 3.35 TB/s.
+// exponentials; q, k, v and o are 4 * 134 MB, ~0.16 ms at 3.35 TB/s.  A
+// dropout draw costs one 64-bit mix a probability, against the 2 * d
+// multiply-adds of its score and its share of P.V.
 //
 // Design: flash attention's online softmax, so the (Nq, Nk) scores never
 // reach device memory.  A block of 256 threads (16 x 16) owns BQ query rows
@@ -26,24 +38,27 @@
 // its scores are computed, K of the next tile while P.V runs).  Thread
 // (ty, tx) computes the scores of rows ty + 16 i and columns tx + 16 j of a
 // tile, keeps the running max and sum of its rows (reduced over the 16 tx
-// lanes by shuffles), writes P = exp(s - max) to shared memory, and
-// accumulates columns 4 tx + 64 g .. + 3 of its rows of O in registers
-// (D / 16 * BQ / 16 floats: 64 at d = 256 and d = 512, where BQ drops to
-// 32).  Shared rows are padded by 4 floats, so every read of both products
-// is a 16-byte float4 load and a warp's K and V reads are conflict-free:
-// the shared-memory traffic stays below the FMA issue time.  The tiles take
-// ~212 KB of shared memory at d = 256, one block an SM, so the kernel is
-// built for one block an SM (up to 255 registers a thread) and copies 16
-// bytes a cp.async: every row of q, k and v starts 16-byte aligned (the
-// wrapper, ops/attention.py, copies an input that does not).  Its times on
-// an H100 against its bound, and those of its earlier forms, are in
-// PERF.md (chip_smoke.py, phase 27; tools/attention_ab.py).
+// lanes by shuffles), writes P = exp(s - max) (dropped and scaled in
+// training) to shared memory, and accumulates columns 4 tx + 64 g .. + 3
+// of its rows of O in registers (D / 16 * BQ / 16 floats: 64 at d = 256
+// and d = 512, where BQ drops to 32).  Shared rows are padded by 4 floats,
+// so every read of both products is a 16-byte float4 load and a warp's K
+// and V reads are conflict-free: the shared-memory traffic stays below the
+// FMA issue time.  The tiles take ~212 KB of shared memory at d = 256, one
+// block an SM, so the kernel is built for one block an SM (up to 255
+// registers a thread) and copies 16 bytes a cp.async: every row of q, k
+// and v starts 16-byte aligned (the wrapper, ops/attention.py, copies an
+// input that does not).  Its times on an H100 against its bound, and those
+// of its earlier forms, are in PERF.md (chip_smoke.py, phases 27 and 31;
+// tools/attention_ab.py).
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
+using namespace dg_attn;
 
 template <int D>
 struct Tile {
@@ -58,52 +73,16 @@ struct Tile {
       sizeof(float) * ((size_t)(BQ + 2 * BK) * QS + (size_t)BQ * PS);
 };
 
-struct Strides {
-  long long b, h, n;
-};
-
-// One 16-byte copy: both addresses 16-byte aligned.
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_groups() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Starts the copy of rows [r0, r0 + rows) of a (nrows, D) matrix with row
-// stride `stride` into `dst` (row stride D + 4), 16 bytes a copy; rows past
-// nrows are zeros.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long stride, int r0, int rows,
-                                          int nrows) {
-  for (int e = threadIdx.x; e < rows * (D / 4); e += THREADS) {
-    const int r = e / (D / 4), c = (e - r * (D / 4)) * 4;
-    const bool in = r0 + r < nrows;
-    copy16(dst + r * (D + 4) + c, in ? src + (r0 + r) * stride + c : src, in);
-  }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-template <int D>
+// Training adds the dropout of the probabilities (DROPOUT: the stream of
+// `seed`, kept when the draw is >= thresh, scaled by inv) and the
+// log-sum-exp of each row, written to lse (LSE; (B, H, Nq) contiguous).
+template <int D, bool DROPOUT, bool LSE>
 __global__ void __launch_bounds__(THREADS, 1)
     attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     int Nq, int Nk, Strides sq, Strides sk, Strides sv,
-                    Strides so, float scale) {
+                    Strides so, float scale, const long long* seed,
+                    unsigned thresh, float inv, float* __restrict__ lse) {
   using T = Tile<D>;
   constexpr int BQ = T::BQ, BK = T::BK, RQ = T::RQ, CS = T::CS, CG = T::CG;
   constexpr int QS = T::QS, PS = T::PS;
@@ -127,6 +106,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   // acc[i][g]: row ty + 16 i, columns 4 tx + 64 g .. + 3 of the output
   float4 acc[RQ][CG];
   float m[RQ], l[RQ];
+  unsigned long long key[DROPOUT ? RQ : 1];
+  if constexpr (DROPOUT) {
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+      key[i] = row_key(*seed, bz, hh, q0 + ty + 16 * i);
+  }
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     m[i] = -INFINITY;
@@ -179,7 +164,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int j = 0; j < CS; ++j) {
         const float p = expf(s[i][j] - mn);
-        Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
+        if constexpr (DROPOUT)
+          Ps[(ty + 16 * i) * PS + tx + 16 * j] =
+              keep(key[i], k0 + tx + 16 * j, thresh) ? p * inv : 0.f;
+        else
+          Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
         sum += p;
       }
 #pragma unroll
@@ -232,6 +221,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     const int r = q0 + ty + 16 * i;
+    if constexpr (LSE) {
+      if (tx == 0 && r < Nq)
+        lse[((long long)bz * gridDim.y + hh) * Nq + r] = m[i] + logf(l[i]);
+    }
     if (r < Nq) {
 #pragma unroll
       for (int g = 0; g < CG; ++g) {
@@ -245,21 +238,48 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D>
+template <int D, bool DROPOUT, bool LSE>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int H, int Nq, int Nk, const long long* st,
-                   float scale, cudaStream_t stream) {
+                   float scale, const long long* seed, unsigned thresh,
+                   float inv, float* lse, cudaStream_t stream) {
   using T = Tile<D>;
   cudaError_t e = cudaFuncSetAttribute(
-      attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::SMEM);
+      attn_fwd_kernel<D, DROPOUT, LSE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) return e;
   const dim3 grid((Nq + T::BQ - 1) / T::BQ, H, B);
-  attn_fwd_kernel<D><<<grid, THREADS, T::SMEM, stream>>>(
+  attn_fwd_kernel<D, DROPOUT, LSE><<<grid, THREADS, T::SMEM, stream>>>(
       q, k, v, o, Nq, Nk, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-      Strides{st[9], st[10], st[11]}, scale);
+      Strides{st[9], st[10], st[11]}, scale, seed, thresh, inv, lse);
   return cudaGetLastError();
+}
+
+template <bool DROPOUT, bool LSE>
+int launch_d(const float* q, const float* k, const float* v, float* o,
+             int B, int H, int Nq, int Nk, int D, const long long* strides,
+             float scale, const long long* seed, unsigned thresh, float inv,
+             float* lse, cudaStream_t st) {
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  for (const float* p : {q, k, v})
+    if ((size_t)p % 16) return (int)cudaErrorMisalignedAddress;
+  for (int i = 0; i < 9; ++i)
+    if (strides[i] % 4) return (int)cudaErrorMisalignedAddress;
+  switch (D) {
+    case 128:
+      return (int)launch<128, DROPOUT, LSE>(q, k, v, o, B, H, Nq, Nk, strides,
+                                            scale, seed, thresh, inv, lse, st);
+    case 256:
+      return (int)launch<256, DROPOUT, LSE>(q, k, v, o, B, H, Nq, Nk, strides,
+                                            scale, seed, thresh, inv, lse, st);
+    case 512:
+      return (int)launch<512, DROPOUT, LSE>(q, k, v, o, B, H, Nq, Nk, strides,
+                                            scale, seed, thresh, inv, lse, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -268,27 +288,34 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 // device, unit stride along D; strides (host, 12 values) are the (b, h,
 // row) strides in elements of q, k, v and o.  q, k and v start 16-byte
 // aligned and their strides are multiples of 4.  D is 128, 256 or 512.
-// Returns the first CUDA error.
+// The evaluation form: no dropout, no log-sum-exp.  Returns the first CUDA
+// error.
 extern "C" int dg_attention_fwd(const float* q, const float* k,
                                 const float* v, float* o, int B, int H,
                                 int Nq, int Nk, int D,
                                 const long long* strides, float scale,
                                 void* stream) {
-  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || B > 65535 || H > 65535)
-    return (int)cudaErrorInvalidValue;
-  for (const float* p : {q, k, v})
-    if ((size_t)p % 16) return (int)cudaErrorMisalignedAddress;
-  for (int i = 0; i < 9; ++i)
-    if (strides[i] % 4) return (int)cudaErrorMisalignedAddress;
+  return launch_d<false, false>(q, k, v, o, B, H, Nq, Nk, D, strides, scale,
+                                nullptr, 0u, 1.f, nullptr,
+                                (cudaStream_t)stream);
+}
+
+// The training form: as dg_attention_fwd, and lse (B, H, Nq) f32
+// contiguous on the device receives each row's log-sum-exp.  With `seed`
+// (one int64 on the device) the probabilities are dropped by the stream of
+// attention.cuh at threshold `thresh` and the kept ones scaled by `inv`;
+// a null seed is rate 0.
+extern "C" int dg_attention_fwd_train(const float* q, const float* k,
+                                      const float* v, float* o, int B, int H,
+                                      int Nq, int Nk, int D,
+                                      const long long* strides, float scale,
+                                      const long long* seed, unsigned thresh,
+                                      float inv, float* lse, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (D) {
-    case 128:
-      return (int)launch<128>(q, k, v, o, B, H, Nq, Nk, strides, scale, st);
-    case 256:
-      return (int)launch<256>(q, k, v, o, B, H, Nq, Nk, strides, scale, st);
-    case 512:
-      return (int)launch<512>(q, k, v, o, B, H, Nq, Nk, strides, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (seed != nullptr)
+    return launch_d<true, true>(q, k, v, o, B, H, Nq, Nk, D, strides, scale,
+                                seed, thresh, inv, lse, st);
+  return launch_d<false, true>(q, k, v, o, B, H, Nq, Nk, D, strides, scale,
+                               nullptr, 0u, 1.f, lse, st);
 }

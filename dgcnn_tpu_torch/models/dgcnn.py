@@ -1,8 +1,12 @@
 """Models of dgcnn_tpu/models/dgcnn.py (``DGCNNCls``, ``PointNet``,
-``TransformNet``, ``DGCNNPartSeg``, ``DGCNNSemSeg``), for evaluation and
-training, and the fusion Net's ``DGCNN`` backbone and ``PositionEmbedding``
-(``export_dgcnn_backbone``'s and ``export_transform_net``'s layouts), for
-evaluation.
+``TransformNet``, ``DGCNNPartSeg``, ``DGCNNSemSeg``) and the fusion Net's
+``DGCNN`` backbone and ``PositionEmbedding`` (``export_dgcnn_backbone``'s
+and ``export_transform_net``'s layouts), for evaluation and training.
+
+Every model sends a cloud whose size the kNN kernels do not take
+(``ops.knn.use_kernel``) to the port of the JAX package's XLA path: the
+plain kNN and the per-edge tensor in torch, decided from the shape before
+any launch, as the JAX package's ``use_pallas`` decides.
 
 Parameters use the reference state-dict layouts, the ones
 ``dgcnn_tpu/convert/torch_export.py`` writes: ``export_dgcnn_cls``
@@ -40,8 +44,14 @@ from dgcnn_tpu_torch.ops.banded import banded_applicable, banded_knn_edge2
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool
 from dgcnn_tpu_torch.ops.edge2_kernel import knn_edge2
 from dgcnn_tpu_torch.ops.edge2_reduce import edge2_reduce
-from dgcnn_tpu_torch.ops.edge_conv import _project, edge_stats_from_sums
+from dgcnn_tpu_torch.ops.edge_conv import (
+    _project,
+    edge_conv_batch_stats,
+    edge_linear,
+    edge_stats_from_sums,
+)
 from dgcnn_tpu_torch.ops.graph import get_graph_feature
+from dgcnn_tpu_torch.ops.knn import knn, use_kernel
 from dgcnn_tpu_torch.ops.knn_edge_reduce import knn_edge_reduce
 from dgcnn_tpu_torch.ops.pool import global_max, global_mean
 
@@ -139,8 +149,22 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
     neighbours and the first BatchNorm's statistics in closed form, then
     ``edge2_reduce`` for the second's and the max/min the output selects
     from.  CUDA tensors launch the kernels, CPU tensors take their plain
-    versions."""
+    versions.  A graph of a size the kernels do not take (``use_kernel``)
+    takes the JAX package's XLA path: ``knn``, the per-edge tensor of the
+    first conv, BatchNorm over B*N*k, the second conv and the max over
+    k in torch."""
     w_nbr, w_ctr = ec.split_weights()
+    if not use_kernel(graph.shape[1]):
+        idx = knn(graph, k)
+        if train:
+            s1, t1 = ec[1].push_stats(
+                *edge_conv_batch_stats(x, idx, w_nbr, w_ctr),
+                x.shape[0] * x.shape[1] * k)
+        else:
+            s1, t1 = ec[1].folded()
+        h = leaky_relu(edge_linear(x, idx, w_nbr, w_ctr) * s1 + t1,
+                       ec.negative_slope)
+        return cb(h, train).amax(dim=2)
     w2 = cb.kernel()
     a1 = _project(x, w_nbr)
     b1 = _project(x, w_ctr)
@@ -191,8 +215,9 @@ class TransformNet(nn.Module):
     Input (B, N, 3) points -> (B, 3, 3).  In eval the two convs and the
     max over k are one ``knn_edge2`` launch over the points (conv1 of the
     concat factors into its row slices) and conv3 + max one ``conv_pool``
-    launch; in training ``get_graph_feature`` (kernel 11) builds the (B, N,
-    k, 6) edge tensor, which conv1 and conv2 run on in torch with their
+    launch; in training, and in eval for a cloud size the kernels do not
+    take (``use_kernel``), ``get_graph_feature`` (kernel 11) builds the (B,
+    N, k, 6) edge tensor, which conv1 and conv2 run on in torch with their
     BatchNorm over B*N*k, as in the JAX package.  CUDA tensors launch the
     kernels, CPU tensors take their plain versions."""
 
@@ -210,7 +235,7 @@ class TransformNet(nn.Module):
 
     def forward(self, x: torch.Tensor, k: int,
                 train: bool = False) -> torch.Tensor:
-        if train:
+        if train or not use_kernel(x.shape[1]):
             e = get_graph_feature(x, k)
             t = self.conv2(self.conv1(e, train), train).amax(dim=2)
         else:
@@ -231,20 +256,24 @@ class TransformNet(nn.Module):
 
 class PositionEmbedding(TransformNet):
     """The fork's canonicalizer (reference models/layers.py:8-74): the
-    TransformNet's 3x3 applied to the points, (B, N, 3) -> (B, N, 3) in
-    f32.  Its keys are the TransformNet's."""
+    TransformNet's 3x3 (its eval or training path) applied to the points,
+    (B, N, 3) -> (B, N, 3) in f32.  Its keys are the TransformNet's."""
 
-    def forward(self, x: torch.Tensor, k: int) -> torch.Tensor:
-        return torch.einsum("bnc,bcd->bnd", x, super().forward(x, k))
+    def forward(self, x: torch.Tensor, k: int,
+                train: bool = False) -> torch.Tensor:
+        return torch.einsum("bnc,bcd->bnd", x, super().forward(x, k, train))
 
 
 class DGCNN(nn.Module):
     """The fork's backbone (reference models/dgcnn.py:47-103): EdgeConv
     3->64, 64->64, 64->128, 128->256 (each over its own input's kNN
     graph), their concat through conv5 (512 -> emb, BatchNorm, LeakyReLU)
-    per point: (B, N, 3) -> (B, N, emb), eval forward.  The four stages
-    run the edge_conv_eval kernel on CUDA tensors (its plain version on CPU
-    ones) and conv5 is plain torch, as in the JAX package.  Its keys are
+    per point: (B, N, 3) -> (B, N, emb).  In eval the four stages run the
+    edge_conv_eval kernel on CUDA tensors, in training the knn_reduce
+    kernels (the 128 -> 256 stage in the select-x form; backward:
+    edge_reduce_bwd), as ``DGCNNCls`` trains, with conv5's BatchNorm on the
+    batch's statistics; their plain versions on CPU tensors.  conv5 is
+    plain torch, as in the JAX package.  Its keys are
     ``export_dgcnn_backbone``'s."""
 
     def __init__(self, emb_dims: int = 512, k: int = 32):
@@ -256,13 +285,13 @@ class DGCNN(nn.Module):
         self.conv4 = EdgeConv(128, 256)
         self.conv5 = ConvBN(512, emb_dims, dims=2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         kk = self.k
-        x1 = self.conv1(x, graph=x, k=kk)
-        x2 = self.conv2(x1, graph=x1, k=kk)
-        x3 = self.conv3(x2, graph=x2, k=kk)
-        x4 = self.conv4(x3, graph=x3, k=kk)
-        return self.conv5(torch.cat([x1, x2, x3, x4], dim=-1))
+        x1 = self.conv1(x, train=train, graph=x, k=kk)
+        x2 = self.conv2(x1, train=train, graph=x1, k=kk)
+        x3 = self.conv3(x2, train=train, graph=x2, k=kk)
+        x4 = self.conv4(x3, train=train, graph=x3, k=kk)
+        return self.conv5(torch.cat([x1, x2, x3, x4], dim=-1), train)
 
 
 class DGCNNCls(nn.Module):

@@ -25,6 +25,7 @@ from dgcnn_tpu_torch.ops.edge_conv import (
     fold_bn,
 )
 from dgcnn_tpu_torch.ops.edge_conv_kernel import edge_conv_eval
+from dgcnn_tpu_torch.ops.knn import knn, use_kernel
 from dgcnn_tpu_torch.ops.knn_edge_reduce import (
     knn_edge_reduce,
     knn_edge_reduce_xw,
@@ -194,18 +195,21 @@ class EdgeConv(nn.Sequential):
                 train: bool = False, *, graph: torch.Tensor | None = None,
                 k: int | None = None, band: int = 0) -> torch.Tensor:
         """Either neighbour ``idx`` (B, N, k), or ``graph`` + ``k`` to build
-        the graph in the layer.  With ``graph``, eval runs the whole stage
-        as one kernel (ops/edge_conv_kernel.py; with a ``band`` that prunes
-        N points, ``banded_applicable``, the banded kernel of
-        ops/banded.py) and training runs the differentiable kNN reductions
-        (ops/knn_edge_reduce.py): kernels for CUDA tensors, which raise on
-        shapes they do not take, and their plain versions for CPU
-        tensors."""
+        the graph in the layer.  With ``graph`` of a size the kernels take
+        (``use_kernel``), eval runs the whole stage as one kernel
+        (ops/edge_conv_kernel.py; with a ``band`` that prunes N points,
+        ``banded_applicable``, the banded kernel of ops/banded.py) and
+        training runs the differentiable kNN reductions
+        (ops/knn_edge_reduce.py): kernels for CUDA tensors and their plain
+        versions for CPU tensors.  Other sizes take ``knn`` and the ``idx``
+        path, as the JAX package's XLA path does."""
         w_nbr, w_ctr = self.split_weights()
         bn = self[1]
         if idx is None:
             if graph is None or k is None:
                 raise ValueError("EdgeConv needs either idx or (graph, k)")
+            if not use_kernel(graph.shape[1]):
+                return self(x, knn(graph, k), train)
             if train:
                 return self._train_fused(x, graph, k, w_nbr, w_ctr)
             s, t = bn.folded()

@@ -1,6 +1,15 @@
 """Graph ops (plain torch) and the CUDA kernels of the eval and training
 paths."""
-from dgcnn_tpu_torch.ops.attention import attention_plain, fused_attention
+from dgcnn_tpu_torch.ops.attention import (
+    FusedAttention,
+    attention_bwd,
+    attention_bwd_plain,
+    attention_fwd,
+    attention_plain,
+    dropout_mask,
+    dropout_mask_plain,
+    fused_attention,
+)
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool, conv_pool_plain
 from dgcnn_tpu_torch.ops.edge_conv import (
     edge_conv_batch_stats,
@@ -31,7 +40,7 @@ from dgcnn_tpu_torch.ops.edge_reduce_bwd_kernel import (
     edge_reduce_bwd_plain,
 )
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import knn, pairwise_neg_sqdist
+from dgcnn_tpu_torch.ops.knn import knn, pairwise_neg_sqdist, use_kernel
 from dgcnn_tpu_torch.ops.knn_edge_reduce import (
     KnnEdgeReduce,
     KnnEdgeReduceXW,
@@ -50,11 +59,17 @@ from dgcnn_tpu_torch.ops.pool import global_max, global_mean
 
 __all__ = [
     "Edge2Reduce",
+    "FusedAttention",
     "KnnEdgeReduce",
     "KnnEdgeReduceXW",
+    "attention_bwd",
+    "attention_bwd_plain",
+    "attention_fwd",
     "attention_plain",
     "conv_pool",
     "conv_pool_plain",
+    "dropout_mask",
+    "dropout_mask_plain",
     "edge2_bwd",
     "edge2_bwd_plain",
     "edge2_fwd",
@@ -88,5 +103,6 @@ __all__ = [
     "knn_sum",
     "knn_sum_plain",
     "pairwise_neg_sqdist",
+    "use_kernel",
     "xw_project",
 ]

@@ -9,18 +9,19 @@ from the closed-form 3x3 eigendecomposition of the neighbourhood
 covariance (ops/eig3.py), in two forms, dispatched as the JAX package
 does:
 
-* the moment form (no ``bug_compat`` and N a multiple of 128): centre the
-  cloud, sum the moments [x0, x1, x2, x0^2, x1^2, x2^2, x0x1, x0x2, x1x2]
-  over each neighbourhood (kernel 10, ``knn_sum``), the covariance
-  sum x x^T - (sum x)(sum x)^T / k, one vote vector per point, non-finite
-  votes zeroed, then the sums of the votes over each neighbourhood (kernel
-  9, ``edge_sum``).  No (B, N, k, .) tensor exists.  CUDA tensors launch
-  the kernels, CPU tensors take their plain versions;
+* the moment form (no ``bug_compat`` and an N the kNN kernels take,
+  ``knn.use_kernel``): centre the cloud, sum the moments [x0, x1, x2,
+  x0^2, x1^2, x2^2, x0x1, x0x2, x1x2] over each neighbourhood (kernel 10,
+  ``knn_sum``), the covariance sum x x^T - (sum x)(sum x)^T / k, one vote
+  vector per point, non-finite votes zeroed, then the sums of the votes
+  over each neighbourhood (kernel 9, ``edge_sum``).  No (B, N, k, .)
+  tensor exists.  CUDA tensors launch the kernels, CPU tensors take their
+  plain versions;
 * the gather form otherwise: the neighbourhoods gathered, the covariance
   of the centred rows, every edge's vote summed (plain torch; the kNN is
-  ``knn``, kernel 11, when N is a multiple of 128).  ``bug_compat``
-  replicates the reference's gather of same-axis coordinate triples
-  without the per-batch offset.
+  ``knn``: kernel 11 on CUDA tensors where it takes the cloud).
+  ``bug_compat`` replicates the reference's gather of same-axis
+  coordinate triples without the per-batch offset.
 
 The semantics are the reference's but for the eigenvector's sign, which
 LAPACK leaves open and which is fixed here (largest-magnitude component
@@ -37,7 +38,7 @@ import torch
 from dgcnn_tpu_torch.ops.edge_sum_kernel import edge_sum
 from dgcnn_tpu_torch.ops.eig3 import principal_eig3x3_sym
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import knn, knn_plain
+from dgcnn_tpu_torch.ops.knn import knn, use_kernel
 from dgcnn_tpu_torch.ops.knn_sum_kernel import knn_sum
 
 _NUM_BINS = 9
@@ -169,9 +170,9 @@ def compute_hog(x: torch.Tensor, k: int,
       interleaved as the reference's (B, N, 9, 2) row-major reshape.
     """
     b, n, _ = x.shape
-    if not bug_compat and n % 128 == 0:
+    if not bug_compat and use_kernel(n):
         return _compute_hog_fused(x, k)
-    idx = knn(x, k) if n % 128 == 0 else knn_plain(x, k)
+    idx = knn(x, k)
     if bug_compat:
         # reference model_partseg.py:26-30: a view of the untransposed
         # (B, 3, N) tensor and no per-batch offset: rows are same-axis

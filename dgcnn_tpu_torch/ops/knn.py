@@ -8,8 +8,10 @@ each row are its neighbours, self first.  Ties go to the lowest index, as
 ``knn_plain``'s stable descending sort makes that order explicit instead
 of relying on ``torch.topk``'s unspecified tie order.
 
-``knn`` takes the place of the JAX package's ``knn``: CPU tensors take
-``knn_plain``; CUDA tensors launch ``csrc/knn_idx.cu``, which replaces
+``knn`` takes the place of the JAX package's ``knn``: CPU tensors, and
+clouds whose size the kernels do not take (``use_kernel``, the port of
+``use_pallas``), take ``knn_plain``; other CUDA tensors launch
+``csrc/knn_idx.cu``, which replaces
 ``dgcnn_tpu/ops/pallas_knn.py::knn_pallas`` (body ``_knn_only_kernel``) in
 its exact mode.  The kernel's note states its bound on an H100 and what
 the design does about it.
@@ -25,6 +27,16 @@ from dgcnn_tpu_torch.ops import _build
 # the most points a cloud of the selection kernels may hold
 # (csrc/knn_select.cuh: N / 32 <= 128 scores a lane)
 MAX_N = 4096
+
+
+def use_kernel(n: int) -> bool:
+    """Whether the kNN kernels take a cloud of ``n`` points (the port of
+    ``dgcnn_tpu/ops/knn.py::use_pallas``, with the selection's own limit):
+    N a multiple of 128 and at most ``MAX_N``.  The models route the other
+    sizes to the port of the JAX package's XLA path, decided from the
+    shape before any launch; the device of the caller's tensors decides
+    the rest (CPU tensors take the plain versions anyway)."""
+    return n % 128 == 0 and n <= MAX_N
 
 
 def pairwise_neg_sqdist(x: torch.Tensor,
@@ -60,21 +72,20 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
     first, lowest index first among equal scores.  No gradient flows
     through the selection.
 
-    CPU tensors take ``knn_plain``; CUDA tensors launch the kernel, which
-    takes f32 contiguous points with N a multiple of 128 and N <= 4096 and
-    raises on anything else.  The kernel writes int32 indices; they are
-    widened to int64, the index type of torch's gathers, so that both
-    devices return the same type."""
+    CPU tensors, and clouds whose N the kernel does not take
+    (``use_kernel``, as the JAX package's ``_knn_single`` routes them),
+    take ``knn_plain``; other CUDA tensors launch the kernel, which takes
+    f32 contiguous points and raises on anything else.  The kernel writes
+    int32 indices; they are widened to int64, the index type of torch's
+    gathers, so that both devices return the same type."""
     x = x.detach()
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or not use_kernel(x.shape[1]):
         return knn_plain(x, k)
     _require(x.is_cuda, f"no kernel for device {x.device}")
     _require(x.dtype == torch.float32, "x must be float32")
     _require(x.dim() == 3 and x.is_contiguous(),
              "x must be a contiguous (B, N, C) tensor")
     b, n, c = x.shape
-    _require(n % 128 == 0 and n <= MAX_N,
-             f"N={n} must be a multiple of 128 and <= {MAX_N}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
     fn = _build.load_library().dg_knn_idx
     if fn.argtypes is None:

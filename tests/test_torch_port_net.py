@@ -383,18 +383,24 @@ def test_partseg_cli_evaluates_the_net_as_jax_cli(shapenet_dir, monkeypatch):
 
 
 @pytest.mark.parametrize("flag,message", [
-    ("--eval=False", "training the fusion Net"),
+    # training the Net parses; --device_pipeline with it is refused
+    pytest.param("--eval=False", "--device_pipeline is not ported yet",
+                 id="--eval=False-training the fusion Net"),
     ("--use_custom_attention", "--use_custom_attention is not ported yet"),
     ("--fast_extract=128", "with --model transformer is not ported yet"),
 ])
 def test_partseg_cli_refuses_what_of_the_net_is_not_ported(capsys, flag,
                                                            message):
-    """The parser refuses Net training, the custom attention and a
-    --fast_extract band with the Net, with a message; --fast_extract=0
-    (exact) passes."""
+    """The parser refuses the custom attention and a --fast_extract band
+    with the Net, with a message, and lets the Net train (--eval=False),
+    but not with --device_pipeline; --fast_extract=0 (exact) passes."""
     from dgcnn_tpu_torch.cli import partseg
 
     parse = partseg.build_parser().parse_args
+    if flag == "--eval=False":
+        ns = parse(["--model=transformer", flag])
+        assert ns.model == "transformer" and not ns.eval
+        flag = "--device_pipeline=True"
     with pytest.raises(SystemExit):
         parse(["--model=transformer", "--eval=True", flag])
     assert message in capsys.readouterr().err

@@ -582,23 +582,27 @@ def test_partseg_cli_trains_resumes_and_reloads(shapenet_dir):
                                   "--orbax=True", "--remat=True",
                                   "--debug_nans=True", "--fast_extract=1000"])
 def test_partseg_cli_refuses_what_is_not_ported(shapenet_dir, capsys, flag):
-    """Training the fusion Net (the parser's default model, whose eval is
-    ported) and the JAX CLI's device-pipeline, export and visualization
-    options are refused by the parser with a message; its runtime flags
-    are not flags of the port; a band the kernels do not take is
-    refused."""
+    """The fusion Net (the parser's default model, or named) with what of
+    it is not ported (a --fast_extract band; the custom attention) and the
+    JAX CLI's device-pipeline, export and visualization options are
+    refused by the parser with a message; its runtime flags are not flags
+    of the port; a band the kernels do not take is refused."""
     from dgcnn_tpu_torch.cli import partseg
 
     argv = ["--exp_name=t", "--no_cuda=True"]
-    if flag is not None:
-        argv += ([] if flag.startswith("--model=") else ["--model=dgcnn"]) + [
-            flag]
+    if flag is None:
+        argv += ["--fast_extract=128"]
+    elif flag.startswith("--model="):
+        argv += [flag, "--use_custom_attention"]
+    else:
+        argv += ["--model=dgcnn", flag]
     with pytest.raises(SystemExit):
         partseg.main(argv)
     err = capsys.readouterr().err
-    if flag is None or flag.startswith("--model="):
-        assert "training the fusion Net" in err
-        assert "not ported yet: pass --eval=True" in err
+    if flag is None:
+        assert "with --model transformer is not ported yet" in err
+    elif flag.startswith("--model="):
+        assert "--use_custom_attention is not ported yet" in err
     elif flag.split("=")[0] in ("--device_pipeline", "--export_model",
                                 "--visu"):
         assert "is not ported yet" in err
