@@ -112,14 +112,17 @@ def dropout_mask_plain(shape, seed: torch.Tensor, rate: float,
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     sm_scale: float, rate: float = 0.0,
-                    seed: torch.Tensor | None = None) -> torch.Tensor:
+                    seed: torch.Tensor | None = None,
+                    with_lse: bool = False):
     """Plain torch version of the kernels: dropout(softmax(q k^T *
     sm_scale)) v over (B, h, N, d) f32 tensors, the JAX package's dense
     path (torch_transformer.py, its dense fallback), with the port's mask
     of ``seed`` at ``rate`` (each kept probability scaled by 1 / (1 -
     rate)).  Queries run in chunks whose f32 score slab stays under 512 MB,
-    each row's softmax over the whole key axis as in one pass.  Autograd
-    through it is kernel 15's plain version."""
+    each row's softmax over the whole key axis as in one pass.  With
+    ``with_lse``, (the output, each row's log-sum-exp (B, h, Nq) of its
+    scaled scores): kernel 14's training form's pair.  Autograd through it
+    is kernel 15's plain version."""
     if rate > 0.0 and seed is None:
         raise ValueError("attention: a dropout rate > 0 needs a seed")
     b, h, nq, _ = q.shape
@@ -127,16 +130,21 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = max(1, _CHUNK_BYTES // ((4 if rate == 0.0 else 16)
                                    * b * h * nk))
     kt = k.float().transpose(2, 3)
-    outs = []
+    outs, lses = [], []
     for r0 in range(0, nq, rows):
         s = torch.matmul(q[:, :, r0:r0 + rows].float(), kt) * sm_scale
+        if with_lse:
+            lses.append(torch.logsumexp(s, dim=-1))
         p = torch.softmax(s, dim=-1)
         if rate > 0.0:
             keep = _keep_plain(b, h, r0, min(r0 + rows, nq), nk, seed, rate,
                                q.device)
             p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
         outs.append(torch.matmul(p, v.float()))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    if not with_lse:
+        return out
+    return out, lses[0] if len(lses) == 1 else torch.cat(lses, dim=2)
 
 
 def attention_bwd_plain(q, k, v, seed, do, sm_scale: float,
@@ -219,16 +227,15 @@ def _strides(*ts) -> ctypes.Array:
 def attention_fwd(q, k, v, sm_scale: float, rate: float = 0.0,
                   seed: torch.Tensor | None = None, with_lse: bool = False):
     """Kernel 14: (o, the log-sum-exp (B, h, Nq) of each row's scaled
-    scores, or None).  CPU tensors take ``attention_plain`` (and torch's
-    logsumexp).  On CUDA tensors ``with_lse`` or dropout (rate > 0) runs
-    its training form, which writes the log-sum-exp; else its evaluation
-    form.  q, k and v with rows that are not 16-byte aligned are copied
-    first."""
+    scores, or None).  ``with_lse`` or dropout (rate > 0) asks for its
+    training form, which writes the log-sum-exp; else its evaluation form.
+    CPU tensors take ``attention_plain``.  On CUDA tensors, q, k and v with
+    rows that are not 16-byte aligned are copied first."""
     if q.device.type == "cpu":
-        lse = (torch.logsumexp(torch.matmul(q, k.transpose(2, 3))
-                               * sm_scale, dim=-1)
-               if with_lse or rate > 0.0 else None)
-        return attention_plain(q, k, v, sm_scale, rate, seed), lse
+        if with_lse or rate > 0.0:
+            return attention_plain(q, k, v, sm_scale, rate, seed,
+                                   with_lse=True)
+        return attention_plain(q, k, v, sm_scale), None
     b, h, nq, nk, d = _check_qkv(q, k, v)
     q, k, v = (_aligned(t) for t in (q, k, v))
     _check_seed(seed, rate, q.device)

@@ -207,6 +207,30 @@ def test_attention_and_gradients_with_dropout_match_jax_dense(rate):
         fused_attention(*map(torch.from_numpy, (q, k, v)), scale, rate)
 
 
+@pytest.mark.parametrize("chunk_bytes", [None, 64 * 1024])
+def test_attention_fwd_on_the_cpu_returns_the_log_sum_exp(monkeypatch,
+                                                          chunk_bytes):
+    """Kernel 14's wrapper on CPU tensors: its training form gives the
+    plain output and each row's log-sum-exp of the scaled scores, whether
+    the plain version takes the queries in one chunk or in many; its
+    evaluation form gives no log-sum-exp."""
+    from dgcnn_tpu_torch.ops import attention as attention_mod
+
+    q, k, v = map(torch.from_numpy, _qkv(5, nq=128, nk=192, d=64))
+    scale, seed = 64 ** -0.5, _seed(5)
+    want = attention_plain(q, k, v, scale, 0.5, seed)
+    lse_want = torch.logsumexp(q @ k.transpose(2, 3) * scale, dim=-1)
+    if chunk_bytes is not None:
+        monkeypatch.setattr(attention_mod, "_CHUNK_BYTES", chunk_bytes)
+    o, lse = attention_fwd(q, k, v, scale, 0.5, seed)
+    np.testing.assert_allclose(o.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(lse.numpy(), lse_want.numpy(), rtol=1e-6)
+    o0, none = attention_fwd(q, k, v, scale)
+    assert none is None
+    np.testing.assert_array_equal(o0.numpy(),
+                                  attention_plain(q, k, v, scale).numpy())
+
+
 # ------------------------------------------- (c) two Net training steps
 
 
