@@ -17,54 +17,82 @@
 // Nothing of size (Nq, Nk) reaches device memory, the mask neither: each
 // kernel draws its bits from the stream of attention.cuh.
 //
-// Bound on an H100 SXM: operations.  The five products the TPU kernel
-// counts (s, dO v^T, dv, dq, dk: 5 * 2 * B*h*Nq*Nk*d flops) are 6.9e11 at
-// the fusion Net's stacked shape (B=32, h=2, N=2048, d=256), ~10.3 ms at
-// the f32 CUDA-core peak (67 TFLOP/s); q, k, v, o, dO, dq, dk and dv are
-// 8 * 134 MB, ~0.3 ms at 3.35 TB/s.
+// Bound on an H100 SXM, at the fusion Net's training call (B, h, N, d) =
+// (64, 2, 2048, 256): operations.  The five products the TPU kernel counts
+// (s, dO v^T, dv, dq, dk: 5 * 2 * B*h*Nq*Nk*d = 1.37e12 flops) take 20.5
+// ms at the f32 CUDA-core peak (67 TFLOP/s); in three TF32 terms each
+// (4.12e12 tensor flops) 8.3 ms at the dense TF32 peak (495 TFLOP/s), plus
+// ~0.05 ms of per-score arithmetic on the CUDA cores.  q, k, v, o, dO, dq,
+// dk and dv are 8 * 268 MB, 0.64 ms at 3.35 TB/s.
 //
 // Design: three launches, and no atomics, so that every sum runs in an
 // order fixed from run to run:
 //   1. delta_kernel: a warp a row, Delta = rowsum(dO * o).
 //   2. dkdv_kernel: a block per (b, h, tile of BK keys) holds its K and V
 //      tiles in shared memory and loops over the query tiles of BQ rows:
-//      it recomputes s and dO v^T for the tile (both products in one pass
-//      over d), forms P~ and dS * scale in shared memory, and adds P~^T dO
-//      and dS^T q into dv and dk, held in registers (BK * D * 2 / 256 = 64
-//      floats a thread).  The key tiles are independent: no cross-block
-//      sum, unlike the TPU kernel's accumulation over its sequential grid.
+//      it recomputes s and dO v^T for the tile, forms P~ and dS * scale in
+//      shared memory, and adds P~^T dO and dS^T q into dv and dk, held in
+//      registers (2 * BK * D / 256 = 64 floats a thread).  The key tiles
+//      are independent: no cross-block sum, unlike the TPU kernel's
+//      accumulation over its sequential grid.
 //   3. dq_kernel: a block per (b, h, tile of BQ queries) holds its Q and dO
 //      tiles and loops over the key tiles: the same scores, then dS k into
 //      dq in registers.
-// The tiles (BK = 8192 / D keys, BQ = 64 queries, 32 at d = 512) keep each
-// block's shared memory under 227 KB at one block an SM; rows are padded
-// by 4 floats, so that every read of a product is a float4 or a broadcast.
-// Thread (ty, tx) computes the scores of rows ty + 16 i and columns tx +
-// 16 j of a tile, and owns output columns 4 tx + 64 g .. + 3.  A first
-// form: the copies are not overlapped with the products.  Its times on an
-// H100 against its bound are in PERF.md (chip_smoke.py, phase 31).
+// So the kernel runs 7 products where the bound counts 5: the dq pass
+// recomputes s and dO v^T rather than sum dq across blocks.
+//
+// Every product is mma.sync m16n8k8 on the tensor cores in three TF32
+// terms (mma_tf32.cuh: lo*hi, hi*lo, then hi*hi into one f32
+// accumulator), near f32 roundoff; the operands are split as each
+// fragment is read from shared memory.  The tensor core's sum cuts toward
+// zero, so every chain of MMAs starts from a fresh accumulator (32 columns
+// of d in a score, a query tile in dk and dv, a key tile in dq), added to
+// the running sum in f32: one chain over all 2048 queries drifted to 4e-5
+// of a row's norm, the short chains hold 5e-6.  The per-score work (the
+// exponential, the mask, dS) runs on the CUDA cores on the accumulator
+// fragments, and P~ and dS pass through shared memory to become the next
+// product's A operand.  Shared tiles are swizzled (mma_tf32.cuh), since
+// Q, dO and K are read both along and across their rows.  Tiles: BK = 8192
+// / D keys, BQ = 64 queries (32 at d = 512), under 227 KB of shared memory
+// at one block an SM.  In the score phase a warp owns one 16-row m-tile
+// and SN 8-column n-tiles of both s and dO v^T (at d = 512 the tile holds
+// four warps' worth, and four warps wait); in dkdv's accumulation warps
+// 0-3 own dv and 4-7 dk, each all BK rows and a quarter of the columns;
+// in dq's, a warp owns BQ / 2 rows and a quarter of the columns.  The
+// copies are not overlapped with the products (one block an SM holds no
+// second buffer).  Times against the bound are in PERF.md (chip_smoke.py,
+// phase 31).
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using namespace dg_attn;
+using dg_mma::at;
+using dg_mma::FragA;
+using dg_mma::FragB;
 
 template <int D>
 struct BwdTile {
   static constexpr int BK = 8192 / D;            // keys a tile
   static constexpr int BQ = D >= 512 ? 32 : 64;  // queries a tile
-  static constexpr int RQ = BQ / 16;             // score rows a thread
-  static constexpr int CK = BK / 16;             // score columns a thread
-  static constexpr int RK = BK / 16;             // dk / dv rows a thread
-  static constexpr int CG = D / 64;              // output float4s a row
-  static constexpr int QS = D + 4;               // Q/dO/K/V row stride
-  static constexpr int PS = BK + 4;              // P~ / dS row stride
+  static constexpr int PS = BK < 32 ? 32 : BK;   // P~ / dS row (swizzled)
+  // the score phase: MQ x NK m16n8 tiles of s and of dO v^T; a warp owns
+  // one m-tile and SN n-tiles of both, SWARPS warps in all
+  static constexpr int MQ = BQ / 16, NK = BK / 8;
+  static constexpr int SWN = 8 / MQ < NK ? 8 / MQ : NK;
+  static constexpr int SN = NK / SWN, SWARPS = MQ * SWN;
+  // dkdv's accumulation: a warp owns KM x KN tiles of dv or dk
+  static constexpr int KM = BK / 16, KN = D / 32;
+  // dq's: a warp owns QM x KN tiles of dq
+  static constexpr int QM = BQ / 32;
   static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * QS + 2 * (size_t)BQ * PS +
+      sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * D + 2 * (size_t)BQ * PS +
                        2 * BQ);
+  static_assert(SWARPS <= THREADS / 32 && SWN * SN == NK, "score warps");
 };
 
 // Delta[b, h, i] = sum_d dO[b, h, i, d] * o[b, h, i, d]: a warp a row, the
@@ -87,96 +115,127 @@ __global__ void __launch_bounds__(THREADS)
   if (lane == 0) delta[((long long)bz * gridDim.y + hh) * Nq + row] = acc;
 }
 
-// The scores of one (query tile, key tile) pair: s = Qs Ks^T and dp = dOs
-// Vs^T for rows ty + 16 i and columns tx + 16 j, four d at a time.
-template <int D, int RQ, int CK>
+// The scores of the warp's part of one (query tile, key tile) pair: s = Qs
+// Ks^T and dp = dOs Vs^T for tile rows m0 .. m0 + 15 and columns n0 .. n0
+// + 8 SN - 1, as m16n8 accumulator fragments.  Both products in one pass
+// over d keep 2 SN chains of MMAs in flight; each 32 columns of d sum into
+// a fresh accumulator, added to s and dp in f32.
+template <int D, int SN>
 __device__ __forceinline__ void tile_scores(const float* Qs, const float* dOs,
                                             const float* Ks, const float* Vs,
-                                            float (&s)[RQ][CK],
-                                            float (&dp)[RQ][CK]) {
-  constexpr int QS = D + 4;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < CK; ++j) s[i][j] = dp[i][j] = 0.f;
+                                            int m0, int n0,
+                                            float (&s)[1][SN][4],
+                                            float (&dp)[1][SN][4]) {
+  using namespace dg_mma;
+  const int g = lane_g();
+  float ps[1][SN][4], pd[1][SN][4];
+  zero_tiles(s);
+  zero_tiles(dp);
+  zero_tiles(ps);
+  zero_tiles(pd);
 #pragma unroll 1
-  for (int dd = 0; dd < D; dd += 4) {
-    float4 qr[RQ], dr[RQ], kc[CK], vc[CK];
+  for (int c0 = 0; c0 < D; c0 += 32) {
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      qr[i] = ld4(Qs + (ty + 16 * i) * QS + dd);
-      dr[i] = ld4(dOs + (ty + 16 * i) * QS + dd);
-    }
+    for (int h = 0; h < 32; h += 16) {
+      FragA qa[2], da[2];
+      split_a_quads(load_quad<D>(Qs, m0 + g, c0, h),
+                    load_quad<D>(Qs, m0 + g + 8, c0, h), qa[0], qa[1]);
+      split_a_quads(load_quad<D>(dOs, m0 + g, c0, h),
+                    load_quad<D>(dOs, m0 + g + 8, c0, h), da[0], da[1]);
 #pragma unroll
-    for (int j = 0; j < CK; ++j) {
-      kc[j] = ld4(Ks + (tx + 16 * j) * QS + dd);
-      vc[j] = ld4(Vs + (tx + 16 * j) * QS + dd);
-    }
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        s[i][j] = fmaf(qr[i].x, kc[j].x, s[i][j]);
-        s[i][j] = fmaf(qr[i].y, kc[j].y, s[i][j]);
-        s[i][j] = fmaf(qr[i].z, kc[j].z, s[i][j]);
-        s[i][j] = fmaf(qr[i].w, kc[j].w, s[i][j]);
-        dp[i][j] = fmaf(dr[i].x, vc[j].x, dp[i][j]);
-        dp[i][j] = fmaf(dr[i].y, vc[j].y, dp[i][j]);
-        dp[i][j] = fmaf(dr[i].z, vc[j].z, dp[i][j]);
-        dp[i][j] = fmaf(dr[i].w, vc[j].w, dp[i][j]);
+      for (int j = 0; j < SN; ++j) {
+        FragB kb[2], vb[2];
+        split_b_quad(load_quad<D>(Ks, n0 + 8 * j + g, c0, h), kb[0], kb[1]);
+        split_b_quad(load_quad<D>(Vs, n0 + 8 * j + g, c0, h), vb[0], vb[1]);
+        mma3(ps[0][j], qa[0], kb[0]);
+        mma3(ps[0][j], qa[1], kb[1]);
+        mma3(pd[0][j], da[0], vb[0]);
+        mma3(pd[0][j], da[1], vb[1]);
       }
+    }
+    add_tiles(s, ps);
+    add_tiles(dp, pd);
   }
 }
 
-// From the scores of a tile: P~ (when Pt is given) and dS * scale into
-// shared memory, rows ty + 16 i and columns tx + 16 j; entries past Nq or
-// Nk are 0.  lse_s and delta_s hold the tile's rows.
-template <bool DROPOUT, int RQ, int CK, int PS>
+// From the warp's scores: P~ (when Pt is given) and dS * scale into the
+// swizzled shared tiles, entries past Nq or Nk 0.  lse_s and delta_s hold
+// the tile's rows, key the dropout keys of rows m0 + g and m0 + g + 8.
+template <bool DROPOUT, int SN, int PS>
 __device__ __forceinline__ void tile_probs(
-    const float (&s)[RQ][CK], const float (&dp)[RQ][CK], const float* lse_s,
-    const float* delta_s, const unsigned long long* key, int q0, int k0,
-    int Nq, int Nk, float scale, unsigned thresh, float inv, float* Pt,
-    float* dS) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+    const float (&s)[1][SN][4], const float (&dp)[1][SN][4],
+    const float* lse_s,
+    const float* delta_s, const unsigned long long (&key)[2], int m0, int n0,
+    int q0, int k0, int Nq, int Nk, float scale, unsigned thresh, float inv,
+    float* Pt, float* dS) {
+  const int g = dg_mma::lane_g(), t = dg_mma::lane_t();
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int ri = ty + 16 * i;
+  for (int j = 0; j < SN; ++j)
 #pragma unroll
-    for (int j = 0; j < CK; ++j) {
-      const int cj = tx + 16 * j;
-      const bool in = q0 + ri < Nq && k0 + cj < Nk;
-      const float p = in ? expf(s[i][j] * scale - lse_s[ri]) : 0.f;
-      float pt = p, dpv = dp[i][j];
-      if constexpr (DROPOUT) {
-        const bool kept = keep(key[i], k0 + cj, thresh);
-        pt = kept ? p * inv : 0.f;
-        dpv = kept ? dpv * inv : 0.f;
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + g + 8 * half, c = n0 + 8 * j + 2 * t;
+      float pv[2], dsv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = q0 + r < Nq && k0 + c + e < Nk;
+        const float p =
+            in ? expf(s[0][j][2 * half + e] * scale - lse_s[r]) : 0.f;
+        float pt = p, dpv = dp[0][j][2 * half + e];
+        if constexpr (DROPOUT) {
+          const bool kept = keep(key[half], k0 + c + e, thresh);
+          pt = kept ? p * inv : 0.f;
+          dpv = kept ? dpv * inv : 0.f;
+        }
+        pv[e] = pt;
+        dsv[e] = p * (dpv - delta_s[r]) * scale;
       }
-      if (Pt != nullptr) Pt[ri * PS + cj] = pt;
-      dS[ri * PS + cj] = p * (dpv - delta_s[ri]) * scale;
+      if (Pt != nullptr)
+        *reinterpret_cast<float2*>(Pt + at<PS>(r, c)) =
+            make_float2(pv[0], pv[1]);
+      *reinterpret_cast<float2*>(dS + at<PS>(r, c)) =
+          make_float2(dsv[0], dsv[1]);
     }
-  }
 }
 
 // The rows [q0, q0 + BQ) of lse and Delta into shared memory (0 past Nq),
-// and the dropout keys of the thread's score rows.
-template <bool DROPOUT, int BQ, int RQ>
+// and the dropout keys of the warp's score rows q0 + m0 + g (+ 8).
+template <bool DROPOUT, int BQ>
 __device__ __forceinline__ void load_row_stats(
     const float* lse, const float* delta, long long base, int q0, int Nq,
-    float* lse_s, float* delta_s, const long long* seed, int bz, int hh,
-    unsigned long long* key) {
+    int m0, float* lse_s, float* delta_s, const long long* seed, int bz,
+    int hh, unsigned long long (&key)[2]) {
   for (int r = threadIdx.x; r < BQ; r += THREADS) {
     const bool in = q0 + r < Nq;
     lse_s[r] = in ? lse[base + q0 + r] : 0.f;
     delta_s[r] = in ? delta[base + q0 + r] : 0.f;
   }
   if constexpr (DROPOUT) {
-    const int ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-      key[i] = row_key(*seed, bz, hh, q0 + ty + 16 * i);
+    const int g = dg_mma::lane_g();
+    key[0] = row_key(*seed, bz, hh, q0 + m0 + g);
+    key[1] = row_key(*seed, bz, hh, q0 + m0 + g + 8);
   }
+}
+
+// Writes a warp's MI x NI accumulator tiles to rows r0 + 16 mi + g (+ 8)
+// and columns c0 + 8 ni + 2t (+ 1) of out (rows past nrows skipped).
+template <int MI, int NI>
+__device__ __forceinline__ void store_tiles(const float (&acc)[MI][NI][4],
+                                            float* out, long long stride,
+                                            int r0, int c0, int nrows) {
+  const int g = dg_mma::lane_g(), t = dg_mma::lane_t();
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 16 * mi + g + 8 * half;
+      if (r >= nrows) continue;
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        float* a = out + r * stride + c0 + 8 * ni + 2 * t;
+        a[0] = acc[mi][ni][2 * half];
+        a[1] = acc[mi][ni][2 * half + 1];
+      }
+    }
 }
 
 template <int D, bool DROPOUT>
@@ -190,99 +249,77 @@ __global__ void __launch_bounds__(THREADS, 1)
                 Strides sdv, float scale, const long long* seed,
                 unsigned thresh, float inv) {
   using T = BwdTile<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, RQ = T::RQ, CK = T::CK, RK = T::RK;
-  constexpr int CG = T::CG, QS = T::QS, PS = T::PS;
+  constexpr int BQ = T::BQ, BK = T::BK, PS = T::PS, SN = T::SN;
+  constexpr int KM = T::KM, KN = T::KN;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BK * QS;
-  float* Qs = Vs + BK * QS;
-  float* dOs = Qs + BQ * QS;
-  float* Pt = dOs + BQ * QS;
+  float* Vs = Ks + BK * D;
+  float* Qs = Vs + BK * D;
+  float* dOs = Qs + BQ * D;
+  float* Pt = dOs + BQ * D;
   float* dS = Pt + BQ * PS;
   float* lse_s = dS + BQ * PS;
   float* delta_s = lse_s + BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5;
   const int bz = blockIdx.z, hh = blockIdx.y, k0 = blockIdx.x * BK;
   const long long rows = ((long long)bz * gridDim.y + hh) * Nq;
   const float* qb = q + bz * sq.b + hh * sq.h;
   const float* dob = dout + bz * sdo.b + hh * sdo.h;
+  // the warp's score tile, and its part of the accumulation: warps 0-3 dv
+  // += P~^T dO, warps 4-7 dk += dS^T Q, columns nb .. nb + D / 4 - 1
+  const bool scores = warp < T::SWARPS;
+  const int m0 = 16 * (warp % T::MQ), n0 = 8 * SN * (warp / T::MQ);
+  const float* As = warp < 4 ? Pt : dS;
+  const float* Bs = warp < 4 ? dOs : Qs;
+  const int nb = (warp & 3) * (D / 4);
 
-  load_rows<D>(Ks, k + bz * sk.b + hh * sk.h, sk.n, k0, BK, Nk);
-  load_rows<D>(Vs, v + bz * sv.b + hh * sv.h, sv.n, k0, BK, Nk);
+  dg_mma::load_rows<D>(Ks, k + bz * sk.b + hh * sk.h, sk.n, k0, BK, Nk);
+  dg_mma::load_rows<D>(Vs, v + bz * sv.b + hh * sv.h, sv.n, k0, BK, Nk);
   commit();
 
-  // adk / adv [i][g]: key row ty + 16 i, columns 4 tx + 64 g .. + 3
-  float4 adk[RK][CG], adv[RK][CG];
-#pragma unroll
-  for (int i = 0; i < RK; ++i)
-#pragma unroll
-    for (int g = 0; g < CG; ++g)
-      adk[i][g] = adv[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
-  unsigned long long key[DROPOUT ? RQ : 1];
+  // acc: the sum over the query tiles so far; part: this tile's
+  float acc[KM][KN][4], part[KM][KN][4];
+  dg_mma::zero_tiles(acc);
+  dg_mma::zero_tiles(part);
+  unsigned long long key[2];
 
   for (int q0 = 0; q0 < Nq; q0 += BQ) {
-    load_rows<D>(Qs, qb, sq.n, q0, BQ, Nq);
-    load_rows<D>(dOs, dob, sdo.n, q0, BQ, Nq);
+    dg_mma::load_rows<D>(Qs, qb, sq.n, q0, BQ, Nq);
+    dg_mma::load_rows<D>(dOs, dob, sdo.n, q0, BQ, Nq);
     commit();
-    load_row_stats<DROPOUT, BQ, RQ>(lse, delta, rows, q0, Nq, lse_s, delta_s,
-                                    seed, bz, hh, key);
+    load_row_stats<DROPOUT, BQ>(lse, delta, rows, q0, Nq, m0, lse_s,
+                                delta_s, seed, bz, hh, key);
     wait_groups<0>();
     __syncthreads();
-    float s[RQ][CK], dp[RQ][CK];
-    tile_scores<D, RQ, CK>(Qs, dOs, Ks, Vs, s, dp);
-    tile_probs<DROPOUT, RQ, CK, PS>(s, dp, lse_s, delta_s, key, q0, k0, Nq,
-                                    Nk, scale, thresh, inv, Pt, dS);
+    if (scores) {
+      float s[1][SN][4], dp[1][SN][4];
+      tile_scores<D, SN>(Qs, dOs, Ks, Vs, m0, n0, s, dp);
+      tile_probs<DROPOUT, SN, PS>(s, dp, lse_s, delta_s, key, m0, n0, q0,
+                                  k0, Nq, Nk, scale, thresh, inv, Pt, dS);
+    }
     __syncthreads();
-    // dv += P~^T dO and dk += dS^T Q over the tile's BQ query rows, in
-    // ascending row order
+    // over the tile's BQ query rows, 8 at a time in ascending order
 #pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      float pr[RK], sr[RK];
+    for (int kk = 0; kk < BQ; kk += 8) {
+      FragA a[KM];
 #pragma unroll
-      for (int i = 0; i < RK; ++i) {
-        pr[i] = Pt[r * PS + ty + 16 * i];
-        sr[i] = dS[r * PS + ty + 16 * i];
-      }
+      for (int mi = 0; mi < KM; ++mi)
+        a[mi] = dg_mma::load_a_cols<PS>(As, 16 * mi, kk);
 #pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        const float4 dov = ld4(dOs + r * QS + 4 * tx + 64 * g);
-        const float4 qv = ld4(Qs + r * QS + 4 * tx + 64 * g);
+      for (int ni = 0; ni < KN; ++ni) {
+        const FragB b = dg_mma::load_b_cols<D>(Bs, nb + 8 * ni, kk);
 #pragma unroll
-        for (int i = 0; i < RK; ++i) {
-          adv[i][g].x = fmaf(pr[i], dov.x, adv[i][g].x);
-          adv[i][g].y = fmaf(pr[i], dov.y, adv[i][g].y);
-          adv[i][g].z = fmaf(pr[i], dov.z, adv[i][g].z);
-          adv[i][g].w = fmaf(pr[i], dov.w, adv[i][g].w);
-          adk[i][g].x = fmaf(sr[i], qv.x, adk[i][g].x);
-          adk[i][g].y = fmaf(sr[i], qv.y, adk[i][g].y);
-          adk[i][g].z = fmaf(sr[i], qv.z, adk[i][g].z);
-          adk[i][g].w = fmaf(sr[i], qv.w, adk[i][g].w);
-        }
+        for (int mi = 0; mi < KM; ++mi) dg_mma::mma3(part[mi][ni], a[mi], b);
       }
     }
-    __syncthreads();  // every thread is done with Qs, dOs, Pt and dS
+    dg_mma::add_tiles(acc, part);
+    __syncthreads();  // every warp is done with Qs, dOs, Pt and dS
   }
 
-  float* dkb = dk + bz * sdk.b + hh * sdk.h;
-  float* dvb = dv + bz * sdv.b + hh * sdv.h;
-#pragma unroll
-  for (int i = 0; i < RK; ++i) {
-    const int r = k0 + ty + 16 * i;
-    if (r >= Nk) continue;
-#pragma unroll
-    for (int g = 0; g < CG; ++g) {
-      float* a = dkb + r * sdk.n + 4 * tx + 64 * g;
-      a[0] = adk[i][g].x;
-      a[1] = adk[i][g].y;
-      a[2] = adk[i][g].z;
-      a[3] = adk[i][g].w;
-      float* b = dvb + r * sdv.n + 4 * tx + 64 * g;
-      b[0] = adv[i][g].x;
-      b[1] = adv[i][g].y;
-      b[2] = adv[i][g].z;
-      b[3] = adv[i][g].w;
-    }
-  }
+  if (warp < 4)
+    store_tiles<KM, KN>(acc, dv + bz * sdv.b + hh * sdv.h, sdv.n, k0, nb, Nk);
+  else
+    store_tiles<KM, KN>(acc, dk + bz * sdk.b + hh * sdk.h, sdk.n, k0, nb, Nk);
 }
 
 template <int D, bool DROPOUT>
@@ -294,89 +331,74 @@ __global__ void __launch_bounds__(THREADS, 1)
               Strides sv, Strides sdo, Strides sdq, float scale,
               const long long* seed, unsigned thresh, float inv) {
   using T = BwdTile<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, RQ = T::RQ, CK = T::CK;
-  constexpr int CG = T::CG, QS = T::QS, PS = T::PS;
+  constexpr int BQ = T::BQ, BK = T::BK, PS = T::PS, SN = T::SN;
+  constexpr int QM = T::QM, KN = T::KN;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + BK * QS;
-  float* Qs = Vs + BK * QS;
-  float* dOs = Qs + BQ * QS;
-  float* dS = dOs + BQ * QS;
+  float* Vs = Ks + BK * D;
+  float* Qs = Vs + BK * D;
+  float* dOs = Qs + BQ * D;
+  float* dS = dOs + BQ * D;
   float* lse_s = dS + BQ * PS;
   float* delta_s = lse_s + BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5;
   const int bz = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * BQ;
   const float* kb = k + bz * sk.b + hh * sk.h;
   const float* vb = v + bz * sv.b + hh * sv.h;
+  // the warp's score tile, and its part of dq += dS K: rows mb .. mb + BQ
+  // / 2 - 1, columns nb .. nb + D / 4 - 1
+  const bool scores = warp < T::SWARPS;
+  const int m0 = 16 * (warp % T::MQ), n0 = 8 * SN * (warp / T::MQ);
+  const int mb = 16 * QM * (warp & 1), nb = (warp >> 1) * (D / 4);
 
-  load_rows<D>(Qs, q + bz * sq.b + hh * sq.h, sq.n, q0, BQ, Nq);
-  load_rows<D>(dOs, dout + bz * sdo.b + hh * sdo.h, sdo.n, q0, BQ, Nq);
+  dg_mma::load_rows<D>(Qs, q + bz * sq.b + hh * sq.h, sq.n, q0, BQ, Nq);
+  dg_mma::load_rows<D>(dOs, dout + bz * sdo.b + hh * sdo.h, sdo.n, q0, BQ,
+                       Nq);
   commit();
-  unsigned long long key[DROPOUT ? RQ : 1];
-  load_row_stats<DROPOUT, BQ, RQ>(lse, delta,
-                                  ((long long)bz * gridDim.y + hh) * Nq, q0,
-                                  Nq, lse_s, delta_s, seed, bz, hh, key);
+  unsigned long long key[2];
+  load_row_stats<DROPOUT, BQ>(lse, delta,
+                              ((long long)bz * gridDim.y + hh) * Nq, q0, Nq,
+                              m0, lse_s, delta_s, seed, bz, hh, key);
 
-  // acc[i][g]: query row ty + 16 i, columns 4 tx + 64 g .. + 3
-  float4 acc[RQ][CG];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int g = 0; g < CG; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // acc: the sum over the key tiles so far; part: this tile's
+  float acc[QM][KN][4], part[QM][KN][4];
+  dg_mma::zero_tiles(acc);
+  dg_mma::zero_tiles(part);
 
   for (int k0 = 0; k0 < Nk; k0 += BK) {
-    load_rows<D>(Ks, kb, sk.n, k0, BK, Nk);
-    load_rows<D>(Vs, vb, sv.n, k0, BK, Nk);
+    dg_mma::load_rows<D>(Ks, kb, sk.n, k0, BK, Nk);
+    dg_mma::load_rows<D>(Vs, vb, sv.n, k0, BK, Nk);
     commit();
     wait_groups<0>();
     __syncthreads();
-    float s[RQ][CK], dp[RQ][CK];
-    tile_scores<D, RQ, CK>(Qs, dOs, Ks, Vs, s, dp);
-    tile_probs<DROPOUT, RQ, CK, PS>(s, dp, lse_s, delta_s, key, q0, k0, Nq,
-                                    Nk, scale, thresh, inv, nullptr, dS);
+    if (scores) {
+      float s[1][SN][4], dp[1][SN][4];
+      tile_scores<D, SN>(Qs, dOs, Ks, Vs, m0, n0, s, dp);
+      tile_probs<DROPOUT, SN, PS>(s, dp, lse_s, delta_s, key, m0, n0, q0,
+                                  k0, Nq, Nk, scale, thresh, inv, nullptr,
+                                  dS);
+    }
     __syncthreads();
-    // dq += dS K over the tile's BK keys, in ascending key order
-#pragma unroll 1
-    for (int c = 0; c < BK; c += 4) {
-      float4 sr[RQ];
+    // over the tile's BK keys, 8 at a time in ascending order
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) sr[i] = ld4(dS + (ty + 16 * i) * PS + c);
+    for (int kk = 0; kk < BK; kk += 8) {
+      FragA a[QM];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int mi = 0; mi < QM; ++mi)
+        a[mi] = dg_mma::load_a_rows<PS>(dS, mb + 16 * mi, kk);
 #pragma unroll
-        for (int g = 0; g < CG; ++g) {
-          const float4 kv = ld4(Ks + (c + u) * QS + 4 * tx + 64 * g);
+      for (int ni = 0; ni < KN; ++ni) {
+        const FragB b = dg_mma::load_b_cols<D>(Ks, nb + 8 * ni, kk);
 #pragma unroll
-          for (int i = 0; i < RQ; ++i) {
-            const float w = u == 0 ? sr[i].x
-                            : u == 1 ? sr[i].y
-                            : u == 2 ? sr[i].z
-                                     : sr[i].w;
-            acc[i][g].x = fmaf(w, kv.x, acc[i][g].x);
-            acc[i][g].y = fmaf(w, kv.y, acc[i][g].y);
-            acc[i][g].z = fmaf(w, kv.z, acc[i][g].z);
-            acc[i][g].w = fmaf(w, kv.w, acc[i][g].w);
-          }
-        }
+        for (int mi = 0; mi < QM; ++mi) dg_mma::mma3(part[mi][ni], a[mi], b);
       }
     }
-    __syncthreads();  // every thread is done with Ks, Vs and dS
+    dg_mma::add_tiles(acc, part);
+    __syncthreads();  // every warp is done with Ks, Vs and dS
   }
 
-  float* dqb = dq + bz * sdq.b + hh * sdq.h;
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Nq) continue;
-#pragma unroll
-    for (int g = 0; g < CG; ++g) {
-      float* a = dqb + r * sdq.n + 4 * tx + 64 * g;
-      a[0] = acc[i][g].x;
-      a[1] = acc[i][g].y;
-      a[2] = acc[i][g].z;
-      a[3] = acc[i][g].w;
-    }
-  }
+  store_tiles<QM, KN>(acc, dq + bz * sdq.b + hh * sdq.h, sdq.n, q0 + mb, nb,
+                      Nq);
 }
 
 template <int D, bool DROPOUT>

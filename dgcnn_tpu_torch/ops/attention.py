@@ -13,9 +13,13 @@ The JAX package turns its kernel off in exact mode
 (``dgcnn_tpu/models/torch_transformer.py::_use_fused`` under
 ``DGCNN_TPU_PALLAS_EXACT``): the TPU kernel's bf16 products and its core
 random stream are not exact, so exact mode takes the dense XLA path.
-These kernels compute every product and sum in f32 (no TF32), the dense
-exact function to rounding, so the port runs them in exact mode, held to
-the dense path (``attention_plain``) by the tests and ``chip_smoke.py``.
+These kernels compute the dense exact function to f32 rounding, so the
+port runs them in exact mode, held to the dense path (``attention_plain``)
+by the tests and ``chip_smoke.py``: kernel 14 takes every product and sum
+in f32 on the CUDA cores (no TF32); kernel 15 takes its products on the
+tensor cores in three TF32 terms (3xTF32, ``csrc/mma_tf32.cuh``: hi*hi +
+hi*lo + lo*hi of each operand split in two), within ~1e-5 of each row's
+norm of the f32 result, inside its gate of 1e-4.
 
 Dropout: the keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j), splitmix64's finalizer chained over the indices

@@ -546,19 +546,21 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 256, 512])
-def test_attention_kernels_match_plain(cuda_device, d):
+@pytest.mark.parametrize("b, n, d", [(2, 1024, 128), (2, 1024, 256),
+                                     (2, 1024, 512), (64, 2048, 256)])
+def test_attention_kernels_match_plain(cuda_device, b, n, d):
     """Kernel 16 bit-equal to its plain version; kernel 14's training form
     at rate 0.5 within rel 1e-5 of each row's norm and its log-sum-exp
     within rel 1e-5; kernel 15 within rel 1e-4 of the plain autograd at
     rates 0 and 0.5, on heads views, and bit-identical across two calls
-    (phase 28 of chip_smoke.py)."""
-    g = torch.Generator().manual_seed(d)
+    (phases 28 and 31 of chip_smoke.py), at the three head dims and at the
+    Net training step's stacked call (64, 2, 2048, 256)."""
+    g = torch.Generator().manual_seed(d + b)
     h = 512 // d
 
     def heads():
-        return torch.randn((2, 1024, h * d), generator=g).to(
-            cuda_device).reshape(2, 1024, h, d).transpose(1, 2)
+        return torch.randn((b, n, h * d), generator=g).to(
+            cuda_device).reshape(b, n, h, d).transpose(1, 2)
 
     seed = torch.tensor([d], dtype=torch.int64, device=cuda_device)
     assert torch.equal(dropout_mask((2, h, 1024, 1024), seed, 0.5,
