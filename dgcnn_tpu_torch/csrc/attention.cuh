@@ -53,14 +53,23 @@ __device__ __forceinline__ void wait_groups() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The thread's index, read where it is used: a copy issued in a loop then
+// recomputes its addresses instead of holding them in registers across the
+// loop's products (the compiler cannot hoist the read).
+__device__ __forceinline__ int tid_now() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
 // Starts the copy of rows [r0, r0 + rows) of a (nrows, D) matrix with row
 // stride `stride` into `dst` (row stride D + 4), 16 bytes a copy; rows past
-// nrows are zeros.
+// nrows are zeros.  `tid` is the thread's index.
 template <int D>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int r0, int rows,
-                                          int nrows) {
-  for (int e = threadIdx.x; e < rows * (D / 4); e += THREADS) {
+                                          int nrows, int tid = threadIdx.x) {
+  for (int e = tid; e < rows * (D / 4); e += THREADS) {
     const int r = e / (D / 4), c = (e - r * (D / 4)) * 4;
     const bool in = r0 + r < nrows;
     copy16(dst + r * (D + 4) + c, in ? src + (r0 + r) * stride + c : src, in);

@@ -1,5 +1,5 @@
-// attention_fwd: multi-head softmax attention, forward, in f32 on Hopper
-// (sm_90a), with dropout on the probabilities in training.
+// attention_fwd: multi-head softmax attention, forward, on Hopper (sm_90a),
+// with dropout on the probabilities in training.
 //
 // Replaces the TPU kernel dgcnn_tpu/ops/pallas_attention.py::_attn_fwd_impl
 // (body _attn_fwd_kernel), the attention of every TorchMultiheadAttention
@@ -13,65 +13,118 @@
 // then its mask do.  In training the kernel also writes each row's
 // log-sum-exp lse = max + log(sum) of the scaled scores, from which the
 // backward (attention_bwd.cu) rebuilds the probabilities in one pass.
-// Dropout and the log-sum-exp are template flags: the eval instance
-// (<D, false, false>) is the code that the entry dg_attention_fwd has
-// always run.
+// Dropout and the log-sum-exp are template flags: the training instance at
+// rate 0 (<D, false, true>) runs the eval instance's arithmetic in the same
+// order and adds the log-sum-exp's store, so the two give the same o.
 //
 // q (B, h, Nq, d), k and v (B, h, Nk, d), o (B, h, Nq, d), each given by
 // its base and its (b, h, row) strides with unit stride along d, so that
 // the heads of a (B, N, h * d) projection are read in place and o can be
-// written as (B, Nq, h * d).  The TPU kernel takes bf16 or f32 products on
-// the MXU; here every product and sum is f32 on the CUDA cores (no TF32),
-// the dense exact function to rounding.
+// written as (B, Nq, h * d).
 //
 // Bound on an H100 SXM: operations.  At the fusion Net's stacked shape
-// (B=32, h=2, N=2048, d=256) one call is 2 products of 2*B*h*N^2*d flops,
-// 2.7e11, ~4.1 ms at the f32 CUDA-core peak (67 TFLOP/s), plus B*h*N^2
-// exponentials; q, k, v and o are 4 * 134 MB, ~0.16 ms at 3.35 TB/s.  A
-// dropout draw costs one 64-bit mix a probability, against the 2 * d
-// multiply-adds of its score and its share of P.V.
+// (B=32, h=2, N=2048, d=256) the two products are 2 * 2*B*h*N^2*d = 2.7e11
+// flops: ~4.1 ms at the f32 CUDA-core peak (67 TFLOP/s); in three TF32
+// terms each (8.2e11 tensor flops) ~1.67 ms at the dense TF32 peak (495
+// TFLOP/s), plus B*h*N^2 scales, maxima, exponentials and sums on the CUDA
+// cores; q, k, v and o are 4 * 134 MB, ~0.16 ms at 3.35 TB/s.
 //
-// Design: flash attention's online softmax, so the (Nq, Nk) scores never
-// reach device memory.  A block of 256 threads (16 x 16) owns BQ query rows
-// of one (b, h): the Q tile stays in shared memory, key and value tiles of
-// BK rows stream through shared memory by cp.async (V of a tile lands while
-// its scores are computed, K of the next tile while P.V runs).  Thread
-// (ty, tx) computes the scores of rows ty + 16 i and columns tx + 16 j of a
-// tile, keeps the running max and sum of its rows (reduced over the 16 tx
-// lanes by shuffles), writes P = exp(s - max) (dropped and scaled in
-// training) to shared memory, and accumulates columns 4 tx + 64 g .. + 3
-// of its rows of O in registers (D / 16 * BQ / 16 floats: 64 at d = 256
-// and d = 512, where BQ drops to 32).  Shared rows are padded by 4 floats,
-// so every read of both products is a 16-byte float4 load and a warp's K
-// and V reads are conflict-free: the shared-memory traffic stays below the
-// FMA issue time.  The tiles take ~212 KB of shared memory at d = 256, one
-// block an SM, so the kernel is built for one block an SM (up to 255
-// registers a thread) and copies 16 bytes a cp.async: every row of q, k
-// and v starts 16-byte aligned (the wrapper, ops/attention.py, copies an
-// input that does not).  Its times on an H100 against its bound, and those
-// of its earlier forms, are in PERF.md (chip_smoke.py, phases 27 and 31;
-// tools/attention_ab.py).
+// Design at d = 128 and 256: flash attention's online softmax, so the (Nq,
+// Nk) scores never reach device memory, with both products on the tensor
+// cores in three TF32 terms (mma_tf32.cuh: every f32 operand split into hi
+// and lo, lo*hi + hi*lo then hi*hi through mma.sync m16n8k8), near f32
+// roundoff.  A block of 8 warps owns BQ = 128 query rows of one (b, h), a
+// warp 16 of them; the Q tile stays in shared memory, key tiles of BK = 32
+// rows stream through two buffers (the next tile lands while this one is
+// used) and value tiles through one (it lands while the scores run), all
+// by cp.async, 16 bytes a copy.  For each key tile a warp
+//   1. takes its 16 x 32 scores s = Q K^T as four m16n8 accumulators,
+//      reading Q and K along their rows as float4s (two k-steps a load),
+//      each 32 columns of d into a fresh accumulator added to s in f32;
+//   2. runs the online softmax on the accumulator fragments (the row's max
+//      and sum over the four lanes that share it, by shuffles), drops and
+//      scales P in training;
+//   3. adds P V into its 16 x d output in registers (d / 2 floats a lane).
+//      P never goes through shared memory: an accumulator fragment holds
+//      (row g, keys 2t, 2t + 1), an A fragment (row g, k slots t, t + 4),
+//      so k slot t of the product is taken as key 2t and slot t + 4 as key
+//      2t + 1, and the B fragment reads V rows 2t and 2t + 1 to match (a
+//      product's sum does not depend on the order of k).  Each 8 columns
+//      of o take the tile's 32 keys into a fresh accumulator, which then
+//      joins the running sum in f32 with the softmax's rescale.
+// The tensor core's sum cuts toward zero, so no chain of MMAs into one
+// accumulator is longer than 12 (kernel 15's finding: one long chain
+// drifted to 4e-5 of a row's norm).  Q and K are swizzled in shared
+// memory (mma_tf32.cuh) so the float4 row reads are conflict-free; V keeps
+// rows padded by 4 floats, on which the B reads (rows 2t and 2t + 1,
+// column g) touch 32 banks.  Every operand is split as it is read.  Shared
+// memory is ~225 KB at d = 256, one block an SM, up to 255 registers a
+// thread: the output accumulator alone is 128, and the copies in the key
+// loop recompute their addresses (tid_now) so that nothing else is held
+// across the products.
+//
+// At d = 512 that accumulator would be 256 registers a lane, so the d = 512
+// instances run the CUDA-core form (attention_fwd_simt.cuh).  Every row of
+// q, k and v starts 16-byte aligned (the wrapper, ops/attention.py, copies
+// an input that does not).  Times against both bounds are in PERF.md
+// (chip_smoke.py, phases 27 and 31; tools/attention_ab.py).
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "attention.cuh"
+#include "attention_fwd_simt.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using namespace dg_attn;
+using dg_mma::FragA;
+using dg_mma::FragB;
 
 template <int D>
 struct Tile {
-  static constexpr int BQ = D >= 512 ? 32 : 64;  // query rows a block
-  static constexpr int BK = D >= 512 ? 32 : 64;  // keys a tile
-  static constexpr int RQ = BQ / 16;             // rows a thread
-  static constexpr int CS = BK / 16;             // score columns a thread
-  static constexpr int CG = D / 64;              // output float4s a thread
-  static constexpr int QS = D + 4;               // Q/K/V row stride (floats)
-  static constexpr int PS = BK + 4;              // P row stride (floats)
+  static constexpr int BQ = 128;    // query rows a block, 16 a warp
+  static constexpr int BK = 32;     // keys a tile
+  static constexpr int NT = BK / 8;  // score n-tiles (8 keys) a warp
+  static constexpr int ON = D / 8;   // output n-tiles (8 columns) a warp
+  static constexpr int VS = D + 4;   // V row stride (floats)
   static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)(BQ + 2 * BK) * QS + (size_t)BQ * PS);
+      sizeof(float) * ((size_t)BQ * D + 2 * (size_t)BK * D +
+                       (size_t)BK * VS);
+  static_assert(BQ == 16 * (THREADS / 32), "a warp owns 16 query rows");
+  static_assert(SMEM <= 232448, "shared memory of one block");
 };
+
+// The scores of the warp's 16 rows (m0 + g, m0 + g + 8 of the Q tile)
+// against the BK keys of the tile Ks: s[0][j] is the m16n8 accumulator of
+// keys 8 j .. 8 j + 7.  Each 32 columns of d sum into a fresh accumulator,
+// added to s in f32.
+template <int D, int NT>
+__device__ __forceinline__ void tile_scores(const float* Qs, const float* Ks,
+                                            int m0, float (&s)[1][NT][4]) {
+  using namespace dg_mma;
+  const int g = lane_g();
+  float ps[1][NT][4];
+  zero_tiles(s);
+  zero_tiles(ps);
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += 32) {
+#pragma unroll
+    for (int h = 0; h < 32; h += 16) {
+      FragA qa[2];
+      split_a_quads(load_quad<D>(Qs, m0 + g, c0, h),
+                    load_quad<D>(Qs, m0 + g + 8, c0, h), qa[0], qa[1]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        FragB kb[2];
+        split_b_quad(load_quad<D>(Ks, 8 * j + g, c0, h), kb[0], kb[1]);
+        mma3(ps[0][j], qa[0], kb[0]);
+        mma3(ps[0][j], qa[1], kb[1]);
+      }
+    }
+    add_tiles(s, ps);
+  }
+}
 
 // Training adds the dropout of the probabilities (DROPOUT: the stream of
 // `seed`, kept when the draw is >= thresh, scaled by inv) and the
@@ -84,156 +137,141 @@ __global__ void __launch_bounds__(THREADS, 1)
                     Strides so, float scale, const long long* seed,
                     unsigned thresh, float inv, float* __restrict__ lse) {
   using T = Tile<D>;
-  constexpr int BQ = T::BQ, BK = T::BK, RQ = T::RQ, CS = T::CS, CG = T::CG;
-  constexpr int QS = T::QS, PS = T::PS;
+  constexpr int BQ = T::BQ, BK = T::BK, NT = T::NT, ON = T::ON, VS = T::VS;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + BQ * QS;
-  float* Vs = Ks + BK * QS;
-  float* Ps = Vs + BK * QS;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* Kb = Qs + BQ * D;  // two buffers of BK rows
+  float* Vs = Kb + 2 * BK * D;
+  const int g = dg_mma::lane_g(), t = dg_mma::lane_t();
+  const int m0 = 16 * (threadIdx.x >> 5);
   const int bz = blockIdx.z, hh = blockIdx.y, q0 = blockIdx.x * BQ;
   const float* qb = q + bz * sq.b + hh * sq.h;
   const float* kb = k + bz * sk.b + hh * sk.h;
   const float* vb = v + bz * sv.b + hh * sv.h;
 
-  load_rows<D>(Qs, qb, sq.n, q0, BQ, Nq);
-  load_rows<D>(Ks, kb, sk.n, 0, BK, Nk);
+  dg_mma::load_rows<D>(Qs, qb, sq.n, q0, BQ, Nq);
+  dg_mma::load_rows<D>(Kb, kb, sk.n, 0, BK, Nk);
   commit();
-  wait_groups<0>();
-  __syncthreads();
 
-  // acc[i][g]: row ty + 16 i, columns 4 tx + 64 g .. + 3 of the output
-  float4 acc[RQ][CG];
-  float m[RQ], l[RQ];
-  unsigned long long key[DROPOUT ? RQ : 1];
+  // acc[n]: rows g, g + 8 and columns 8 n + 2t, 8 n + 2t + 1 of the warp's
+  // output; m, l: the running max and sum of rows g (0) and g + 8 (1)
+  float acc[ON][4];
+#pragma unroll
+  for (int n = 0; n < ON; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  unsigned long long key[2] = {0ull, 0ull};
   if constexpr (DROPOUT) {
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
-      key[i] = row_key(*seed, bz, hh, q0 + ty + 16 * i);
+    for (int half = 0; half < 2; ++half)
+      key[half] = row_key(*seed, bz, hh, q0 + m0 + g + 8 * half);
   }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int g = 0; g < CG; ++g) acc[i][g] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
+  // the lane's V operand: rows 2t (+ 1) of each 8-key group, column g of
+  // each 8-column tile
+  const float* vl = Vs + 2 * t * VS + g;
 
-  for (int k0 = 0; k0 < Nk; k0 += BK) {
-    load_rows<D>(Vs, vb, sv.n, k0, BK, Nk);
+  for (int k0 = 0, it = 0; k0 < Nk; k0 += BK, ++it) {
+    wait_groups<0>();  // this thread's copies of K (this tile) have landed
+    // every thread's too, and every warp is done with Vs and with the K
+    // buffer the next copy fills
+    __syncthreads();
+    load_rows<D>(Vs, vb, sv.n, k0, BK, Nk, tid_now());
     commit();
-    // scores of rows ty + 16 i and columns tx + 16 j, four d at a time
-    float s[RQ][CS];
+    if (k0 + BK < Nk)
+      dg_mma::load_rows<D>(Kb + ((it + 1) & 1) * BK * D, kb, sk.n, k0 + BK,
+                           BK, Nk, tid_now());
+    commit();
+
+    float s[1][NT][4];
+    tile_scores<D, NT>(Qs, Kb + (it & 1) * BK * D, m0, s);
+
+    // online softmax on the fragments: element e of s[0][j] is row g + 8
+    // (e / 2), key k0 + 8 j + 2t + e % 2
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < RQ; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < CS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int dd = 0; dd < D; dd += 4) {
-      float4 qr[RQ], kc[CS];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) qr[i] = ld4(Qs + (ty + 16 * i) * QS + dd);
-#pragma unroll
-      for (int j = 0; j < CS; ++j) kc[j] = ld4(Ks + (tx + 16 * j) * QS + dd);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int j = 0; j < CS; ++j) {
-          s[i][j] = fmaf(qr[i].x, kc[j].x, s[i][j]);
-          s[i][j] = fmaf(qr[i].y, kc[j].y, s[i][j]);
-          s[i][j] = fmaf(qr[i].z, kc[j].z, s[i][j]);
-          s[i][j] = fmaf(qr[i].w, kc[j].w, s[i][j]);
-        }
-    }
-    // online softmax: running max and sum of each row over the 16 tx lanes
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        s[i][j] = k0 + tx + 16 * j < Nk ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const float x = k0 + 8 * j + 2 * t + (e & 1) < Nk
+                            ? s[0][j][e] * scale
+                            : -INFINITY;
+        s[0][j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
+    float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - mn);  // 0 on the first tile
-      float sum = 0.f;
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      mx[half] = fmaxf(m[half], mx[half]);
+      alpha[half] = expf(m[half] - mx[half]);  // 0 on the first tile
+      m[half] = mx[half];
+    }
 #pragma unroll
-      for (int j = 0; j < CS; ++j) {
-        const float p = expf(s[i][j] - mn);
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[0][j][e] - mx[e >> 1]);
+        sum[e >> 1] += p;
         if constexpr (DROPOUT)
-          Ps[(ty + 16 * i) * PS + tx + 16 * j] =
-              keep(key[i], k0 + tx + 16 * j, thresh) ? p * inv : 0.f;
+          s[0][j][e] =
+              keep(key[e >> 1], k0 + 8 * j + 2 * t + (e & 1), thresh)
+                  ? p * inv
+                  : 0.f;
         else
-          Ps[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        sum += p;
+          s[0][j][e] = p;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = mn;
-#pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        acc[i][g].x *= alpha;
-        acc[i][g].y *= alpha;
-        acc[i][g].z *= alpha;
-        acc[i][g].w *= alpha;
-      }
+    for (int half = 0; half < 2; ++half) {
+      sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 1);
+      sum[half] += __shfl_xor_sync(0xffffffffu, sum[half], 2);
+      l[half] = l[half] * alpha[half] + sum[half];
     }
-    __syncthreads();  // every thread is done with Ks; Ps is complete
-    if (k0 + BK < Nk) load_rows<D>(Ks, kb, sk.n, k0 + BK, BK, Nk);
-    commit();
+    // P as the A operand of k-step j: slot t = key 8 j + 2t, slot t + 4 =
+    // key 8 j + 2t + 1
+    FragA pa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      dg_mma::split(s[0][j][0], pa[j].hi[0], pa[j].lo[0]);
+      dg_mma::split(s[0][j][2], pa[j].hi[1], pa[j].lo[1]);
+      dg_mma::split(s[0][j][1], pa[j].hi[2], pa[j].lo[2]);
+      dg_mma::split(s[0][j][3], pa[j].hi[3], pa[j].lo[3]);
+    }
+
     wait_groups<1>();  // this thread's copies of V have landed
     __syncthreads();   // and every thread's
-#pragma unroll 1
-    for (int c = 0; c < BK; c += 4) {
-      float4 pr[RQ];
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) pr[i] = ld4(Ps + (ty + 16 * i) * PS + c);
+    for (int n = 0; n < ON; ++n) {
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int g = 0; g < CG; ++g) {
-          const float4 vv = ld4(Vs + (c + u) * QS + 4 * tx + 64 * g);
-#pragma unroll
-          for (int i = 0; i < RQ; ++i) {
-            const float p = u == 0 ? pr[i].x
-                            : u == 1 ? pr[i].y
-                            : u == 2 ? pr[i].z
-                                     : pr[i].w;
-            acc[i][g].x = fmaf(p, vv.x, acc[i][g].x);
-            acc[i][g].y = fmaf(p, vv.y, acc[i][g].y);
-            acc[i][g].z = fmaf(p, vv.z, acc[i][g].z);
-            acc[i][g].w = fmaf(p, vv.w, acc[i][g].w);
-          }
-        }
+      for (int j = 0; j < NT; ++j) {
+        FragB vf;
+        dg_mma::split(vl[8 * j * VS + 8 * n], vf.hi[0], vf.lo[0]);
+        dg_mma::split(vl[(8 * j + 1) * VS + 8 * n], vf.hi[1], vf.lo[1]);
+        dg_mma::mma3(part, pa[j], vf);
       }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = acc[n][e] * alpha[e >> 1] + part[e];
     }
-    wait_groups<0>();  // the next K tile
-    __syncthreads();   // and every thread is done with Vs and Ps
   }
 
   float* ob = o + bz * so.b + hh * so.h;
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int r = q0 + ty + 16 * i;
+  for (int half = 0; half < 2; ++half) {
+    const int r = q0 + m0 + g + 8 * half;
+    if (r >= Nq) continue;
     if constexpr (LSE) {
-      if (tx == 0 && r < Nq)
-        lse[((long long)bz * gridDim.y + hh) * Nq + r] = m[i] + logf(l[i]);
+      if (t == 0)
+        lse[((long long)bz * gridDim.y + hh) * Nq + r] =
+            m[half] + logf(l[half]);
     }
-    if (r < Nq) {
+    float* orow = ob + r * so.n + 2 * t;
 #pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        float* dst = ob + r * so.n + 4 * tx + 64 * g;
-        dst[0] = acc[i][g].x / l[i];
-        dst[1] = acc[i][g].y / l[i];
-        dst[2] = acc[i][g].z / l[i];
-        dst[3] = acc[i][g].w / l[i];
-      }
+    for (int n = 0; n < ON; ++n) {
+      orow[8 * n] = acc[n][2 * half] / l[half];
+      orow[8 * n + 1] = acc[n][2 * half + 1] / l[half];
     }
   }
 }
@@ -243,17 +281,22 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
                    int B, int H, int Nq, int Nk, const long long* st,
                    float scale, const long long* seed, unsigned thresh,
                    float inv, float* lse, cudaStream_t stream) {
-  using T = Tile<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      attn_fwd_kernel<D, DROPOUT, LSE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((Nq + T::BQ - 1) / T::BQ, H, B);
-  attn_fwd_kernel<D, DROPOUT, LSE><<<grid, THREADS, T::SMEM, stream>>>(
-      q, k, v, o, Nq, Nk, Strides{st[0], st[1], st[2]},
-      Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
-      Strides{st[9], st[10], st[11]}, scale, seed, thresh, inv, lse);
-  return cudaGetLastError();
+  if constexpr (D >= 512) {
+    return dg_simt::launch_simt<D, DROPOUT, LSE>(
+        q, k, v, o, B, H, Nq, Nk, st, scale, seed, thresh, inv, lse, stream);
+  } else {
+    using T = Tile<D>;
+    cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd_kernel<D, DROPOUT, LSE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+    if (e != cudaSuccess) return e;
+    const dim3 grid((Nq + T::BQ - 1) / T::BQ, H, B);
+    attn_fwd_kernel<D, DROPOUT, LSE><<<grid, THREADS, T::SMEM, stream>>>(
+        q, k, v, o, Nq, Nk, Strides{st[0], st[1], st[2]},
+        Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+        Strides{st[9], st[10], st[11]}, scale, seed, thresh, inv, lse);
+    return cudaGetLastError();
+  }
 }
 
 template <bool DROPOUT, bool LSE>

@@ -17,8 +17,9 @@
 //
 // Design, three launches on the caller's stream:
 //   1. sqnorm_kernel   |g_j|^2 per point, into scratch.
-//   2. project_kernel  [a | c] = x @ [W_nbr | W_ctr] with the tiled GEMM of
-//                      tile_gemm.cuh, into a (B*N, 2*Co) scratch.
+//   2. project_kernel  [a | c] = x @ [W_nbr | W_ctr] with the register-
+//                      blocked GEMM of project.cu, into a (B*N, 2*Co)
+//                      scratch.
 //   3. select_kernel   the kNN selection of knn_select.cuh: one warp per
 //                      query row with its N scores in registers, then k
 //                      rounds of a warp arg-max on (score, -index) pick the
@@ -44,7 +45,6 @@
 #include <math.h>
 
 #include "knn_select.cuh"
-#include "tile_gemm.cuh"
 
 namespace {
 
@@ -58,28 +58,6 @@ __global__ void sqnorm_kernel(const float* __restrict__ g, int rows, int C,
   float acc = 0.f;
   for (int c = 0; c < C; ++c) acc = fmaf(p[c], p[c], acc);
   out[r] = acc;
-}
-
-__global__ void __launch_bounds__(dg::GEMM_THREADS)
-    project_kernel(const float* __restrict__ x, int M, int K,
-                   const float* __restrict__ w, int ncols,
-                   float* __restrict__ out) {
-  __shared__ __align__(16) dg::GemmSmem sm;
-  const int m0 = blockIdx.x * dg::GEMM_BM;
-  const int n0 = blockIdx.y * dg::GEMM_BN;
-  float acc[4][4] = {};
-  dg::gemm_tile_accumulate(acc, x, K, m0, M, w, ncols, n0, ncols, K, sm);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn < ncols) out[(size_t)gm * ncols + gn] = acc[i][j];
-    }
-  }
 }
 
 // The candidates of query row i are the W rows [start, start + W) of its
@@ -177,13 +155,6 @@ namespace dg {
 cudaError_t launch_sqnorm(const float* g, int rows, int C, float* out,
                           cudaStream_t st) {
   sqnorm_kernel<<<(rows + 255) / 256, 256, 0, st>>>(g, rows, C, out);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_project(const float* x, int M, int K, const float* w,
-                           int ncols, float* out, cudaStream_t st) {
-  const dim3 grid((M + GEMM_BM - 1) / GEMM_BM, (ncols + GEMM_BN - 1) / GEMM_BN);
-  project_kernel<<<grid, GEMM_THREADS, 0, st>>>(x, M, K, w, ncols, out);
   return cudaGetLastError();
 }
 

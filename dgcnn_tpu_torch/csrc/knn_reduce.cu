@@ -29,11 +29,12 @@
 // and amin are bit-equal to members' values: the backward kernel
 // (edge_reduce_bwd.cu) finds its ties by comparing against them.
 // knn_reduce_xw projects the whole cloud once into a scratch a with the
-// tiled GEMM (launch_project) and then runs the same selection: for the
-// 128 -> 256 stage that is k = 20 times fewer FMAs than projecting each
-// selected raw row as the TPU kernel does.  The backward recomputes a with
-// the same launch (dg_project below), which sums each element in the same
-// order, so its a and the forward's are the same bits.
+// register-blocked GEMM of project.cu (launch_project) and then runs the
+// same selection: for the 128 -> 256 stage that is k = 20 times fewer FMAs
+// than projecting each selected raw row as the TPU kernel does.  The
+// backward recomputes a with the same launch (dg_project below), which
+// sums each element in the same order, so its a and the forward's are the
+// same bits.
 #include <cuda_runtime.h>
 #include <math.h>
 

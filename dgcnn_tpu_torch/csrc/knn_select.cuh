@@ -218,14 +218,13 @@ cudaError_t with_npl(int N, F&& f) {
   return f(std::integral_constant<int, 128>{});
 }
 
-// Launches on `st`, defined in edge_conv_eval.cu; each returns the launch
-// error.  out[r] = |g_r|^2 for the rows of a (rows, C) matrix:
+// Launches on `st`; each returns the launch error.  out[r] = |g_r|^2 for
+// the rows of a (rows, C) matrix (edge_conv_eval.cu):
 cudaError_t launch_sqnorm(const float* g, int rows, int C, float* out,
                           cudaStream_t st);
-// out (M, ncols) = x (M, K) @ w (K, ncols) in f32 with the tiled GEMM of
-// tile_gemm.cuh.  Each output element's sum runs over K in one fixed order
-// whatever M and ncols are, so two calls on the same rows give the same
-// bits:
+// out (M, ncols) = x (M, K) @ w (K, ncols) in f32 (project.cu).  Each
+// output element's sum runs over K in one fixed order whatever M and
+// ncols are, so two calls on the same rows give the same bits:
 cudaError_t launch_project(const float* x, int M, int K, const float* w,
                            int ncols, float* out, cudaStream_t st);
 

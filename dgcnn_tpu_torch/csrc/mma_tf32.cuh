@@ -57,12 +57,12 @@ __device__ __forceinline__ int at(int r, int c) {
 
 // Starts the copy of rows [r0, r0 + rows) of a (nrows, D) matrix with row
 // stride `stride` into the swizzled tile `dst` (W = D); rows past nrows
-// are zeros.
+// are zeros.  `tid` is the thread's index (dg_attn::tid_now() in a loop).
 template <int D>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long stride, int r0, int rows,
-                                          int nrows) {
-  for (int e = threadIdx.x; e < rows * (D / 4); e += dg_attn::THREADS) {
+                                          int nrows, int tid = threadIdx.x) {
+  for (int e = tid; e < rows * (D / 4); e += dg_attn::THREADS) {
     const int r = e / (D / 4), c = (e - r * (D / 4)) * 4;
     const bool in = r0 + r < nrows;
     dg_attn::copy16(dst + at<D>(r, c), in ? src + (r0 + r) * stride + c : src,

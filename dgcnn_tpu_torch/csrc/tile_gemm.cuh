@@ -1,6 +1,6 @@
-// Shared-memory tiled f32 GEMM tile, the matrix-product core of both
-// kernels of the eval path (the projections of edge_conv_eval.cu and the
-// conv5 product of conv_pool.cu).
+// Shared-memory tiled f32 GEMM tile, the matrix-product core of the conv5
+// product of conv_pool.cu.  (The projections of kernels 1, 4 and 12 have
+// their own register-blocked kernel, project.cu.)
 //
 // A block of GEMM_THREADS = 256 threads owns a 64 x 64 output tile; thread
 // (tx, ty) = (tid % 16, tid / 16) owns rows 4*ty..4*ty+3 and columns

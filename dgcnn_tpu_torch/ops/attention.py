@@ -15,11 +15,12 @@ The JAX package turns its kernel off in exact mode
 random stream are not exact, so exact mode takes the dense XLA path.
 These kernels compute the dense exact function to f32 rounding, so the
 port runs them in exact mode, held to the dense path (``attention_plain``)
-by the tests and ``chip_smoke.py``: kernel 14 takes every product and sum
-in f32 on the CUDA cores (no TF32); kernel 15 takes its products on the
-tensor cores in three TF32 terms (3xTF32, ``csrc/mma_tf32.cuh``: hi*hi +
-hi*lo + lo*hi of each operand split in two), within ~1e-5 of each row's
-norm of the f32 result, inside its gate of 1e-4.
+by the tests and ``chip_smoke.py``: kernels 14 (at head dims 128 and 256)
+and 15 take their products on the tensor cores in three TF32 terms
+(3xTF32, ``csrc/mma_tf32.cuh``: hi*hi + hi*lo + lo*hi of each operand
+split in two), with short sums, within a few 1e-6 of each row's norm of
+the f32 result (kernel 14's gate: 1e-5; kernel 15's: 1e-4); kernel 14 at
+head dim 512 takes every product and sum in f32 on the CUDA cores.
 
 Dropout: the keep bit of probability (b, h, i, j) is a pure function of
 (seed, b, h, i, j), splitmix64's finalizer chained over the indices

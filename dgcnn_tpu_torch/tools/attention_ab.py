@@ -5,8 +5,11 @@ all started together), then times every form at the fusion Net's
 attention shapes in the order a b ... b a, so that a drift of the card's
 clock falls on every form alike, and holds each output against the plain
 version.  ``--kernel fwd`` (the default) times ``dg_attention_fwd``
-(kernel 14: ``csrc/attention_fwd.cu`` and its earlier forms), its output
-held within rel 1e-5 of each row's norm; ``--kernel bwd`` times
+(kernel 14: ``csrc/attention_fwd.cu`` and its earlier forms) at the eval
+shapes, and ``dg_attention_fwd_train`` of the forms that have it at the
+training step's shapes at dropout rate 0.5, its output and log-sum-exp
+held within rel 1e-5 (of each row's norm) of the plain version;
+``--kernel bwd`` times
 ``dg_attention_bwd`` (kernel 15: ``csrc/attention_bwd.cu`` and its CUDA-
 core form) at dropout rate 0.5, dq, dk and dv held within rel 1e-4 of
 each row's norm of ``attention_bwd_plain``.  The earlier forms live in
@@ -47,6 +50,7 @@ _FORMS_DIR = os.path.join(_HERE, "attention_forms")
 FORMS = {
     "fwd": {
         "kernel": os.path.join(_build.CSRC, "attention_fwd.cu"),
+        "simt": os.path.join(_FORMS_DIR, "attention_fwd_simt.cu"),
         "float4_reads": os.path.join(_FORMS_DIR, "float4_reads.cu"),
         "shared_kv": os.path.join(_FORMS_DIR, "shared_kv.cu"),
     },
@@ -130,10 +134,18 @@ def _ptxas_summary(log: str) -> list[str]:
 
 
 def _entry(lib_path: str, kernel: str = "fwd"):
+    """The form's C entry of ``kernel`` ("fwd", "fwd_train" or "bwd"), or
+    None where the library has no such entry."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if kernel == "fwd":
         fn = ctypes.CDLL(lib_path).dg_attention_fwd
         fn.argtypes = [p, p, p, p, i, i, i, i, i, p, f, p]
+    elif kernel == "fwd_train":
+        fn = getattr(ctypes.CDLL(lib_path), "dg_attention_fwd_train", None)
+        if fn is None:
+            return None
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, p, f, p, ctypes.c_uint, f,
+                       p, p]
     else:
         fn = ctypes.CDLL(lib_path).dg_attention_bwd
         fn.argtypes = [p] * 10 + [i] * 5 + [p, f, p, ctypes.c_uint, f, p]
@@ -174,6 +186,10 @@ def _prepare(forms: dict[str, str], kernel: str):
         name: {"source": os.path.relpath(forms[name], os.getcwd()),
                "ptxas": built[name][1], "ms": {}, "rel": 0.0}
         for name in forms}}
+    if kernel == "fwd":
+        train = {name: _entry(lib, "fwd_train")
+                 for name, (lib, _) in built.items()}
+        entries = {name: (fn, train[name]) for name, fn in entries.items()}
     return entries, result
 
 
@@ -196,7 +212,7 @@ def run(forms: dict[str, str]) -> dict:
         stream = _build.stream_of(q)
 
         for name in order:
-            fn = entries[name]
+            fn = entries[name][0]
 
             def call():
                 rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
@@ -213,7 +229,56 @@ def run(forms: dict[str, str]) -> dict:
             print(f"{name} {shape} rel {rel:.2e} ms {ms:.3f}", flush=True)
         del q, k, v, want, out
         torch.cuda.empty_cache()
+    run_fwd_train(entries, result, order)
     return result
+
+
+def run_fwd_train(entries, result, order) -> None:
+    """Times ``dg_attention_fwd_train`` of every form that has it at
+    ``BWD_SHAPES``, rate 0.5, on (B, h, N, d) views of (B, N, h * d)
+    tensors as the Net passes them; o and the log-sum-exp held against
+    ``attention_plain(..., with_lse=True)``."""
+    g = torch.Generator().manual_seed(1)
+    dev = torch.device("cuda")
+    seed = torch.tensor([9], dtype=torch.int64, device=dev)
+    order = [name for name in order if entries[name][1] is not None]
+    for shape in BWD_SHAPES:
+        b, h, n, d = shape
+        sc = d ** -0.5
+        q, k, v = (torch.randn((b, n, h * d), generator=g).to(dev).reshape(
+            b, n, h, d).transpose(1, 2) for _ in range(3))
+        with torch.no_grad():
+            want, lse_want = attention_plain(q, k, v, sc, BWD_RATE, seed,
+                                             with_lse=True)
+        out = torch.empty((b, n, h, d), device=dev).transpose(1, 2)
+        lse = torch.empty((b, h, n), device=dev)
+        strides = (ctypes.c_longlong * 12)(*[
+            s for t in (q, k, v, out) for s in t.stride()[:3]])
+        stream = _build.stream_of(q)
+        p = _build.ptr
+
+        for name in order:
+            fn = entries[name][1]
+
+            def call():
+                rc = fn(p(q), p(k), p(v), p(out), b, h, n, n, d, strides, sc,
+                        p(seed), keep_threshold(BWD_RATE),
+                        1.0 / (1.0 - BWD_RATE), p(lse), stream)
+                if rc:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+
+            out.fill_(float("nan"))
+            ms = _time_ms(call)
+            rel = _row_rel(out, want)
+            lse_rel = ((lse - lse_want).abs() / lse_want.abs()).max().item()
+            form = result["forms"][name]
+            form.setdefault("train_ms", {}).setdefault(str(shape),
+                                                        []).append(ms)
+            form["rel"] = max(form["rel"], rel, lse_rel)
+            print(f"{name} {shape} training form rate {BWD_RATE} rel "
+                  f"{rel:.2e} lse rel {lse_rel:.2e} ms {ms:.3f}", flush=True)
+        del q, k, v, want, lse_want, out, lse
+        torch.cuda.empty_cache()
 
 
 def run_bwd(forms: dict[str, str]) -> dict:
@@ -275,8 +340,8 @@ def run_bwd(forms: dict[str, str]) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=("fwd", "bwd"), default="fwd",
-                    help="fwd: dg_attention_fwd (kernel 14); bwd: "
-                         "dg_attention_bwd (kernel 15)")
+                    help="fwd: dg_attention_fwd and dg_attention_fwd_train "
+                         "(kernel 14); bwd: dg_attention_bwd (kernel 15)")
     ap.add_argument("--form", action="append", default=[],
                     metavar="NAME=PATH",
                     help="a source of the kernel's C entry to time "

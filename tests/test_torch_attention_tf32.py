@@ -1,17 +1,22 @@
-"""The numerical case for kernel 15's tensor-core design, on the CPU.
+"""The numerical case for the tensor-core design of kernels 14 and 15, on
+the CPU.
 
-``csrc/attention_bwd.cu`` runs each of the attention backward's products
-on the tensor cores in three TF32 terms (``csrc/mma_tf32.cuh``): every f32
-operand splits into hi = tf32(a) and lo = tf32(a - hi), rounded to
-nearest with ties away from zero as ``cvt.rna.tf32.f32`` does, and a
-product sums lo*hi + hi*lo and then hi*hi in f32.  Here that split is
-emulated on the f32 bit patterns, each of the five products of the
-backward (s, dO v^T, dv, dq, dk) is taken in three terms and in one, and
-the result is held against ``attention_bwd_plain`` (autograd through the
-f32 dense path, the kernel's plain version) and, at rate 0, against
-jax.vjp of the JAX package's Pallas attention in interpret mode.  The
-card's own run of the kernel is held by ``chip_smoke.py`` (phases 28 and
-31) and the ``cuda``-marked tests.
+``csrc/attention_fwd.cu`` (at d = 128 and 256) and ``csrc/attention_bwd.cu``
+run each of the attention's products on the tensor cores in three TF32
+terms (``csrc/mma_tf32.cuh``): every f32 operand splits into hi = tf32(a)
+and lo = tf32(a - hi), rounded to nearest with ties away from zero as
+``cvt.rna.tf32.f32`` does, and a product sums lo*hi + hi*lo and then
+hi*hi in f32.  Here that split is emulated on the f32 bit patterns.  The
+forward's two products (s, P v) are taken in three terms and in one, with
+the kernel's short sums (each 32 columns of d of a score, each key tile of
+P v, added in f32 under the online softmax), and held against
+``attention_plain`` (o and the log-sum-exp); the five products of the
+backward (s, dO v^T, dv, dq, dk) likewise against ``attention_bwd_plain``
+(autograd through the f32 dense path, the kernel's plain version).  At
+rate 0 both are held against the JAX package's Pallas attention in
+interpret mode (its forward, and jax.vjp of it).  The card's own run of
+the kernels is held by ``chip_smoke.py`` (phases 24, 28 and 31) and the
+``cuda``-marked tests.
 """
 import numpy as np
 import pytest
@@ -45,6 +50,38 @@ def mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b in one TF32 term: hi*hi."""
     return tf32_rna(a) @ tf32_rna(b)
+
+
+def forward(q, k, v, scale, rate, seed, mm, bk=32):
+    """(o, the log-sum-exp of each row) as kernel 14's tensor-core form
+    computes them, every product through ``mm``: the keys in tiles of
+    ``bk``, each tile's scores summed over 32-column slices of d in f32,
+    the online softmax (the row sum before the mask, P dropped and scaled
+    after it), and each tile's P v joining the running output in f32 after
+    the rescale."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    keep = (dropout_mask_plain((b, h, nq, nk), seed, rate) > 0
+            if rate > 0.0 else None)
+    m = torch.full((b, h, nq, 1), float("-inf"))
+    l = torch.zeros((b, h, nq, 1))
+    acc = torch.zeros((b, h, nq, d))
+    for k0 in range(0, nk, bk):
+        kt = k[:, :, k0:k0 + bk]
+        s = torch.zeros((b, h, nq, kt.shape[2]))
+        for c0 in range(0, d, 32):
+            s = s + mm(q[..., c0:c0 + 32], kt[..., c0:c0 + 32].transpose(2, 3))
+        s = s * scale
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        p = torch.exp(s - mx)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = mx
+        if keep is not None:
+            p = torch.where(keep[..., k0:k0 + bk], p * (1.0 / (1.0 - rate)),
+                            0.0)
+        acc = acc * alpha + mm(p, v[:, :, k0:k0 + bk])
+    return acc / l, (m + torch.log(l))[..., 0]
 
 
 def backward(q, k, v, do, scale, rate, seed, mm):
@@ -92,6 +129,46 @@ def test_tf32_rounding_is_cvt_rna():
     assert ((hi - y).abs() <= 2.0 ** -11 * y.abs()).all()
     err = (hi.double() + lo.double() - y.double()).abs()
     assert (err <= 2.0 ** -22 * y.double().abs()).all()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape", [(2, 2, 160, 192, 128),
+                                   (1, 2, 128, 200, 256),
+                                   (1, 1, 96, 136, 512)])
+def test_three_term_products_hold_the_forward(shape, rate):
+    """With both products in three TF32 terms and the kernel's short sums,
+    o is within rel 1e-5 of each row's norm of the plain f32 forward and
+    the log-sum-exp within rel 1e-5, at the three head dims (ragged key
+    tiles too) and rates 0 and 0.5; in one term (hi*hi) o's error is at
+    least 10x larger."""
+    b, h, nq, nk, d = shape
+    q, k, v, _ = _inputs(d + nk, b, h, nq, nk, d)
+    scale = d ** -0.5
+    seed = torch.tensor([d + nq], dtype=torch.int64) if rate else None
+    want, lse_want = attention_plain(q, k, v, scale, rate, seed,
+                                     with_lse=True)
+    o3, lse3 = forward(q, k, v, scale, rate, seed, mm3)
+    o1, _ = forward(q, k, v, scale, rate, seed, mm1)
+    rel3 = _row_rel(o3, want)
+    lse_rel = ((lse3 - lse_want).abs() / lse_want.abs()).max().item()
+    assert rel3 <= 1e-5, rel3
+    assert lse_rel <= 1e-5, lse_rel
+    assert _row_rel(o1, want) >= 10 * rel3, (_row_rel(o1, want), rel3)
+
+
+def test_three_term_forward_matches_pallas_at_rate_0():
+    """At rate 0, the three-term forward against the JAX package's Pallas
+    fused_attention in interpret mode (the body of the TPU kernel 14):
+    rel 1e-5 of the output's scale."""
+    from dgcnn_tpu.ops.pallas_attention import fused_attention as jfused
+
+    q, k, v, _ = _inputs(11, 1, 2, 128, 256, 256)
+    scale = 256 ** -0.5
+    with jax.default_matmul_precision("float32"):
+        want = np.asarray(jfused(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
+                                 sm_scale=scale, interpret=True))
+    got, _ = forward(q, k, v, scale, 0.0, None, mm3)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 256, 256, 128),

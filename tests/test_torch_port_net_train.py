@@ -584,6 +584,31 @@ def test_attention_kernels_match_plain(cuda_device, b, n, d):
 
 
 @pytest.mark.cuda
+def test_attention_fwd_kernel_forms_match_plain(cuda_device):
+    """Kernel 14 at the Net eval's stacked call (32, 2, 2048, 256), on the
+    tensor cores in 3xTF32: its eval form within rel 1e-5 of each row's
+    norm of the plain version; its training form at rate 0.5 likewise,
+    its log-sum-exp within rel 1e-5, and at rate 0 bit-equal to the eval
+    form (phases 24, 27 and 28 of chip_smoke.py)."""
+    b, h, n, d = 32, 2, 2048, 256
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn((b, n, h * d), generator=g).to(
+        cuda_device).reshape(b, n, h, d).transpose(1, 2) for _ in range(3))
+    seed = torch.tensor([5], dtype=torch.int64, device=cuda_device)
+    sc = d ** -0.5
+    o, lse = attention_fwd(q, k, v, sc)
+    assert lse is None
+    want = attention_plain(q, k, v, sc)
+    assert ((o - want).norm(dim=-1) / want.norm(dim=-1)).max() <= 1e-5
+    o0, _ = attention_fwd(q, k, v, sc, with_lse=True)
+    assert torch.equal(o0, o)
+    o, lse = attention_fwd(q, k, v, sc, 0.5, seed, with_lse=True)
+    want, lse_want = attention_plain(q, k, v, sc, 0.5, seed, with_lse=True)
+    assert ((o - want).norm(dim=-1) / want.norm(dim=-1)).max() <= 1e-5
+    assert ((lse - lse_want).abs() / lse_want.abs()).max() <= 1e-5
+
+
+@pytest.mark.cuda
 def test_net_train_step_kernel_path_matches_plain_path(cuda_device):
     """One full-width Net step (SGD, dropout 0, B = 2) on the card against
     the CPU plain path: loss rel 1e-4, gradient cosine 0.999, launches 7 /
