@@ -1,6 +1,9 @@
-// The kNN selection every neighbour-picking kernel of the port shares: the
-// select_kernel of edge_conv_eval.cu, the knn_reduce kernels of
-// knn_reduce.cu, knn_edge2.cu and knn_idx.cu.  The banded kernels hand
+// The kNN selections of the port's neighbour-picking kernels.  Two
+// components: the row-warp selection below (row_scores, pop_nearest) of
+// the select_kernel of edge_conv_eval.cu, knn_edge2.cu, knn_idx.cu,
+// knn_sum.cu and of knn_reduce.cu at k > TS_LIST; and the tiled selection
+// further down (tiled_topk) of knn_reduce.cu at k <= TS_LIST.  Both give
+// the same neighbours in the same order.  The banded kernels hand
 // row_scores a window of their sorted cloud as the cloud.
 //
 // A warp owns one query row i of a cloud and keeps the scores of its N
@@ -200,6 +203,317 @@ __device__ __forceinline__ int pop_nearest(float (&s)[NPL], int lane) {
   for (int t = 0; t < NPL; ++t)
     if (t * 32 + lane == bj) s[t] = -INFINITY;
   return bj;
+}
+
+// ---------------------------------------------------------------------
+// The tiled selection (knn_reduce.cu at k <= TS_LIST).  A block of
+// TS_THREADS threads owns TS_R query rows of one cloud and streams the
+// cloud past them in column tiles of TS_J, ascending.  Each tile's scores
+// are one register-blocked product: thread (ty, tx) of 16 x 16 holds rows
+// 4 ty + i and columns 4 tx + j, 64 + 4 tx + j (i, j < 4), and the
+// channels come through shared memory TS_C at a time, copied by cp.async
+// into one buffer while the other is read (k-major, so that a float4 read
+// gives four rows or four columns and one staged value feeds four FMAs).
+// Each score is the fmaf chain of row_scores over the channels, 0
+// ascending, finished by the same _rn operations, so it has row_scores'
+// bits.  A finished tile goes to shared memory, and warp w keeps the
+// running top-k of rows 8 w .. 8 w + 7 in registers: position p of a row's
+// list, sorted by (score desc, index asc), is slot p / 32 of lane p % 32.
+// The first tile's 128 columns are sorted into each list (a bitonic
+// network on (score desc, index asc)); after it a column enters only with
+// a score strictly greater than the k-th, after every entry whose score is
+// >= its own, and columns arrive in ascending order, so among equal scores
+// the lowest index stays first: torch.topk's order, as pop_nearest gives
+// it.  No scores stay in registers between
+// tiles, so the block's registers do not grow with N.
+constexpr int TS_THREADS = 256;
+constexpr int TS_R = 64;                // query rows a block
+constexpr int TS_J = 128;               // columns a tile
+constexpr int TS_C = 32;                // channels a staged chunk
+constexpr int TS_LIST = 64;             // the longest list: k <= 64
+constexpr int TS_WR = TS_R / (TS_THREADS / 32);  // list rows a warp (8)
+constexpr int TS_LDQ = TS_R + 4;        // k-major strides of the chunks
+constexpr int TS_LDG = TS_J + 4;
+constexpr int TS_SMEM_FLOATS =
+    TS_R * TS_J + 2 * TS_C * TS_LDQ + 2 * TS_C * TS_LDG;
+constexpr size_t TS_SMEM_BYTES = sizeof(float) * TS_SMEM_FLOATS;
+
+__device__ __forceinline__ float4 ts_ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Starts the copies of channels [c0, c0 + nch) of the block's query rows
+// r0.. (into qb, k-major) and of the tile's columns j0.. (into gb), nch =
+// min(TS_C, Cg - c0); columns past N are zero-filled.  The product reads
+// no channel past nch.
+__device__ __forceinline__ void ts_load_chunk(const float* __restrict__ G,
+                                              int Cg, int N, int r0, int j0,
+                                              int c0, float* qb, float* gb) {
+  const int nch = min(TS_C, Cg - c0);
+  auto copy = [&](int e, int rows, int ld, int row0, bool bound) {
+    const int r = nch == TS_C ? e / TS_C : e / nch;
+    const int c = e - r * nch;
+    const bool in = !bound || row0 + r < N;
+    async_copy4((rows == TS_R ? qb : gb) + c * ld + r,
+                in ? G + (size_t)(row0 + r) * Cg + c0 + c : G, in);
+  };
+  for (int e = threadIdx.x; e < TS_R * nch; e += TS_THREADS)
+    copy(e, TS_R, TS_LDQ, r0, false);
+  for (int e = threadIdx.x; e < TS_J * nch; e += TS_THREADS)
+    copy(e, TS_J, TS_LDG, j0, true);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// (a, ai) comes before (b, bi) in a list: a higher score, or the same
+// score and a lower index.
+__device__ __forceinline__ bool ts_before(float a, int ai, float b, int bi) {
+  return a > b || (a == b && ai < bi);
+}
+
+// Sorts the 128 entries (v[u], ix[u]) of a warp, element e = lane + 32 u,
+// into list order (ts_before) by a bitonic network: the first tile's fill
+// of a row's list in 28 compare-exchange stages instead of one insertion
+// a column.
+__device__ __forceinline__ void ts_sort128(float (&v)[4], int (&ix)[4],
+                                           int lane) {
+#pragma unroll
+  for (int size = 2; size <= 128; size <<= 1) {
+#pragma unroll
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      if (j >= 32) {  // the partner is in this lane: slot u ^ (j / 32)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int w = u ^ (j >> 5);
+          if (w < u) continue;
+          // in a block of `size` whose bit is clear the lower element
+          // takes the earlier entry
+          const bool up = ((lane + 32 * u) & size) == 0;
+          if (ts_before(v[w], ix[w], v[u], ix[u]) == up) {
+            const float tv = v[u];
+            const int ti = ix[u];
+            v[u] = v[w];
+            ix[u] = ix[w];
+            v[w] = tv;
+            ix[w] = ti;
+          }
+        }
+      } else {  // the partner is lane ^ j, same slot
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float ov = __shfl_xor_sync(0xffffffffu, v[u], j);
+          const int oi = __shfl_xor_sync(0xffffffffu, ix[u], j);
+          const bool up = ((lane + 32 * u) & size) == 0;
+          const bool lower = (lane & j) == 0;
+          const bool other_first = ts_before(ov, oi, v[u], ix[u]);
+          if (lower == up ? other_first : !other_first) {
+            v[u] = ov;
+            ix[u] = oi;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Inserts the column (s, j) into a warp's full sorted list of k entries
+// (every lane passes the same s and j): after the entries whose score is
+// >= s, the k-th dropping out.
+template <int KL>
+__device__ __forceinline__ void ts_insert(float (&ls)[KL], int (&li)[KL],
+                                          int k, float s, int j, int lane) {
+  int pos = 0;
+#pragma unroll
+  for (int q = 0; q < KL; ++q)
+    pos += __popc(__ballot_sync(0xffffffffu,
+                                lane + 32 * q < k && ls[q] >= s));
+  float us[KL];
+  int ui[KL];
+#pragma unroll
+  for (int q = 0; q < KL; ++q) {
+    us[q] = __shfl_up_sync(0xffffffffu, ls[q], 1);
+    ui[q] = __shfl_up_sync(0xffffffffu, li[q], 1);
+  }
+#pragma unroll
+  for (int q = 1; q < KL; ++q) {  // slot q's lane 0 follows slot q-1's 31
+    const float cs = __shfl_sync(0xffffffffu, ls[q - 1], 31);
+    const int ci = __shfl_sync(0xffffffffu, li[q - 1], 31);
+    if (lane == 0) {
+      us[q] = cs;
+      ui[q] = ci;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < KL; ++q) {
+    const int p = lane + 32 * q;
+    if (p > pos) {
+      ls[q] = us[q];
+      li[q] = ui[q];
+    } else if (p == pos) {
+      ls[q] = s;
+      li[q] = j;
+    }
+  }
+}
+
+// The score of the k-th entry of a full list, on every lane.
+template <int KL>
+__device__ __forceinline__ float ts_kth(const float (&ls)[KL], int k) {
+  float v = __shfl_sync(0xffffffffu, ls[0], (k - 1) & 31);
+#pragma unroll
+  for (int q = 1; q < KL; ++q) {
+    const float w = __shfl_sync(0xffffffffu, ls[q], (k - 1) & 31);
+    if ((k - 1) >> 5 == q) v = w;
+  }
+  return v;
+}
+
+// The k <= 32 * KL nearest columns of query rows r0 .. r0 + TS_R - 1 of a
+// cloud: G its (N, Cg) graph features, SQ its (N,) squared norms, sm the
+// block's TS_SMEM_BYTES of dynamic shared memory.  Every thread of the
+// block calls it; on return warp w holds in (ls, li)[rr] the sorted list of
+// row r0 + TS_WR * w + rr, k >= 1 entries, k <= N.
+template <int KL>
+__device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
+                                           int Cg,
+                                           const float* __restrict__ SQ,
+                                           int N, int r0, int k, float* sm,
+                                           float (&ls)[TS_WR][KL],
+                                           int (&li)[TS_WR][KL]) {
+  float* st = sm;                        // finished tile (TS_R, TS_J)
+  float* qbuf = st + TS_R * TS_J;        // two query chunks
+  float* gbuf = qbuf + 2 * TS_C * TS_LDQ;  // two column chunks
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunks = (Cg + TS_C - 1) / TS_C;
+  const int tiles = (N + TS_J - 1) / TS_J;
+  const int steps = tiles * chunks;
+  float qq[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) qq[i] = SQ[r0 + 4 * ty + i];
+  float acc[4][8], sqj[8];
+
+  ts_load_chunk(G, Cg, N, r0, 0, 0, qbuf, gbuf);
+  for (int s = 0; s < steps; ++s) {
+    const int t = s / chunks, c = s - t * chunks;
+    const int j0 = t * TS_J;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = j0 + 4 * tx + (j & 3) + 64 * (j >> 2);
+        sqj[j] = col < N ? SQ[col] : 0.f;
+      }
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    // step s has landed for every thread, and every thread is done with
+    // step s - 1, whose buffers the next copy fills
+    __syncthreads();
+    if (s + 1 < steps) {
+      const int tn = (s + 1) / chunks, cn = s + 1 - tn * chunks;
+      ts_load_chunk(G, Cg, N, r0, tn * TS_J, cn * TS_C,
+                    qbuf + ((s + 1) & 1) * TS_C * TS_LDQ,
+                    gbuf + ((s + 1) & 1) * TS_C * TS_LDG);
+    }
+    const float* qs = qbuf + (s & 1) * TS_C * TS_LDQ + 4 * ty;
+    const float* gs = gbuf + (s & 1) * TS_C * TS_LDG + 4 * tx;
+    const int nc = min(TS_C, Cg - c * TS_C);
+    auto fma_channel = [&](int cc) {
+      const float4 q = ts_ld4(qs + cc * TS_LDQ);
+      const float4 g0 = ts_ld4(gs + cc * TS_LDG);
+      const float4 g1 = ts_ld4(gs + cc * TS_LDG + 64);
+      const float qv[4] = {q.x, q.y, q.z, q.w};
+      const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], gv[j], acc[i][j]);
+    };
+    if (nc == TS_C) {
+#pragma unroll
+      for (int cc = 0; cc < TS_C; ++cc) fma_channel(cc);
+    } else {
+      for (int cc = 0; cc < nc; ++cc) fma_channel(cc);
+    }
+    if (c + 1 < chunks) continue;
+
+    // the tile is done: finish its scores into st
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = 4 * h + jj;
+          const int col = j0 + 4 * tx + jj + 64 * h;
+          v[jj] = col < N ? __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc[i][j]),
+                                                qq[i]), sqj[j])
+                          : -INFINITY;
+        }
+        *reinterpret_cast<float4*>(st + (4 * ty + i) * TS_J + 4 * tx +
+                                   64 * h) = make_float4(v[0], v[1], v[2],
+                                                         v[3]);
+      }
+    }
+    __syncthreads();
+    // each warp walks its rows' scores in ascending column order; the next
+    // step's barrier keeps st until every warp is done
+    if (t == 0) {  // the first tile (N >= TS_J >= k) fills the lists
+      // one copy of the sorting network, rolled over the rows: each row's
+      // best 64 go back to its row of st, scores then index bits
+#pragma unroll 1
+      for (int rr = 0; rr < TS_WR; ++rr) {
+        float* srow = st + (TS_WR * warp + rr) * TS_J;
+        float v[4];
+        int ix[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          v[u] = srow[32 * u + lane];
+          ix[u] = 32 * u + lane;
+        }
+        ts_sort128(v, ix, lane);
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          srow[32 * u + lane] = v[u];
+          srow[64 + 32 * u + lane] = __int_as_float(ix[u]);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int rr = 0; rr < TS_WR; ++rr) {
+        const float* srow = st + (TS_WR * warp + rr) * TS_J;
+#pragma unroll
+        for (int q = 0; q < KL; ++q) {
+          ls[rr][q] = srow[32 * q + lane];
+          li[rr][q] = __float_as_int(srow[64 + 32 * q + lane]);
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int rr = 0; rr < TS_WR; ++rr) {
+      const float* srow = st + (TS_WR * warp + rr) * TS_J;
+      float thr = ts_kth<KL>(ls[rr], k);
+#pragma unroll
+      for (int u = 0; u < TS_J / 32; ++u) {
+        const float sc = srow[32 * u + lane];
+        unsigned m = __ballot_sync(0xffffffffu, sc > thr);
+        while (m) {
+          const int src = __ffs(m) - 1;
+          m &= m - 1;
+          const float v = __shfl_sync(0xffffffffu, sc, src);
+          if (v > thr) {
+            ts_insert<KL>(ls[rr], li[rr], k, v, j0 + 32 * u + src, lane);
+            thr = ts_kth<KL>(ls[rr], k);
+          }
+        }
+      }
+    }
+  }
 }
 
 // Calls f(std::integral_constant<int, NPL>{}) for the smallest register

@@ -126,7 +126,14 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (the same rules as ``edge2_fwd``; amax, amin and the cotangents f32
-    contiguous (B, N, C2)), which raises on anything else."""
+    contiguous (B, N, C2)), which raises on anything else.
+
+    The kernel's route is decided from the shape before the launch: C1
+    and C2 multiples of 4 up to 64 and k <= 128
+    (every model's shapes) take the tiled kernel (whole rows' edges a
+    tile, register-blocked products), other shapes the row-warp kernel (a
+    warp a row).  dW2, ds1 and dt1 are the same bits from call to call on
+    either route; da1 sums by atomics."""
     if a1.device.type == "cpu":
         return edge2_bwd_plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max,
                                ct_min, ct_sum, ct_sumsq, slope)
@@ -134,10 +141,12 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     b, n, c1, c2, k = _check("edge2_bwd", a1, b1, s1, t1, w2, idx, feats)
     fn = _fn("dg_edge2_bwd", [_P] * 16 + [_I] * 6 + [_F, _P])
     small = [t.contiguous() for t in (s1, t1, w2)]
-    # a few blocks per SM stride over the B*N/8 row groups; each leaves one
-    # row of partial dW2/ds1/dt1 sums, which a second launch adds up
+    # a few blocks per SM stride over the tiles (whole rows) or row groups;
+    # each leaves one row of partial dW2/ds1/dt1 sums, which a second launch
+    # adds up
     sms = torch.cuda.get_device_properties(a1.device).multi_processor_count
-    g = max(1, min((b * n + 7) // 8, 4 * sms))
+    tiles = _fn("dg_edge2_bwd_tiles", [_I] * 5)(b, n, c1, c2, k)
+    g = max(1, min(tiles, 2 * sms))
     width = c1 * c2 + 2 * c1
     part = torch.empty((g, width), device=a1.device, dtype=torch.float32)
     dflat = torch.empty((width,), device=a1.device, dtype=torch.float32)

@@ -26,6 +26,12 @@ from dgcnn_tpu_torch.ops.graph import gather_neighbors
 from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
 
 
+# the longest neighbour list of the tiled selection (csrc/knn_select.cuh,
+# TS_LIST): knn_reduce and knn_reduce_xw take the tiled route up to this k
+# and the row-warp route above it
+TILED_MAX_K = 64
+
+
 def max_co(n: int) -> int:
     """The widest Co the selection kernels take at N points: 256 up to
     N=2048, 128 above (csrc/knn_select.cuh, Bucket)."""
@@ -100,7 +106,13 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int):
     equal scores; amax, amin, asum, asumsq (B, N, Co) f32).  CPU tensors
     take the plain version; CUDA tensors launch the kernel, which takes f32
     contiguous tensors with N a multiple of 128, N <= 4096 and Co <= 256
-    (Co <= 128 above N=2048), and raises on anything else."""
+    (Co <= 128 above N=2048), and raises on anything else.
+
+    The kernel's route is decided from k before the launch: up to
+    ``TILED_MAX_K`` (every model's k) the tiled selection (blocks of 64
+    query rows, register-blocked score tiles, a running top-k a row), above
+    it the row-warp selection (a warp a row, its N scores in registers).
+    Both give the same bits."""
     if graph.device.type == "cpu":
         return knn_reduce_plain(graph, a, k)
     co = a.shape[-1]

@@ -774,6 +774,49 @@ def test_edge2_kernels_duplicates_exact(cuda_device):
         assert torch.equal(gv, wv)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1024, 20), (2048, 32), (2048, 40),
+                                 (4096, 20), (1024, 65)])
+@pytest.mark.parametrize("c", [3, 64])
+def test_knn_reduce_kernel_at_the_models_shapes(cuda_device, n, k, c):
+    """Kernel 3 at the models' N and k (cls, the Net, partseg, semseg) on
+    its tiled route, and at k = 65 on its row-warp route."""
+    g, a, _ = _reduce_inputs(60 + k + c, b=4, n=n, c=c, co=64)
+    g, a = _t(g).to(cuda_device), _t(a).to(cuda_device)
+    got = knn_reduce(g, a, k)
+    want = knn_reduce_plain(g, a, k)
+    same = (got[0] == want[0]).all(-1)
+    assert same.float().mean().item() >= 0.999
+    for gv, wv in zip(got[1:], want[1:]):
+        assert torch.isfinite(gv).all()
+        assert _row_match(gv, wv)[same].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,c2", [(4096, 20, 64), (2048, 40, 64),
+                                    (1024, 20, 72)])
+def test_edge2_bwd_kernel_at_the_models_shapes(cuda_device, n, k, c2):
+    """Kernel 8 at the semseg and partseg shapes (its tiled route) and at
+    C2 = 72 (its row-warp route): against the plain version, and dW2, ds1,
+    dt1 the same bits over two calls."""
+    (g, a1, b1, s1, t1, w2, _, _), _, cts = _edge2_inputs(
+        49 + k, b=2, n=n, cg=64, c1=64, c2=c2, k=k)
+    g = _t(g).to(cuda_device)
+    idx = knn_reduce(g, g, k)[0]
+    tin = [_t(v).to(cuda_device) for v in (a1, b1, s1, t1, w2)] + [idx]
+    mx, mn = edge2_fwd(*tin)[:2]
+    cts = [_t(c).to(cuda_device) for c in cts]
+    grads = edge2_bwd(*tin, mx, mn, *cts)
+    again = edge2_bwd(*tin, mx, mn, *cts)
+    want = edge2_bwd_plain(*tin, mx, mn, *cts)
+    for gv, wv in zip(grads[:2], want[:2]):
+        assert torch.isfinite(gv).all()
+        assert _row_match(gv, wv).float().mean().item() >= 0.999
+    for gv, av, wv in zip(grads[2:], again[2:], want[2:]):
+        assert torch.equal(gv, av)
+        assert ((gv - wv).norm() <= 1e-4 * wv.norm()).item()
+
+
 @pytest.mark.parametrize("dup", [False, True])
 def test_knn_matches_knn_pallas_at_k40(dup):
     """Kernel 11's plain version (and ``knn`` on CPU tensors) against
