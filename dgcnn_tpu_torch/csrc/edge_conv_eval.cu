@@ -20,26 +20,37 @@
 //   2. project_kernel  [a | c] = x @ [W_nbr | W_ctr] with the register-
 //                      blocked GEMM of project.cu, into a (B*N, 2*Co)
 //                      scratch.
-//   3. select_kernel   the kNN selection of knn_select.cuh: one warp per
-//                      query row with its N scores in registers, then k
-//                      rounds of a warp arg-max on (score, -index) pick the
-//                      neighbours in torch.topk order; each winner's row of
-//                      a is read (coalesced) into a running max/min over the
-//                      Co channels, and the epilogue applies the affine and
-//                      LeakyReLU.
+//   3. the selection, one of two routes decided from the shape before
+//      the launch:
+//      k <= TS_LIST (64) and Co <= 256 (every model: k = 20, 32, 40)
+//        edge_conv_eval_tiled_kernel: the tiled selection of
+//        knn_select.cuh (tiled_topk), as kernel 3 runs it.  A block of
+//        256 threads owns 64 query rows and streams the cloud in tiles
+//        of 128 columns; each tile's scores are a register-blocked
+//        product (a staged value feeds four FMAs, where the row-warp
+//        form spent one shared load an FMA), and each warp keeps eight
+//        rows' running top-k in registers, so no score stays in
+//        registers across tiles: no spills at N = 4096, two blocks an
+//        SM.  Then each warp walks its rows' lists in list order and
+//        folds the members' rows of a (coalesced) into a running
+//        max/min over the Co channels.
+//      any other shape  select_kernel: the row-warp selection, one warp
+//        per query row with its N scores in registers and k rounds of a
+//        warp arg-max on (score, -index).
+//   Both routes pick the neighbours in torch.topk's order and fold them
+//   in that order; max and min are exact, and the epilogue applies the
+//   same _rn affine and LeakyReLU, so their outputs are the same bits.
 // No idx, no (B, N, k, Co) edge tensor and no score matrix reach device
 // memory.  The scores run on the CUDA cores in f32 (the exact mode needs
-// f32 products, which rules out TF32); each graph value read from shared
-// memory feeds one FMA, so shared-memory bandwidth, not the FMA rate, is
-// the first limit of this simple design.
+// f32 products, which rules out TF32).
 //
-// The same kernels serve kernel 12, dgcnn_tpu/ops/pallas_banded.py::
+// The row-warp route serves kernel 12, dgcnn_tpu/ops/pallas_banded.py::
 // banded_edge_conv_eval (the --fast_extract path): on a cloud in its
 // PC1-sorted order, each query tile scores only a window of `band` sorted
 // rows.  select_kernel stages that window instead of the whole cloud and
 // its scores cover band / 32 registers a lane, so the staging and the k
-// rounds of arg-max shrink by N / band; the exact stage is the window
-// [0, N).  At the DGCNNPartSeg conv5 shape (B=16, N=2048, Cg=64, band 512)
+// rounds of arg-max shrink by N / band; at band = N (starts 0) the banded
+// entry is the row-warp route of the exact stage over the window [0, N).  At the DGCNNPartSeg conv5 shape (B=16, N=2048, Cg=64, band 512)
 // the bound falls with the scores, to 2*B*N*band*Cg flops.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -120,6 +131,104 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
   }
 }
 
+// The tiled route: the block's 64 rows' lists (tiled_topk), then each
+// warp its eight rows, CPL output channels a lane (Co <= 32 * CPL).  The
+// members' rows of a are folded in list order, which is pop_nearest's
+// order, and the epilogue is select_kernel's.
+template <int KL, int CPL>
+__global__ void __launch_bounds__(dg::TS_THREADS, 2)
+    edge_conv_eval_tiled_kernel(const float* __restrict__ graph, int Cg,
+                                const float* __restrict__ sq,
+                                const float* __restrict__ ac, int Co,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ bias, float slope,
+                                int N, int k, float* __restrict__ out) {
+  extern __shared__ __align__(16) float tsm[];
+  const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float ls[dg::TS_WR][KL];
+  int li[dg::TS_WR][KL];
+  dg::tiled_topk<KL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
+                     r0, k, tsm, ls, li);
+
+  const int row = 2 * Co;
+  const float* A = ac + (size_t)b * N * row;
+#pragma unroll
+  for (int rr = 0; rr < dg::TS_WR; ++rr) {
+    const int i = r0 + dg::TS_WR * warp + rr;
+    float mx[CPL], mn[CPL];
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      mx[u] = -INFINITY;
+      mn[u] = INFINITY;
+    }
+#pragma unroll 4
+    for (int t = 0; t < k; ++t) {
+      int j = __shfl_sync(0xffffffffu, li[rr][0], t & 31);
+#pragma unroll
+      for (int q = 1; q < KL; ++q) {
+        const int jq = __shfl_sync(0xffffffffu, li[rr][q], t & 31);
+        if (t >> 5 == q) j = jq;
+      }
+      const float* arow = A + (size_t)j * row;
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) {
+        const int c = lane + 32 * u;
+        if (c < Co) {
+          const float v = arow[c];
+          mx[u] = fmaxf(mx[u], v);
+          mn[u] = fminf(mn[u], v);
+        }
+      }
+    }
+    const float* crow = A + (size_t)i * row + Co;
+    float* orow = out + ((size_t)b * N + i) * Co;
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      const int c = lane + 32 * u;
+      if (c < Co) {
+        const float sc = scale[c];
+        const float sel = __fadd_rn(sc > 0.f ? mx[u] : mn[u], crow[c]);
+        const float y = __fadd_rn(__fmul_rn(sel, sc), bias[c]);
+        orow[c] = y >= 0.f ? y : __fmul_rn(slope, y);
+      }
+    }
+  }
+}
+
+template <int KL, int CPL>
+cudaError_t launch_tiled(const float* graph, const float* sq,
+                         const float* ac, int Co, const float* scale,
+                         const float* bias, float slope, int B, int N,
+                         int Cg, int k, float* out, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_conv_eval_tiled_kernel<KL, CPL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dg::TS_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  edge_conv_eval_tiled_kernel<KL, CPL>
+      <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
+          graph, Cg, sq, ac, Co, scale, bias, slope, N, k, out);
+  return cudaGetLastError();
+}
+
+template <int KL>
+cudaError_t launch_tiled_co(const float* graph, const float* sq,
+                            const float* ac, int Co, const float* scale,
+                            const float* bias, float slope, int B, int N,
+                            int Cg, int k, float* out, cudaStream_t st) {
+  if (Co <= 64)
+    return launch_tiled<KL, 2>(graph, sq, ac, Co, scale, bias, slope, B, N,
+                               Cg, k, out, st);
+  if (Co <= 128)
+    return launch_tiled<KL, 4>(graph, sq, ac, Co, scale, bias, slope, B, N,
+                               Cg, k, out, st);
+  return launch_tiled<KL, 8>(graph, sq, ac, Co, scale, bias, slope, B, N,
+                             Cg, k, out, st);
+}
+
+// The route of the exact stage, from the shape alone.
+bool tiled_route(int Co, int k) { return k <= dg::TS_LIST && Co <= 256; }
+
 // sqnorm, projection and selection of one stage whose candidates are the
 // windows described above select_kernel.
 cudaError_t launch_stage(const float* graph, const float* x,
@@ -166,7 +275,8 @@ extern "C" const char* dg_cuda_error_string(int code) {
 
 // graph (B, N, Cg), x (B, N, Cin), wcat (Cin, 2*Co) = [W_nbr | W_ctr],
 // scale/bias (Co,), scratch ac (B*N, 2*Co) and sq (B*N,), out (B, N, Co);
-// all f32, contiguous, on the device.  Returns the first CUDA error.
+// all f32, contiguous, on the device.  The tiled route at k <= TS_LIST,
+// the row-warp route above.  Returns the first CUDA error.
 extern "C" int dg_edge_conv_eval(const float* graph, const float* x,
                                  const float* wcat, const float* scale,
                                  const float* bias, float* ac, float* sq,
@@ -175,9 +285,19 @@ extern "C" int dg_edge_conv_eval(const float* graph, const float* x,
   if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
       Co > dg::max_co(N) || Cg < 1 || Cin < 1 || k < 1 || k > N)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_stage(graph, x, wcat, scale, bias, ac, sq, out, B, N,
-                           Cg, Cin, Co, k, slope, nullptr, N, N,
-                           (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!tiled_route(Co, k))
+    return (int)launch_stage(graph, x, wcat, scale, bias, ac, sq, out, B, N,
+                             Cg, Cin, Co, k, slope, nullptr, N, N, st);
+  cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
+  if (e != cudaSuccess) return (int)e;
+  e = dg::launch_project(x, B * N, Cin, wcat, 2 * Co, ac, st);
+  if (e != cudaSuccess) return (int)e;
+  if (k <= 32)
+    return (int)launch_tiled_co<1>(graph, sq, ac, Co, scale, bias, slope, B,
+                                   N, Cg, k, out, st);
+  return (int)launch_tiled_co<2>(graph, sq, ac, Co, scale, bias, slope, B, N,
+                                 Cg, k, out, st);
 }
 
 // Kernel 12, banded_edge_conv_eval: the same stage on a cloud in its

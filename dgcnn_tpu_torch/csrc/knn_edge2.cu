@@ -17,17 +17,42 @@
 // (10.7 GFLOP a block): ~57 GFLOP over the two blocks, ~0.86 ms at the f32
 // CUDA-core peak (67 TFLOP/s), against ~0.1 GB in and out.
 //
-// Design: the selection of knn_select.cuh (sqnorm, then a warp per query
-// row with its N scores in registers and k rounds of warp arg-max), with
-// each winner consumed at once: the lanes write the edge's h1 row into the
-// warp's row of shared memory (edge2.cuh), then each lane forms its
-// second-conv channels as f32 dot products against w2, which the block
-// keeps in shared memory beside the graph stage, and folds them into a
-// running max.  Neither the (B, N, k, C1) hidden tensor nor idx reaches
-// device memory.  Each w2 value read from shared memory feeds one FMA, so
-// the per-edge product is shared-memory bound in this simple form.
+// Design, two routes decided from the shape before the launch (both
+// after sqnorm):
+//   k <= TS_LIST (64), C1 <= 64 and C2 <= 128 (every model: k = 20, 32,
+//   40; C1 = 64, C2 = 64 or, in the TransformNet, 128)
+//   knn_edge2_tiled_kernel.  The tiled selection of knn_select.cuh
+//   (tiled_topk, as kernel 3 runs it): a block of 256 threads owns 64
+//   query rows, streams the cloud in tiles of 128 columns whose scores
+//   are a register-blocked product, and keeps each row's running top-k
+//   in its warp's registers; no score stays in registers across tiles,
+//   so nothing spills at N = 4096 and two blocks fit an SM.  Then the
+//   block consumes its rows' edges in tiles of R = min(8, 128 / k) whole
+//   rows (R * k <= 128 edges, as edge2_bwd.cu tiles them): the tile's
+//   h1 goes to shared memory (e2_h1_row's operations), z2 = h1 w2 is a
+//   register-blocked product (8 edges x 4 channels a thread, 64 channels
+//   a pass; each element one fmaf chain over c1 ascending from 0, so
+//   e2_z2's bits), each element takes s2, t2 and the LeakyReLU in
+//   registers and goes to shared memory, and the max over each row's k
+//   edges is taken there, t ascending.  The affine comes before the max
+//   because s2 may be negative.  Shared memory: the selection's 83,968 B
+//   are free once the lists are in registers; the consumer takes h1 and
+//   y of one tile (128 edges x 64 channels each), w2 (up to 64 x 128),
+//   the folded affines and the tile's neighbour rows, 100,864 B: two
+//   blocks still fit an SM.
+//   Any other shape  knn_edge2_kernel: the row-warp selection (a warp per
+//   query row with its N scores in registers and k rounds of warp
+//   arg-max), with each winner consumed at once: the lanes write the
+//   edge's h1 row into the warp's row of shared memory (edge2.cuh), then
+//   each lane forms its second-conv channels as f32 dot products against
+//   w2 in shared memory and folds them into a running max.  Each w2 value
+//   read from shared memory feeds one FMA.
+// Both routes pick the neighbours in torch.topk's order, compute each
+// edge's z2 and h2 with the same operations and take the max over the
+// edges in that order: their outputs are the same bits.  Neither the (B,
+// N, k, C1) hidden tensor nor idx reaches device memory.
 //
-// The same kernel serves kernel 13, dgcnn_tpu/ops/pallas_banded.py::
+// The row-warp kernel serves kernel 13, dgcnn_tpu/ops/pallas_banded.py::
 // banded_knn_edge2 (the --fast_extract path): on a cloud in its PC1-sorted
 // order each query tile's candidates are a window of `band` sorted rows
 // (see knn_edge2_kernel), so the staging, the scores and the arg-max
@@ -122,6 +147,198 @@ __global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
   }
 }
 
+// ---------------------------------------------------------------- tiled
+constexpr int XE = 128;   // edge slots a tile
+constexpr int XR = 8;     // the most rows a tile
+constexpr int XC1 = 64;   // C1 <= XC1: the row stride of h1
+constexpr int XC2 = 128;  // C2 <= XC2
+constexpr int XP = 64;    // second-conv channels a pass: the row stride of y
+constexpr size_t XSMEM_CONSUME =
+    sizeof(float) * (XE * XC1 + XE * XP + XC1 * XC2 + 2 * XC1 + 2 * XC2) +
+    sizeof(int) * 2 * XE;
+constexpr size_t XSMEM_BYTES = XSMEM_CONSUME > dg::TS_SMEM_BYTES
+                                   ? XSMEM_CONSUME
+                                   : dg::TS_SMEM_BYTES;
+
+bool tiled_route(int C1, int C2, int k) {
+  return k <= dg::TS_LIST && C1 <= XC1 && C2 <= XC2;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The tiled route: the block's 64 rows' lists (tiled_topk), then their
+// edges in tiles of R = min(XR, XE / k) whole rows.  C1 and C2 are padded
+// to multiples of 4 in shared memory with zeros, which add nothing to a
+// z2 chain (a chain that starts at +0 never holds -0).
+template <int KL>
+__global__ void __launch_bounds__(dg::TS_THREADS, 2)
+    knn_edge2_tiled_kernel(const float* __restrict__ graph, int Cg,
+                           const float* __restrict__ sq,
+                           const float* __restrict__ a1,
+                           const float* __restrict__ b1, int C1,
+                           const float* __restrict__ w2, int C2,
+                           const float* __restrict__ s1,
+                           const float* __restrict__ t1,
+                           const float* __restrict__ s2,
+                           const float* __restrict__ t2, float slope, int N,
+                           int k, float* __restrict__ out) {
+  extern __shared__ __align__(16) float tsm[];
+  const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  float ls[dg::TS_WR][KL];
+  int li[dg::TS_WR][KL];
+  dg::tiled_topk<KL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
+                     r0, k, tsm, ls, li);
+
+  float* hb = tsm;              // h1 of the tile's edges (XE, XC1)
+  float* yb = hb + XE * XC1;    // h2 of one pass (XE, XP)
+  float* w2s = yb + XE * XP;    // w2 (C1p, ldw)
+  float* s1s = w2s + XC1 * XC2;  // s1, t1 (XC1); s2, t2 (XC2)
+  float* t1s = s1s + XC1;
+  float* s2s = t1s + XC1;
+  float* t2s = s2s + XC2;
+  int* jrow = reinterpret_cast<int*>(t2s + XC2);  // a1 row of an edge, or -1
+  int* eloc = jrow + XE;                          // its row in the tile
+  const int C1p = (C1 + 3) & ~3, ldw = (C2 + 3) & ~3;
+  __syncthreads();  // every warp is done with the selection's shared memory
+  for (int e = tid; e < C1p * ldw; e += dg::TS_THREADS) {
+    const int r = e / ldw, c = e - r * ldw;
+    w2s[e] = r < C1 && c < C2 ? w2[r * C2 + c] : 0.f;
+  }
+  if (tid < XC1) {
+    s1s[tid] = tid < C1 ? s1[tid] : 0.f;
+    t1s[tid] = tid < C1 ? t1[tid] : 0.f;
+  }
+  if (tid < XC2) {
+    s2s[tid] = tid < C2 ? s2[tid] : 0.f;
+    t2s[tid] = tid < C2 ? t2[tid] : 0.f;
+  }
+  const int R = XE / k < XR ? XE / k : XR;
+  const float* A = a1 + (size_t)b * N * C1;
+  // the h1 stage gives thread tid channel cl of edges eb + 4 m; the
+  // products give thread (tx, ty) edges ty + 16 m and channels 4 tx + i
+  const int cl = tid & (XC1 - 1), eb = tid / XC1;
+  const int tx = tid & 15, ty = tid >> 4;
+
+  for (int rt = 0; rt < dg::TS_R; rt += R) {
+    const int nr = min(R, dg::TS_R - rt);  // rows r0 + rt .. of this tile
+    // each warp writes the lists of its rows that fall in the tile; the
+    // previous tile read jrow and eloc before two barriers
+#pragma unroll
+    for (int rr = 0; rr < dg::TS_WR; ++rr) {
+      const int r = dg::TS_WR * warp + rr - rt;
+      if (r >= 0 && r < nr) {
+#pragma unroll
+        for (int q = 0; q < KL; ++q) {
+          const int t = lane + 32 * q;
+          if (t < k) {
+            jrow[r * k + t] = li[rr][q];
+            eloc[r * k + t] = r;
+          }
+        }
+      }
+    }
+    for (int e = nr * k + tid; e < XE; e += dg::TS_THREADS) jrow[e] = -1;
+    __syncthreads();
+    // h1 of every edge (e2_h1_row's operations); empty slots hold zeros
+    for (int e = eb; e < XE; e += dg::TS_THREADS / XC1) {
+      const int j = jrow[e];
+      float h = 0.f;
+      if (j >= 0 && cl < C1) {
+        const size_t i = (size_t)b * N + r0 + rt + eloc[e];
+        h = dg::e2_lrelu(dg::e2_z1(A[(size_t)j * C1 + cl], b1[i * C1 + cl],
+                                   s1s[cl], t1s[cl]),
+                         slope);
+      }
+      hb[e * XC1 + cl] = h;
+    }
+    __syncthreads();
+    for (int p0 = 0; p0 < C2; p0 += XP) {
+      const int c0 = p0 + 4 * tx;
+      const bool active = c0 < ldw;
+      float acc[8][4];
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+      if (active) {
+        for (int c1 = 0; c1 < C1p; c1 += 4) {
+          float4 w[4];
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc)
+            w[cc] = ld4(w2s + (c1 + cc) * ldw + c0);
+#pragma unroll
+          for (int m = 0; m < 8; ++m) {
+            const float4 h = ld4(hb + (ty + 16 * m) * XC1 + c1);
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+              const float hv = comp(h, cc);
+              acc[m][0] = fmaf(hv, w[cc].x, acc[m][0]);
+              acc[m][1] = fmaf(hv, w[cc].y, acc[m][1]);
+              acc[m][2] = fmaf(hv, w[cc].z, acc[m][2]);
+              acc[m][3] = fmaf(hv, w[cc].w, acc[m][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the previous pass's (or tile's) reads of yb are done
+      if (active) {
+        float sc[4], tc[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[i] = s2s[c0 + i];
+          tc[i] = t2s[c0 + i];
+        }
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          float y[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            y[i] = dg::e2_lrelu(__fadd_rn(__fmul_rn(acc[m][i], sc[i]), tc[i]),
+                                slope);
+          *reinterpret_cast<float4*>(yb + (ty + 16 * m) * XP + 4 * tx) =
+              make_float4(y[0], y[1], y[2], y[3]);
+        }
+      }
+      __syncthreads();
+      // the max over each row's edges, t ascending: the row-warp order
+      for (int q = tid; q < nr * XP; q += dg::TS_THREADS) {
+        const int r = q / XP, c = q - r * XP;
+        if (p0 + c < C2) {
+          float mx = -INFINITY;
+          for (int t = 0; t < k; ++t)
+            mx = fmaxf(mx, yb[(r * k + t) * XP + c]);
+          out[((size_t)b * N + r0 + rt + r) * C2 + p0 + c] = mx;
+        }
+      }
+    }
+  }
+}
+
+template <int KL>
+cudaError_t launch_tiled(const float* graph, const float* a1,
+                         const float* b1, const float* w2, const float* s1,
+                         const float* t1, const float* s2, const float* t2,
+                         const float* sq, float* out, int B, int N, int Cg,
+                         int C1, int C2, int k, float slope,
+                         cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_edge2_tiled_kernel<KL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)XSMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  knn_edge2_tiled_kernel<KL>
+      <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, XSMEM_BYTES, st>>>(
+          graph, Cg, sq, a1, b1, C1, w2, C2, s1, t1, s2, t2, slope, N, k,
+          out);
+  return cudaGetLastError();
+}
+
 // sqnorm and the block kernel over the windows described above
 // knn_edge2_kernel.
 cudaError_t launch_block(const float* graph, const float* a1,
@@ -153,7 +370,8 @@ cudaError_t launch_block(const float* graph, const float* a1,
 
 // graph (B, N, Cg), a1/b1 (B, N, C1), w2 (C1, C2), s1/t1 (C1,), s2/t2
 // (C2,), scratch sq (B*N,), out (B, N, C2); all f32, contiguous, on the
-// device.  Returns the first CUDA error.
+// device.  The tiled route at k <= TS_LIST, C1 <= 64 and C2 <= 128, the
+// row-warp route otherwise.  Returns the first CUDA error.
 extern "C" int dg_knn_edge2(const float* graph, const float* a1,
                             const float* b1, const float* w2, const float* s1,
                             const float* t1, const float* s2, const float* t2,
@@ -163,9 +381,17 @@ extern "C" int dg_knn_edge2(const float* graph, const float* a1,
   if (B < 1 || N % 128 != 0 || N > dg::MAX_N || Cg < 1 || C1 < 1 ||
       C1 > E2_MAXC || C2 < 1 || C2 > E2_MAXC || k < 1 || k > N)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_block(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B, N,
-                           Cg, C1, C2, k, slope, nullptr, N, N,
-                           (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!tiled_route(C1, C2, k))
+    return (int)launch_block(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B,
+                             N, Cg, C1, C2, k, slope, nullptr, N, N, st);
+  cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
+  if (e != cudaSuccess) return (int)e;
+  if (k <= 32)
+    return (int)launch_tiled<1>(graph, a1, b1, w2, s1, t1, s2, t2, sq, out,
+                                B, N, Cg, C1, C2, k, slope, st);
+  return (int)launch_tiled<2>(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B,
+                              N, Cg, C1, C2, k, slope, st);
 }
 
 // Kernel 13, banded_knn_edge2: the same block on a cloud in its PC1-sorted

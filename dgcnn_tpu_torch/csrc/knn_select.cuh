@@ -1,10 +1,11 @@
 // The kNN selections of the port's neighbour-picking kernels.  Two
 // components: the row-warp selection below (row_scores, pop_nearest) of
-// the select_kernel of edge_conv_eval.cu, knn_edge2.cu, knn_idx.cu,
-// knn_sum.cu and of knn_reduce.cu at k > TS_LIST; and the tiled selection
-// further down (tiled_topk) of knn_reduce.cu at k <= TS_LIST.  Both give
-// the same neighbours in the same order.  The banded kernels hand
-// row_scores a window of their sorted cloud as the cloud.
+// knn_idx.cu, knn_sum.cu, the banded kernels 12 and 13 and of
+// edge_conv_eval.cu, knn_edge2.cu and knn_reduce.cu at k > TS_LIST; and
+// the tiled selection further down (tiled_topk) of those three (kernels
+// 1, 6 and 3) at k <= TS_LIST.  Both give the same neighbours in the same
+// order.  The banded kernels hand row_scores a window of their sorted
+// cloud as the cloud.
 //
 // A warp owns one query row i of a cloud and keeps the scores of its N
 // columns in registers, NPL = N / 32 a lane (column j = 32 * t + lane in
@@ -206,11 +207,12 @@ __device__ __forceinline__ int pop_nearest(float (&s)[NPL], int lane) {
 }
 
 // ---------------------------------------------------------------------
-// The tiled selection (knn_reduce.cu at k <= TS_LIST).  A block of
-// TS_THREADS threads owns TS_R query rows of one cloud and streams the
-// cloud past them in column tiles of TS_J, ascending.  Each tile's scores
-// are one register-blocked product: thread (ty, tx) of 16 x 16 holds rows
-// 4 ty + i and columns 4 tx + j, 64 + 4 tx + j (i, j < 4), and the
+// The tiled selection (knn_reduce.cu, edge_conv_eval.cu and knn_edge2.cu
+// at k <= TS_LIST; knn_edge2.cu also needs C1 <= 64 and C2 <= 128).  A
+// block of TS_THREADS threads owns TS_R query rows of one cloud and
+// streams the cloud past them in column tiles of TS_J, ascending.  Each
+// tile's scores are one register-blocked product: thread (ty, tx) of 16
+// x 16 holds rows 4 ty + i and columns 4 tx + j, 64 + 4 tx + j (i, j < 4), and the
 // channels come through shared memory TS_C at a time, copied by cp.async
 // into one buffer while the other is read (k-major, so that a float4 read
 // gives four rows or four columns and one staged value feeds four FMAs).

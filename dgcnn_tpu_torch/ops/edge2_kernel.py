@@ -3,7 +3,12 @@
 Replaces ``dgcnn_tpu/ops/pallas_knn.py::fused_knn_edge2`` (body
 ``_knn_edge2_kernel``) in its exact f32 mode.  The kernel is
 ``csrc/knn_edge2.cu``; its note states the bound on an H100 and what the
-design does about it.  ``knn_edge2_plain`` beside it is the same function
+design does about it.  It picks its route from the shape: at k <= 64, C1
+<= 64 and C2 <= 128 the tiled selection of ``csrc/knn_select.cuh``, then
+the block's edges in tiles of whole rows (h1 staged, z2 = h1 w2 a
+register-blocked product, the affine and LeakyReLU, then each row's max);
+otherwise the row-warp selection with each edge consumed as it is picked.
+Both give the same bits.  ``knn_edge2_plain`` beside it is the same function
 in plain torch (kNN, gather, both convs on every edge, max over k): the
 wrapper runs it for CPU tensors and launches the kernel for CUDA tensors.
 """

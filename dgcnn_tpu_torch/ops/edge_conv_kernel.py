@@ -3,7 +3,11 @@
 Replaces ``dgcnn_tpu/ops/pallas_knn.py::fused_edge_conv_eval`` (body
 ``_edge_conv1_kernel``) in its exact f32 mode.  The kernel is
 ``csrc/edge_conv_eval.cu``; its note states the bound on an H100 and what
-the design does about it.  ``edge_conv_eval_plain`` beside it is the same
+the design does about it.  It picks its route from the shape: at k <= 64
+the tiled selection of ``csrc/knn_select.cuh`` (a block's 64 rows scored
+against the cloud in tiles of 128 columns, a running top-k a row in
+registers), above it the row-warp selection; both give the same bits.
+``edge_conv_eval_plain`` beside it is the same
 function in plain torch (kNN, then the factorized conv and reduction): the
 wrapper runs it for CPU tensors and launches the kernel for CUDA tensors.
 """

@@ -1,13 +1,20 @@
-"""A/B timing of kernel 3 (``dg_knn_reduce``) or kernel 8
-(``dg_edge2_bwd``) against its earlier row-warp form on one card.
+"""A/B timing of kernel 3 (``dg_knn_reduce``), kernel 8
+(``dg_edge2_bwd``), kernel 1 (``dg_edge_conv_eval``) or kernel 6
+(``dg_knn_edge2``) against its earlier row-warp form on one card.
 
-Builds the kernel's source (``csrc/knn_reduce.cu`` or ``csrc/edge2_bwd.cu``)
-and its earlier form (``tools/reduce_forms/*_rowwarp.cu``) each into a
-library of its own (one ``nvcc`` a form, both started together; the
-kNN forms link ``csrc/edge_conv_eval.cu`` and ``csrc/project.cu`` for the
-squared norms and the projection), then times both at every cell's shapes
-in the order a b b a, as device times (calls queued behind a sleep of the
-card, ``project_ab.device_ms``), and holds them to each other:
+Builds the kernel's source (``csrc/knn_reduce.cu``, ``csrc/edge2_bwd.cu``,
+``csrc/edge_conv_eval.cu`` or ``csrc/knn_edge2.cu``) into a library of its
+own, and for kernels 3 and 8 their earlier form
+(``tools/reduce_forms/*_rowwarp.cu``) into another (one ``nvcc`` a form,
+all started together; the kNN forms link ``csrc/edge_conv_eval.cu`` and
+``csrc/project.cu`` for the squared norms and the projection).  Kernels 1
+and 6 keep their row-warp form in ``csrc/`` for the banded kernels 12 and
+13 and for k > 64: the banded entry at band = N, tile 128 and window starts
+0 is that form over the whole cloud, so the row-warp side of their A/B is
+the same library's ``dg_banded_edge_conv_eval`` / ``dg_banded_knn_edge2``.
+Then times the forms at every cell's shapes in the order a b b a, as
+device times (calls queued behind a sleep of the card,
+``project_ab.device_ms``), and holds them to each other:
 
 - ``--kernel knn_reduce``: B=32 at the DGCNNCls stages (N=1024, k=20, Cg
   3 / 64 / 64 / 128, Co 64 / 64 / 128 / 256), DGCNNSemSeg (N=4096, k=20),
@@ -20,6 +27,17 @@ card, ``project_ab.device_ms``), and holds them to each other:
   that the tie counts enter it); dW2, ds1 and dt1 within rel 1e-5 of the
   earlier form's and the same bits over two calls; da1 within rel 1e-5 of
   each row's norm.
+- ``--kernel edge_conv_eval``: the eval stages of DGCNNCls (B=64,
+  N=1024, k=20, (Cg, Cin -> Co) = (3, 3 -> 64), (64, 64 -> 64), (64, 64
+  -> 128), (128, 128 -> 256)), the semseg and partseg conv5 (B=16, 64 ->
+  64; N=4096 k=20 and N=2048 k=40) and the Net's four stages (B=16,
+  N=2048, k=32); every output bit-equal between the forms, at k = 65 (the
+  row-warp route of both) and on integer duplicate-points clouds whose
+  k-th boundary falls inside ties too.
+- ``--kernel knn_edge2``: the two-conv blocks of semseg (B=16, N=4096,
+  k=20, Cg 3 and 64, C1 = C2 = 64), partseg (N=2048, k=40: the
+  TransformNet's Cg=3 C1=64 C2=128 and the blocks at Cg 3 and 64) and the
+  Net's TransformNet (N=2048, k=32, C2=128); bit-equal as kernel 1.
 
 ``--root DIR`` builds the kernel's source from another checkout (its
 ``dgcnn_tpu_torch/csrc``), the earlier form from this one; ``--form
@@ -29,13 +47,15 @@ card's name and power limit, ptxas's registers and spills for each form,
 one line a shape and form, and last one JSON object with every reading.
 Exits non-zero without a CUDA card or when a check fails.
 
-    python -m dgcnn_tpu_torch.tools.reduce_ab --kernel knn_reduce|edge2_bwd
+    python -m dgcnn_tpu_torch.tools.reduce_ab --kernel
+        knn_reduce|edge2_bwd|edge_conv_eval|knn_edge2
         [--root DIR] [--form NAME=PATH ...]
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import glob
 import hashlib
 import json
@@ -51,10 +71,20 @@ from dgcnn_tpu_torch.tools.project_ab import device_ms
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _FORMS_DIR = os.path.join(_HERE, "reduce_forms")
-SOURCES = {"knn_reduce": "knn_reduce.cu", "edge2_bwd": "edge2_bwd.cu"}
-# the sources a kNN form links: launch_sqnorm, dg_cuda_error_string and
+SOURCES = {"knn_reduce": "knn_reduce.cu", "edge2_bwd": "edge2_bwd.cu",
+           "edge_conv_eval": "edge_conv_eval.cu", "knn_edge2": "knn_edge2.cu"}
+# the sources a form links: launch_sqnorm, dg_cuda_error_string and
 # launch_project
-KNN_HELPERS = ("edge_conv_eval.cu", "project.cu")
+HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu"),
+           "edge2_bwd": (), "edge_conv_eval": ("project.cu",),
+           "knn_edge2": ("edge_conv_eval.cu", "project.cu")}
+# the kernels whose row-warp form is their own banded entry at band = N
+BANDED = {"edge_conv_eval": "dg_banded_edge_conv_eval",
+          "knn_edge2": "dg_banded_knn_edge2"}
+# ptxas lines worth printing: the kernel's own instances
+PTXAS_KEYS = {"knn_reduce": ("reduce",), "edge2_bwd": ("bwd", "partial"),
+              "edge_conv_eval": ("select_kernel", "edge_conv_eval"),
+              "knn_edge2": ("knn_edge2",)}
 TB = 32
 # (cell, N, k, [(Cg, Co), ...])
 KNN_SHAPES = [
@@ -66,6 +96,22 @@ KNN_SHAPES = [
 ]
 # (cell, N, k)
 EDGE2_SHAPES = [("seg", 4096, 20), ("part", 2048, 40)]
+# (cell, B, N, k, [(Cg, Cin, Co), ...]): kernel 1 at the eval cells' stages
+EVAL_STAGES = [(3, 3, 64), (64, 64, 64), (64, 64, 128), (128, 128, 256)]
+EDGE_CONV_SHAPES = [
+    ("cls", 64, 1024, 20, EVAL_STAGES),
+    ("seg conv5", 16, 4096, 20, [(64, 64, 64)]),
+    ("part conv5", 16, 2048, 40, [(64, 64, 64)]),
+    ("net", 16, 2048, 32, EVAL_STAGES),
+    ("row-warp route k=65", 4, 1024, 65, [(64, 64, 64)]),
+]
+# (cell, B, N, k, [(Cg, C1, C2), ...]): kernel 6 at the eval cells' blocks
+KNN_EDGE2_SHAPES = [
+    ("seg", 16, 4096, 20, [(3, 64, 64), (64, 64, 64)]),
+    ("part", 16, 2048, 40, [(3, 64, 128), (3, 64, 64), (64, 64, 64)]),
+    ("net TransformNet", 16, 2048, 32, [(3, 64, 128)]),
+    ("row-warp route k=65", 4, 1024, 65, [(64, 64, 64)]),
+]
 
 
 def build(kernel: str, root: str,
@@ -74,11 +120,12 @@ def build(kernel: str, root: str,
     ``build/reduce_ab/``; returns each form's library path and ptxas's
     lines."""
     csrc = os.path.join(root, "dgcnn_tpu_torch", "csrc")
-    forms = {"kernel": os.path.join(csrc, SOURCES[kernel]),
-             "rowwarp": os.path.join(
-                 _FORMS_DIR, SOURCES[kernel][:-3] + "_rowwarp.cu"), **extra}
-    helpers = ([os.path.join(_build.CSRC, h) for h in KNN_HELPERS]
-               if kernel == "knn_reduce" else [])
+    forms = {"kernel": os.path.join(csrc, SOURCES[kernel])}
+    if kernel not in BANDED:
+        forms["rowwarp"] = os.path.join(
+            _FORMS_DIR, SOURCES[kernel][:-3] + "_rowwarp.cu")
+    forms.update(extra)
+    helpers = [os.path.join(_build.CSRC, h) for h in HELPERS[kernel]]
     out_dir = os.path.join(_build.BUILD_DIR, "reduce_ab")
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _build._nvcc()
@@ -101,16 +148,26 @@ def build(kernel: str, root: str,
         if p.returncode:
             raise RuntimeError(f"nvcc failed on {forms[name]}:\n{log}")
         built[name] = (lib, [ln for ln in _ptxas_summary(log)
-                             if "reduce" in ln or "bwd" in ln
-                             or "partial" in ln])
+                             if any(key in ln for key in PTXAS_KEYS[kernel])])
+    if kernel in BANDED:  # the row-warp form: the kernel library's banded entry
+        built = {"kernel": built["kernel"], "rowwarp": built["kernel"],
+                 **{n: f for n, f in built.items() if n != "kernel"}}
     return built
 
 
-def _entry(lib: str, kernel: str):
+def _entry(lib: str, kernel: str, name: str):
     """The form's C entry of the kernel and, for kernel 8, its tile count
-    (None where the form has none)."""
+    (None where the form has none).  The row-warp form of kernels 1 and 6
+    is their banded entry."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll = ctypes.CDLL(lib)
+    if kernel in BANDED:
+        banded = name == "rowwarp"
+        fn = getattr(dll, BANDED[kernel] if banded else "dg_" + kernel)
+        nptr = 8 if kernel == "edge_conv_eval" else 10
+        fn.argtypes = [p] * (nptr + banded) + [i] * (6 + 2 * banded) + [f, p]
+        fn.restype = i
+        return fn, None
     if kernel == "knn_reduce":
         fn = dll.dg_knn_reduce
         fn.argtypes = [p] * 8 + [i] * 5 + [p]
@@ -265,6 +322,118 @@ def run_edge2(entries: dict, result: dict, order: list[str]) -> list[str]:
     return bad
 
 
+def _eval_inputs(kernel: str, g, b: int, n: int, dims, integer=False):
+    """The inputs of kernel 1 (dims = (Cg, Cin, Co); graph = x where Cg =
+    Cin, as in the models) or kernel 6 (dims = (Cg, C1, C2)), the scratch
+    shapes and the output shape.  ``integer``: small integers on a cloud
+    of duplicate points, so that the k-th boundary falls inside ties."""
+    def ints(*shape, lo=-2, hi=3):
+        return torch.randint(lo, hi, shape, generator=g).float()
+
+    if kernel == "edge_conv_eval":
+        cg, cin, co = dims
+        if integer:
+            base = ints(b, 200, 3, lo=-4, hi=5)
+            pick = torch.randint(0, 200, (b, n), generator=g)
+            graph = torch.gather(base, 1, pick[..., None].expand(b, n, 3))
+            x = ints(b, n, cin, lo=-3, hi=4)
+            wcat = ints(cin, 2 * co)
+            scale = torch.tensor([2.0, -1.0, 0.5, 1.0] * (co // 4))
+            bias = ints(co)
+        else:
+            x = torch.randn((b, n, cin), generator=g)
+            graph = x if cg == cin else torch.randn((b, n, cg), generator=g)
+            wcat = torch.randn((cin, 2 * co), generator=g) / cin ** 0.5
+            sign = torch.where(torch.rand(co, generator=g) < 0.2, -1.0, 1.0)
+            scale = sign * (0.5 + torch.rand(co, generator=g))
+            bias = 0.1 * torch.randn(co, generator=g)
+        ins = [graph, x, wcat, scale, bias]
+        return ins, [(b * n, 2 * co), (b * n,)], (b, n, co)
+    cg, c1, c2 = dims
+    if integer:
+        graph, a1 = (torch.cat([ints(b, n // 4, c)] * 4, dim=1)
+                     for c in (cg, c1))
+        b1, w2 = ints(b, n, c1), ints(c1, c2, lo=-1, hi=2)
+        s1 = torch.where(ints(c1) >= 0, 1.0, -0.5)
+        s2 = torch.where(ints(c2) >= 0, 1.0, -1.0)
+        t1, t2 = ints(c1), ints(c2)
+    else:
+        graph = torch.randn((b, n, cg), generator=g)
+        a1, b1 = (torch.randn((b, n, c1), generator=g) for _ in range(2))
+        w2 = torch.randn((c1, c2), generator=g) / c1 ** 0.5
+        s1, s2 = (torch.where(torch.rand(c, generator=g) < 0.2, -1.0, 1.0)
+                  * (0.5 + torch.rand(c, generator=g)) for c in (c1, c2))
+        t1, t2 = (0.1 * torch.randn(c, generator=g) for c in (c1, c2))
+    ins = [graph, a1, b1, w2, s1, t1, s2, t2]
+    return ins, [(b * n,)], (b, n, c2)
+
+
+def run_eval(kernel: str, entries: dict, result: dict,
+             order: list[str]) -> list[str]:
+    """Kernel 1 or 6: every form at every cell's shapes (timed), then on
+    the integer duplicate-points cases; every output must be the row-warp
+    form's bits."""
+    from dgcnn_tpu_torch.ops.knn import pairwise_neg_sqdist
+
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    p = _build.ptr
+    shapes = (EDGE_CONV_SHAPES if kernel == "edge_conv_eval"
+              else KNN_EDGE2_SHAPES)
+    cases = [(f"{cell} B={b} N={n} k={k} dims={dims}", b, n, k, dims, False)
+             for cell, b, n, k, stages in shapes for dims in stages]
+    int_dims = ([(3, 8, 64)] if kernel == "edge_conv_eval"
+                else [(3, 64, 128), (3, 64, 64)])
+    cases += [(f"integer duplicates N={n} k={k} dims={dims}", 2, n, k, dims,
+               True) for dims in int_dims for n, k in ((256, 40), (1024, 20))]
+    bad = []
+    for key, b, n, k, dims, integer in cases:
+        slope = 0.25 if integer else 0.2
+        ins, scratch_shapes, out_shape = _eval_inputs(kernel, g, b, n, dims,
+                                                      integer)
+        ins = [t.to(dev).contiguous() for t in ins]
+        if integer:  # the case must put the k-th boundary inside ties
+            top = pairwise_neg_sqdist(ins[0]).topk(k + 1, dim=-1).values
+            ties = int((top[..., k - 1] == top[..., k]).sum())
+            print(f"{key}: rows whose k-th neighbour ties the (k+1)-th "
+                  f"{ties}", flush=True)
+            if not ties:
+                bad.append(f"{key}: no tie at the k-th boundary")
+        starts = torch.zeros((n // 128,), device=dev, dtype=torch.int32)
+        outs = {}
+        for name in order:
+            fn = entries[name][0]
+            out = torch.empty(out_shape, device=dev)
+            scratch = [torch.empty(sh, device=dev) for sh in scratch_shapes]
+            ints_ = (b, n, dims[0], dims[1], dims[2], k)
+            stream = _build.stream_of(out)
+            if name == "rowwarp":  # band = N, tile 128, starts 0
+                args = (*map(p, ins), p(starts), *map(p, scratch), p(out),
+                        *ints_, 128, n, slope, stream)
+            else:
+                args = (*map(p, ins), *map(p, scratch), p(out), *ints_,
+                        slope, stream)
+            if integer:
+                _call(fn, *args)
+            else:
+                ms = device_ms(lambda: _call(fn, *args), reps=5, rounds=5)
+                result["forms"][name]["ms"].setdefault(key, []).append(ms)
+                print(f"{name} {key} ms {ms:.4f}", flush=True)
+            torch.cuda.synchronize()
+            outs[name] = out
+        same = all(torch.equal(out, outs["rowwarp"]) for out in outs.values())
+        finite = bool(torch.isfinite(outs["rowwarp"]).all())
+        result["checks"].append({"shape": key, "bit_equal": same,
+                                 "finite": finite})
+        print(f"{key}: outputs bit-equal {same}, finite {finite}",
+              flush=True)
+        if not (same and finite):
+            bad.append(key)
+        del ins, outs
+        torch.cuda.empty_cache()
+    return bad
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=tuple(SOURCES), required=True)
@@ -292,12 +461,14 @@ def main() -> None:
         for ln in regs:
             print(f"{name} ptxas {ln}", flush=True)
         result["forms"][name] = {"ptxas": regs, "ms": {}}
-    entries = {name: _entry(lib, args.kernel)
+    entries = {name: _entry(lib, args.kernel, name)
                for name, (lib, _) in built.items()}
     order = list(built) + list(reversed(built))
     torch.backends.cuda.matmul.allow_tf32 = False
-    bad = (run_knn if args.kernel == "knn_reduce" else run_edge2)(
-        entries, result, order)
+    run = {"knn_reduce": run_knn, "edge2_bwd": run_edge2,
+           "edge_conv_eval": functools.partial(run_eval, "edge_conv_eval"),
+           "knn_edge2": functools.partial(run_eval, "knn_edge2")}
+    bad = run[args.kernel](entries, result, order)
     print(json.dumps(result), flush=True)
     if bad:
         sys.exit(f"reduce_ab: {bad} failed their checks")

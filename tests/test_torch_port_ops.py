@@ -1038,3 +1038,60 @@ def test_banded_kernels_match_plain(cuda_device, n, band, cg):
     ok = _row_match(got, banded_edge_conv_eval_plain(g, g, wn, wc, sc, bi, 20,
                                                      band, order=order))
     assert ok.float().mean().item() >= 0.999
+
+
+def _row_warp(banded_fn, graph, *args, k, slope=0.2):
+    """Kernel 1's or 6's row-warp route over the whole cloud: the banded
+    entry at band = N in the identity order (every window starts at 0)."""
+    b, n = graph.shape[:2]
+    order = torch.arange(n, device=graph.device).repeat(b, 1)
+    return banded_fn(graph, *args, k, n, slope, order=order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,cg,co", [(1024, 20, 3, 64), (1024, 20, 128, 256),
+                                       (2048, 32, 64, 128), (2048, 40, 64, 64),
+                                       (4096, 20, 64, 64), (1024, 65, 64, 64)])
+def test_edge_conv_eval_tiled_route_matches_row_warp(cuda_device, n, k, cg,
+                                                     co):
+    """Kernel 1's tiled route (k <= 64) bit-equal to its row-warp route,
+    on random features and on integer duplicate points; at k = 65 both
+    are the row-warp kernel."""
+    x, wn, wc, sc, bi = (_t(v).to(cuda_device)
+                         for v in _stage_inputs(65 + k, 2, n, cg, co))
+    got = edge_conv_eval(x, x, wn, wc, sc, bi, k)
+    assert torch.equal(got, _row_warp(banded_edge_conv_eval, x, x, wn, wc,
+                                      sc, bi, k=k))
+    rng = np.random.default_rng(k)
+    g = _t(np.concatenate([rng.integers(-2, 3, (2, n // 4, 3))] * 4, 1)
+           .astype(np.float32)).to(cuda_device)
+    xi, wni, wci, bii = (_t(rng.integers(-2, 3, s).astype(np.float32))
+                         .to(cuda_device) for s in ((2, n, 8), (8, co),
+                                                    (8, co), (co,)))
+    sci = torch.tensor([2.0, -1.0, 0.5, 1.0] * (co // 4), device=cuda_device)
+    got = edge_conv_eval(g, xi, wni, wci, sci, bii, k)
+    assert torch.equal(got, edge_conv_eval_plain(g, xi, wni, wci, sci, bii,
+                                                 k))
+    assert torch.equal(got, _row_warp(banded_edge_conv_eval, g, xi, wni, wci,
+                                      sci, bii, k=k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,cg,c2", [(4096, 20, 3, 64), (4096, 20, 64, 64),
+                                       (2048, 40, 3, 128), (2048, 32, 3, 128),
+                                       (1024, 65, 64, 64)])
+def test_knn_edge2_tiled_route_matches_row_warp(cuda_device, n, k, cg, c2):
+    """Kernel 6's tiled route (k <= 64, C1 <= 64, C2 <= 128) bit-equal to
+    its row-warp route, on random inputs and on integer duplicate points
+    (exact against the plain version too); at k = 65 both are the
+    row-warp kernel."""
+    for ints in (False, True):
+        f32, _, _ = _edge2_inputs(66 + k, b=2, n=n, cg=cg, c1=64, c2=c2,
+                                  k=k, dup=ints, ints=ints)
+        args = [_t(v).to(cuda_device) for v in f32]
+        slope = 0.25 if ints else 0.2
+        got = knn_edge2(*args, k, slope)
+        assert torch.equal(got, _row_warp(banded_knn_edge2, *args, k=k,
+                                          slope=slope))
+        if ints:
+            assert torch.equal(got, knn_edge2_plain(*args, k, slope))

@@ -22,6 +22,20 @@ order, as the row-warp form does.  The card's own run of both kernels is
 held by ``chip_smoke.py`` (phases 8, 12, 13 and 18),
 ``dgcnn_tpu_torch/tools/reduce_ab.py`` and the ``cuda``-marked tests of
 ``tests/test_torch_port_ops.py``.
+
+``csrc/edge_conv_eval.cu`` (kernel 1) and ``csrc/knn_edge2.cu`` (kernel 6)
+run the same selection at k <= 64 and then consume each row's list:
+``edge_conv_eval_tiled`` folds the members' rows of ``a`` into max and
+min in list order, adds c_i and applies the affine and the LeakyReLU;
+``knn_edge2_tiled`` walks each block's rows in tiles of R = min(8, 128 //
+k) whole rows, forms every edge's h1, z2 and h2 (the affine and the
+LeakyReLU before the max, since s2 may be negative) and takes each row's
+max.  Fed ``streaming_topk``'s lists, both must give ``edge_conv_eval_plain``
+/ ``knn_edge2_plain`` and the Pallas ``fused_edge_conv_eval`` /
+``fused_knn_edge2`` in interpret mode, exact f32 selection: exactly on
+integer clouds, within rel 1e-5 on random ones.  ``chip_smoke.py``
+(phases 3, 12, 13, 18 and 27) and ``reduce_ab --kernel edge_conv_eval |
+knn_edge2`` hold the card's tiled kernels bit-equal to the row-warp form.
 """
 import numpy as np
 import pytest
@@ -34,6 +48,8 @@ from dgcnn_tpu_torch.ops import (
     edge2_bwd_plain,
     edge2_fwd_plain,
     edge2_z2,
+    edge_conv_eval_plain,
+    knn_edge2_plain,
     knn_reduce_plain,
     pairwise_neg_sqdist,
 )
@@ -239,3 +255,153 @@ def test_edge2_bwd_partition_matches_plain_and_pallas(k, dup):
         assert np.isfinite(gv.numpy()).all(), name
         assert _rel(gv, wv) <= 1e-5, (name, _rel(gv, wv))
         assert _rel(gv, jv) <= 1e-5, (name, _rel(gv, jv))
+
+
+# ------------------------------------------------- kernels 1 and 6, tiled
+EVAL_N = 256
+EVAL_KS = [1, 20, 32, 40, "N"]
+
+
+def _tiled_lists(g: np.ndarray, k: int) -> np.ndarray:
+    """(B, N, k) neighbour lists of the tiled selection (the kernel's 64
+    rows a block, 128 columns a tile)."""
+    scores = pairwise_neg_sqdist(torch.from_numpy(g)).numpy()
+    return np.stack([streaming_topk(sc, k, 64, 128) for sc in scores])
+
+
+def _lrelu(v, slope):
+    return np.where(v >= 0, v, np.float32(slope) * v).astype(np.float32)
+
+
+def edge_conv_eval_tiled(lists, x, w_nbr, w_ctr, scale, bias, slope=0.2):
+    """Kernel 1's tiled consumer in f32: each row's members' rows of a =
+    x w_nbr folded into max and min in list order, then (scale > 0 ? max
+    : min) + c_i, the affine and the LeakyReLU."""
+    a = (x @ w_nbr).astype(np.float32)
+    c = (x @ w_ctr).astype(np.float32)
+    out = np.empty(c.shape, np.float32)
+    for bi in range(lists.shape[0]):
+        mx = np.full(c.shape[1:], -np.inf, np.float32)
+        mn = np.full(c.shape[1:], np.inf, np.float32)
+        for t in range(lists.shape[2]):  # list order
+            rows = a[bi][lists[bi, :, t]]
+            mx, mn = np.maximum(mx, rows), np.minimum(mn, rows)
+        sel = np.where(scale > 0, mx, mn) + c[bi]
+        out[bi] = _lrelu(sel * scale + bias, slope)
+    return out
+
+
+def knn_edge2_tiled(lists, a1, b1, s1, t1, w2, s2, t2, slope=0.2):
+    """Kernel 6's tiled consumer in f32: the rows of each 64-row block in
+    tiles of R = min(8, 128 // k) whole rows (one row where k > 128, the
+    row-warp form's unit); per edge of a tile h1 = LReLU((a1[j] + b1[i])
+    s1 + t1), z2 = h1 w2, h2 = LReLU(z2 s2 + t2); each row's max over its
+    k edges, after the affine."""
+    bsz, n, k = lists.shape
+    r = max(1, min(8, 128 // k))
+    out = np.empty((bsz, n, w2.shape[1]), np.float32)
+    for bi in range(bsz):
+        for r0 in range(0, n, 64):
+            for rt in range(r0, r0 + 64, r):
+                rows = np.arange(rt, min(rt + r, r0 + 64))
+                j = lists[bi, rows]                       # (R, k)
+                h1 = _lrelu((a1[bi][j] + b1[bi][rows][:, None]) * s1 + t1,
+                            slope)
+                z2 = (h1.reshape(-1, h1.shape[-1]) @ w2).astype(np.float32)
+                h2 = _lrelu(z2 * s2 + t2, slope).reshape(len(rows), k, -1)
+                out[bi, rows] = h2.max(1)
+    return out
+
+
+def _eval_case(kind: str, k, seed: int, c_in=8, co=64, c1=64, c2=64):
+    """A cloud of EVAL_N points and the weights of kernels 1 and 6: small
+    integers (scales 2, -1, 1/2, 1 and +-1, -1/2; every product and sum
+    exact) on a cloud of at most 27 distinct points, or random normals."""
+    rng = np.random.default_rng(seed)
+    g = _cloud(kind, seed, n=EVAL_N)
+    b, n, _ = g.shape
+    k = n if k == "N" else k
+    if kind == "ints":
+        def draw(*shape, lo=-2, hi=3):
+            return rng.integers(lo, hi, shape).astype(np.float32)
+        s_ = np.tile(np.float32([2.0, -1.0, 0.5, 1.0]), co // 4)
+        k1 = (draw(b, n, c_in), draw(c_in, co), draw(c_in, co), s_, draw(co))
+        s1 = np.where(draw(c1) >= 0, 1.0, -0.5).astype(np.float32)
+        s2 = np.where(draw(c2) >= 0, 1.0, -1.0).astype(np.float32)
+        k6 = (draw(b, n, c1), draw(b, n, c1), s1, draw(c1),
+              draw(c1, c2, lo=-1, hi=2), s2, draw(c2))
+    else:
+        def draw(*shape, scale=1.0):
+            return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+        def affine(c):
+            sign = np.where(rng.random(c) < 0.2, -1.0, 1.0)
+            return (sign * rng.uniform(0.5, 1.5, c)).astype(np.float32)
+
+        k1 = (draw(b, n, c_in), draw(c_in, co, scale=c_in ** -0.5),
+              draw(c_in, co, scale=c_in ** -0.5), affine(co),
+              draw(co, scale=0.1))
+        k6 = (draw(b, n, c1), draw(b, n, c1), affine(c1),
+              draw(c1, scale=0.1), draw(c1, c2, scale=c1 ** -0.5),
+              affine(c2), draw(c2, scale=0.1))
+    return g, k, k1, k6
+
+
+def _ties_at_boundary(g: np.ndarray, k: int) -> bool:
+    """Whether some row's k-th and (k+1)-th best scores are equal."""
+    scores = -np.sort(-pairwise_neg_sqdist(torch.from_numpy(g)).numpy(), -1)
+    return bool((scores[..., k - 1] == scores[..., k]).any())
+
+
+def _held(got, want, kind, name):
+    if kind == "ints":
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    else:
+        assert _rel(got, want) <= 1e-5, (name, _rel(got, want))
+
+
+@pytest.mark.parametrize("kind", ["ints", "random"])
+@pytest.mark.parametrize("k", EVAL_KS)
+def test_edge_conv_eval_tiled_consumer(monkeypatch, kind, k):
+    """Kernel 1's tiled consumer on the streaming lists against
+    edge_conv_eval_plain and the Pallas fused_edge_conv_eval."""
+    from dgcnn_tpu.ops.pallas_knn import fused_edge_conv_eval
+
+    monkeypatch.setenv("DGCNN_TPU_PALLAS_EXACT", "1")
+    g, k, (x, wn, wc, sc, bi), _ = _eval_case(kind, k, 70)
+    assert kind == "random" or k == g.shape[1] or _ties_at_boundary(g, k)
+    got = edge_conv_eval_tiled(_tiled_lists(g, k), x, wn, wc, sc, bi)
+    assert np.isfinite(got).all()
+    want = edge_conv_eval_plain(*(torch.from_numpy(v)
+                                  for v in (g, x, wn, wc, sc, bi)), k).numpy()
+    _held(got, want, kind, "edge_conv_eval_plain")
+    with jax.default_matmul_precision("float32"):
+        jwant = fused_edge_conv_eval.__wrapped__(
+            *(jnp.asarray(v) for v in (g, x, wn, wc, sc, bi)), k,
+            select_dtype=jnp.float32, interpret=True)
+    _held(got, np.asarray(jwant), kind, "fused_edge_conv_eval")
+
+
+@pytest.mark.parametrize("kind", ["ints", "random"])
+@pytest.mark.parametrize("k", EVAL_KS)
+def test_knn_edge2_tiled_consumer(monkeypatch, kind, k):
+    """Kernel 6's tiled consumer on the streaming lists against
+    knn_edge2_plain and the Pallas fused_knn_edge2; C2 = 128 (the
+    TransformNet's) at k = 32 and 40."""
+    from dgcnn_tpu.ops.pallas_knn import fused_knn_edge2
+
+    monkeypatch.setenv("DGCNN_TPU_PALLAS_EXACT", "1")
+    c2 = 128 if k in (32, 40) else 64
+    g, k, _, args = _eval_case(kind, k, 71, c2=c2)
+    assert kind == "random" or k == g.shape[1] or _ties_at_boundary(g, k)
+    slope = 0.25 if kind == "ints" else 0.2
+    got = knn_edge2_tiled(_tiled_lists(g, k), *args, slope)
+    assert got.shape == (g.shape[0], g.shape[1], c2)
+    assert np.isfinite(got).all()
+    want = knn_edge2_plain(*(torch.from_numpy(v) for v in (g, *args)), k,
+                           slope).numpy()
+    _held(got, want, kind, "knn_edge2_plain")
+    with jax.default_matmul_precision("float32"):
+        jwant = fused_knn_edge2.__wrapped__(
+            *(jnp.asarray(v) for v in (g, *args)), k, slope, interpret=True)
+    _held(got, np.asarray(jwant), kind, "fused_knn_edge2")
