@@ -30,8 +30,9 @@
 //   row's tie counts need nothing outside its tile.  A block of 256
 //   threads stages the tile's h1 (E x C1, e2_h1_row's operations) and w2
 //   and w2^T in shared memory, then computes three register-blocked
-//   products: z2 = h1 w2 once (8 edges x 4 channels a thread, each element
-//   one fmaf chain over c1 ascending from 0: e2_z2's bits), kept in shared
+//   products: z2 = h1 w2 once (edge2_tile.cuh's block, shared with kernels
+//   6 and 7: 8 edges x 4 channels a thread, each element one fmaf chain
+//   over c1 ascending from 0: e2_z2's bits), kept in shared
 //   memory, where the tie counts and dz2 are formed from it; dh1 = dz2
 //   w2^T (fmaf over c2 ascending from 0, as the row-warp form); and dW2 +=
 //   h1^T dz2 into a 4 x 4 block partial in each thread's registers across
@@ -62,6 +63,7 @@
 #include <math.h>
 
 #include "edge2.cuh"
+#include "edge2_tile.cuh"
 
 namespace {
 
@@ -229,30 +231,15 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // ---------------------------------------------------------------- tiled
-constexpr int TT = 256;      // threads a block of the tiled route
-constexpr int TE = 128;      // edge slots a tile
-constexpr int TR = 8;        // the most rows a tile
-constexpr int TC = 64;       // C1, C2 <= TC; row stride of h1 and z
+using dg::comp;
+using dg::ld4;
+constexpr int TT = dg::E2T_THREADS;  // threads a block of the tiled route
+constexpr int TE = dg::E2T_EDGES;    // edge slots a tile
+constexpr int TR = dg::E2T_ROWS;     // the most rows a tile
+constexpr int TC = dg::E2T_C1;       // C1, C2 <= TC; row stride of h1 and z
 constexpr size_t TSMEM =
     sizeof(float) * (2 * TC * TC + 2 * TE * TC + 7 * TR * TC + 2 * TC) +
     sizeof(int) * 2 * TE;
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// The rows of a tile: R = min(TR, TE / k).
-__host__ __device__ inline int tile_rows(int k) {
-  return TE / k < TR ? TE / k : TR;
-}
-
-bool tiled_route(int C1, int C2, int k) {
-  return C1 <= TC && C2 <= TC && C1 % 4 == 0 && C2 % 4 == 0 && k <= TE;
-}
 
 __global__ void __launch_bounds__(TT, 2)
     edge2_bwd_tiled_kernel(const int* __restrict__ idx,
@@ -300,7 +287,7 @@ __global__ void __launch_bounds__(TT, 2)
     s1s[tid] = tid < C1 ? s1[tid] : 0.f;
     t1s[tid] = tid < C1 ? t1[tid] : 0.f;
   }
-  const int R = tile_rows(k), E = R * k;
+  const int R = dg::e2t_rows(k), E = R * k;
   const int tiles = (rows + R - 1) / R;
   float pw[4][4], ds1p[4], dt1p[4];
 #pragma unroll
@@ -335,43 +322,13 @@ __global__ void __launch_bounds__(TT, 2)
     }
     __syncthreads();
     // h1 of every edge (e2_h1_row's operations); empty slots hold zeros
-    for (int e = eb; e < TE; e += TT / TC) {
-      const int j = jrow[e];
-      float h = 0.f;
-      if (j >= 0 && cl < C1)
-        h = dg::e2_lrelu(dg::e2_z1(a1[(size_t)j * C1 + cl],
-                                   b1s[eloc[e] * TC + cl], s1s[cl],
-                                   t1s[cl]),
-                         slope);
-      hb[e * TC + cl] = h;
-    }
+    dg::e2t_stage_h1(a1, b1s, TC, jrow, eloc, s1s, t1s, C1, slope, hb);
     __syncthreads();
 
     // z2 = h1 w2: edges ty + 16 m, second-conv channels 4 tx + i
     if (4 * tx < C2) {
       float acc[8][4];
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
-      for (int c1 = 0; c1 < C1; c1 += 4) {
-        float4 w[4];
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-          w[cc] = ld4(w2s + (c1 + cc) * C2 + 4 * tx);
-#pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          const float4 h = ld4(hb + (ty + 16 * m) * TC + c1);
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc) {
-            const float hv = comp(h, cc);
-            acc[m][0] = fmaf(hv, w[cc].x, acc[m][0]);
-            acc[m][1] = fmaf(hv, w[cc].y, acc[m][1]);
-            acc[m][2] = fmaf(hv, w[cc].z, acc[m][2]);
-            acc[m][3] = fmaf(hv, w[cc].w, acc[m][3]);
-          }
-        }
-      }
+      dg::e2t_z2_block(hb, w2s, C2, C1, 4 * tx, ty, acc);
 #pragma unroll
       for (int m = 0; m < 8; ++m)
         *reinterpret_cast<float4*>(zb + (ty + 16 * m) * TC + 4 * tx) =
@@ -530,7 +487,7 @@ __global__ void partial_sum_kernel(const float* __restrict__ part, int G,
 // The blocks of a launch: 1 <= G <= the tiles (B*N / tile_rows(k) on the
 // tiled route, B*N / 8 on the row-warp route).
 extern "C" int dg_edge2_bwd_tiles(int B, int N, int C1, int C2, int k) {
-  const int R = tiled_route(C1, C2, k) ? tile_rows(k) : QB;
+  const int R = dg::e2t_train_route(C1, C2, k) ? dg::e2t_rows(k) : QB;
   return (B * N + R - 1) / R;
 }
 
@@ -555,7 +512,7 @@ extern "C" int dg_edge2_bwd(const int* idx, const float* a1, const float* b1,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
-  if (tiled_route(C1, C2, k)) {
+  if (dg::e2t_train_route(C1, C2, k)) {
     e = cudaFuncSetAttribute(edge2_bwd_tiled_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)TSMEM);

@@ -15,19 +15,42 @@
 // Bound on an H100 SXM: operations.  At the DGCNNSemSeg training shapes
 // (B=32, N=4096, k=20, C1 = C2 = 64) the per-edge second conv is
 // 2*B*N*k*C1*C2 ~ 21.5 GFLOP a block, ~0.32 ms at the f32 CUDA-core peak
-// (67 TFLOP/s), against ~0.13 GB of idx, a1, b1 in and reductions out,
-// ~0.04 ms at 3.35 TB/s.
+// (67 TFLOP/s; chip_smoke.py's bound, with the per-edge elementwise work,
+// 0.34 ms), against ~0.13 GB of idx, a1, b1 in and reductions out, ~0.04
+// ms at 3.35 TB/s.
 //
-// Design: one warp per centre row (QB = 16 rows a block), no selection.
-// For each neighbour the lanes read its row of a1 (coalesced), write the
-// h1 row into the warp's row of shared memory, then form their z2
-// channels against w2 in shared memory.  Neither per-edge tensor reaches
-// device memory.  edge2_bwd.cu recomputes z2 with the same code, so its
-// tie tests see the bits this kernel reduced.
+// Design, two routes decided from the shape before the launch:
+//   C1, C2 <= 64 and multiples of 4, k <= 128 (every model: C1 = C2 = 64,
+//   k = 20 or 40; edge2_tile.cuh's e2t_train_route, the route of
+//   edge2_bwd.cu too)  edge2_fwd_tiled_kernel.  A tile is R = min(8, 128
+//   / k) whole centre rows (120 edges at k = 20 and 40).  A block of 256
+//   threads stages the tile's b1 rows, its h1 (e2_h1_row's operations) and
+//   w2 in shared memory, computes z2 = h1 w2 as a register block (8 edges
+//   x 4 channels a thread, each element one fmaf chain over c1 ascending
+//   from +0: e2_z2's bits) and writes it over h1; then one thread a (row,
+//   channel) walks the row's k edges in t order and forms the four
+//   reductions with the row-warp form's operations (fmaxf, fminf, _rn
+//   adds).  So every output is bit-equal to the row-warp form's, and
+//   edge2_bwd.cu's tie tests, which compare its recomputed z2 with amax and
+//   amin, see equal bits.  Each w2 value read from shared memory feeds
+//   eight FMAs (the row-warp form: one).  A block a tile: 52,736 B of
+//   shared memory and at most 80 registers a thread (__launch_bounds__), so
+//   three blocks share an SM.  Measured on an H100 (tools/reduce_ab.py,
+//   PERF.md): three blocks an SM are ~17% faster than two at 98
+//   registers, and a grid of three blocks an SM striding over the tiles
+//   (w2 staged once a block) was 1-2% faster but spilled 8 B a thread.
+//   Any other shape  edge2_fwd_kernel: one warp per centre row (QB = 16
+//   rows a block).  For each neighbour the lanes read its row of a1
+//   (coalesced), write the h1 row into the warp's row of shared memory,
+//   then form their z2 channels as dot products against w2 in shared
+//   memory (two shared loads an FMA).
+// Neither per-edge tensor reaches device memory on either route, and no
+// output has an atomic: the bits are the same from run to run.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "edge2.cuh"
+#include "edge2_tile.cuh"
 
 namespace {
 
@@ -96,19 +119,99 @@ __global__ void __launch_bounds__(QB * 32)
   }
 }
 
-}  // namespace
+// ---------------------------------------------------------------- tiled
+constexpr int TT = dg::E2T_THREADS;
+constexpr int TE = dg::E2T_EDGES;
+constexpr int TR = dg::E2T_ROWS;
+constexpr int TC = dg::E2T_C1;  // C1, C2 <= TC; row stride of h1 and z2
+constexpr size_t TSMEM =
+    sizeof(float) * (TC * TC + TE * TC + TR * TC + 2 * TC) +
+    sizeof(int) * 2 * TE;
 
-// idx (B, N, k) int32; a1/b1 (B, N, C1), s1/t1 (C1,), w2 (C1, C2) f32; out
-// amax/amin/asum/asumsq (B, N, C2) f32; all contiguous, on the device.
-// Returns the first CUDA error.
-extern "C" int dg_edge2_fwd(const int* idx, const float* a1, const float* b1,
-                            const float* s1, const float* t1, const float* w2,
-                            float* amax, float* amin, float* asum,
-                            float* asumsq, int B, int N, int C1, int C2,
-                            int k, float slope, void* stream) {
-  if (B < 1 || N < 1 || C1 < 1 || C1 > E2_MAXC || C2 < 1 || C2 > E2_MAXC ||
-      k < 1 || k > N)
-    return (int)cudaErrorInvalidValue;
+__global__ void __launch_bounds__(TT, 3)
+    edge2_fwd_tiled_kernel(const int* __restrict__ idx,
+                           const float* __restrict__ a1,
+                           const float* __restrict__ b1, int C1,
+                           const float* __restrict__ s1,
+                           const float* __restrict__ t1,
+                           const float* __restrict__ w2, int C2, float slope,
+                           int rows, int N, int k, float* __restrict__ amax,
+                           float* __restrict__ amin, float* __restrict__ asum,
+                           float* __restrict__ asumsq) {
+  extern __shared__ __align__(16) float tsm[];
+  float* w2s = tsm;             // w2 (C1, C2), row stride C2
+  float* hb = w2s + TC * TC;    // h1 of the tile's edges, then their z2
+  float* b1s = hb + TE * TC;    // (R, C1): the rows' b1
+  float* s1s = b1s + TR * TC;   // s1, t1
+  float* t1s = s1s + TC;
+  int* jrow = reinterpret_cast<int*>(t1s + TC);  // a1 row of an edge, or -1
+  int* eloc = jrow + TE;                         // its row in the tile
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int R = dg::e2t_rows(k), E = R * k, row0 = blockIdx.x * R;
+  for (int e = tid; e < C1 * C2; e += TT) w2s[e] = w2[e];
+  if (tid < TC) {
+    s1s[tid] = tid < C1 ? s1[tid] : 0.f;
+    t1s[tid] = tid < C1 ? t1[tid] : 0.f;
+  }
+  for (int e = tid; e < TE; e += TT) {
+    const int r = e / k, t = e - r * k;
+    const int row = row0 + r;
+    const bool in = e < E && row < rows;
+    jrow[e] = in ? (row / N) * N + idx[(size_t)row * k + t] : -1;
+    eloc[e] = r;
+  }
+  for (int q = tid; q < R * TC; q += TT) {
+    const int r = q / TC, c = q & (TC - 1);
+    const int row = row0 + r;
+    b1s[q] = row < rows && c < C1 ? b1[(size_t)row * C1 + c] : 0.f;
+  }
+  __syncthreads();
+  dg::e2t_stage_h1(a1, b1s, TC, jrow, eloc, s1s, t1s, C1, slope, hb);
+  __syncthreads();
+  // z2 = h1 w2: edges ty + 16 m, second-conv channels 4 tx + i
+  const bool active = 4 * tx < C2;
+  float acc[8][4];
+  if (active) dg::e2t_z2_block(hb, w2s, C2, C1, 4 * tx, ty, acc);
+  __syncthreads();  // every read of h1 is done: z2 takes its place
+  if (active) {
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      *reinterpret_cast<float4*>(hb + (ty + 16 * m) * TC + 4 * tx) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  }
+  __syncthreads();
+  // the four reductions over each row's edges, t ascending: the row-warp
+  // form's operations
+  for (int q = tid; q < R * TC; q += TT) {
+    const int r = q / TC, c = q & (TC - 1);
+    const int row = row0 + r;
+    if (c >= C2 || row >= rows) continue;
+    float mx = -INFINITY, mn = INFINITY, sm = 0.f, s2 = 0.f;
+    for (int t = 0; t < k; ++t) {
+      const float z = hb[(r * k + t) * TC + c];
+      mx = fmaxf(mx, z);
+      mn = fminf(mn, z);
+      sm = __fadd_rn(sm, z);
+      s2 = __fadd_rn(s2, __fmul_rn(z, z));
+    }
+    const size_t o = (size_t)row * C2 + c;
+    amax[o] = mx;
+    amin[o] = mn;
+    asum[o] = sm;
+    asumsq[o] = s2;
+  }
+}
+
+bool valid(int B, int N, int C1, int C2, int k) {
+  return B >= 1 && N >= 1 && C1 >= 1 && C1 <= E2_MAXC && C2 >= 1 &&
+         C2 <= E2_MAXC && k >= 1 && k <= N;
+}
+
+int launch_rowwarp(const int* idx, const float* a1, const float* b1,
+                   const float* s1, const float* t1, const float* w2,
+                   float* amax, float* amin, float* asum, float* asumsq,
+                   int B, int N, int C1, int C2, int k, float slope,
+                   cudaStream_t st) {
   const int rows = B * N;
   const size_t smem =
       sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)QB * C1);
@@ -116,9 +219,49 @@ extern "C" int dg_edge2_fwd(const int* idx, const float* a1, const float* b1,
       edge2_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  edge2_fwd_kernel<<<(rows + QB - 1) / QB, QB * 32, smem,
-                     (cudaStream_t)stream>>>(idx, a1, b1, C1, s1, t1, w2, C2,
-                                             slope, rows, N, k, amax, amin,
-                                             asum, asumsq);
+  edge2_fwd_kernel<<<(rows + QB - 1) / QB, QB * 32, smem, st>>>(
+      idx, a1, b1, C1, s1, t1, w2, C2, slope, rows, N, k, amax, amin, asum,
+      asumsq);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// idx (B, N, k) int32; a1/b1 (B, N, C1), s1/t1 (C1,), w2 (C1, C2) f32; out
+// amax/amin/asum/asumsq (B, N, C2) f32; all contiguous, on the device.
+// C1, C2 <= 64 (multiples of 4) and k <= 128 take the tiled route, other
+// shapes the row-warp route.  Returns the first CUDA error.
+extern "C" int dg_edge2_fwd(const int* idx, const float* a1, const float* b1,
+                            const float* s1, const float* t1, const float* w2,
+                            float* amax, float* amin, float* asum,
+                            float* asumsq, int B, int N, int C1, int C2,
+                            int k, float slope, void* stream) {
+  if (!valid(B, N, C1, C2, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!dg::e2t_train_route(C1, C2, k))
+    return launch_rowwarp(idx, a1, b1, s1, t1, w2, amax, amin, asum, asumsq,
+                          B, N, C1, C2, k, slope, st);
+  const cudaError_t e = cudaFuncSetAttribute(
+      edge2_fwd_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TSMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = B * N, R = dg::e2t_rows(k);
+  edge2_fwd_tiled_kernel<<<(rows + R - 1) / R, TT, TSMEM, st>>>(
+      idx, a1, b1, C1, s1, t1, w2, C2, slope, rows, N, k, amax, amin, asum,
+      asumsq);
+  return (int)cudaGetLastError();
+}
+
+// The row-warp route at any shape dg_edge2_fwd takes (the checks hold the
+// tiled route against it); the same arguments.
+extern "C" int dg_edge2_fwd_rowwarp(const int* idx, const float* a1,
+                                    const float* b1, const float* s1,
+                                    const float* t1, const float* w2,
+                                    float* amax, float* amin, float* asum,
+                                    float* asumsq, int B, int N, int C1,
+                                    int C2, int k, float slope,
+                                    void* stream) {
+  if (!valid(B, N, C1, C2, k)) return (int)cudaErrorInvalidValue;
+  return launch_rowwarp(idx, a1, b1, s1, t1, w2, amax, amin, asum, asumsq,
+                        B, N, C1, C2, k, slope, (cudaStream_t)stream);
 }

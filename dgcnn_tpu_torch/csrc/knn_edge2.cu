@@ -30,11 +30,12 @@
 //   block consumes its rows' edges in tiles of R = min(8, 128 / k) whole
 //   rows (R * k <= 128 edges, as edge2_bwd.cu tiles them): the tile's
 //   h1 goes to shared memory (e2_h1_row's operations), z2 = h1 w2 is a
-//   register-blocked product (8 edges x 4 channels a thread, 64 channels
-//   a pass; each element one fmaf chain over c1 ascending from 0, so
-//   e2_z2's bits), each element takes s2, t2 and the LeakyReLU in
-//   registers and goes to shared memory, and the max over each row's k
-//   edges is taken there, t ascending.  The affine comes before the max
+//   register-blocked product (edge2_tile.cuh's block, shared with kernels
+//   7 and 8: 8 edges x 4 channels a thread, 64 channels a pass; each
+//   element one fmaf chain over c1 ascending from 0, so e2_z2's bits),
+//   each element takes s2, t2 and the LeakyReLU in registers and goes to
+//   shared memory, and the max over each row's k edges is taken there, t
+//   ascending.  The affine comes before the max
 //   because s2 may be negative.  Shared memory: the selection's 83,968 B
 //   are free once the lists are in registers; the consumer takes h1 and
 //   y of one tile (128 edges x 64 channels each), w2 (up to 64 x 128),
@@ -61,6 +62,7 @@
 #include <math.h>
 
 #include "edge2.cuh"
+#include "edge2_tile.cuh"
 #include "knn_select.cuh"
 
 namespace {
@@ -148,9 +150,13 @@ __global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
 }
 
 // ---------------------------------------------------------------- tiled
-constexpr int XE = 128;   // edge slots a tile
-constexpr int XR = 8;     // the most rows a tile
-constexpr int XC1 = 64;   // C1 <= XC1: the row stride of h1
+using dg::comp;
+using dg::ld4;
+constexpr int XE = dg::E2T_EDGES;  // edge slots a tile
+constexpr int XR = dg::E2T_ROWS;   // the most rows a tile
+constexpr int XC1 = dg::E2T_C1;    // C1 <= XC1: the row stride of h1
+static_assert(dg::TS_THREADS == dg::E2T_THREADS,
+              "the consumer stages h1 and z2 with edge2_tile.cuh's block");
 constexpr int XC2 = 128;  // C2 <= XC2
 constexpr int XP = 64;    // second-conv channels a pass: the row stride of y
 constexpr size_t XSMEM_CONSUME =
@@ -162,14 +168,6 @@ constexpr size_t XSMEM_BYTES = XSMEM_CONSUME > dg::TS_SMEM_BYTES
 
 bool tiled_route(int C1, int C2, int k) {
   return k <= dg::TS_LIST && C1 <= XC1 && C2 <= XC2;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
 // The tiled route: the block's 64 rows' lists (tiled_topk), then their
@@ -219,11 +217,9 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
     s2s[tid] = tid < C2 ? s2[tid] : 0.f;
     t2s[tid] = tid < C2 ? t2[tid] : 0.f;
   }
-  const int R = XE / k < XR ? XE / k : XR;
+  const int R = dg::e2t_rows(k);
   const float* A = a1 + (size_t)b * N * C1;
-  // the h1 stage gives thread tid channel cl of edges eb + 4 m; the
-  // products give thread (tx, ty) edges ty + 16 m and channels 4 tx + i
-  const int cl = tid & (XC1 - 1), eb = tid / XC1;
+  // the products give thread (tx, ty) edges ty + 16 m and channels 4 tx + i
   const int tx = tid & 15, ty = tid >> 4;
 
   for (int rt = 0; rt < dg::TS_R; rt += R) {
@@ -247,46 +243,14 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
     for (int e = nr * k + tid; e < XE; e += dg::TS_THREADS) jrow[e] = -1;
     __syncthreads();
     // h1 of every edge (e2_h1_row's operations); empty slots hold zeros
-    for (int e = eb; e < XE; e += dg::TS_THREADS / XC1) {
-      const int j = jrow[e];
-      float h = 0.f;
-      if (j >= 0 && cl < C1) {
-        const size_t i = (size_t)b * N + r0 + rt + eloc[e];
-        h = dg::e2_lrelu(dg::e2_z1(A[(size_t)j * C1 + cl], b1[i * C1 + cl],
-                                   s1s[cl], t1s[cl]),
-                         slope);
-      }
-      hb[e * XC1 + cl] = h;
-    }
+    dg::e2t_stage_h1(A, b1 + ((size_t)b * N + r0 + rt) * C1, C1, jrow, eloc,
+                     s1s, t1s, C1, slope, hb);
     __syncthreads();
     for (int p0 = 0; p0 < C2; p0 += XP) {
       const int c0 = p0 + 4 * tx;
       const bool active = c0 < ldw;
       float acc[8][4];
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
-      if (active) {
-        for (int c1 = 0; c1 < C1p; c1 += 4) {
-          float4 w[4];
-#pragma unroll
-          for (int cc = 0; cc < 4; ++cc)
-            w[cc] = ld4(w2s + (c1 + cc) * ldw + c0);
-#pragma unroll
-          for (int m = 0; m < 8; ++m) {
-            const float4 h = ld4(hb + (ty + 16 * m) * XC1 + c1);
-#pragma unroll
-            for (int cc = 0; cc < 4; ++cc) {
-              const float hv = comp(h, cc);
-              acc[m][0] = fmaf(hv, w[cc].x, acc[m][0]);
-              acc[m][1] = fmaf(hv, w[cc].y, acc[m][1]);
-              acc[m][2] = fmaf(hv, w[cc].z, acc[m][2]);
-              acc[m][3] = fmaf(hv, w[cc].w, acc[m][3]);
-            }
-          }
-        }
-      }
+      if (active) dg::e2t_z2_block(hb, w2s, ldw, C1p, c0, ty, acc);
       __syncthreads();  // the previous pass's (or tile's) reads of yb are done
       if (active) {
         float sc[4], tc[4];

@@ -5,8 +5,15 @@ Replace ``dgcnn_tpu/ops/pallas_knn.py::_edge2_fwd_call`` (body
 ``_edge2_train_kernel``) and ``::_edge2_bwd_call`` (body
 ``_edge2_bwd_kernel``) in their exact f32 mode.  The kernels are
 ``csrc/edge2_reduce.cu`` and ``csrc/edge2_bwd.cu``; their notes state the
-bounds on an H100, what the designs do about them and why ``da1``'s last
-bits vary from run to run (f32 atomics).  ``edge2_fwd_plain`` and
+bounds on an H100 (operations: the per-edge second conv, 2 B N k C1 C2
+flops a call, and the backward's three such products), what the designs do
+about them and why ``da1``'s last bits vary from run to run (f32 atomics).
+Both take the same route from the shape (``csrc/edge2_tile.cuh``,
+``e2t_train_route``): C1 and C2 multiples of 4 up to 64 and k <= 128 (every
+model's shapes) run tiles of whole rows' edges, whose second conv is a
+register-blocked product with the row-warp form's fmaf chain; other shapes
+run a warp a row.  Kernel 7's four outputs are the same bits on both
+routes and from run to run.  ``edge2_fwd_plain`` and
 ``edge2_bwd_plain`` beside them are the same functions in plain torch (the
 backward by autograd through the forward, ties of max and min splitting
 their cotangent evenly): the wrappers run them for CPU tensors and launch
@@ -91,7 +98,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
               t1: torch.Tensor, w2: torch.Tensor, idx: torch.Tensor,
-              slope: float = 0.2):
+              slope: float = 0.2, *, rowwarp: bool = False):
     """Max, min, sum and sum of squares over the k neighbours ``idx`` (B,
     N, k) of ``z2 = LReLU((a1[idx] + b1) * s1 + t1) @ w2`` -> four (B, N,
     C2) tensors.  ``a1``/``b1`` (B, N, C1), ``s1``/``t1`` (C1,), ``w2``
@@ -99,11 +106,16 @@ def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes an int32 ``idx``, f32 tensors (a1, b1 and idx contiguous)
-    and C1, C2 <= 128, and raises on anything else."""
+    and C1, C2 <= 128, and raises on anything else.  C1 and C2 multiples
+    of 4 up to 64 and k <= 128 (every model's shapes) take the tiled
+    route, other shapes the row-warp route; ``rowwarp`` launches the
+    row-warp route at any shape (the checks hold the tiled route bit-equal
+    to it)."""
     if a1.device.type == "cpu":
         return edge2_fwd_plain(a1, b1, s1, t1, w2, idx, slope)
     b, n, c1, c2, k = _check("edge2_fwd", a1, b1, s1, t1, w2, idx)
-    fn = _fn("dg_edge2_fwd", [_P] * 10 + [_I] * 5 + [_F, _P])
+    fn = _fn("dg_edge2_fwd_rowwarp" if rowwarp else "dg_edge2_fwd",
+             [_P] * 10 + [_I] * 5 + [_F, _P])
     small = [t.contiguous() for t in (s1, t1, w2)]
     red = [torch.empty((b, n, c2), device=a1.device, dtype=torch.float32)
            for _ in range(4)]

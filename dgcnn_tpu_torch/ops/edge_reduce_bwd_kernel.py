@@ -3,13 +3,27 @@ and 4, hand-written CUDA.
 
 Replaces ``dgcnn_tpu/ops/pallas_knn.py::edge_reduce_bwd`` (body
 ``_edge_reduce_bwd_kernel``) in its exact f32 mode.  The kernel is
-``csrc/edge_reduce_bwd.cu``; its note states the bound on an H100, what the
-design does about it and why ``da``'s last bits vary from run to run (f32
-atomics).  ``edge_reduce_bwd_plain`` beside it is the same function in
-plain torch with the semantics of ``_ker_bwd_xla``: autograd through the
-gather and the reductions, ties of max and min splitting their cotangent
-evenly.  The wrapper runs it for CPU tensors and launches the kernel for
-CUDA tensors.
+``csrc/edge_reduce_bwd.cu``.  Its bound on an H100 is bytes: idx, a, amax,
+amin and the four cotangents read once, da written once (~0.16 ms over the
+four DGCNNCls training stages at B=32).  Two routes, decided from N before
+the launch:
+
+- N <= 16384 (every model: ``ops/knn.py::use_kernel`` stops at 4096), the
+  slices route: a block takes one cloud and CS channels (16 at N = 1024, 8
+  at 2048, 4 at 4096), holds that slice of ``a`` and of ``da`` in shared
+  memory, counts each (row, channel)'s ties there and adds every edge's
+  cotangent into the ``da`` slice with shared-memory atomics, then writes
+  the slice once.  No global atomic.
+- larger N, the atomic route: a warp a row, one global f32 atomicAdd per
+  (row, neighbour, channel) into ``da``.
+
+Either way the adds land in an order that changes from run to run, so
+``da``'s last bits do too; they are exact where every addend is an integer.
+The kernel writes every element of ``da``.  ``edge_reduce_bwd_plain``
+beside it is the same function in plain torch with the semantics of
+``_ker_bwd_xla``: autograd through the gather and the reductions, ties of
+max and min splitting their cotangent evenly.  The wrapper runs it for CPU
+tensors and launches the kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -46,14 +60,17 @@ def _require(cond: bool, msg: str) -> None:
 def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
                     amin: torch.Tensor, ct_max: torch.Tensor,
                     ct_min: torch.Tensor, ct_sum: torch.Tensor,
-                    ct_sumsq: torch.Tensor) -> torch.Tensor:
+                    ct_sumsq: torch.Tensor, *,
+                    atomic: bool = False) -> torch.Tensor:
     """``da`` of the reductions (amax, amin, asum, asumsq) of
     ``knn_reduce`` with respect to ``a`` (B, N, Co), given their cotangents
     and the forward's ``idx`` (B, N, k) and ``amax``/``amin``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes an int32 ``idx``, f32 contiguous tensors, N a multiple of
-    128 and Co <= 256, and raises on anything else."""
+    128 and Co <= 256, and raises on anything else.  ``atomic`` launches
+    the atomic route at any shape (the checks hold the slices route
+    against it)."""
     if a.device.type == "cpu":
         return edge_reduce_bwd_plain(idx, a, amax, amin, ct_max, ct_min,
                                      ct_sum, ct_sumsq)
@@ -75,13 +92,13 @@ def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
     _require(n % 128 == 0, f"N={n} must be a multiple of 128")
     _require(1 <= co <= MAX_CO, f"Co={co} out of 1..{MAX_CO}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
-    fn = _build.load_library().dg_edge_reduce_bwd
+    fn = getattr(_build.load_library(), "dg_edge_reduce_bwd_atomic"
+                 if atomic else "dg_edge_reduce_bwd")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 9 + [i] * 4 + [p]
         fn.restype = i
-    # the kernel adds into da: zero it on the same stream first
-    da = torch.zeros_like(a)
+    da = torch.empty_like(a)  # every element written
     p = _build.ptr
     with torch.cuda.device(a.device):
         rc = fn(p(idx), *map(p, feats), p(da), b, n, co, k,

@@ -1,13 +1,18 @@
 """A/B timing of kernel 3 (``dg_knn_reduce``), kernel 8
-(``dg_edge2_bwd``), kernel 1 (``dg_edge_conv_eval``) or kernel 6
-(``dg_knn_edge2``) against its earlier row-warp form on one card.
+(``dg_edge2_bwd``), kernel 1 (``dg_edge_conv_eval``), kernel 6
+(``dg_knn_edge2``), kernel 5 (``dg_edge_reduce_bwd``) or kernel 7
+(``dg_edge2_fwd``) against its earlier row-warp form on one card.
 
 Builds the kernel's source (``csrc/knn_reduce.cu``, ``csrc/edge2_bwd.cu``,
-``csrc/edge_conv_eval.cu`` or ``csrc/knn_edge2.cu``) into a library of its
-own, and for kernels 3 and 8 their earlier form
+``csrc/edge_conv_eval.cu``, ``csrc/knn_edge2.cu``,
+``csrc/edge_reduce_bwd.cu`` or ``csrc/edge2_reduce.cu``) into a library of
+its own, and for kernels 3, 8, 5 and 7 their earlier form
 (``tools/reduce_forms/*_rowwarp.cu``) into another (one ``nvcc`` a form,
 all started together; the kNN forms link ``csrc/edge_conv_eval.cu`` and
-``csrc/project.cu`` for the squared norms and the projection).  Kernels 1
+``csrc/project.cu`` for the squared norms and the projection).  Kernel 5
+also builds a probe, ``tools/reduce_forms/edge_reduce_bwd_store.cu``: the
+earlier form with its global atomicAdd replaced by a plain store (its da
+is wrong and is not held to anything), which shows what the atomics cost.  Kernels 1
 and 6 keep their row-warp form in ``csrc/`` for the banded kernels 12 and
 13 and for k > 64: the banded entry at band = N, tile 128 and window starts
 0 is that form over the whole cloud, so the row-warp side of their A/B is
@@ -38,6 +43,20 @@ device times (calls queued behind a sleep of the card,
   k=20, Cg 3 and 64, C1 = C2 = 64), partseg (N=2048, k=40: the
   TransformNet's Cg=3 C1=64 C2=128 and the blocks at Cg 3 and 64) and the
   Net's TransformNet (N=2048, k=32, C2=128); bit-equal as kernel 1.
+- ``--kernel edge_reduce_bwd``: B=32 at the DGCNNCls training stages
+  (N=1024, k=20, Co 64 / 64 / 128 / 256 on kNN graphs of Cg 3 / 64 / 64 /
+  128), semseg (N=4096, k=20, Co 64; three such calls a step), partseg
+  (N=2048, k=40, Co 64; three a step) and the fusion Net's training stages
+  (N=2048, k=32, Co as cls); the earlier forms and the probe take a zeroed
+  da (the zeroing is timed with them, as the earlier wrapper paid it), the
+  kernel writes every element; da within rel 1e-5 of each row's norm of
+  the earlier form's, and exact against it and the plain version on
+  integer duplicate points.
+- ``--kernel edge2_fwd``: B=32, C1 = C2 = 64 at the semseg (N=4096, k=20)
+  and partseg (N=2048, k=40) shapes, on the kernel's tiled route; C2 = 128
+  and k = 129 (its row-warp route); and integer duplicate points whose
+  k-th and (k+1)-th scores tie; all four outputs bit-equal between the
+  forms.
 
 ``--root DIR`` builds the kernel's source from another checkout (its
 ``dgcnn_tpu_torch/csrc``), the earlier form from this one; ``--form
@@ -48,8 +67,8 @@ one line a shape and form, and last one JSON object with every reading.
 Exits non-zero without a CUDA card or when a check fails.
 
     python -m dgcnn_tpu_torch.tools.reduce_ab --kernel
-        knn_reduce|edge2_bwd|edge_conv_eval|knn_edge2
-        [--root DIR] [--form NAME=PATH ...]
+        knn_reduce|edge2_bwd|edge_conv_eval|knn_edge2|edge_reduce_bwd|
+        edge2_fwd [--root DIR] [--form NAME=PATH ...]
 """
 from __future__ import annotations
 
@@ -72,19 +91,26 @@ from dgcnn_tpu_torch.tools.project_ab import device_ms
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _FORMS_DIR = os.path.join(_HERE, "reduce_forms")
 SOURCES = {"knn_reduce": "knn_reduce.cu", "edge2_bwd": "edge2_bwd.cu",
-           "edge_conv_eval": "edge_conv_eval.cu", "knn_edge2": "knn_edge2.cu"}
+           "edge_conv_eval": "edge_conv_eval.cu", "knn_edge2": "knn_edge2.cu",
+           "edge_reduce_bwd": "edge_reduce_bwd.cu",
+           "edge2_fwd": "edge2_reduce.cu"}
 # the sources a form links: launch_sqnorm, dg_cuda_error_string and
 # launch_project
 HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu"),
            "edge2_bwd": (), "edge_conv_eval": ("project.cu",),
-           "knn_edge2": ("edge_conv_eval.cu", "project.cu")}
+           "knn_edge2": ("edge_conv_eval.cu", "project.cu"),
+           "edge_reduce_bwd": (), "edge2_fwd": ()}
+# probe forms built beside the earlier one (never on any path)
+PROBES = {"edge_reduce_bwd": {"store": "edge_reduce_bwd_store.cu"}}
 # the kernels whose row-warp form is their own banded entry at band = N
 BANDED = {"edge_conv_eval": "dg_banded_edge_conv_eval",
           "knn_edge2": "dg_banded_knn_edge2"}
 # ptxas lines worth printing: the kernel's own instances
 PTXAS_KEYS = {"knn_reduce": ("reduce",), "edge2_bwd": ("bwd", "partial"),
               "edge_conv_eval": ("select_kernel", "edge_conv_eval"),
-              "knn_edge2": ("knn_edge2",)}
+              "knn_edge2": ("knn_edge2",),
+              "edge_reduce_bwd": ("edge_reduce_bwd",),
+              "edge2_fwd": ("edge2_fwd",)}
 TB = 32
 # (cell, N, k, [(Cg, Co), ...])
 KNN_SHAPES = [
@@ -112,6 +138,19 @@ KNN_EDGE2_SHAPES = [
     ("net TransformNet", 16, 2048, 32, [(3, 64, 128)]),
     ("row-warp route k=65", 4, 1024, 65, [(64, 64, 64)]),
 ]
+# (cell, N, k, [(Cg, Co), ...]): kernel 5 at the training cells' stages
+CLS_STAGES = [(3, 64), (64, 64), (64, 128), (128, 256)]
+BWD_SHAPES = [
+    ("cls", 1024, 20, CLS_STAGES),
+    ("seg", 4096, 20, [(64, 64)]),
+    ("part", 2048, 40, [(64, 64)]),
+    ("net train", 2048, 32, CLS_STAGES),
+]
+# (cell, N, k, C2): kernel 7 at the semseg and partseg training shapes
+# (C1 = C2 = 64, the tiled route) and outside its tiled route
+FWD_SHAPES = [("seg", 4096, 20, 64), ("part", 2048, 40, 64),
+              ("row-warp route C2=128", 1024, 20, 128),
+              ("row-warp route k=129", 1024, 129, 64)]
 
 
 def build(kernel: str, root: str,
@@ -124,6 +163,8 @@ def build(kernel: str, root: str,
     if kernel not in BANDED:
         forms["rowwarp"] = os.path.join(
             _FORMS_DIR, SOURCES[kernel][:-3] + "_rowwarp.cu")
+    forms.update({name: os.path.join(_FORMS_DIR, src)
+                  for name, src in PROBES.get(kernel, {}).items()})
     forms.update(extra)
     helpers = [os.path.join(_build.CSRC, h) for h in HELPERS[kernel]]
     out_dir = os.path.join(_build.BUILD_DIR, "reduce_ab")
@@ -131,7 +172,8 @@ def build(kernel: str, root: str,
     nvcc = _build._nvcc()
     procs = {}
     for name, src in forms.items():
-        inc = _build.CSRC if name == "rowwarp" else os.path.dirname(src)
+        inc = (_build.CSRC if os.path.dirname(src) == _FORMS_DIR
+               else os.path.dirname(src))
         h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
         for path in [src] + helpers + sorted(
                 glob.glob(os.path.join(inc, "*.cuh"))):
@@ -168,10 +210,16 @@ def _entry(lib: str, kernel: str, name: str):
         fn.argtypes = [p] * (nptr + banded) + [i] * (6 + 2 * banded) + [f, p]
         fn.restype = i
         return fn, None
+    tiles = None
     if kernel == "knn_reduce":
         fn = dll.dg_knn_reduce
         fn.argtypes = [p] * 8 + [i] * 5 + [p]
-        tiles = None
+    elif kernel == "edge_reduce_bwd":
+        fn = dll.dg_edge_reduce_bwd
+        fn.argtypes = [p] * 9 + [i] * 4 + [p]
+    elif kernel == "edge2_fwd":
+        fn = dll.dg_edge2_fwd
+        fn.argtypes = [p] * 10 + [i] * 5 + [f, p]
     else:
         fn = dll.dg_edge2_bwd
         fn.argtypes = [p] * 16 + [i] * 6 + [f, p]
@@ -434,6 +482,172 @@ def run_eval(kernel: str, entries: dict, result: dict,
     return bad
 
 
+def _bwd_integer_case(g, dev):
+    """Kernel 5's integer duplicate-points case (chip_smoke.py's phase 8):
+    256 grid points four times, a a function of the point, max/min
+    cotangents multiples of the lcm of the tie counts, so that every
+    addend and every sum is exact."""
+    import math
+
+    from dgcnn_tpu_torch.ops.graph import gather_neighbors
+    from dgcnn_tpu_torch.ops.knn_reduce_kernel import knn_reduce
+
+    base = torch.randint(-4, 5, (2, 256, 3), generator=g).float()
+    graph = torch.cat([base] * 4, dim=1).to(dev)
+    a = torch.cat([torch.randint(-256, 257, (2, 256, 64),
+                                 generator=g).float()] * 4, dim=1).to(dev)
+    idx, amax, amin, _, _ = knn_reduce(graph, a, 20)
+    ag = gather_neighbors(a, idx.long())
+    ties = torch.cat([(ag == amax[:, :, None]).sum(2).flatten(),
+                      (ag == amin[:, :, None]).sum(2).flatten()])
+    lcm = math.lcm(*ties.unique().tolist())
+    cts = [torch.randint(-3, 4, (2, 1024, 64), generator=g).float().to(dev)
+           for _ in range(4)]
+    cts[0] *= lcm
+    cts[1] *= lcm
+    return idx, a, amax, amin, cts
+
+
+def run_bwd(entries: dict, result: dict, order: list[str]) -> list[str]:
+    """Kernel 5: every form at every training cell's stages (timed), then
+    the integer duplicate-points case; da within rel 1e-5 of each row's
+    norm of the earlier form's, exact on the integers."""
+    from dgcnn_tpu_torch.ops.edge_reduce_bwd_kernel import (
+        edge_reduce_bwd_plain,
+    )
+    from dgcnn_tpu_torch.ops.knn_reduce_kernel import knn_reduce
+
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    p = _build.ptr
+    cases = [(f"{cell} N={n} k={k} Cg={cg} Co={co}", n, k, cg, co)
+             for cell, n, k, stages in BWD_SHAPES for cg, co in stages]
+    cases.append(("integer duplicates N=1024 k=20 Co=64", 1024, 20, 3, 64))
+    bad = []
+    for key, n, k, cg, co in cases:
+        integer = key.startswith("integer")
+        if integer:
+            idx, a, amax, amin, cts = _bwd_integer_case(g, dev)
+        else:
+            graph = torch.randn((TB, n, cg), generator=g).to(dev)
+            a = torch.randn((TB, n, co), generator=g).to(dev)
+            idx, amax, amin, _, _ = knn_reduce(graph, a, k)
+            cts = [torch.randn((TB, n, co), generator=g).to(dev)
+                   for _ in range(4)]
+            del graph
+        b = a.shape[0]
+        outs = {}
+        for name in order:
+            fn = entries[name][0]
+            da = torch.empty_like(a)
+            args = (p(idx), p(a), p(amax), p(amin), *map(p, cts), p(da), b,
+                    n, co, k, _build.stream_of(a))
+
+            def call(fn=fn, args=args, da=da, zero=name != "kernel"):
+                if zero:  # the earlier forms add into a zeroed da
+                    da.zero_()
+                _call(fn, *args)
+            if not integer:
+                ms = device_ms(call, reps=5, rounds=5)
+                result["forms"][name]["ms"].setdefault(key, []).append(ms)
+                print(f"{name} {key} ms {ms:.4f}", flush=True)
+            call()
+            torch.cuda.synchronize()
+            outs[name] = da
+        check = {"shape": key,
+                 "da_row_rel": _row_rel(outs["kernel"], outs["rowwarp"])}
+        if integer:
+            want = edge_reduce_bwd_plain(idx, a, amax, amin, *cts)
+            check["exact"] = all(torch.equal(outs[name], want)
+                                 for name in ("kernel", "rowwarp"))
+        ok = check["da_row_rel"] <= 1e-5 and check.get("exact", True)
+        result["checks"].append(check)
+        print(f"{key}: {json.dumps(check)}", flush=True)
+        if not ok:
+            bad.append(key)
+        del idx, a, amax, amin, cts, outs
+        torch.cuda.empty_cache()
+    return bad
+
+
+def _fwd_inputs(g, n: int, k: int, c2: int, dev, integer: bool = False):
+    """Kernel 7's inputs [a1, b1, s1, t1, w2, idx], C1 = 64, and for the
+    ``integer`` case (small integers on a cloud of 64 points each four
+    times, so that every z2 is exact and z2 ties) the number of rows whose
+    k-th score ties the (k+1)-th (else None)."""
+    from dgcnn_tpu_torch.ops.knn import knn_plain, pairwise_neg_sqdist
+
+    c1 = 64
+    if integer:
+        pts = torch.cat([torch.randint(-2, 3, (2, n // 4, 3),
+                                       generator=g).float()] * 4, dim=1)
+        idx = knn_plain(pts, k).int()
+        top = pairwise_neg_sqdist(pts).topk(k + 1, dim=-1).values
+        ties = int((top[..., k - 1] == top[..., k]).sum())
+        a1 = torch.cat([torch.randint(-2, 3, (2, n // 4, c1),
+                                      generator=g).float()] * 4, dim=1)
+        b1 = torch.randint(-2, 3, (2, n, c1), generator=g).float()
+        s1 = torch.where(torch.rand(c1, generator=g) < 0.3, -0.5, 1.0)
+        t1 = torch.randint(-2, 3, (c1,), generator=g).float()
+        w2 = torch.randint(-1, 2, (c1, c2), generator=g).float()
+    else:
+        idx = torch.randint(0, n, (TB, n, k), generator=g, dtype=torch.int32)
+        a1, b1 = (torch.randn((TB, n, c1), generator=g) for _ in range(2))
+        s1 = 1 + 0.1 * torch.randn(c1, generator=g)
+        t1 = 0.1 * torch.randn(c1, generator=g)
+        w2 = torch.randn((c1, c2), generator=g) / 8
+        ties = None
+    return [t.to(dev).contiguous() for t in (a1, b1, s1, t1, w2, idx)], ties
+
+
+def run_fwd(entries: dict, result: dict, order: list[str]) -> list[str]:
+    """Kernel 7: every form at the semseg and partseg training shapes and
+    outside the tiled route (timed), then on integer duplicate points;
+    all four outputs bit-equal between the forms."""
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    p = _build.ptr
+    cases = [(f"{cell} N={n} k={k} C1=64 C2={c2}", n, k, c2, False)
+             for cell, n, k, c2 in FWD_SHAPES]
+    cases += [(f"integer duplicates N=256 k={k} C1=C2=64", 256, k, 64, True)
+              for k in (20, 40)]
+    bad = []
+    for key, n, k, c2, integer in cases:
+        slope = 0.25 if integer else 0.2
+        tin, ties = _fwd_inputs(g, n, k, c2, dev, integer)
+        b = tin[0].shape[0]
+        if integer:  # the case must put the k-th boundary inside ties
+            print(f"{key}: rows whose k-th score ties the (k+1)-th {ties}",
+                  flush=True)
+            if not ties:
+                bad.append(f"{key}: no tie at the k-th boundary")
+        outs = {}
+        for name in order:
+            fn = entries[name][0]
+            red = [torch.empty((b, n, c2), device=dev) for _ in range(4)]
+            args = (p(tin[5]), *map(p, tin[:5]), *map(p, red), b, n, 64, c2,
+                    k, slope, _build.stream_of(red[0]))
+            if not integer:
+                ms = device_ms(lambda: _call(fn, *args), reps=5, rounds=5)
+                result["forms"][name]["ms"].setdefault(key, []).append(ms)
+                print(f"{name} {key} ms {ms:.4f}", flush=True)
+            _call(fn, *args)
+            torch.cuda.synchronize()
+            outs[name] = red
+        same = all(torch.equal(x, y) for name in outs
+                   for x, y in zip(outs[name], outs["rowwarp"]))
+        finite = all(bool(torch.isfinite(x).all()) for x in outs["kernel"])
+        result["checks"].append({"shape": key, "bit_equal": same,
+                                 "finite": finite})
+        print(f"{key}: four outputs bit-equal {same}, finite {finite}",
+              flush=True)
+        if not (same and finite):
+            bad.append(key)
+        del tin, outs
+        torch.cuda.empty_cache()
+    return bad
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=tuple(SOURCES), required=True)
@@ -467,7 +681,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     run = {"knn_reduce": run_knn, "edge2_bwd": run_edge2,
            "edge_conv_eval": functools.partial(run_eval, "edge_conv_eval"),
-           "knn_edge2": functools.partial(run_eval, "knn_edge2")}
+           "knn_edge2": functools.partial(run_eval, "knn_edge2"),
+           "edge_reduce_bwd": run_bwd, "edge2_fwd": run_fwd}
     bad = run[args.kernel](entries, result, order)
     print(json.dumps(result), flush=True)
     if bad:

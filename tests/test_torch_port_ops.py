@@ -817,6 +817,45 @@ def test_edge2_bwd_kernel_at_the_models_shapes(cuda_device, n, k, c2):
         assert ((gv - wv).norm() <= 1e-4 * wv.norm()).item()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,co", [(1024, 20, 64), (1024, 20, 256),
+                                    (2048, 32, 128), (2048, 40, 64),
+                                    (4096, 20, 64)])
+def test_edge_reduce_bwd_slices_route_matches_atomic_route(cuda_device, n,
+                                                           k, co):
+    """Kernel 5's slices route (shared-memory adds, every model's N) at
+    the models' shapes: within rel 1e-5 of each row's norm of its atomic
+    route, and against the plain version."""
+    g, a, cts = _reduce_inputs(70 + k, b=2, n=n, c=3, co=co)
+    g, a, *cts = (_t(v).to(cuda_device) for v in (g, a, *cts))
+    idx, amax, amin, _, _ = knn_reduce(g, a, k)
+    got = edge_reduce_bwd(idx, a, amax, amin, *cts)
+    old = edge_reduce_bwd(idx, a, amax, amin, *cts, atomic=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    rel = (got - old).norm(dim=-1) / old.norm(dim=-1).clamp_min(1e-30)
+    assert rel.max().item() <= 1e-5
+    want = edge_reduce_bwd_plain(idx, a, amax, amin, *cts)
+    assert _row_match(got, want).float().mean().item() >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,c2", [(4096, 20, 64), (2048, 40, 64),
+                                    (1024, 20, 128), (1024, 129, 64)])
+def test_edge2_fwd_tiled_route_bit_equal_to_row_warp(cuda_device, n, k, c2):
+    """Kernel 7 at the semseg and partseg shapes (its tiled route) and at
+    C2 = 128 and k = 129 (its row-warp route): all four outputs the bits
+    of the row-warp route."""
+    (g, a1, b1, s1, t1, w2, _, _), _, _ = _edge2_inputs(
+        75 + k, b=2, n=n, cg=3, c1=64, c2=c2, k=k)
+    idx = knn_plain(_t(g).to(cuda_device), k).int()
+    tin = [_t(v).to(cuda_device) for v in (a1, b1, s1, t1, w2)] + [idx]
+    got = edge2_fwd(*tin)
+    for gv, wv in zip(got, edge2_fwd(*tin, rowwarp=True)):
+        assert torch.isfinite(gv).all()
+        assert torch.equal(gv, wv)
+
+
 @pytest.mark.parametrize("dup", [False, True])
 def test_knn_matches_knn_pallas_at_k40(dup):
     """Kernel 11's plain version (and ``knn`` on CPU tensors) against
