@@ -12,27 +12,63 @@
 // stage outputs read: ~1.0 ms at the f32 CUDA-core peak (67 TFLOP/s) and
 // ~0.04 ms at 3.35 TB/s.
 //
-// Design: one block per (E tile of 64 columns, cloud).  The block walks the
-// cloud's N points 64 rows at a time; for each row tile it accumulates the
-// four inputs' products with their row slices of W (no concat) through the
-// shared-memory GEMM tile of tile_gemm.cuh, applies the affine and
-// LeakyReLU in registers and folds the tile into per-thread running
-// column max and sum.  A shared-memory reduction over the 16 thread rows
-// then writes the two pooled rows: no atomics, and neither the concat nor
-// the (B, N, E) activation reaches device memory.  The product runs on the
-// CUDA cores in f32 (the exact mode rules out TF32).
+// Design, two routes decided from the shape before the launch:
+//   conv_pool_gemm_kernel  (every input width and E multiples of 4, the
+//     inputs and W 16-byte aligned: every model's shapes).  The product
+//     runs on the core of gemm128.cuh, project.cu's: 128 x 128 output
+//     tiles, 256 threads, an 8 x 8 register block a thread, 32-deep k
+//     chunks copied by 16-byte cp.async into a second buffer while the
+//     first is read.  The up-to-four inputs are consecutive k segments of
+//     one chain (each walked in its own chunks, the last zero-filled past
+//     its width): there is no concat.  A tile's rows come from one cloud;
+//     the cloud's last tile is masked when N % 128 != 0.  The grid is
+//     (column tile, row group, cloud): a row group is a run of `per`
+//     consecutive row tiles of one cloud, with enough groups that the grid
+//     holds about 1056 blocks (four waves of two blocks an SM on 132 SMs)
+//     where the cloud has the tiles.  After each tile the block applies the
+//     affine and the LeakyReLU in registers and folds the tile into each
+//     thread's running column max and sum, kept in shared memory (registers
+//     are full with the product's); at the end it folds its 16 thread rows
+//     in order.  One group writes the two pooled rows itself; several write
+//     partial rows into a scratch (B, groups, 2, E) that
+//     conv_pool_combine_kernel reads in group order.
+//   conv_pool_kernel  (any other shape; also dg_conv_pool_tile64, for the
+//     A/B): the first form, a block a (64-column tile, cloud) walking the
+//     cloud's N points 64 rows at a time through the shared-memory tile of
+//     tile_gemm.cuh (4 x 4 registers a thread, 16-deep chunks staged by
+//     scalar loads).
+// Both compute each y as one fmaf chain from +0 over the concatenated
+// channels, ascending, then __fadd_rn(__fmul_rn(acc, s), t) and the
+// LeakyReLU's __fmul_rn(slope, y): the same bits on both routes, so the
+// max row is bit-equal between them.  The mean's sum runs in another order
+// on each route (rows of a thread, then thread rows, then groups, all in a
+// fixed order): it is the same bits from call to call.  No atomics; the
+// concat and the (B, N, E) activation never reach device memory.  f32 on
+// the CUDA cores: the exact mode rules out TF32, and 3xTF32 would lose the
+// max row's bits.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
+#include "gemm128.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
 
 constexpr int MAX_INPUTS = 4;
+// the blocks the row groups aim at: four waves of two blocks an SM on the
+// H100's 132 SMs (a constant, so the partition and the mean's bits depend
+// on the shape alone).  Two waves left the last wave's blocks alone on
+// the card at K = 128-192 (PERF.md, Findings: the A/B of pool_ab).
+constexpr int POOL_BLOCKS = 8 * 132;
+constexpr int RED_ROWS = dg::G128_THREADS / 16;  // thread rows of a tile
+constexpr size_t GEMM_POOL_SMEM =
+    dg::G128_SMEM + sizeof(float) * 2 * RED_ROWS * dg::G128_N;
 
 struct Inputs {
   const float* p[MAX_INPUTS];
-  int c[MAX_INPUTS];
+  int c[MAX_INPUTS];  // 0 past n
   int n;
 };
 
@@ -101,29 +137,280 @@ __global__ void __launch_bounds__(dg::GEMM_THREADS)
   }
 }
 
+// Chunk u of a row tile: its input's rows of cloud b (x, width c) and of W
+// (wq), and its first channel k0 within the input.  The inputs are walked
+// in order, each in ceil(c / 32) chunks.  The input is picked first and
+// its pointers formed once from the pick, so that the compiler keeps no
+// per-input pointer live across the block's loop.
+__device__ __forceinline__ void locate_chunk(const Inputs& xs, int b, int N,
+                                             const float* __restrict__ w,
+                                             int E, int u, const float*& x,
+                                             int& c, const float*& wq,
+                                             int& k0) {
+  int q = 0, off = 0;
+#pragma unroll
+  for (int r = 0; r < MAX_INPUTS - 1; ++r) {
+    const int nq = (xs.c[r] + dg::G128_K - 1) / dg::G128_K;
+    if (q == r && u >= nq) {
+      u -= nq;
+      off += xs.c[r];
+      q = r + 1;
+    }
+  }
+  const float* p = q == 0 ? xs.p[0] : q == 1 ? xs.p[1] : q == 2 ? xs.p[2]
+                                                                : xs.p[3];
+  c = q == 0 ? xs.c[0] : q == 1 ? xs.c[1] : q == 2 ? xs.c[2] : xs.c[3];
+  x = p + (size_t)b * N * c;
+  wq = w + (size_t)off * E;
+  k0 = u * dg::G128_K;
+}
+
+// A block: column tile blockIdx.x, row tiles [per * g, per * g + per) of
+// cloud b = blockIdx.z (g = blockIdx.y).  With groups == 1 it writes out;
+// otherwise its partial max and sum rows go to part (B, groups, 2, E).
+__global__ void __launch_bounds__(dg::G128_THREADS, 2)
+    conv_pool_gemm_kernel(Inputs xs, int N, const float* __restrict__ w,
+                          int E, const float* __restrict__ scale,
+                          const float* __restrict__ bias, float slope,
+                          int per, int groups, int with_mean,
+                          float* __restrict__ part, float* __restrict__ out) {
+  extern __shared__ __align__(16) float gsm[];
+  float* red_max = gsm + 2 * (dg::G128_A + dg::G128_B);  // [16][128]
+  float* red_sum = red_max + RED_ROWS * dg::G128_N;
+  const int n0 = blockIdx.x * dg::G128_N, g = blockIdx.y, b = blockIdx.z;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row_tiles = (N + dg::G128_M - 1) / dg::G128_M;
+  const int t0 = g * per;
+  const int tiles = min(row_tiles, t0 + per) - t0;
+  int chunks = 0;  // chunks a row tile
+#pragma unroll
+  for (int q = 0; q < MAX_INPUTS; ++q)
+    chunks += (xs.c[q] + dg::G128_K - 1) / dg::G128_K;
+
+  // each thread's running max and sum of its eight columns, its own slots
+  // of row ty: no other thread touches them before the final fold
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    *reinterpret_cast<float4*>(red_max + ty * dg::G128_N + 64 * h + 4 * tx) =
+        make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    *reinterpret_cast<float4*>(red_sum + ty * dg::G128_N + 64 * h + 4 * tx) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  float acc[8][8];
+  {
+    const float *x, *wq;
+    int c, k0;
+    locate_chunk(xs, b, N, w, E, 0, x, c, wq, k0);
+    dg::g128_load_chunk(gsm, gsm + 2 * dg::G128_A, x, N, c, t0 * dg::G128_M,
+                        wq, E, n0, k0);
+  }
+  int buf = 0;
+#pragma unroll 1
+  for (int t = 0; t < tiles; ++t) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+    for (int u = 0; u < chunks; ++u) {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      // chunk u has landed for every thread, and every thread is done with
+      // the previous chunk, whose buffers the next copy fills
+      __syncthreads();
+      int tn = t, un = u + 1;  // the next chunk
+      if (un == chunks) {
+        un = 0;
+        ++tn;
+      }
+      if (tn < tiles) {
+        const float *x, *wq;
+        int c, k0;
+        locate_chunk(xs, b, N, w, E, un, x, c, wq, k0);
+        dg::g128_load_chunk(gsm + (buf ^ 1) * dg::G128_A,
+                            gsm + 2 * dg::G128_A + (buf ^ 1) * dg::G128_B,
+                            x, N, c, (t0 + tn) * dg::G128_M, wq, E, n0, k0);
+      }
+      dg::g128_fma_chunk(acc, gsm + buf * dg::G128_A,
+                         gsm + 2 * dg::G128_A + buf * dg::G128_B);
+      buf ^= 1;
+    }
+    // the tile is done: affine, LeakyReLU, and the fold into the running
+    // column max and sum, rows i ascending (the next tile's first chunk is
+    // in flight)
+    const int m0 = (t0 + t) * dg::G128_M;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* pmax = red_max + ty * dg::G128_N + 64 * h + 4 * tx;
+      float* psum = red_sum + ty * dg::G128_N + 64 * h + 4 * tx;
+      const float4 m4 = *reinterpret_cast<const float4*>(pmax);
+      const float4 s4 = *reinterpret_cast<const float4*>(psum);
+      float mx[4] = {m4.x, m4.y, m4.z, m4.w};
+      float sm[4] = {s4.x, s4.y, s4.z, s4.w};
+      float sc[4], bi[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = n0 + 64 * h + 4 * tx + jj;
+        sc[jj] = col < E ? __ldg(scale + col) : 0.f;
+        bi[jj] = col < E ? __ldg(bias + col) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (m0 + (i & 3) + (i >> 2) * 64 + 4 * ty >= N) continue;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float y = __fadd_rn(__fmul_rn(acc[i][4 * h + jj], sc[jj]), bi[jj]);
+          y = y >= 0.f ? y : __fmul_rn(slope, y);
+          mx[jj] = fmaxf(mx[jj], y);
+          sm[jj] = __fadd_rn(sm[jj], y);
+        }
+      }
+      *reinterpret_cast<float4*>(pmax) = make_float4(mx[0], mx[1], mx[2],
+                                                     mx[3]);
+      *reinterpret_cast<float4*>(psum) = make_float4(sm[0], sm[1], sm[2],
+                                                     sm[3]);
+    }
+  }
+
+  __syncthreads();
+  if (threadIdx.x < dg::G128_N) {
+    const int col = n0 + threadIdx.x;
+    if (col < E) {
+      float m = -INFINITY, s = 0.f;
+      for (int r = 0; r < RED_ROWS; ++r) {
+        m = fmaxf(m, red_max[r * dg::G128_N + threadIdx.x]);
+        s = __fadd_rn(s, red_sum[r * dg::G128_N + threadIdx.x]);
+      }
+      if (groups == 1) {
+        const int rows = with_mean ? 2 : 1;
+        out[((size_t)b * rows) * E + col] = m;
+        if (with_mean)
+          out[((size_t)b * rows + 1) * E + col] = __fdiv_rn(s, (float)N);
+      } else {
+        float* pr = part + ((size_t)b * groups + g) * 2 * E;
+        pr[col] = m;
+        pr[E + col] = s;
+      }
+    }
+  }
+}
+
+// out (B, rows, E) from the groups' partial rows, groups ascending.
+__global__ void __launch_bounds__(256)
+    conv_pool_combine_kernel(const float* __restrict__ part, int B,
+                             int groups, int N, int E, int with_mean,
+                             float* __restrict__ out) {
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e >= B * E) return;
+  const int b = e / E, col = e - b * E;
+  float m = -INFINITY, s = 0.f;
+  for (int g = 0; g < groups; ++g) {
+    const float* pr = part + ((size_t)b * groups + g) * 2 * E;
+    m = fmaxf(m, pr[col]);
+    s = __fadd_rn(s, pr[E + col]);
+  }
+  const int rows = with_mean ? 2 : 1;
+  out[((size_t)b * rows) * E + col] = m;
+  if (with_mean)
+    out[((size_t)b * rows + 1) * E + col] = __fdiv_rn(s, (float)N);
+}
+
+// The row tiles a group takes (`per`) and the groups a cloud has.
+void pool_groups(int B, int N, int E, int* per, int* groups) {
+  const int row_tiles = (N + dg::G128_M - 1) / dg::G128_M;
+  const int ctiles = (E + dg::G128_N - 1) / dg::G128_N;
+  const int want = std::min(row_tiles,
+                            (POOL_BLOCKS + B * ctiles - 1) / (B * ctiles));
+  *per = std::max(1, row_tiles / want);
+  *groups = (row_tiles + *per - 1) / *per;
+}
+
+bool aligned16(const void* p) { return (size_t)p % 16 == 0; }
+
+int check_inputs(const float* const* ps, const int* cs, int n_inputs, int B,
+                 int N, int E, Inputs* xs) {
+  if (n_inputs < 1 || n_inputs > MAX_INPUTS || B < 1 || N < 1 || E < 1)
+    return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < MAX_INPUTS; ++q) {
+    xs->p[q] = ps[q];
+    xs->c[q] = q < n_inputs ? cs[q] : 0;
+    if (q < n_inputs && cs[q] < 1) return (int)cudaErrorInvalidValue;
+  }
+  xs->n = n_inputs;
+  return 0;
+}
+
+int launch_tile64(const Inputs& xs, const float* w, const float* scale,
+                  const float* bias, float* out, int B, int N, int E,
+                  float slope, int with_mean, cudaStream_t st) {
+  const dim3 grid((E + dg::GEMM_BN - 1) / dg::GEMM_BN, B);
+  conv_pool_kernel<<<grid, dg::GEMM_THREADS, 0, st>>>(
+      xs, N, w, E, scale, bias, slope, with_mean, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Floats of the scratch `part` that dg_conv_pool needs at this shape (0
+// when one group a cloud writes the output itself).
+extern "C" int dg_conv_pool_scratch_floats(int B, int N, int E) {
+  if (B < 1 || N < 1 || E < 1) return 0;
+  int per, groups;
+  pool_groups(B, N, E, &per, &groups);
+  return groups > 1 ? B * groups * 2 * E : 0;
+}
+
 // xs: n_inputs (<= 4) tensors (B, N, c_q); w (sum c_q, E); scale/bias (E,);
-// out (B, with_mean ? 2 : 1, E); all f32, contiguous, on the device.
-// Returns the first CUDA error.
+// part: dg_conv_pool_scratch_floats(B, N, E) floats of scratch; out (B,
+// with_mean ? 2 : 1, E); all f32, contiguous, on the device.  Returns the
+// first CUDA error.
 extern "C" int dg_conv_pool(const float* x0, const float* x1, const float* x2,
                             const float* x3, int c0, int c1, int c2, int c3,
                             int n_inputs, const float* w, const float* scale,
-                            const float* bias, float* out, int B, int N, int E,
-                            float slope, int with_mean, void* stream) {
-  if (n_inputs < 1 || n_inputs > MAX_INPUTS || B < 1 || N < 1 || E < 1)
-    return (int)cudaErrorInvalidValue;
-  Inputs xs;
+                            const float* bias, float* part, float* out, int B,
+                            int N, int E, float slope, int with_mean,
+                            void* stream) {
   const float* ps[MAX_INPUTS] = {x0, x1, x2, x3};
   const int cs[MAX_INPUTS] = {c0, c1, c2, c3};
-  for (int q = 0; q < MAX_INPUTS; ++q) {
-    xs.p[q] = ps[q];
-    xs.c[q] = cs[q];
-    if (q < n_inputs && cs[q] < 1) return (int)cudaErrorInvalidValue;
-  }
-  xs.n = n_inputs;
-  const dim3 grid((E + dg::GEMM_BN - 1) / dg::GEMM_BN, B);
-  conv_pool_kernel<<<grid, dg::GEMM_THREADS, 0, (cudaStream_t)stream>>>(
-      xs, N, w, E, scale, bias, slope, with_mean, out);
+  Inputs xs;
+  if (int rc = check_inputs(ps, cs, n_inputs, B, N, E, &xs)) return rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  bool gemm = E % 4 == 0 && aligned16(w);
+  for (int q = 0; q < n_inputs; ++q)
+    gemm = gemm && cs[q] % 4 == 0 && aligned16(ps[q]);
+  if (!gemm)
+    return launch_tile64(xs, w, scale, bias, out, B, N, E, slope, with_mean,
+                         st);
+  int per, groups;
+  pool_groups(B, N, E, &per, &groups);
+  if (groups > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_pool_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)GEMM_POOL_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((E + dg::G128_N - 1) / dg::G128_N, groups, B);
+  conv_pool_gemm_kernel<<<grid, dg::G128_THREADS, GEMM_POOL_SMEM, st>>>(
+      xs, N, w, E, scale, bias, slope, per, groups, with_mean, part, out);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || groups == 1) return (int)e;
+  conv_pool_combine_kernel<<<(B * E + 255) / 256, 256, 0, st>>>(
+      part, B, groups, N, E, with_mean, out);
   return (int)cudaGetLastError();
+}
+
+// As dg_conv_pool at any shape on the first form (conv_pool_kernel): the
+// earlier side of the A/B and of chip_smoke.py's checks.
+extern "C" int dg_conv_pool_tile64(const float* x0, const float* x1,
+                                   const float* x2, const float* x3, int c0,
+                                   int c1, int c2, int c3, int n_inputs,
+                                   const float* w, const float* scale,
+                                   const float* bias, float* out, int B,
+                                   int N, int E, float slope, int with_mean,
+                                   void* stream) {
+  const float* ps[MAX_INPUTS] = {x0, x1, x2, x3};
+  const int cs[MAX_INPUTS] = {c0, c1, c2, c3};
+  Inputs xs;
+  if (int rc = check_inputs(ps, cs, n_inputs, B, N, E, &xs)) return rc;
+  return launch_tile64(xs, w, scale, bias, out, B, N, E, slope, with_mean,
+                       (cudaStream_t)stream);
 }

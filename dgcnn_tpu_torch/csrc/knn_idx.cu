@@ -11,16 +11,29 @@
 // (TransformNet's graph: B=32, N=2048, C=3, k=40) the scores are 2*B*N^2*C
 // flops plus one comparison a score, ~0.94 G operations, ~0.014 ms at the
 // f32 CUDA-core peak (67 TFLOP/s), against 0.8 MB of x in and 10.5 MB of
-// idx out, ~0.003 ms at 3.35 TB/s.  The k rounds of arg-max over N
-// scores a row are the real cost of this selection (k * N comparisons a
-// row, ~5.4 G at that shape).
+// idx out, ~0.003 ms at 3.35 TB/s.  What a selection costs beyond that is
+// keeping the k best of N scores a row.
 //
-// Design: edge_conv_eval.cu's select_kernel without the reduction.  sqnorm
-// first, then the selection of knn_select.cuh: one warp a query row with
-// its N scores in registers (N / 32 a lane: the 64 bucket at N=2048), the
-// cloud staged through shared memory, and k rounds of warp arg-max on
-// (score, -index); lane 0 writes each round's winner.  The N x N scores
-// never reach device memory.
+// Design, two routes decided from k before the launch (sqnorm first on
+// both):
+//   k <= TS_LIST (64; every model: k = 20, 32, 40)  knn_idx_tiled_kernel:
+//     the tiled selection of knn_select.cuh (tiled_topk), kernel 3's
+//     tiled route without its reductions.  A block of 256 threads owns 64
+//     query rows and streams the cloud in tiles of 128 columns whose
+//     scores are a register-blocked product; each warp keeps eight rows'
+//     running top-k in registers, filled by sorting the first tile, after
+//     which a column enters only above the k-th: few insertions a row after
+//     the first tiles.  Each row's list is then written in list order
+//     (position p is slot p / 32 of lane p % 32) as coalesced int32 stores.
+//   k > TS_LIST  knn_idx_kernel (also dg_knn_idx_rowwarp at any k, the
+//     earlier side of the A/B and of chip_smoke.py's checks): the row-warp
+//     selection, one warp a query row with its N scores in registers (N /
+//     32 a lane), the cloud staged through shared memory, and k rounds of
+//     warp arg-max on (score, -index), k * N comparisons a row.
+// Both give each score the same bits (one fmaf chain over the channels, 0
+// ascending, then the same _rn operations) and the same neighbours in
+// torch.topk's order, ties included: idx is identical on both routes and
+// from call to call.  The N x N scores never reach device memory.
 #include <cuda_runtime.h>
 
 #include "knn_select.cuh"
@@ -46,18 +59,45 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
   }
 }
 
-}  // namespace
+// The tiled route: the block's 64 rows' lists, then each row's list
+// written in order, a warp its eight rows.
+template <int KL>
+__global__ void __launch_bounds__(dg::TS_THREADS, 2)
+    knn_idx_tiled_kernel(const float* __restrict__ x, int C,
+                         const float* __restrict__ sq, int N, int k,
+                         int* __restrict__ idx) {
+  extern __shared__ __align__(16) float tsm[];
+  const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float ls[dg::TS_WR][KL];
+  int li[dg::TS_WR][KL];
+  dg::tiled_topk<KL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, N, r0, k,
+                     tsm, ls, li);
+#pragma unroll
+  for (int rr = 0; rr < dg::TS_WR; ++rr) {
+    int* irow = idx + ((size_t)b * N + r0 + dg::TS_WR * warp + rr) * k;
+#pragma unroll
+    for (int q = 0; q < KL; ++q)
+      if (lane + 32 * q < k) irow[lane + 32 * q] = li[rr][q];
+  }
+}
 
-// x (B, N, C), scratch sq (B*N,), idx (B, N, k) int32; f32 otherwise,
-// contiguous, on the device.  Returns the first CUDA error.
-extern "C" int dg_knn_idx(const float* x, float* sq, int* idx, int B, int N,
-                          int C, int k, void* stream) {
-  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || k < 1 || k > N)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = dg::launch_sqnorm(x, B * N, C, sq, st);
-  if (e != cudaSuccess) return (int)e;
-  e = dg::with_npl(N, [&](auto npl) {
+template <int KL>
+cudaError_t launch_tiled(const float* x, const float* sq, int* idx, int B,
+                         int N, int C, int k, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_idx_tiled_kernel<KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dg::TS_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  knn_idx_tiled_kernel<KL>
+      <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
+          x, C, sq, N, k, idx);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rowwarp(const float* x, const float* sq, int* idx, int B,
+                           int N, int C, int k, cudaStream_t st) {
+  return dg::with_npl(N, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
     constexpr int QB = dg::Bucket<NPL>::QB;
     const size_t smem = dg::select_smem_bytes<NPL>(N);
@@ -69,5 +109,32 @@ extern "C" int dg_knn_idx(const float* x, float* sq, int* idx, int B, int N,
                                                                k, idx);
     return cudaGetLastError();
   });
-  return (int)e;
+}
+
+int knn_idx(const float* x, float* sq, int* idx, int B, int N, int C, int k,
+            bool rowwarp, cudaStream_t st) {
+  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || k < 1 || k > N)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = dg::launch_sqnorm(x, B * N, C, sq, st);
+  if (e != cudaSuccess) return (int)e;
+  if (!rowwarp && k <= 32) return (int)launch_tiled<1>(x, sq, idx, B, N, C, k,
+                                                       st);
+  if (!rowwarp && k <= dg::TS_LIST)
+    return (int)launch_tiled<2>(x, sq, idx, B, N, C, k, st);
+  return (int)launch_rowwarp(x, sq, idx, B, N, C, k, st);
+}
+
+}  // namespace
+
+// x (B, N, C), scratch sq (B*N,), idx (B, N, k) int32; f32 otherwise,
+// contiguous, on the device.  Returns the first CUDA error.
+extern "C" int dg_knn_idx(const float* x, float* sq, int* idx, int B, int N,
+                          int C, int k, void* stream) {
+  return knn_idx(x, sq, idx, B, N, C, k, false, (cudaStream_t)stream);
+}
+
+// As dg_knn_idx on the row-warp route at any k.
+extern "C" int dg_knn_idx_rowwarp(const float* x, float* sq, int* idx, int B,
+                                  int N, int C, int k, void* stream) {
+  return knn_idx(x, sq, idx, B, N, C, k, true, (cudaStream_t)stream);
 }

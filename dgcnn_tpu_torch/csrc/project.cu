@@ -16,18 +16,15 @@
 //
 // Design, two kernels behind launch_project:
 //   project_kernel  (K % 4 == 0, K >= 32, ncols % 4 == 0, x, w and out
-//                   16-byte aligned): a block of 256 threads owns a 128 x
-//                   128 tile of out, each thread an 8 x 8 register block
-//                   (rows 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and
-//                   64 + 4 tx + j), two blocks an SM.  K is walked in
-//                   chunks of 32 that cp.async copies 16 bytes at a time
-//                   into a second buffer while the first is used: one
-//                   block barrier a chunk.  x stays row-major in shared
-//                   memory (rows padded by 4 floats) and is read as float4
-//                   along k, w as float4 along n: 16 128-bit shared loads a
-//                   thread feed 256 FMAs, every warp's loads
-//                   conflict-free.  The blocks walk the column tiles first,
-//                   so each row tile of x comes from device memory once.
+//                   16-byte aligned): the core of gemm128.cuh (shared with
+//                   conv_pool.cu): a block of 256 threads owns a 128 x
+//                   128 tile of out, each thread an 8 x 8 register block,
+//                   two blocks an SM; K in chunks of 32 copied by 16-byte
+//                   cp.async into a second buffer while the first is used:
+//                   one block barrier a chunk, 16 conflict-free 128-bit
+//                   shared loads a thread feed 256 FMAs.  The blocks walk
+//                   the column tiles first, so each row tile of x comes
+//                   from device memory once.
 //   project_small_kernel  any other shape (K = 3, K = 9, unaligned rows):
 //                   a thread four consecutive outputs of a row (one where
 //                   ncols % 4 != 0 or w or out is unaligned), x and w read
@@ -40,50 +37,18 @@
 // bound are in PERF.md (chip_smoke.py, phases 7 and 11).
 #include <cuda_runtime.h>
 
+#include "gemm128.cuh"
 #include "knn_select.cuh"
 
 namespace {
 
-constexpr int PTHREADS = 256;
-constexpr int PM = 128;         // rows of a block tile
-constexpr int PN = 128;         // columns of a block tile
-constexpr int PK = 32;          // k a chunk
-constexpr int PAS = PK + 4;     // row stride of the x tile (floats)
-constexpr int PA = PM * PAS;    // floats of an x buffer
-constexpr int PB = PK * PN;     // floats of a w buffer
-constexpr size_t PSMEM = sizeof(float) * 2 * (PA + PB);  // two buffers
-
-// One 16-byte asynchronous copy, zero-filled when `in` is false.
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       bool in) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-// Starts the copies of chunk k0 of the block's x rows (into a) and w
-// columns (into b), 16 bytes a copy.
-__device__ __forceinline__ void load_chunk(float* a, float* b,
-                                           const float* __restrict__ x,
-                                           int M, int K, int m0,
-                                           const float* __restrict__ w,
-                                           int ncols, int n0, int k0) {
-#pragma unroll
-  for (int e = threadIdx.x; e < PM * PK / 4; e += PTHREADS) {
-    const int r = e / (PK / 4), c = (e % (PK / 4)) * 4;
-    const bool in = m0 + r < M && k0 + c < K;
-    copy16(a + r * PAS + c, in ? x + (size_t)(m0 + r) * K + k0 + c : x, in);
-  }
-#pragma unroll
-  for (int e = threadIdx.x; e < PK * PN / 4; e += PTHREADS) {
-    const int r = e / (PN / 4), c = (e % (PN / 4)) * 4;
-    const bool in = k0 + r < K && n0 + c < ncols;
-    copy16(b + r * PN + c, in ? w + (size_t)(k0 + r) * ncols + n0 + c : w,
-           in);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+constexpr int PTHREADS = dg::G128_THREADS;
+constexpr int PM = dg::G128_M;
+constexpr int PN = dg::G128_N;
+constexpr int PK = dg::G128_K;
+constexpr int PA = dg::G128_A;
+constexpr int PB = dg::G128_B;
+constexpr size_t PSMEM = dg::G128_SMEM;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -107,39 +72,17 @@ __global__ void __launch_bounds__(PTHREADS, 2)
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   const int chunks = (K + PK - 1) / PK;
-  load_chunk(psm, psm + 2 * PA, x, M, K, m0, w, ncols, n0, 0);
+  dg::g128_load_chunk(psm, psm + 2 * PA, x, M, K, m0, w, ncols, n0, 0);
   for (int c = 0; c < chunks; ++c) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     // chunk c has landed for every thread, and every thread is done with
     // chunk c - 1, whose buffer the next copy fills
     __syncthreads();
     if (c + 1 < chunks)
-      load_chunk(psm + ((c + 1) & 1) * PA, psm + 2 * PA + ((c + 1) & 1) * PB,
-                 x, M, K, m0, w, ncols, n0, (c + 1) * PK);
-    const float* as = psm + (c & 1) * PA + 4 * ty * PAS;
-    const float* bs = psm + 2 * PA + (c & 1) * PB + 4 * tx;
-#pragma unroll
-    for (int k4 = 0; k4 < PK; k4 += 4) {
-      float4 a[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        a[i] = ld4(as + ((i & 3) + (i >> 2) * 64) * PAS + k4);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 b0 = ld4(bs + (k4 + kk) * PN);
-        const float4 b1 = ld4(bs + (k4 + kk) * PN + 64);
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float av = kk == 0   ? a[i].x
-                           : kk == 1 ? a[i].y
-                           : kk == 2 ? a[i].z
-                                     : a[i].w;
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
-        }
-      }
-    }
+      dg::g128_load_chunk(psm + ((c + 1) & 1) * PA,
+                          psm + 2 * PA + ((c + 1) & 1) * PB, x, M, K, m0, w,
+                          ncols, n0, (c + 1) * PK);
+    dg::g128_fma_chunk(acc, psm + (c & 1) * PA, psm + 2 * PA + (c & 1) * PB);
   }
 
 #pragma unroll

@@ -1,12 +1,16 @@
-// Shared-memory tiled f32 GEMM tile, the matrix-product core of the conv5
-// product of conv_pool.cu.  (The projections of kernels 1, 4 and 12 have
-// their own register-blocked kernel, project.cu.)
+// Shared-memory tiled f32 GEMM tile, the product of conv_pool.cu's first
+// form (conv_pool_kernel): the route of the shapes the register-blocked
+// conv_pool_gemm_kernel does not take (an input width or E not a multiple
+// of 4, an unaligned input) and dg_conv_pool_tile64, the earlier side of
+// kernel 2's A/B.  (Every model's shapes take gemm128.cuh's core.)
 //
 // A block of GEMM_THREADS = 256 threads owns a 64 x 64 output tile; thread
 // (tx, ty) = (tid % 16, tid / 16) owns rows 4*ty..4*ty+3 and columns
 // 4*tx..4*tx+3 of it.  K is walked in chunks of 16 staged through shared
-// memory (A stored k-major so both operands are read as float4).  Plain
-// FMA on the CUDA cores, f32 throughout: no tensor cores yet.
+// memory by scalar loads (A stored k-major so both operands are read as
+// float4), two block barriers a chunk and no copy overlapped with the
+// math.  Each output is one fmaf chain over k, 0 ascending, as in
+// gemm128.cuh.  Plain FMA on the CUDA cores, f32 throughout.
 #pragma once
 
 #include <cuda_runtime.h>

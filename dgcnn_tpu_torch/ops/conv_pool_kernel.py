@@ -3,10 +3,20 @@ hand-written CUDA.
 
 Replaces ``dgcnn_tpu/ops/pallas_pool.py::fused_conv_pool`` (body
 ``_conv_pool_kernel``) in its f32 mode.  The kernel is
-``csrc/conv_pool.cu``; its note states the bound on an H100 and what the
-design does about it.  ``conv_pool_plain`` beside it is the same function
-in plain torch: the wrapper runs it for CPU tensors and launches the kernel
-for CUDA tensors.
+``csrc/conv_pool.cu``.  It is bound by operations on an H100 (the DGCNNCls
+head's product is ~69 GFLOP, ~1.0 ms at the f32 CUDA-core peak).  Every
+model's shapes (input widths and E multiples of 4, aligned rows) take its
+register-blocked route: 128 x 128 output tiles of ``csrc/gemm128.cuh``'s
+core (the projection's), 8 x 8 registers a thread, 32-deep k chunks copied
+by 16-byte ``cp.async`` into a second buffer, the grid split over row
+groups of each cloud whose partial max and sum rows a second small kernel
+adds in group order.  Other shapes take the first form, a 64 x 64 tile a
+block walking the whole cloud (``tile64=True`` forces it at any shape, for
+the checks and the A/B).  Both routes give y the same bits, so the max row
+is bit-equal between them; the mean sums in another fixed order on each,
+the same bits from call to call.  ``conv_pool_plain`` beside it is the same
+function in plain torch: the wrapper runs it for CPU tensors and launches
+the kernel for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -29,15 +39,22 @@ def conv_pool_plain(xs, w, scale, bias, slope: float = 0.2,
     return torch.stack(rows, dim=1)
 
 
-def _lib():
-    lib = _build.load_library()
-    fn = lib.dg_conv_pool
+def _fn(name: str, scratch: bool):
+    fn = getattr(_build.load_library(), name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, p, p, p, p, i, i, i,
-                       ctypes.c_float, i, p]
+        fn.argtypes = ([p] * 4 + [i] * 5 + [p] * (5 if scratch else 4)
+                       + [i] * 3 + [ctypes.c_float, i, p])
         fn.restype = i
     return fn
+
+
+def _scratch_floats(b: int, n: int, e: int) -> int:
+    fn = _build.load_library().dg_conv_pool_scratch_floats
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+    return fn(b, n, e)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -46,7 +63,8 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-              slope: float = 0.2, with_mean: bool = True) -> torch.Tensor:
+              slope: float = 0.2, with_mean: bool = True, *,
+              tile64: bool = False) -> torch.Tensor:
     """LeakyReLU((concat(xs) @ w) * scale + bias) pooled over N.
 
     ``xs``: up to four (B, N, Ci) tensors whose channel concat is the conv
@@ -54,7 +72,9 @@ def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     Returns (B, 2, E): row 0 the max over N, row 1 the mean (with_mean=False
     keeps only the max row).  CPU tensors take the plain version; CUDA
     tensors launch the kernel, which takes f32 contiguous inputs and raises
-    on anything else."""
+    on anything else.  The kernel's route is decided from the shape before
+    the launch (the module's note); ``tile64`` launches the first form at
+    any shape."""
     xs = tuple(xs)
     if xs[0].device.type == "cpu":
         return conv_pool_plain(xs, w, scale, bias, slope, with_mean)
@@ -75,7 +95,8 @@ def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _require(w.shape == (c, e), f"w {tuple(w.shape)} vs {c} input channels")
     _require(scale.shape == (e,) and bias.shape == (e,),
              "scale/bias must be (E,)")
-    fn = _lib()
+    fn = _fn("dg_conv_pool_tile64" if tile64 else "dg_conv_pool",
+             not tile64)
     # the launch is asynchronous on torch's current stream: tensors made here
     # and freed on return are reused by the caching allocator only for work
     # queued after it on that stream
@@ -87,9 +108,16 @@ def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ptrs = [_build.ptr(x) for x in xs] + [None] * (MAX_INPUTS - len(xs))
     widths = [x.shape[2] for x in xs] + [0] * (MAX_INPUTS - len(xs))
     p = _build.ptr
+    scratch = []  # the row groups' partial rows (none on one group)
+    if not tile64:
+        floats = _scratch_floats(b, n, e)
+        part = (torch.empty((floats,), device=dev, dtype=torch.float32)
+                if floats else None)
+        scratch = [None if part is None else p(part)]
     with torch.cuda.device(dev):
-        rc = fn(*ptrs, *widths, len(xs), p(w), p(scale), p(bias), p(out),
-                b, n, e, float(slope), int(with_mean), _build.stream_of(w))
+        rc = fn(*ptrs, *widths, len(xs), p(w), p(scale), p(bias), *scratch,
+                p(out), b, n, e, float(slope), int(with_mean),
+                _build.stream_of(w))
     _build.check(rc, "conv_pool")
     conv_pool.launches += 1
     return out

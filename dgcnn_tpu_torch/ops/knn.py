@@ -13,8 +13,14 @@ clouds whose size the kernels do not take (``use_kernel``, the port of
 ``use_pallas``), take ``knn_plain``; other CUDA tensors launch
 ``csrc/knn_idx.cu``, which replaces
 ``dgcnn_tpu/ops/pallas_knn.py::knn_pallas`` (body ``_knn_only_kernel``) in
-its exact mode.  The kernel's note states its bound on an H100 and what
-the design does about it.
+its exact mode.  The kernel is bound by operations on an H100 (~0.014 ms
+at the partseg TransformNet's graph); what it pays beyond that is the
+selection.  At k <= 64 (every model) it runs the tiled selection of
+``csrc/knn_select.cuh`` (64 query rows a block, the cloud streamed in
+128-column tiles past a running top-k a row, each list written in order);
+above, the row-warp selection (a warp a row, k rounds of arg-max), which
+``rowwarp=True`` forces at any k for the checks.  Both give the same
+indices, ties included, and the same from call to call.
 """
 from __future__ import annotations
 
@@ -67,7 +73,7 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"knn: {msg}")
 
 
-def knn(x: torch.Tensor, k: int) -> torch.Tensor:
+def knn(x: torch.Tensor, k: int, *, rowwarp: bool = False) -> torch.Tensor:
     """(B, N, C) -> (B, N, k) int64 neighbour indices, nearest (self)
     first, lowest index first among equal scores.  No gradient flows
     through the selection.
@@ -77,7 +83,9 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
     take ``knn_plain``; other CUDA tensors launch the kernel, which takes
     f32 contiguous points and raises on anything else.  The kernel writes
     int32 indices; they are widened to int64, the index type of torch's
-    gathers, so that both devices return the same type."""
+    gathers, so that both devices return the same type.  ``rowwarp``
+    launches the kernel's row-warp route at any k (k <= 64 takes the tiled
+    route otherwise)."""
     x = x.detach()
     if x.device.type == "cpu" or not use_kernel(x.shape[1]):
         return knn_plain(x, k)
@@ -87,7 +95,8 @@ def knn(x: torch.Tensor, k: int) -> torch.Tensor:
              "x must be a contiguous (B, N, C) tensor")
     b, n, c = x.shape
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
-    fn = _build.load_library().dg_knn_idx
+    fn = getattr(_build.load_library(),
+                 "dg_knn_idx_rowwarp" if rowwarp else "dg_knn_idx")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, i, i, i, p]

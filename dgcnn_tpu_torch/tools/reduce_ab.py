@@ -1,11 +1,13 @@
 """A/B timing of kernel 3 (``dg_knn_reduce``), kernel 8
 (``dg_edge2_bwd``), kernel 1 (``dg_edge_conv_eval``), kernel 6
-(``dg_knn_edge2``), kernel 5 (``dg_edge_reduce_bwd``) or kernel 7
-(``dg_edge2_fwd``) against its earlier row-warp form on one card.
+(``dg_knn_edge2``), kernel 5 (``dg_edge_reduce_bwd``), kernel 7
+(``dg_edge2_fwd``) or kernel 11 (``dg_knn_idx``) against its earlier
+row-warp form on one card.  (Kernel 2's A/B is ``tools/pool_ab.py``.)
 
 Builds the kernel's source (``csrc/knn_reduce.cu``, ``csrc/edge2_bwd.cu``,
 ``csrc/edge_conv_eval.cu``, ``csrc/knn_edge2.cu``,
-``csrc/edge_reduce_bwd.cu`` or ``csrc/edge2_reduce.cu``) into a library of
+``csrc/edge_reduce_bwd.cu``, ``csrc/edge2_reduce.cu`` or
+``csrc/knn_idx.cu``) into a library of
 its own, and for kernels 3, 8, 5 and 7 their earlier form
 (``tools/reduce_forms/*_rowwarp.cu``) into another (one ``nvcc`` a form,
 all started together; the kNN forms link ``csrc/edge_conv_eval.cu`` and
@@ -17,6 +19,10 @@ and 6 keep their row-warp form in ``csrc/`` for the banded kernels 12 and
 13 and for k > 64: the banded entry at band = N, tile 128 and window starts
 0 is that form over the whole cloud, so the row-warp side of their A/B is
 the same library's ``dg_banded_edge_conv_eval`` / ``dg_banded_knn_edge2``.
+Kernel 11 keeps its row-warp form as its k > 64 route, and the row-warp
+side of its A/B is the same library's ``dg_knn_idx_rowwarp`` (that route
+at any k; the kernel links ``csrc/edge_conv_eval.cu`` and
+``csrc/project.cu`` for the squared norms).
 Then times the forms at every cell's shapes in the order a b b a, as
 device times (calls queued behind a sleep of the card,
 ``project_ab.device_ms``), and holds them to each other:
@@ -57,6 +63,11 @@ device times (calls queued behind a sleep of the card,
   and k = 129 (its row-warp route); and integer duplicate points whose
   k-th and (k+1)-th scores tie; all four outputs bit-equal between the
   forms.
+- ``--kernel knn_idx``: C = 3 at the partseg TransformNet's graph (B=32,
+  N=2048, k=40), the fusion Net training's (B=32, N=2048, k=32) and N =
+  4096 (B=8, k=40), and k = 65 (the row-warp route of both); idx identical
+  between the forms and over two calls, and on integer duplicate points
+  whose k-th and (k+1)-th scores tie.
 
 ``--root DIR`` builds the kernel's source from another checkout (its
 ``dgcnn_tpu_torch/csrc``), the earlier form from this one; ``--form
@@ -68,7 +79,7 @@ Exits non-zero without a CUDA card or when a check fails.
 
     python -m dgcnn_tpu_torch.tools.reduce_ab --kernel
         knn_reduce|edge2_bwd|edge_conv_eval|knn_edge2|edge_reduce_bwd|
-        edge2_fwd [--root DIR] [--form NAME=PATH ...]
+        edge2_fwd|knn_idx [--root DIR] [--form NAME=PATH ...]
 """
 from __future__ import annotations
 
@@ -93,24 +104,27 @@ _FORMS_DIR = os.path.join(_HERE, "reduce_forms")
 SOURCES = {"knn_reduce": "knn_reduce.cu", "edge2_bwd": "edge2_bwd.cu",
            "edge_conv_eval": "edge_conv_eval.cu", "knn_edge2": "knn_edge2.cu",
            "edge_reduce_bwd": "edge_reduce_bwd.cu",
-           "edge2_fwd": "edge2_reduce.cu"}
+           "edge2_fwd": "edge2_reduce.cu", "knn_idx": "knn_idx.cu"}
 # the sources a form links: launch_sqnorm, dg_cuda_error_string and
 # launch_project
 HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu"),
            "edge2_bwd": (), "edge_conv_eval": ("project.cu",),
            "knn_edge2": ("edge_conv_eval.cu", "project.cu"),
-           "edge_reduce_bwd": (), "edge2_fwd": ()}
+           "edge_reduce_bwd": (), "edge2_fwd": (),
+           "knn_idx": ("edge_conv_eval.cu", "project.cu")}
 # probe forms built beside the earlier one (never on any path)
 PROBES = {"edge_reduce_bwd": {"store": "edge_reduce_bwd_store.cu"}}
-# the kernels whose row-warp form is their own banded entry at band = N
-BANDED = {"edge_conv_eval": "dg_banded_edge_conv_eval",
-          "knn_edge2": "dg_banded_knn_edge2"}
+# the kernels whose row-warp form is an entry of their own library: the
+# banded entry at band = N, or the row-warp route at any k
+ROWWARP_ENTRY = {"edge_conv_eval": "dg_banded_edge_conv_eval",
+                 "knn_edge2": "dg_banded_knn_edge2",
+                 "knn_idx": "dg_knn_idx_rowwarp"}
 # ptxas lines worth printing: the kernel's own instances
 PTXAS_KEYS = {"knn_reduce": ("reduce",), "edge2_bwd": ("bwd", "partial"),
               "edge_conv_eval": ("select_kernel", "edge_conv_eval"),
               "knn_edge2": ("knn_edge2",),
               "edge_reduce_bwd": ("edge_reduce_bwd",),
-              "edge2_fwd": ("edge2_fwd",)}
+              "edge2_fwd": ("edge2_fwd",), "knn_idx": ("knn_idx",)}
 TB = 32
 # (cell, N, k, [(Cg, Co), ...])
 KNN_SHAPES = [
@@ -151,6 +165,10 @@ BWD_SHAPES = [
 FWD_SHAPES = [("seg", 4096, 20, 64), ("part", 2048, 40, 64),
               ("row-warp route C2=128", 1024, 20, 128),
               ("row-warp route k=129", 1024, 129, 64)]
+# (cell, B, N, k): kernel 11 at the TransformNets' graphs (C = 3)
+KNN_IDX_SHAPES = [("part", TB, 2048, 40), ("net train", TB, 2048, 32),
+                  ("N=4096", 8, 4096, 40), ("row-warp route k=65", TB, 1024,
+                                             65)]
 
 
 def build(kernel: str, root: str,
@@ -160,7 +178,7 @@ def build(kernel: str, root: str,
     lines."""
     csrc = os.path.join(root, "dgcnn_tpu_torch", "csrc")
     forms = {"kernel": os.path.join(csrc, SOURCES[kernel])}
-    if kernel not in BANDED:
+    if kernel not in ROWWARP_ENTRY:
         forms["rowwarp"] = os.path.join(
             _FORMS_DIR, SOURCES[kernel][:-3] + "_rowwarp.cu")
     forms.update({name: os.path.join(_FORMS_DIR, src)
@@ -191,7 +209,7 @@ def build(kernel: str, root: str,
             raise RuntimeError(f"nvcc failed on {forms[name]}:\n{log}")
         built[name] = (lib, [ln for ln in _ptxas_summary(log)
                              if any(key in ln for key in PTXAS_KEYS[kernel])])
-    if kernel in BANDED:  # the row-warp form: the kernel library's banded entry
+    if kernel in ROWWARP_ENTRY:  # the row-warp form: the kernel library's
         built = {"kernel": built["kernel"], "rowwarp": built["kernel"],
                  **{n: f for n, f in built.items() if n != "kernel"}}
     return built
@@ -200,12 +218,18 @@ def build(kernel: str, root: str,
 def _entry(lib: str, kernel: str, name: str):
     """The form's C entry of the kernel and, for kernel 8, its tile count
     (None where the form has none).  The row-warp form of kernels 1 and 6
-    is their banded entry."""
+    is their banded entry, that of kernel 11 its row-warp route."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll = ctypes.CDLL(lib)
-    if kernel in BANDED:
+    if kernel == "knn_idx":
+        fn = getattr(dll, ROWWARP_ENTRY[kernel] if name == "rowwarp" else
+                     "dg_knn_idx")
+        fn.argtypes = [p] * 3 + [i] * 4 + [p]
+        fn.restype = i
+        return fn, None
+    if kernel in ROWWARP_ENTRY:
         banded = name == "rowwarp"
-        fn = getattr(dll, BANDED[kernel] if banded else "dg_" + kernel)
+        fn = getattr(dll, ROWWARP_ENTRY[kernel] if banded else "dg_" + kernel)
         nptr = 8 if kernel == "edge_conv_eval" else 10
         fn.argtypes = [p] * (nptr + banded) + [i] * (6 + 2 * banded) + [f, p]
         fn.restype = i
@@ -648,6 +672,58 @@ def run_fwd(entries: dict, result: dict, order: list[str]) -> list[str]:
     return bad
 
 
+def run_knn_idx(entries: dict, result: dict, order: list[str]) -> list[str]:
+    """Kernel 11: every form at the graphs' shapes (timed), then on integer
+    duplicate points; idx identical between the forms and over two
+    calls."""
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    p = _build.ptr
+    cases = [(f"{cell} B={b} N={n} k={k} C=3", b, n, k, False)
+             for cell, b, n, k in KNN_IDX_SHAPES]
+    cases += [(f"integer duplicates B=2 N=1024 k={k} C=3", 2, 1024, k, True)
+              for k in (20, 40)]
+    bad = []
+    for key, b, n, k, integer in cases:
+        if integer:  # every point four times on a small grid
+            base = torch.randint(-2, 3, (b, n // 4, 3), generator=g).float()
+            x = torch.cat([base] * 4, dim=1).to(dev).contiguous()
+        else:
+            x = torch.randn((b, n, 3), generator=g).to(dev)
+        outs = {}
+        for name in order:
+            fn = entries[name][0]
+            idx = torch.empty((b, n, k), device=dev, dtype=torch.int32)
+            sq = torch.empty((b * n,), device=dev)
+            args = (p(x), p(sq), p(idx), b, n, 3, k, _build.stream_of(x))
+            if not integer:
+                ms = device_ms(lambda: _call(fn, *args), reps=5, rounds=5)
+                result["forms"][name]["ms"].setdefault(key, []).append(ms)
+                print(f"{name} {key} ms {ms:.4f}", flush=True)
+            _call(fn, *args)
+            first = idx.clone()
+            _call(fn, *args)
+            torch.cuda.synchronize()
+            outs[name] = (idx, torch.equal(first, idx))
+        same = all(torch.equal(idx, outs["rowwarp"][0]) and again
+                   for idx, again in outs.values())
+        check = {"shape": key, "identical": same}
+        if integer:  # the case must put the k-th boundary inside ties
+            from dgcnn_tpu_torch.ops.knn import pairwise_neg_sqdist
+
+            top = pairwise_neg_sqdist(x).topk(k + 1, dim=-1).values
+            check["rows_tied_at_kth"] = int(
+                (top[..., k - 1] == top[..., k]).sum())
+            same = same and check["rows_tied_at_kth"] > 0
+        result["checks"].append(check)
+        print(f"{key}: {json.dumps(check)}", flush=True)
+        if not same:
+            bad.append(key)
+        del x, outs
+        torch.cuda.empty_cache()
+    return bad
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", choices=tuple(SOURCES), required=True)
@@ -682,7 +758,8 @@ def main() -> None:
     run = {"knn_reduce": run_knn, "edge2_bwd": run_edge2,
            "edge_conv_eval": functools.partial(run_eval, "edge_conv_eval"),
            "knn_edge2": functools.partial(run_eval, "knn_edge2"),
-           "edge_reduce_bwd": run_bwd, "edge2_fwd": run_fwd}
+           "edge_reduce_bwd": run_bwd, "edge2_fwd": run_fwd,
+           "knn_idx": run_knn_idx}
     bad = run[args.kernel](entries, result, order)
     print(json.dumps(result), flush=True)
     if bad:

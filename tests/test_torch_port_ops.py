@@ -468,6 +468,58 @@ def test_conv_pool_kernel_matches_plain(cuda_device):
             <= 1e-4 * (want.abs() + want.pow(2).mean().sqrt())).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,widths,with_mean", [
+    (1024, (64, 64, 128, 256), True),   # DGCNNCls conv5
+    (1000, (64, 64, 128, 256), True),   # the last row tile masked
+    (2048, (192,), False),              # the partseg conv6
+])
+def test_conv_pool_register_blocked_route_matches_first_form(
+        cuda_device, n, widths, with_mean):
+    """Kernel 2's register-blocked route against its first form
+    (tile64=True): the max row bit-equal, the mean within rel 1e-6 of
+    each element's |mean| plus the row's rms, the same bits over two
+    calls, every row within rel 1e-4 of the plain version."""
+    rng = np.random.default_rng(12)
+    xs = tuple(_t(rng.standard_normal((4, n, c)).astype(np.float32))
+               .to(cuda_device) for c in widths)
+    w = _t((rng.standard_normal((sum(widths), 1024)) / 16).astype(
+        np.float32)).to(cuda_device)
+    sc, bi = (_t(rng.uniform(-0.5, 1.5, 1024).astype(np.float32)).to(
+        cuda_device) for _ in range(2))
+    got = conv_pool(xs, w, sc, bi, with_mean=with_mean)
+    again = conv_pool(xs, w, sc, bi, with_mean=with_mean)
+    first = conv_pool(xs, w, sc, bi, with_mean=with_mean, tile64=True)
+    want = conv_pool_plain(xs, w, sc, bi, with_mean=with_mean)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0], first[:, 0])
+    assert torch.equal(got, again)
+    if with_mean:
+        m = first[:, 1]
+        rms = m.pow(2).mean(-1, keepdim=True).sqrt()
+        assert ((got[:, 1] - m).abs() <= 1e-6 * (m.abs() + rms)).all()
+    assert ((got - want).abs()
+            <= 1e-4 * (want.abs() + want.pow(2).mean().sqrt())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, 32, 40])
+@pytest.mark.parametrize("dup", [False, True])
+def test_knn_tiled_route_matches_rowwarp(cuda_device, k, dup):
+    """Kernel 11's tiled route (k <= 64) gives the row-warp route's idx,
+    ties included, and the same over two calls; exact against the plain
+    version on duplicate points."""
+    x = (_duplicate_cloud(70 + k, n=1024, c=3) if dup else
+         np.random.default_rng(70 + k).standard_normal((2, 1024, 3)).astype(
+             np.float32))
+    x = _t(x).to(cuda_device)
+    got = knn(x, k)
+    assert torch.equal(got, knn(x, k))
+    assert torch.equal(got, knn(x, k, rowwarp=True))
+    if dup:
+        assert torch.equal(got, knn_plain(x, k))
+
+
 def _row_match(got, want, rtol=1e-4):
     """Mask of the (b, i) rows whose every channel is within rtol of the
     plain version's, scaled by |want| + rms(want) (chip_smoke.row_match)."""
