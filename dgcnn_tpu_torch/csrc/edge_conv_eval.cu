@@ -44,14 +44,23 @@
 // memory.  The scores run on the CUDA cores in f32 (the exact mode needs
 // f32 products, which rules out TF32).
 //
-// The row-warp route serves kernel 12, dgcnn_tpu/ops/pallas_banded.py::
-// banded_edge_conv_eval (the --fast_extract path): on a cloud in its
-// PC1-sorted order, each query tile scores only a window of `band` sorted
-// rows.  select_kernel stages that window instead of the whole cloud and
-// its scores cover band / 32 registers a lane, so the staging and the k
-// rounds of arg-max shrink by N / band; at band = N (starts 0) the banded
-// entry is the row-warp route of the exact stage over the window [0, N).  At the DGCNNPartSeg conv5 shape (B=16, N=2048, Cg=64, band 512)
-// the bound falls with the scores, to 2*B*N*band*Cg flops.
+// Kernel 12, dgcnn_tpu/ops/pallas_banded.py::banded_edge_conv_eval (the
+// --fast_extract path), is the same stage on a cloud in its PC1-sorted
+// order, each query tile scoring only a window of `band` sorted rows from
+// starts[tile index].  It takes the same two routes on the same rule:
+//   k <= 64 and Co <= 256: edge_conv_eval_tiled_kernel<..., true>, the
+//     tiled selection over the window (tiled_topk's columns are the window
+//     rows, each block's 64 query rows lying in one query tile), so a
+//     block streams band / 128 column tiles instead of N / 128, the tile
+//     that holds its own query rows first (knn_select.cuh); the lists hold
+//     rows of the sorted cloud and the fold is unchanged.
+//   any other shape: select_kernel over the window (it stages the window
+//     instead of the cloud; band / 32 scores a lane).
+// dg_banded_edge_conv_eval_rowwarp takes the row-warp route at any shape:
+// at band = N in the identity order (starts 0) it is the exact stage's
+// row-warp route, the oracle that holds the tiled routes to its bits.  At
+// the DGCNNPartSeg conv5 shape (B=16, N=2048, Cg=64, band 512) the bound
+// falls with the scores, to 2*B*N*band*Cg flops.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -134,22 +143,27 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
 // The tiled route: the block's 64 rows' lists (tiled_topk), then each
 // warp its eight rows, CPL output channels a lane (Co <= 32 * CPL).  The
 // members' rows of a are folded in list order, which is pop_nearest's
-// order, and the epilogue is select_kernel's.
-template <int KL, int CPL>
+// order, and the epilogue is select_kernel's.  BANDED: the candidates are
+// the W rows from starts[r0 / tile] (kernel 12), the query rows' own tile
+// streamed first; else the whole cloud.
+template <int KL, int CPL, bool BANDED>
 __global__ void __launch_bounds__(dg::TS_THREADS, 2)
     edge_conv_eval_tiled_kernel(const float* __restrict__ graph, int Cg,
                                 const float* __restrict__ sq,
                                 const float* __restrict__ ac, int Co,
                                 const float* __restrict__ scale,
                                 const float* __restrict__ bias, float slope,
-                                int N, int k, float* __restrict__ out) {
+                                int N, int k, const int* __restrict__ starts,
+                                int tile, int W, float* __restrict__ out) {
   extern __shared__ __align__(16) float tsm[];
   const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
-                     r0, k, tsm, ls, li);
+  dg::tiled_topk<KL, BANDED>(graph + (size_t)b * N * Cg, Cg,
+                             sq + (size_t)b * N,
+                             BANDED ? starts[r0 / tile] : 0, BANDED ? W : N,
+                             r0, k, tsm, ls, li);
 
   const int row = 2 * Co;
   const float* A = ac + (size_t)b * N * row;
@@ -196,38 +210,51 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   }
 }
 
-template <int KL, int CPL>
-cudaError_t launch_tiled(const float* graph, const float* sq,
-                         const float* ac, int Co, const float* scale,
-                         const float* bias, float slope, int B, int N,
-                         int Cg, int k, float* out, cudaStream_t st) {
+// The tiled kernel's launch arguments: the stage's tensors and shape, and
+// for the banded stage the window starts, the query tile and the band.
+struct TiledArgs {
+  const float *graph, *scale, *bias;
+  const int* starts;
+  float *sq, *ac, *out;
+  int B, N, Cg, Co, k, tile, W;
+  float slope;
+};
+
+template <int KL, int CPL, bool BANDED>
+cudaError_t launch_tiled(const TiledArgs& a, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      edge_conv_eval_tiled_kernel<KL, CPL>,
+      edge_conv_eval_tiled_kernel<KL, CPL, BANDED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dg::TS_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  edge_conv_eval_tiled_kernel<KL, CPL>
-      <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
-          graph, Cg, sq, ac, Co, scale, bias, slope, N, k, out);
+  edge_conv_eval_tiled_kernel<KL, CPL, BANDED>
+      <<<dim3(a.N / dg::TS_R, a.B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
+          a.graph, a.Cg, a.sq, a.ac, a.Co, a.scale, a.bias, a.slope, a.N,
+          a.k, a.starts, a.tile, a.W, a.out);
   return cudaGetLastError();
 }
 
-template <int KL>
-cudaError_t launch_tiled_co(const float* graph, const float* sq,
-                            const float* ac, int Co, const float* scale,
-                            const float* bias, float slope, int B, int N,
-                            int Cg, int k, float* out, cudaStream_t st) {
-  if (Co <= 64)
-    return launch_tiled<KL, 2>(graph, sq, ac, Co, scale, bias, slope, B, N,
-                               Cg, k, out, st);
-  if (Co <= 128)
-    return launch_tiled<KL, 4>(graph, sq, ac, Co, scale, bias, slope, B, N,
-                               Cg, k, out, st);
-  return launch_tiled<KL, 8>(graph, sq, ac, Co, scale, bias, slope, B, N,
-                             Cg, k, out, st);
+template <int KL, bool BANDED>
+cudaError_t launch_tiled_co(const TiledArgs& a, cudaStream_t st) {
+  if (a.Co <= 64) return launch_tiled<KL, 2, BANDED>(a, st);
+  if (a.Co <= 128) return launch_tiled<KL, 4, BANDED>(a, st);
+  return launch_tiled<KL, 8, BANDED>(a, st);
 }
 
-// The route of the exact stage, from the shape alone.
+// The route of the exact and the banded stage, from the shape alone.
 bool tiled_route(int Co, int k) { return k <= dg::TS_LIST && Co <= 256; }
+
+// sqnorm, projection and the tiled selection of one stage, its list size
+// picked from k.
+template <bool BANDED>
+cudaError_t launch_tiled_stage(const float* x, const float* wcat, int Cin,
+                               const TiledArgs& a, cudaStream_t st) {
+  cudaError_t e = dg::launch_sqnorm(a.graph, a.B * a.N, a.Cg, a.sq, st);
+  if (e != cudaSuccess) return e;
+  e = dg::launch_project(x, a.B * a.N, Cin, wcat, 2 * a.Co, a.ac, st);
+  if (e != cudaSuccess) return e;
+  if (a.k <= 32) return launch_tiled_co<1, BANDED>(a, st);
+  return launch_tiled_co<2, BANDED>(a, st);
+}
 
 // sqnorm, projection and selection of one stage whose candidates are the
 // windows described above select_kernel.
@@ -289,33 +316,56 @@ extern "C" int dg_edge_conv_eval(const float* graph, const float* x,
   if (!tiled_route(Co, k))
     return (int)launch_stage(graph, x, wcat, scale, bias, ac, sq, out, B, N,
                              Cg, Cin, Co, k, slope, nullptr, N, N, st);
-  cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
-  if (e != cudaSuccess) return (int)e;
-  e = dg::launch_project(x, B * N, Cin, wcat, 2 * Co, ac, st);
-  if (e != cudaSuccess) return (int)e;
-  if (k <= 32)
-    return (int)launch_tiled_co<1>(graph, sq, ac, Co, scale, bias, slope, B,
-                                   N, Cg, k, out, st);
-  return (int)launch_tiled_co<2>(graph, sq, ac, Co, scale, bias, slope, B, N,
-                                 Cg, k, out, st);
+  const TiledArgs a{graph, scale, bias, nullptr, sq, ac, out,
+                    B, N, Cg, Co, k, N, N, slope};
+  return (int)launch_tiled_stage<false>(x, wcat, Cin, a, st);
 }
 
-// Kernel 12, banded_edge_conv_eval: the same stage on a cloud in its
-// PC1-sorted order, the candidates of each query tile of `tile` rows the
-// `band` rows from starts[tile index] (the sort, the window starts and the
-// un-sort are the caller's).  starts (N / tile,) int32 on the device; the
-// other arguments as above.  Returns the first CUDA error.
-extern "C" int dg_banded_edge_conv_eval(
-    const float* graph, const float* x, const float* wcat,
-    const float* scale, const float* bias, const int* starts, float* ac,
-    float* sq, float* out, int B, int N, int Cg, int Cin, int Co, int k,
-    int tile, int band, float slope, void* stream) {
+namespace {
+
+int banded_stage(const float* graph, const float* x, const float* wcat,
+                 const float* scale, const float* bias, const int* starts,
+                 float* ac, float* sq, float* out, int B, int N, int Cg,
+                 int Cin, int Co, int k, int tile, int band, float slope,
+                 bool rowwarp, cudaStream_t st) {
   if (B < 1 || N % 128 != 0 || N > MAX_N || band % 128 != 0 || band < 128 ||
       band > N || tile % 128 != 0 || tile < 128 || tile > band ||
       N % tile != 0 || Co < 1 || Co > dg::max_co(band) || Cg < 1 ||
       Cin < 1 || k < 1 || k > band)
     return (int)cudaErrorInvalidValue;
-  return (int)launch_stage(graph, x, wcat, scale, bias, ac, sq, out, B, N,
-                           Cg, Cin, Co, k, slope, starts, tile, band,
-                           (cudaStream_t)stream);
+  if (rowwarp || !tiled_route(Co, k))
+    return (int)launch_stage(graph, x, wcat, scale, bias, ac, sq, out, B, N,
+                             Cg, Cin, Co, k, slope, starts, tile, band, st);
+  const TiledArgs a{graph, scale, bias, starts, sq, ac, out,
+                    B, N, Cg, Co, k, tile, band, slope};
+  return (int)launch_tiled_stage<true>(x, wcat, Cin, a, st);
+}
+
+}  // namespace
+
+// Kernel 12, banded_edge_conv_eval: the same stage on a cloud in its
+// PC1-sorted order, the candidates of each query tile of `tile` rows the
+// `band` rows from starts[tile index] (the sort, the window starts and the
+// un-sort are the caller's).  starts (N / tile,) int32 on the device; the
+// other arguments as above.  The tiled route at k <= TS_LIST, the row-warp
+// route above.  Returns the first CUDA error.
+extern "C" int dg_banded_edge_conv_eval(
+    const float* graph, const float* x, const float* wcat,
+    const float* scale, const float* bias, const int* starts, float* ac,
+    float* sq, float* out, int B, int N, int Cg, int Cin, int Co, int k,
+    int tile, int band, float slope, void* stream) {
+  return banded_stage(graph, x, wcat, scale, bias, starts, ac, sq, out, B, N,
+                      Cg, Cin, Co, k, tile, band, slope, false,
+                      (cudaStream_t)stream);
+}
+
+// As dg_banded_edge_conv_eval on the row-warp route at any shape.
+extern "C" int dg_banded_edge_conv_eval_rowwarp(
+    const float* graph, const float* x, const float* wcat,
+    const float* scale, const float* bias, const int* starts, float* ac,
+    float* sq, float* out, int B, int N, int Cg, int Cin, int Co, int k,
+    int tile, int band, float slope, void* stream) {
+  return banded_stage(graph, x, wcat, scale, bias, starts, ac, sq, out, B, N,
+                      Cg, Cin, Co, k, tile, band, slope, true,
+                      (cudaStream_t)stream);
 }

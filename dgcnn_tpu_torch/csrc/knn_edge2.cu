@@ -53,11 +53,19 @@
 // edges in that order: their outputs are the same bits.  Neither the (B,
 // N, k, C1) hidden tensor nor idx reaches device memory.
 //
-// The row-warp kernel serves kernel 13, dgcnn_tpu/ops/pallas_banded.py::
-// banded_knn_edge2 (the --fast_extract path): on a cloud in its PC1-sorted
-// order each query tile's candidates are a window of `band` sorted rows
-// (see knn_edge2_kernel), so the staging, the scores and the arg-max
-// rounds shrink by N / band; the per-edge arithmetic is unchanged.
+// Kernel 13, dgcnn_tpu/ops/pallas_banded.py::banded_knn_edge2 (the
+// --fast_extract path), is the same block on a cloud in its PC1-sorted
+// order, each query tile's candidates a window of `band` sorted rows from
+// starts[tile index].  It takes the same two routes on the same rule: at
+// k <= 64, C1 <= 64 and C2 <= 128, knn_edge2_tiled_kernel<KL, true>, the
+// tiled selection over the window (a block streams band / 128 column
+// tiles instead of N / 128, the tile that holds its own query rows first:
+// knn_select.cuh; the lists hold rows of the sorted cloud) and the
+// consumer above unchanged; at other shapes knn_edge2_kernel over the
+// window (see there).  dg_banded_knn_edge2_rowwarp takes the row-warp
+// route at any shape: at band = N in the identity order (starts 0) it is
+// the exact block's row-warp route, the oracle that holds the tiled
+// routes to its bits.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -173,8 +181,10 @@ bool tiled_route(int C1, int C2, int k) {
 // The tiled route: the block's 64 rows' lists (tiled_topk), then their
 // edges in tiles of R = min(XR, XE / k) whole rows.  C1 and C2 are padded
 // to multiples of 4 in shared memory with zeros, which add nothing to a
-// z2 chain (a chain that starts at +0 never holds -0).
-template <int KL>
+// z2 chain (a chain that starts at +0 never holds -0).  BANDED: the
+// candidates are the W rows from starts[r0 / tile] (kernel 13), the query
+// rows' own tile streamed first; else the whole cloud.
+template <int KL, bool BANDED>
 __global__ void __launch_bounds__(dg::TS_THREADS, 2)
     knn_edge2_tiled_kernel(const float* __restrict__ graph, int Cg,
                            const float* __restrict__ sq,
@@ -185,14 +195,17 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
                            const float* __restrict__ t1,
                            const float* __restrict__ s2,
                            const float* __restrict__ t2, float slope, int N,
-                           int k, float* __restrict__ out) {
+                           int k, const int* __restrict__ starts, int tile,
+                           int W, float* __restrict__ out) {
   extern __shared__ __align__(16) float tsm[];
   const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
-                     r0, k, tsm, ls, li);
+  dg::tiled_topk<KL, BANDED>(graph + (size_t)b * N * Cg, Cg,
+                             sq + (size_t)b * N,
+                             BANDED ? starts[r0 / tile] : 0, BANDED ? W : N,
+                             r0, k, tsm, ls, li);
 
   float* hb = tsm;              // h1 of the tile's edges (XE, XC1)
   float* yb = hb + XE * XC1;    // h2 of one pass (XE, XP)
@@ -285,22 +298,43 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   }
 }
 
-template <int KL>
+template <int KL, bool BANDED>
 cudaError_t launch_tiled(const float* graph, const float* a1,
                          const float* b1, const float* w2, const float* s1,
                          const float* t1, const float* s2, const float* t2,
                          const float* sq, float* out, int B, int N, int Cg,
                          int C1, int C2, int k, float slope,
+                         const int* starts, int tile, int W,
                          cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_edge2_tiled_kernel<KL>,
+      knn_edge2_tiled_kernel<KL, BANDED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)XSMEM_BYTES);
   if (err != cudaSuccess) return err;
-  knn_edge2_tiled_kernel<KL>
+  knn_edge2_tiled_kernel<KL, BANDED>
       <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, XSMEM_BYTES, st>>>(
           graph, Cg, sq, a1, b1, C1, w2, C2, s1, t1, s2, t2, slope, N, k,
-          out);
+          starts, tile, W, out);
   return cudaGetLastError();
+}
+
+// sqnorm and the tiled kernel, its list size picked from k.
+template <bool BANDED>
+cudaError_t launch_tiled_block(const float* graph, const float* a1,
+                               const float* b1, const float* w2,
+                               const float* s1, const float* t1,
+                               const float* s2, const float* t2, float* sq,
+                               float* out, int B, int N, int Cg, int C1,
+                               int C2, int k, float slope, const int* starts,
+                               int tile, int W, cudaStream_t st) {
+  cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
+  if (e != cudaSuccess) return e;
+  if (k <= 32)
+    return launch_tiled<1, BANDED>(graph, a1, b1, w2, s1, t1, s2, t2, sq,
+                                   out, B, N, Cg, C1, C2, k, slope, starts,
+                                   tile, W, st);
+  return launch_tiled<2, BANDED>(graph, a1, b1, w2, s1, t1, s2, t2, sq, out,
+                                 B, N, Cg, C1, C2, k, slope, starts, tile, W,
+                                 st);
 }
 
 // sqnorm and the block kernel over the windows described above
@@ -349,20 +383,40 @@ extern "C" int dg_knn_edge2(const float* graph, const float* a1,
   if (!tiled_route(C1, C2, k))
     return (int)launch_block(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B,
                              N, Cg, C1, C2, k, slope, nullptr, N, N, st);
-  cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
-  if (e != cudaSuccess) return (int)e;
-  if (k <= 32)
-    return (int)launch_tiled<1>(graph, a1, b1, w2, s1, t1, s2, t2, sq, out,
-                                B, N, Cg, C1, C2, k, slope, st);
-  return (int)launch_tiled<2>(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B,
-                              N, Cg, C1, C2, k, slope, st);
+  return (int)launch_tiled_block<false>(graph, a1, b1, w2, s1, t1, s2, t2,
+                                        sq, out, B, N, Cg, C1, C2, k, slope,
+                                        nullptr, N, N, st);
 }
+
+namespace {
+
+int banded_block(const float* graph, const float* a1, const float* b1,
+                 const float* w2, const float* s1, const float* t1,
+                 const float* s2, const float* t2, const int* starts,
+                 float* sq, float* out, int B, int N, int Cg, int C1, int C2,
+                 int k, int tile, int band, float slope, bool rowwarp,
+                 cudaStream_t st) {
+  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || band % 128 != 0 ||
+      band < 128 || band > N || tile % 128 != 0 || tile < 128 ||
+      tile > band || N % tile != 0 || Cg < 1 || C1 < 1 || C1 > E2_MAXC ||
+      C2 < 1 || C2 > E2_MAXC || k < 1 || k > band)
+    return (int)cudaErrorInvalidValue;
+  if (rowwarp || !tiled_route(C1, C2, k))
+    return (int)launch_block(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B,
+                             N, Cg, C1, C2, k, slope, starts, tile, band, st);
+  return (int)launch_tiled_block<true>(graph, a1, b1, w2, s1, t1, s2, t2, sq,
+                                       out, B, N, Cg, C1, C2, k, slope,
+                                       starts, tile, band, st);
+}
+
+}  // namespace
 
 // Kernel 13, banded_knn_edge2: the same block on a cloud in its PC1-sorted
 // order, the candidates of each query tile of `tile` rows the `band` rows
 // from starts[tile index] (the sort, the window starts and the un-sort are
 // the caller's).  starts (N / tile,) int32 on the device; the other
-// arguments as above.  Returns the first CUDA error.
+// arguments as above.  The tiled route at k <= TS_LIST, C1 <= 64 and C2 <=
+// 128, the row-warp route otherwise.  Returns the first CUDA error.
 extern "C" int dg_banded_knn_edge2(const float* graph, const float* a1,
                                    const float* b1, const float* w2,
                                    const float* s1, const float* t1,
@@ -371,12 +425,18 @@ extern "C" int dg_banded_knn_edge2(const float* graph, const float* a1,
                                    int B, int N, int Cg, int C1, int C2,
                                    int k, int tile, int band, float slope,
                                    void* stream) {
-  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || band % 128 != 0 ||
-      band < 128 || band > N || tile % 128 != 0 || tile < 128 ||
-      tile > band || N % tile != 0 || Cg < 1 || C1 < 1 || C1 > E2_MAXC ||
-      C2 < 1 || C2 > E2_MAXC || k < 1 || k > band)
-    return (int)cudaErrorInvalidValue;
-  return (int)launch_block(graph, a1, b1, w2, s1, t1, s2, t2, sq, out, B, N,
-                           Cg, C1, C2, k, slope, starts, tile, band,
-                           (cudaStream_t)stream);
+  return banded_block(graph, a1, b1, w2, s1, t1, s2, t2, starts, sq, out, B,
+                      N, Cg, C1, C2, k, tile, band, slope, false,
+                      (cudaStream_t)stream);
+}
+
+// As dg_banded_knn_edge2 on the row-warp route at any shape.
+extern "C" int dg_banded_knn_edge2_rowwarp(
+    const float* graph, const float* a1, const float* b1, const float* w2,
+    const float* s1, const float* t1, const float* s2, const float* t2,
+    const int* starts, float* sq, float* out, int B, int N, int Cg, int C1,
+    int C2, int k, int tile, int band, float slope, void* stream) {
+  return banded_block(graph, a1, b1, w2, s1, t1, s2, t2, starts, sq, out, B,
+                      N, Cg, C1, C2, k, tile, band, slope, true,
+                      (cudaStream_t)stream);
 }

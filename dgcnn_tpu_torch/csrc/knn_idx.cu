@@ -71,8 +71,8 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, N, r0, k,
-                     tsm, ls, li);
+  dg::tiled_topk<KL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, 0, N, r0,
+                     k, tsm, ls, li);
 #pragma unroll
   for (int rr = 0; rr < dg::TS_WR; ++rr) {
     int* irow = idx + ((size_t)b * N + r0 + dg::TS_WR * warp + rr) * k;

@@ -132,8 +132,8 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
-                     r0, k, tsm, ls, li);
+  dg::tiled_topk<KL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, 0,
+                     N, r0, k, tsm, ls, li);
 
   const float* A = a + (size_t)b * N * Co;
 #pragma unroll

@@ -1,11 +1,13 @@
 // The kNN selections of the port's neighbour-picking kernels.  Two
 // components: the row-warp selection below (row_scores, pop_nearest) of
-// knn_idx.cu, knn_sum.cu, the banded kernels 12 and 13 and of
-// edge_conv_eval.cu, knn_edge2.cu and knn_reduce.cu at k > TS_LIST; and
-// the tiled selection further down (tiled_topk) of those three (kernels
-// 1, 6 and 3) at k <= TS_LIST.  Both give the same neighbours in the same
-// order.  The banded kernels hand row_scores a window of their sorted
-// cloud as the cloud.
+// knn_sum.cu and, at k > TS_LIST (kernel 6 and the banded kernel 13 also
+// at C1 > 64 or C2 > 128), of knn_idx.cu, edge_conv_eval.cu, knn_edge2.cu
+// and knn_reduce.cu; and the tiled selection further down (tiled_topk) of
+// those four (kernels 11, 1 and 12, 6 and 13, 3) at k <= TS_LIST.  Both
+// give the same neighbours in the same order.  The banded kernels 12 and
+// 13 hand either selection a window of their sorted cloud as the
+// candidates: row_scores takes it as the cloud, tiled_topk as its column
+// range.
 //
 // A warp owns one query row i of a cloud and keeps the scores of its N
 // columns in registers, NPL = N / 32 a lane (column j = 32 * t + lane in
@@ -228,6 +230,22 @@ __device__ __forceinline__ int pop_nearest(float (&s)[NPL], int lane) {
 // the lowest index stays first: torch.topk's order, as pop_nearest gives
 // it.  No scores stay in registers between
 // tiles, so the block's registers do not grow with N.
+//
+// The candidates are the W rows [start, start + W) of the cloud: start = 0
+// and W = N for the exact kernels, the window of the block's query tile
+// for the banded ones (whose 64 query rows always lie in one tile, since a
+// tile is a multiple of 128 rows); the lists hold rows of the cloud (start
+// + window position).  The exact kernels stream the column tiles in
+// ascending order, as above.  The banded kernels (ANY) stream first the
+// column tile that holds the block's own query rows, then the others in
+// ascending order: their clouds are in PC1 order, so a window's ascending
+// stream reaches a row's near neighbours late and its list improves a
+// little with every tile, while the query rows' own tile holds most of
+// them, and after it few columns enter.  Out of order, a column may meet
+// an equal score of a higher row in the list, so ANY admits and places a
+// column by (score desc, row asc), the list order itself: the list is the
+// first k of all the window's columns in that order whatever order they
+// come in, the same bits as the ascending stream.
 constexpr int TS_THREADS = 256;
 constexpr int TS_R = 64;                // query rows a block
 constexpr int TS_J = 128;               // columns a tile
@@ -245,17 +263,17 @@ __device__ __forceinline__ float4 ts_ld4(const float* p) {
 }
 
 // Starts the copies of channels [c0, c0 + nch) of the block's query rows
-// r0.. (into qb, k-major) and of the tile's columns j0.. (into gb), nch =
-// min(TS_C, Cg - c0); columns past N are zero-filled.  The product reads
-// no channel past nch.
+// r0.. (into qb, k-major) and of the tile's columns, rows j0.. of the
+// cloud (into gb), nch = min(TS_C, Cg - c0); columns at or past row `end`
+// are zero-filled.  The product reads no channel past nch.
 __device__ __forceinline__ void ts_load_chunk(const float* __restrict__ G,
-                                              int Cg, int N, int r0, int j0,
+                                              int Cg, int end, int r0, int j0,
                                               int c0, float* qb, float* gb) {
   const int nch = min(TS_C, Cg - c0);
   auto copy = [&](int e, int rows, int ld, int row0, bool bound) {
     const int r = nch == TS_C ? e / TS_C : e / nch;
     const int c = e - r * nch;
-    const bool in = !bound || row0 + r < N;
+    const bool in = !bound || row0 + r < end;
     async_copy4((rows == TS_R ? qb : gb) + c * ld + r,
                 in ? G + (size_t)(row0 + r) * Cg + c0 + c : G, in);
   };
@@ -319,15 +337,17 @@ __device__ __forceinline__ void ts_sort128(float (&v)[4], int (&ix)[4],
 
 // Inserts the column (s, j) into a warp's full sorted list of k entries
 // (every lane passes the same s and j): after the entries whose score is
-// >= s, the k-th dropping out.
-template <int KL>
+// >= s (ANY: the entries before (s, j) in list order), the k-th dropping
+// out.
+template <int KL, bool ANY = false>
 __device__ __forceinline__ void ts_insert(float (&ls)[KL], int (&li)[KL],
                                           int k, float s, int j, int lane) {
   int pos = 0;
 #pragma unroll
   for (int q = 0; q < KL; ++q)
-    pos += __popc(__ballot_sync(0xffffffffu,
-                                lane + 32 * q < k && ls[q] >= s));
+    pos += __popc(__ballot_sync(
+        0xffffffffu, lane + 32 * q < k &&
+                         (ANY ? ts_before(ls[q], li[q], s, j) : ls[q] >= s)));
   float us[KL];
   int ui[KL];
 #pragma unroll
@@ -357,28 +377,32 @@ __device__ __forceinline__ void ts_insert(float (&ls)[KL], int (&li)[KL],
   }
 }
 
-// The score of the k-th entry of a full list, on every lane.
-template <int KL>
-__device__ __forceinline__ float ts_kth(const float (&ls)[KL], int k) {
-  float v = __shfl_sync(0xffffffffu, ls[0], (k - 1) & 31);
+// The k-th entry of a full list (its score, or its row), on every lane.
+template <int KL, typename T>
+__device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
+  T v = __shfl_sync(0xffffffffu, ls[0], (k - 1) & 31);
 #pragma unroll
   for (int q = 1; q < KL; ++q) {
-    const float w = __shfl_sync(0xffffffffu, ls[q], (k - 1) & 31);
+    const T w = __shfl_sync(0xffffffffu, ls[q], (k - 1) & 31);
     if ((k - 1) >> 5 == q) v = w;
   }
   return v;
 }
 
-// The k <= 32 * KL nearest columns of query rows r0 .. r0 + TS_R - 1 of a
-// cloud: G its (N, Cg) graph features, SQ its (N,) squared norms, sm the
-// block's TS_SMEM_BYTES of dynamic shared memory.  Every thread of the
-// block calls it; on return warp w holds in (ls, li)[rr] the sorted list of
-// row r0 + TS_WR * w + rr, k >= 1 entries, k <= N.
-template <int KL>
+// The k <= 32 * KL nearest of the candidate rows [start, start + W) (W >=
+// TS_J) for query rows r0 .. r0 + TS_R - 1 of a cloud: G its graph
+// features (Cg channels a row), SQ its squared norms, sm the block's
+// TS_SMEM_BYTES of dynamic shared memory.  Every thread of the block calls
+// it; on return warp w holds in (ls, li)[rr] the sorted list of row r0 +
+// TS_WR * w + rr, k >= 1 entries, k <= W, as rows of the cloud.  ANY: the
+// query rows lie in the window, and the tile that holds them streams
+// first (see above).
+template <int KL, bool ANY = false>
 __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
                                            int Cg,
                                            const float* __restrict__ SQ,
-                                           int N, int r0, int k, float* sm,
+                                           int start, int W, int r0, int k,
+                                           float* sm,
                                            float (&ls)[TS_WR][KL],
                                            int (&li)[TS_WR][KL]) {
   float* st = sm;                        // finished tile (TS_R, TS_J)
@@ -387,17 +411,24 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int chunks = (Cg + TS_C - 1) / TS_C;
-  const int tiles = (N + TS_J - 1) / TS_J;
+  const int tiles = (W + TS_J - 1) / TS_J;
+  const int end = start + W;
+  // the column tile of the t-th step: ANY, the query rows' tile, then the
+  // others ascending
+  const int first = ANY ? (r0 - start) / TS_J : 0;
+  auto tile_at = [&](int t) {
+    return ANY ? (t == 0 ? first : t - (t <= first)) : t;
+  };
   const int steps = tiles * chunks;
   float qq[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) qq[i] = SQ[r0 + 4 * ty + i];
   float acc[4][8], sqj[8];
 
-  ts_load_chunk(G, Cg, N, r0, 0, 0, qbuf, gbuf);
+  ts_load_chunk(G, Cg, end, r0, start + tile_at(0) * TS_J, 0, qbuf, gbuf);
   for (int s = 0; s < steps; ++s) {
     const int t = s / chunks, c = s - t * chunks;
-    const int j0 = t * TS_J;
+    const int j0 = tile_at(t) * TS_J;
     if (c == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -406,7 +437,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = j0 + 4 * tx + (j & 3) + 64 * (j >> 2);
-        sqj[j] = col < N ? SQ[col] : 0.f;
+        sqj[j] = col < W ? SQ[start + col] : 0.f;
       }
     }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -415,7 +446,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     __syncthreads();
     if (s + 1 < steps) {
       const int tn = (s + 1) / chunks, cn = s + 1 - tn * chunks;
-      ts_load_chunk(G, Cg, N, r0, tn * TS_J, cn * TS_C,
+      ts_load_chunk(G, Cg, end, r0, start + tile_at(tn) * TS_J, cn * TS_C,
                     qbuf + ((s + 1) & 1) * TS_C * TS_LDQ,
                     gbuf + ((s + 1) & 1) * TS_C * TS_LDG);
     }
@@ -451,7 +482,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
         for (int jj = 0; jj < 4; ++jj) {
           const int j = 4 * h + jj;
           const int col = j0 + 4 * tx + jj + 64 * h;
-          v[jj] = col < N ? __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc[i][j]),
+          v[jj] = col < W ? __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc[i][j]),
                                                 qq[i]), sqj[j])
                           : -INFINITY;
         }
@@ -463,7 +494,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     __syncthreads();
     // each warp walks its rows' scores in ascending column order; the next
     // step's barrier keeps st until every warp is done
-    if (t == 0) {  // the first tile (N >= TS_J >= k) fills the lists
+    if (t == 0) {  // the first tile (W >= TS_J >= k) fills the lists
       // one copy of the sorting network, rolled over the rows: each row's
       // best 64 go back to its row of st, scores then index bits
 #pragma unroll 1
@@ -474,7 +505,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           v[u] = srow[32 * u + lane];
-          ix[u] = 32 * u + lane;
+          ix[u] = start + (ANY ? j0 : 0) + 32 * u + lane;
         }
         ts_sort128(v, ix, lane);
         __syncwarp();
@@ -500,17 +531,21 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     for (int rr = 0; rr < TS_WR; ++rr) {
       const float* srow = st + (TS_WR * warp + rr) * TS_J;
       float thr = ts_kth<KL>(ls[rr], k);
+      int thi = ANY ? ts_kth<KL>(li[rr], k) : 0;  // the k-th entry's row
 #pragma unroll
       for (int u = 0; u < TS_J / 32; ++u) {
         const float sc = srow[32 * u + lane];
-        unsigned m = __ballot_sync(0xffffffffu, sc > thr);
+        const int j = start + j0 + 32 * u;
+        unsigned m = __ballot_sync(
+            0xffffffffu, ANY ? ts_before(sc, j + lane, thr, thi) : sc > thr);
         while (m) {
           const int src = __ffs(m) - 1;
           m &= m - 1;
           const float v = __shfl_sync(0xffffffffu, sc, src);
-          if (v > thr) {
-            ts_insert<KL>(ls[rr], li[rr], k, v, j0 + 32 * u + src, lane);
+          if (ANY ? ts_before(v, j + src, thr, thi) : v > thr) {
+            ts_insert<KL, ANY>(ls[rr], li[rr], k, v, j + src, lane);
             thr = ts_kth<KL>(ls[rr], k);
+            if (ANY) thi = ts_kth<KL>(li[rr], k);
           }
         }
       }

@@ -13,13 +13,20 @@ Each stage's candidates are pruned to a band:
      permutation-equivariant, so only the windowing approximates).
 
 The sort, the window starts and the un-sort are plain torch on either
-device, as they are XLA in the JAX package.  On sorted inputs,
-``banded_edge_conv_eval`` launches kernel 12 (``csrc/edge_conv_eval.cu``,
-``dg_banded_edge_conv_eval``; it replaces
-``dgcnn_tpu/ops/pallas_banded.py::banded_edge_conv_eval``) and
+device, as they are XLA in the JAX package.  The window starts are built
+on the tensors' device once per (N, tile, band, device)
+(``window_starts``), so that no banded call copies from the host or waits
+for the card.  On sorted inputs, ``banded_edge_conv_eval`` launches
+kernel 12 (``csrc/edge_conv_eval.cu``, ``dg_banded_edge_conv_eval``; it
+replaces ``dgcnn_tpu/ops/pallas_banded.py::banded_edge_conv_eval``) and
 ``banded_knn_edge2`` kernel 13 (``csrc/knn_edge2.cu``,
 ``dg_banded_knn_edge2``; it replaces ``::banded_knn_edge2``): the exact
-stage kernels with each query tile's window in the place of the cloud.
+stage kernels with each query tile's window in the place of the cloud,
+on the tiled selection at k <= 64 (kernel 13 also at C1 <= 64 and C2 <=
+128) and the row-warp selection otherwise.  ``rowwarp=True`` takes the
+row-warp route at any shape (``dg_banded_*_rowwarp``): at band = N in
+the identity order it is the exact kernels' row-warp route, the oracle
+that the tiled routes of kernels 1, 6, 12 and 13 are held to bit for bit.
 The ``*_plain`` versions beside them build the (B, T, band, C) windows
 of the sorted graph as the JAX package does; CPU tensors take them.  Both
 take an ``order`` to share one sort between them (a sum taken in another
@@ -32,6 +39,7 @@ flag and the variable).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -77,6 +85,17 @@ def band_starts(n: int, tile: int, band: int) -> np.ndarray:
     return np.clip(centers - band // 2, 0, n - band).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=64)
+def window_starts(n: int, tile: int, band: int,
+                  device: torch.device) -> torch.Tensor:
+    """``band_starts`` as an int32 tensor built on ``device`` (arange and
+    clamp there: no copy from the host), once per (N, tile, band,
+    device).  Callers only read it."""
+    centers = torch.arange(n // tile, device=device,
+                           dtype=torch.int32) * tile + tile // 2
+    return (centers - band // 2).clamp_(0, n - band)
+
+
 def pc1_key(g: torch.Tensor) -> torch.Tensor:
     """(B, N, C) -> (B, N) projection of the centred points onto the
     leading principal component (8 power iterations on the covariance, in
@@ -115,7 +134,7 @@ def banded_knn_plain(gs: torch.Tensor, k: int, band: int) -> torch.Tensor:
     position first among equal scores."""
     b, n, c = gs.shape
     tile = band_tile(n, band)
-    starts = torch.from_numpy(band_starts(n, tile, band)).long().to(gs.device)
+    starts = window_starts(n, tile, band, gs.device).long()
     t = n // tile
     cols = (starts[:, None] + torch.arange(band, device=gs.device)).reshape(-1)
     win = gs[:, cols].reshape(b * t, band, c)
@@ -152,8 +171,20 @@ def _launch_setup(graph: torch.Tensor, order, band: int):
         order = sorted_order(graph)
     n = graph.shape[1]
     tile = band_tile(n, band)
-    starts = torch.from_numpy(band_starts(n, tile, band)).to(graph.device)
+    starts = window_starts(n, tile, band, graph.device)
     return order, inverse_order(order), tile, starts
+
+
+def _entry(name: str, rowwarp: bool, nptr: int):
+    """The C entry of a banded kernel (its row-warp route with
+    ``rowwarp``), its argument types set."""
+    fn = getattr(_build.load_library(),
+                 f"dg_{name}_rowwarp" if rowwarp else f"dg_{name}")
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * nptr + [i] * 8 + [ctypes.c_float, p]
+        fn.restype = i
+    return fn
 
 
 def banded_edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
@@ -173,7 +204,8 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
                           w_nbr: torch.Tensor, w_ctr: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor, k: int,
                           band: int, slope: float = 0.2,
-                          order: torch.Tensor | None = None) -> torch.Tensor:
+                          order: torch.Tensor | None = None, *,
+                          rowwarp: bool = False) -> torch.Tensor:
     """``edge_conv_eval`` (kNN over ``graph`` (B, N, Cg), factorized conv of
     ``x`` (B, N, Cin) with ``w_nbr``/``w_ctr`` (Cin, Co), max/min over the
     k neighbours, folded-BN affine, LeakyReLU) with each point's candidates
@@ -183,7 +215,8 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes f32 tensors with N a multiple of 128 up to 4096, a band
     that is a multiple of 128 up to N, k <= band and Co <= 256, and raises
-    on anything else."""
+    on anything else: its tiled route at k <= 64, its row-warp route
+    otherwise or with ``rowwarp`` (the same bits)."""
     if graph.device.type == "cpu":
         return banded_edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale,
                                            bias, k, band, slope, order)
@@ -198,11 +231,7 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
              f"{tuple(graph.shape)}")
     _require(name, co <= max_co(band), f"Co={co} > {max_co(band)}")
     order, inv, tile, starts = _launch_setup(graph, order, band)
-    fn = _build.load_library().dg_banded_edge_conv_eval
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, p]
-        fn.restype = i
+    fn = _entry(name, rowwarp, 9)
     # the launch is asynchronous on torch's current stream: tensors made here
     # and freed on return are reused by the caching allocator only for work
     # queued after it on that stream
@@ -241,7 +270,8 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
                      s1: torch.Tensor, t1: torch.Tensor, w2: torch.Tensor,
                      s2: torch.Tensor, t2: torch.Tensor, k: int, band: int,
                      slope: float = 0.2,
-                     order: torch.Tensor | None = None) -> torch.Tensor:
+                     order: torch.Tensor | None = None, *,
+                     rowwarp: bool = False) -> torch.Tensor:
     """``knn_edge2`` (the two-conv block: for each neighbour j of point i
     ``LReLU((LReLU((a1[j] + b1[i]) * s1 + t1) @ w2) * s2 + t2)``, max over
     the neighbours) with each point's candidates pruned to the band of its
@@ -251,7 +281,9 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes f32 tensors with N a multiple of 128 up to 4096, a band
     that is a multiple of 128 up to N, k <= band and C1, C2 <= 128, and
-    raises on anything else."""
+    raises on anything else: its tiled route at k <= 64, C1 <= 64 and C2
+    <= 128, its row-warp route otherwise or with ``rowwarp`` (the same
+    bits)."""
     if graph.device.type == "cpu":
         return banded_knn_edge2_plain(graph, a1, b1, s1, t1, w2, s2, t2, k,
                                       band, slope, order)
@@ -266,11 +298,7 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
              f"{tuple(graph.shape)} and w2 {tuple(w2.shape)}")
     _require(name, c1 <= MAX_C and c2 <= MAX_C, f"C1, C2 must be <= {MAX_C}")
     order, inv, tile, starts = _launch_setup(graph, order, band)
-    fn = _build.load_library().dg_banded_knn_edge2
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 8 + [ctypes.c_float, p]
-        fn.restype = i
+    fn = _entry(name, rowwarp, 11)
     gs, a1s, b1s = (sort_rows(t, order) for t in (graph, a1, b1))
     small = [t.contiguous() for t in (w2, s1, t1, s2, t2)]
     sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)

@@ -1,8 +1,10 @@
 """A/B timing of kernel 3 (``dg_knn_reduce``), kernel 8
 (``dg_edge2_bwd``), kernel 1 (``dg_edge_conv_eval``), kernel 6
 (``dg_knn_edge2``), kernel 5 (``dg_edge_reduce_bwd``), kernel 7
-(``dg_edge2_fwd``) or kernel 11 (``dg_knn_idx``) against its earlier
-row-warp form on one card.  (Kernel 2's A/B is ``tools/pool_ab.py``.)
+(``dg_edge2_fwd``), kernel 11 (``dg_knn_idx``), kernel 12
+(``dg_banded_edge_conv_eval``) or kernel 13 (``dg_banded_knn_edge2``)
+against its earlier row-warp form on one card.  (Kernel 2's A/B is
+``tools/pool_ab.py``.)
 
 Builds the kernel's source (``csrc/knn_reduce.cu``, ``csrc/edge2_bwd.cu``,
 ``csrc/edge_conv_eval.cu``, ``csrc/knn_edge2.cu``,
@@ -14,15 +16,15 @@ all started together; the kNN forms link ``csrc/edge_conv_eval.cu`` and
 ``csrc/project.cu`` for the squared norms and the projection).  Kernel 5
 also builds a probe, ``tools/reduce_forms/edge_reduce_bwd_store.cu``: the
 earlier form with its global atomicAdd replaced by a plain store (its da
-is wrong and is not held to anything), which shows what the atomics cost.  Kernels 1
-and 6 keep their row-warp form in ``csrc/`` for the banded kernels 12 and
-13 and for k > 64: the banded entry at band = N, tile 128 and window starts
-0 is that form over the whole cloud, so the row-warp side of their A/B is
-the same library's ``dg_banded_edge_conv_eval`` / ``dg_banded_knn_edge2``.
-Kernel 11 keeps its row-warp form as its k > 64 route, and the row-warp
-side of its A/B is the same library's ``dg_knn_idx_rowwarp`` (that route
-at any k; the kernel links ``csrc/edge_conv_eval.cu`` and
-``csrc/project.cu`` for the squared norms).
+is wrong and is not held to anything), which shows what the atomics cost.  Kernels 1,
+6, 12 and 13 keep their row-warp form in ``csrc/`` for k > 64: the banded
+entries' row-warp route (``dg_banded_edge_conv_eval_rowwarp`` /
+``dg_banded_knn_edge2_rowwarp``) is the row-warp side of their A/B, for
+kernels 1 and 6 at band = N, tile 128 and window starts 0, which is that
+form over the whole cloud.  Kernel 11 keeps its row-warp form as its k >
+64 route, and the row-warp side of its A/B is the same library's
+``dg_knn_idx_rowwarp`` (that route at any k; the kernel links
+``csrc/edge_conv_eval.cu`` and ``csrc/project.cu`` for the squared norms).
 Then times the forms at every cell's shapes in the order a b b a, as
 device times (calls queued behind a sleep of the card,
 ``project_ab.device_ms``), and holds them to each other:
@@ -68,6 +70,14 @@ device times (calls queued behind a sleep of the card,
   4096 (B=8, k=40), and k = 65 (the row-warp route of both); idx identical
   between the forms and over two calls, and on integer duplicate points
   whose k-th and (k+1)-th scores tie.
+- ``--kernel banded_edge_conv_eval`` / ``banded_knn_edge2``: the banded
+  eval stages (B=16) of partseg (N=2048, k=40, band 512) and semseg
+  (N=4096, k=20, band 1024), kernel 12 at conv5 (64 -> 64), kernel 13 at
+  the two blocks (Cg 3 and 64, C1 = C2 = 64), on clouds in their PC1
+  order with the window starts of the models, and k = 65 (the row-warp
+  route of both); every output bit-equal between the forms, on integer
+  duplicate-points clouds whose k-th boundary falls inside ties within a
+  window too.
 
 ``--root DIR`` builds the kernel's source from another checkout (its
 ``dgcnn_tpu_torch/csrc``), the earlier form from this one; ``--form
@@ -79,7 +89,8 @@ Exits non-zero without a CUDA card or when a check fails.
 
     python -m dgcnn_tpu_torch.tools.reduce_ab --kernel
         knn_reduce|edge2_bwd|edge_conv_eval|knn_edge2|edge_reduce_bwd|
-        edge2_fwd|knn_idx [--root DIR] [--form NAME=PATH ...]
+        edge2_fwd|knn_idx|banded_edge_conv_eval|banded_knn_edge2
+        [--root DIR] [--form NAME=PATH ...]
 """
 from __future__ import annotations
 
@@ -104,27 +115,36 @@ _FORMS_DIR = os.path.join(_HERE, "reduce_forms")
 SOURCES = {"knn_reduce": "knn_reduce.cu", "edge2_bwd": "edge2_bwd.cu",
            "edge_conv_eval": "edge_conv_eval.cu", "knn_edge2": "knn_edge2.cu",
            "edge_reduce_bwd": "edge_reduce_bwd.cu",
-           "edge2_fwd": "edge2_reduce.cu", "knn_idx": "knn_idx.cu"}
+           "edge2_fwd": "edge2_reduce.cu", "knn_idx": "knn_idx.cu",
+           "banded_edge_conv_eval": "edge_conv_eval.cu",
+           "banded_knn_edge2": "knn_edge2.cu"}
 # the sources a form links: launch_sqnorm, dg_cuda_error_string and
 # launch_project
 HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu"),
            "edge2_bwd": (), "edge_conv_eval": ("project.cu",),
            "knn_edge2": ("edge_conv_eval.cu", "project.cu"),
            "edge_reduce_bwd": (), "edge2_fwd": (),
-           "knn_idx": ("edge_conv_eval.cu", "project.cu")}
+           "knn_idx": ("edge_conv_eval.cu", "project.cu"),
+           "banded_edge_conv_eval": ("project.cu",),
+           "banded_knn_edge2": ("edge_conv_eval.cu", "project.cu")}
 # probe forms built beside the earlier one (never on any path)
 PROBES = {"edge_reduce_bwd": {"store": "edge_reduce_bwd_store.cu"}}
 # the kernels whose row-warp form is an entry of their own library: the
-# banded entry at band = N, or the row-warp route at any k
-ROWWARP_ENTRY = {"edge_conv_eval": "dg_banded_edge_conv_eval",
-                 "knn_edge2": "dg_banded_knn_edge2",
-                 "knn_idx": "dg_knn_idx_rowwarp"}
+# row-warp route at any shape (for kernels 1 and 6 the banded entry's, at
+# band = N)
+ROWWARP_ENTRY = {"edge_conv_eval": "dg_banded_edge_conv_eval_rowwarp",
+                 "knn_edge2": "dg_banded_knn_edge2_rowwarp",
+                 "knn_idx": "dg_knn_idx_rowwarp",
+                 "banded_edge_conv_eval": "dg_banded_edge_conv_eval_rowwarp",
+                 "banded_knn_edge2": "dg_banded_knn_edge2_rowwarp"}
 # ptxas lines worth printing: the kernel's own instances
 PTXAS_KEYS = {"knn_reduce": ("reduce",), "edge2_bwd": ("bwd", "partial"),
               "edge_conv_eval": ("select_kernel", "edge_conv_eval"),
               "knn_edge2": ("knn_edge2",),
               "edge_reduce_bwd": ("edge_reduce_bwd",),
-              "edge2_fwd": ("edge2_fwd",), "knn_idx": ("knn_idx",)}
+              "edge2_fwd": ("edge2_fwd",), "knn_idx": ("knn_idx",),
+              "banded_edge_conv_eval": ("select_kernel", "edge_conv_eval"),
+              "banded_knn_edge2": ("knn_edge2",)}
 TB = 32
 # (cell, N, k, [(Cg, Co), ...])
 KNN_SHAPES = [
@@ -169,6 +189,18 @@ FWD_SHAPES = [("seg", 4096, 20, 64), ("part", 2048, 40, 64),
 KNN_IDX_SHAPES = [("part", TB, 2048, 40), ("net train", TB, 2048, 32),
                   ("N=4096", 8, 4096, 40), ("row-warp route k=65", TB, 1024,
                                              65)]
+# (cell, B, N, k, band, [dims, ...]): kernels 12 and 13 at the banded eval
+# stages (dims as kernels 1 and 6 take them)
+BANDED_SHAPES = {
+    "banded_edge_conv_eval": [
+        ("part conv5", 16, 2048, 40, 512, [(64, 64, 64)]),
+        ("seg conv5", 16, 4096, 20, 1024, [(64, 64, 64)]),
+        ("row-warp route k=65", 4, 1024, 65, 256, [(64, 64, 64)])],
+    "banded_knn_edge2": [
+        ("part", 16, 2048, 40, 512, [(3, 64, 64), (64, 64, 64)]),
+        ("seg", 16, 4096, 20, 1024, [(3, 64, 64), (64, 64, 64)]),
+        ("row-warp route k=65", 4, 1024, 65, 256, [(64, 64, 64)])],
+}
 
 
 def build(kernel: str, root: str,
@@ -217,8 +249,9 @@ def build(kernel: str, root: str,
 
 def _entry(lib: str, kernel: str, name: str):
     """The form's C entry of the kernel and, for kernel 8, its tile count
-    (None where the form has none).  The row-warp form of kernels 1 and 6
-    is their banded entry, that of kernel 11 its row-warp route."""
+    (None where the form has none).  The row-warp form of kernels 1, 6, 12
+    and 13 is their banded entry's row-warp route, that of kernel 11 its
+    row-warp route."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll = ctypes.CDLL(lib)
     if kernel == "knn_idx":
@@ -228,9 +261,10 @@ def _entry(lib: str, kernel: str, name: str):
         fn.restype = i
         return fn, None
     if kernel in ROWWARP_ENTRY:
-        banded = name == "rowwarp"
-        fn = getattr(dll, ROWWARP_ENTRY[kernel] if banded else "dg_" + kernel)
-        nptr = 8 if kernel == "edge_conv_eval" else 10
+        banded = name == "rowwarp" or kernel.startswith("banded_")
+        fn = getattr(dll, ROWWARP_ENTRY[kernel] if name == "rowwarp" else
+                     "dg_" + kernel)
+        nptr = 8 if kernel.endswith("edge_conv_eval") else 10
         fn.argtypes = [p] * (nptr + banded) + [i] * (6 + 2 * banded) + [f, p]
         fn.restype = i
         return fn, None
@@ -506,6 +540,87 @@ def run_eval(kernel: str, entries: dict, result: dict,
     return bad
 
 
+def run_banded(kernel: str, entries: dict, result: dict,
+               order: list[str]) -> list[str]:
+    """Kernel 12 or 13: every form at the banded eval stages (timed), on
+    clouds sorted by their PC1 key with the models' window starts, then on
+    integer duplicate-points clouds; every output must be the row-warp
+    form's bits."""
+    from dgcnn_tpu_torch.ops.banded import (
+        band_tile,
+        sort_rows,
+        sorted_order,
+        window_starts,
+    )
+    from dgcnn_tpu_torch.ops.knn import pairwise_neg_sqdist
+
+    base = kernel.removeprefix("banded_")
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    p = _build.ptr
+    cases = [(f"{cell} B={b} N={n} k={k} band {band} dims={dims}", b, n, k,
+              band, dims, False)
+             for cell, b, n, k, band, stages in BANDED_SHAPES[kernel]
+             for dims in stages]
+    int_dims = ([(3, 8, 64)] if base == "edge_conv_eval"
+                else [(3, 64, 128), (3, 64, 64)])
+    cases += [(f"integer duplicates N={n} k={k} band {band} dims={dims}", 2,
+               n, k, band, dims, True) for dims in int_dims
+              for n, k, band in ((1024, 20, 256), (2048, 40, 512))]
+    bad = []
+    for key, b, n, k, band, dims, integer in cases:
+        slope = 0.25 if integer else 0.2
+        ins, scratch_shapes, out_shape = _eval_inputs(base, g, b, n, dims,
+                                                      integer)
+        ins = [t.to(dev).contiguous() for t in ins]
+        # the per-point inputs in the graph's PC1 order, as the wrapper
+        # hands them to the kernel
+        srt = sorted_order(ins[0])
+        for i in ((0, 1) if base == "edge_conv_eval" else (0, 1, 2)):
+            ins[i] = sort_rows(ins[i], srt).contiguous()
+        tile = band_tile(n, band)
+        starts = window_starts(n, tile, band, dev)
+        if integer:  # the case must put the k-th boundary inside ties
+            t, c = n // tile, ins[0].shape[2]
+            cols = (starts.long()[:, None]
+                    + torch.arange(band, device=dev)).reshape(-1)
+            top = pairwise_neg_sqdist(
+                ins[0].reshape(b * t, tile, c),
+                ins[0][:, cols].reshape(b * t, band, c)).topk(
+                    k + 1, dim=-1).values
+            ties = int((top[..., k - 1] == top[..., k]).sum())
+            print(f"{key}: rows whose k-th window score ties the (k+1)-th "
+                  f"{ties}", flush=True)
+            if not ties:
+                bad.append(f"{key}: no tie at the k-th boundary")
+        outs = {}
+        for name in order:
+            fn = entries[name][0]
+            out = torch.empty(out_shape, device=dev)
+            scratch = [torch.empty(sh, device=dev) for sh in scratch_shapes]
+            args = (*map(p, ins), p(starts), *map(p, scratch), p(out), b, n,
+                    *dims, k, tile, band, slope, _build.stream_of(out))
+            if integer:
+                _call(fn, *args)
+            else:
+                ms = device_ms(lambda: _call(fn, *args), reps=5, rounds=5)
+                result["forms"][name]["ms"].setdefault(key, []).append(ms)
+                print(f"{name} {key} ms {ms:.4f}", flush=True)
+            torch.cuda.synchronize()
+            outs[name] = out
+        same = all(torch.equal(out, outs["rowwarp"]) for out in outs.values())
+        finite = bool(torch.isfinite(outs["rowwarp"]).all())
+        result["checks"].append({"shape": key, "bit_equal": same,
+                                 "finite": finite})
+        print(f"{key}: outputs bit-equal {same}, finite {finite}",
+              flush=True)
+        if not (same and finite):
+            bad.append(key)
+        del ins, outs
+        torch.cuda.empty_cache()
+    return bad
+
+
 def _bwd_integer_case(g, dev):
     """Kernel 5's integer duplicate-points case (chip_smoke.py's phase 8):
     256 grid points four times, a a function of the point, max/min
@@ -759,7 +874,11 @@ def main() -> None:
            "edge_conv_eval": functools.partial(run_eval, "edge_conv_eval"),
            "knn_edge2": functools.partial(run_eval, "knn_edge2"),
            "edge_reduce_bwd": run_bwd, "edge2_fwd": run_fwd,
-           "knn_idx": run_knn_idx}
+           "knn_idx": run_knn_idx,
+           "banded_edge_conv_eval": functools.partial(
+               run_banded, "banded_edge_conv_eval"),
+           "banded_knn_edge2": functools.partial(run_banded,
+                                                 "banded_knn_edge2")}
     bad = run[args.kernel](entries, result, order)
     print(json.dumps(result), flush=True)
     if bad:

@@ -1133,10 +1133,11 @@ def test_banded_kernels_match_plain(cuda_device, n, band, cg):
 
 def _row_warp(banded_fn, graph, *args, k, slope=0.2):
     """Kernel 1's or 6's row-warp route over the whole cloud: the banded
-    entry at band = N in the identity order (every window starts at 0)."""
+    entry's row-warp route (``rowwarp=True``) at band = N in the identity
+    order (every window starts at 0)."""
     b, n = graph.shape[:2]
     order = torch.arange(n, device=graph.device).repeat(b, 1)
-    return banded_fn(graph, *args, k, n, slope, order=order)
+    return banded_fn(graph, *args, k, n, slope, order=order, rowwarp=True)
 
 
 @pytest.mark.cuda
