@@ -1,10 +1,10 @@
 // The kNN selections of the port's neighbour-picking kernels.  Two
 // components: the row-warp selection below (row_scores, pop_nearest) of
-// knn_sum.cu and, at k > TS_LIST (kernel 6 and the banded kernel 13 also
-// at C1 > 64 or C2 > 128), of knn_idx.cu, edge_conv_eval.cu, knn_edge2.cu
-// and knn_reduce.cu; and the tiled selection further down (tiled_topk) of
-// those four (kernels 11, 1 and 12, 6 and 13, 3) at k <= TS_LIST.  Both
-// give the same neighbours in the same order.  The banded kernels 12 and
+// knn_idx.cu, knn_sum.cu, edge_conv_eval.cu, knn_edge2.cu and
+// knn_reduce.cu at k > TS_LIST (kernel 6 and the banded kernel 13 also at
+// C1 > 64 or C2 > 128); and the tiled selection further down (tiled_topk)
+// of those five (kernels 11, 10, 1 and 12, 6 and 13, 3) at k <= TS_LIST.
+// Both give the same neighbours in the same order.  The banded kernels 12 and
 // 13 hand either selection a window of their sorted cloud as the
 // candidates: row_scores takes it as the cloud, tiled_topk as its column
 // range.
@@ -209,8 +209,9 @@ __device__ __forceinline__ int pop_nearest(float (&s)[NPL], int lane) {
 }
 
 // ---------------------------------------------------------------------
-// The tiled selection (knn_reduce.cu, edge_conv_eval.cu and knn_edge2.cu
-// at k <= TS_LIST; knn_edge2.cu also needs C1 <= 64 and C2 <= 128).  A
+// The tiled selection (knn_idx.cu, knn_sum.cu, knn_reduce.cu,
+// edge_conv_eval.cu and knn_edge2.cu at k <= TS_LIST; knn_edge2.cu also
+// needs C1 <= 64 and C2 <= 128).  A
 // block of TS_THREADS threads owns TS_R query rows of one cloud and
 // streams the cloud past them in column tiles of TS_J, ascending.  Each
 // tile's scores are one register-blocked product: thread (ty, tx) of 16

@@ -11,20 +11,43 @@
 //
 // The TPU sums through a multi-hot matrix product with a 3-way bf16 split
 // of `a` (_split3, _onehot_dot); here each sum is a plain f32 sum in
-// neighbour order, so its last bits differ from the TPU's but equal those
-// of the plain version's ordered sum.
+// neighbour order, starting from the t = 0 term, so its last bits differ
+// from the TPU's but equal those of the plain version's ordered sum.
 //
 // Bound on an H100 SXM: operations.  At the HOG shape (B=16, N=2048, C=3,
 // k=32, a of 9 moments) the scores are 2*B*N^2*C flops plus one comparison
 // a score, ~0.47 G operations, ~0.007 ms at the f32 CUDA-core peak (67
 // TFLOP/s); x and a in, idx and asum out are ~6.3 MB, ~0.002 ms at 3.35
-// TB/s.  As in knn_idx.cu, the k rounds of warp arg-max over N scores a
-// row (k * N comparisons a row) are the real cost.
+// TB/s.  What a selection costs beyond that is keeping the k best of N
+// scores a row.
 //
-// Design: knn_idx.cu's kernel (sqnorm, then knn_select.cuh's warp-per-row
-// selection with the N scores in registers) with the sum folded into the
-// rounds: every lane learns each round's winner j, and lane c < Ca adds
-// a[j, c] to its running sum, so the (B, N, k, Ca) gather never exists.
+// Design, two routes decided from k before the launch (sqnorm first on
+// both):
+//   k <= TS_LIST (64; the Net's k = 32)  knn_sum_tiled_kernel: kernel 11's
+//     tiled route (knn_idx.cu; knn_select.cuh's tiled_topk: 64 query rows
+//     a block, 128-column tiles whose scores are a register-blocked
+//     product, each warp's eight rows' running top-k in registers), each
+//     row's list written to idx in list order, then folded into its sums.
+//     The fold stages each warp's eight lists in its own eight rows of the
+//     selection's finished-tile buffer (no other warp touches them once
+//     tiled_topk returns), a row at a stride of TS_LIST + 1 words, and
+//     folds G = min(8, 32 / Ca) rows at once, lane g * Ca + c on row g and
+//     channel c (Ca = 9: three rows on 27 lanes, three passes for the
+//     eight rows where one row a pass would leave 23 of 32 lanes idle
+//     eight times).  A lane reads its row's t-th index from shared memory,
+//     a broadcast among the row's Ca lanes (the G rows sit in distinct
+//     banks), where a shuffle of the registers serves one row an
+//     instruction: G rows would cost G shuffles and a select each t.  The
+//     gathers of `a` (73 KB a cloud at Ca = 9) hit L1 and L2.
+//   k > TS_LIST  knn_sum_kernel (also dg_knn_sum_rowwarp at any k, the
+//     earlier side of the A/B and of chip_smoke.py's checks): the row-warp
+//     selection, one warp a query row with its N scores in registers, k
+//     rounds of warp arg-max, with the sum folded into the rounds: every
+//     lane learns each round's winner j and lane c < Ca adds a[j, c].
+// Both routes pick the same neighbours in the same order (kernel 11's
+// routes give the same idx, ties included) and sum them in that order from
+// the t = 0 term: idx and asum are the same bits on both routes.  Neither
+// writes the (B, N, k, Ca) gather or the N x N scores to device memory.
 #include <cuda_runtime.h>
 
 #include "knn_select.cuh"
@@ -58,21 +81,73 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
   if (lane < Ca) asum[((size_t)b * N + i) * Ca + lane] = acc;
 }
 
-}  // namespace
+constexpr int LS = dg::TS_LIST + 1;  // a staged list's stride (words)
 
-// x (B, N, C), a (B, N, Ca) with Ca <= 32, scratch sq (B*N,), idx (B, N, k)
-// int32, asum (B, N, Ca); f32 otherwise, contiguous, on the device.
-// Returns the first CUDA error.
-extern "C" int dg_knn_sum(const float* x, const float* a, float* sq,
-                          int* idx, float* asum, int B, int N, int C,
-                          int Ca, int k, void* stream) {
-  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || Ca < 1 ||
-      Ca > 32 || k < 1 || k > N)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = dg::launch_sqnorm(x, B * N, C, sq, st);
-  if (e != cudaSuccess) return (int)e;
-  e = dg::with_npl(N, [&](auto npl) {
+// The tiled route: the block's 64 rows' lists, each written to idx in list
+// order and staged in shared memory, then the sums, a warp its eight rows.
+template <int KL>
+__global__ void __launch_bounds__(dg::TS_THREADS, 2)
+    knn_sum_tiled_kernel(const float* __restrict__ x, int C,
+                         const float* __restrict__ sq, int N, int k,
+                         const float* __restrict__ a, int Ca,
+                         int* __restrict__ idx, float* __restrict__ asum) {
+  extern __shared__ __align__(16) float tsm[];
+  const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float ls[dg::TS_WR][KL];
+  int li[dg::TS_WR][KL];
+  dg::tiled_topk<KL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, 0, N, r0,
+                     k, tsm, ls, li);
+  // the warp's own rows of tiled_topk's finished-tile buffer (TS_WR rows
+  // of TS_J words from row TS_WR * warp): the eight lists at stride LS
+  static_assert(dg::TS_WR * LS <= dg::TS_WR * dg::TS_J, "lists fit");
+  int* lists = reinterpret_cast<int*>(tsm) + dg::TS_WR * warp * dg::TS_J;
+  const size_t row0 = (size_t)b * N + r0 + dg::TS_WR * warp;
+#pragma unroll
+  for (int rr = 0; rr < dg::TS_WR; ++rr) {
+    int* irow = idx + (row0 + rr) * k;
+#pragma unroll
+    for (int q = 0; q < KL; ++q) {
+      const int p = lane + 32 * q;
+      if (p < k) {
+        irow[p] = li[rr][q];
+        lists[rr * LS + p] = li[rr][q];
+      }
+    }
+  }
+  __syncwarp();
+  const int G = min(dg::TS_WR, 32 / Ca);  // rows folded at once
+  const int g = lane / Ca, c = lane - g * Ca;
+  if (g >= G) return;
+  const float* ab = a + (size_t)b * N * Ca + c;
+  for (int rr = g; rr < dg::TS_WR; rr += G) {
+    const int* lr = lists + rr * LS;
+    float acc = ab[(size_t)lr[0] * Ca];
+#pragma unroll
+    for (int t = 1; t < 32 * KL; ++t)
+      if (t < k) acc += ab[(size_t)lr[t] * Ca];
+    asum[(row0 + rr) * Ca + c] = acc;
+  }
+}
+
+template <int KL>
+cudaError_t launch_tiled(const float* x, const float* a, const float* sq,
+                         int* idx, float* asum, int B, int N, int C, int Ca,
+                         int k, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      knn_sum_tiled_kernel<KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dg::TS_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  knn_sum_tiled_kernel<KL>
+      <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
+          x, C, sq, N, k, a, Ca, idx, asum);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rowwarp(const float* x, const float* a, const float* sq,
+                           int* idx, float* asum, int B, int N, int C,
+                           int Ca, int k, cudaStream_t st) {
+  return dg::with_npl(N, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
     constexpr int QB = dg::Bucket<NPL>::QB;
     const size_t smem = dg::select_smem_bytes<NPL>(N);
@@ -84,5 +159,39 @@ extern "C" int dg_knn_sum(const float* x, const float* a, float* sq,
         x, C, sq, N, k, a, Ca, idx, asum);
     return cudaGetLastError();
   });
-  return (int)e;
+}
+
+int knn_sum(const float* x, const float* a, float* sq, int* idx, float* asum,
+            int B, int N, int C, int Ca, int k, bool rowwarp,
+            cudaStream_t st) {
+  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || Ca < 1 ||
+      Ca > 32 || k < 1 || k > N)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = dg::launch_sqnorm(x, B * N, C, sq, st);
+  if (e != cudaSuccess) return (int)e;
+  if (!rowwarp && k <= 32)
+    return (int)launch_tiled<1>(x, a, sq, idx, asum, B, N, C, Ca, k, st);
+  if (!rowwarp && k <= dg::TS_LIST)
+    return (int)launch_tiled<2>(x, a, sq, idx, asum, B, N, C, Ca, k, st);
+  return (int)launch_rowwarp(x, a, sq, idx, asum, B, N, C, Ca, k, st);
+}
+
+}  // namespace
+
+// x (B, N, C), a (B, N, Ca) with Ca <= 32, scratch sq (B*N,), idx (B, N, k)
+// int32, asum (B, N, Ca); f32 otherwise, contiguous, on the device.
+// Returns the first CUDA error.
+extern "C" int dg_knn_sum(const float* x, const float* a, float* sq,
+                          int* idx, float* asum, int B, int N, int C,
+                          int Ca, int k, void* stream) {
+  return knn_sum(x, a, sq, idx, asum, B, N, C, Ca, k, false,
+                 (cudaStream_t)stream);
+}
+
+// As dg_knn_sum on the row-warp route at any k.
+extern "C" int dg_knn_sum_rowwarp(const float* x, const float* a, float* sq,
+                                  int* idx, float* asum, int B, int N, int C,
+                                  int Ca, int k, void* stream) {
+  return knn_sum(x, a, sq, idx, asum, B, N, C, Ca, k, true,
+                 (cudaStream_t)stream);
 }

@@ -9,7 +9,12 @@ design does about it.  Each sum runs over the k neighbours in their order
 t = 0..k-1 in f32, duplicates once each; the plain version beside it,
 ``edge_sum_plain``, sums in the same order, so the two give the same bits.
 The TPU sums through a multi-hot product on its matrix unit (a 3-way bf16
-split in its exact mode), whose last bits differ.  CPU tensors take the
+split in its exact mode), whose last bits differ.  The kernel gives a warp
+a few consecutive rows (three at the HOG's 18 votes, on 9 lanes of float2
+each), reads their indices once, coalesced, and issues each lane's k
+gathers ahead of its adds; a wider row or a longer list takes its earlier
+form, one thread an output, which ``per_output=True`` forces at any shape
+for the checks.  Both give the same bits.  CPU tensors take the
 plain version; CUDA tensors launch the kernel, which raises on what it does
 not take.  No gradient: HOG is detached, as in the reference.
 """
@@ -44,8 +49,9 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"edge_sum: {msg}")
 
 
-def _lib():
-    fn = _build.load_library().dg_edge_sum
+def _lib(per_output: bool):
+    fn = getattr(_build.load_library(),
+                 "dg_edge_sum_per_output" if per_output else "dg_edge_sum")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, i, i, i, p]
@@ -53,14 +59,16 @@ def _lib():
     return fn
 
 
-def edge_sum(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def edge_sum(a: torch.Tensor, idx: torch.Tensor, *,
+             per_output: bool = False) -> torch.Tensor:
     """The sums of ``a`` (B, N, Co) over each point's neighbours ``idx``
     (B, N, k), duplicates once each -> (B, N, Co) f32.
 
     CPU tensors take ``edge_sum_plain``; CUDA tensors launch the kernel,
     which takes a contiguous f32 ``a`` and contiguous int32 indices in
     [0, N) (it reads what they point at unchecked), and raises on anything
-    else."""
+    else.  ``per_output`` launches the kernel's earlier form, one thread an
+    output, at any shape."""
     a = a.detach()
     if a.device.type == "cpu":
         return edge_sum_plain(a, idx)
@@ -74,7 +82,7 @@ def edge_sum(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     b, n, co = a.shape
     _require(idx.shape[:2] == (b, n) and idx.shape[2] >= 1,
              f"idx {tuple(idx.shape)} vs a {tuple(a.shape)}")
-    fn = _lib()
+    fn = _lib(per_output)
     out = torch.empty((b, n, co), device=a.device, dtype=torch.float32)
     q = _build.ptr
     with torch.cuda.device(a.device):

@@ -9,9 +9,15 @@ what the design does about it.  The neighbours are those of ``knn``: self
 first, lowest index first among equal scores.  Each sum runs over them in
 the order t = 0..k-1 in f32, as the plain version ``knn_sum_plain`` sums;
 the TPU sums through a 3-way bf16 split on its matrix unit, whose last bits
-differ.  CPU tensors take the plain version; CUDA tensors launch the
-kernel, which raises on what it does not take.  No gradient: HOG is
-detached, as in the reference.
+differ.  At k <= 64 (the Net's k = 32) the kernel selects with kernel 11's
+tiled route (``csrc/knn_select.cuh``, tiled_topk: 64 query rows a block,
+the cloud streamed in 128-column tiles past a running top-k a row), writes
+each list in order and folds it into the sums; above, the row-warp
+selection with the sum folded into its k arg-max rounds, which
+``rowwarp=True`` forces at any k for the checks.  Both give the same idx
+and sums, bit for bit.  CPU tensors take the plain version; CUDA tensors
+launch the kernel, which raises on what it does not take.  No gradient:
+HOG is detached, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,8 +44,9 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"knn_sum: {msg}")
 
 
-def _lib():
-    fn = _build.load_library().dg_knn_sum
+def _lib(rowwarp: bool):
+    fn = getattr(_build.load_library(),
+                 "dg_knn_sum_rowwarp" if rowwarp else "dg_knn_sum")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
@@ -47,14 +54,16 @@ def _lib():
     return fn
 
 
-def knn_sum(x: torch.Tensor, a: torch.Tensor,
-            k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
+            rowwarp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """kNN over ``x`` (B, N, C) and the sums of ``a`` (B, N, Ca) over each
     point's k neighbours -> (idx (B, N, k) int32, asum (B, N, Ca) f32).
 
     CPU tensors take ``knn_sum_plain``; CUDA tensors launch the kernel,
     which takes f32 contiguous tensors with N a multiple of 128, N <= 4096
-    and Ca <= 32, and raises on anything else."""
+    and Ca <= 32, and raises on anything else.  ``rowwarp`` launches the
+    kernel's row-warp route at any k (k <= 64 takes the tiled route
+    otherwise)."""
     x, a = x.detach(), a.detach()
     if x.device.type == "cpu":
         return knn_sum_plain(x, a, k)
@@ -72,7 +81,7 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor,
              f"N={n} must be a multiple of 128 and <= {MAX_N}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
     ca = a.shape[2]
-    fn = _lib()
+    fn = _lib(rowwarp)
     # the launch is asynchronous on torch's current stream: tensors made here
     # and freed on return are reused by the caching allocator only for work
     # queued after it on that stream

@@ -2,14 +2,16 @@
 (``dg_edge2_bwd``), kernel 1 (``dg_edge_conv_eval``), kernel 6
 (``dg_knn_edge2``), kernel 5 (``dg_edge_reduce_bwd``), kernel 7
 (``dg_edge2_fwd``), kernel 11 (``dg_knn_idx``), kernel 12
-(``dg_banded_edge_conv_eval``) or kernel 13 (``dg_banded_knn_edge2``)
-against its earlier row-warp form on one card.  (Kernel 2's A/B is
-``tools/pool_ab.py``.)
+(``dg_banded_edge_conv_eval``), kernel 13 (``dg_banded_knn_edge2``),
+kernel 10 (``dg_knn_sum``) or kernel 9 (``dg_edge_sum``) against its
+earlier form on one card (the row-warp form; kernel 9's: one thread an
+output).  (Kernel 2's A/B is ``tools/pool_ab.py``.)
 
 Builds the kernel's source (``csrc/knn_reduce.cu``, ``csrc/edge2_bwd.cu``,
 ``csrc/edge_conv_eval.cu``, ``csrc/knn_edge2.cu``,
-``csrc/edge_reduce_bwd.cu``, ``csrc/edge2_reduce.cu`` or
-``csrc/knn_idx.cu``) into a library of
+``csrc/edge_reduce_bwd.cu``, ``csrc/edge2_reduce.cu``,
+``csrc/knn_idx.cu``, ``csrc/knn_sum.cu`` or ``csrc/edge_sum.cu``) into a
+library of
 its own, and for kernels 3, 8, 5 and 7 their earlier form
 (``tools/reduce_forms/*_rowwarp.cu``) into another (one ``nvcc`` a form,
 all started together; the kNN forms link ``csrc/edge_conv_eval.cu`` and
@@ -25,6 +27,9 @@ form over the whole cloud.  Kernel 11 keeps its row-warp form as its k >
 64 route, and the row-warp side of its A/B is the same library's
 ``dg_knn_idx_rowwarp`` (that route at any k; the kernel links
 ``csrc/edge_conv_eval.cu`` and ``csrc/project.cu`` for the squared norms).
+So do kernel 10 (``dg_knn_sum_rowwarp``, linked as kernel 11) and kernel 9,
+whose earlier form is its route for wide rows and long lists
+(``dg_edge_sum_per_output``, one thread an output, at any shape).
 Then times the forms at every cell's shapes in the order a b b a, as
 device times (calls queued behind a sleep of the card,
 ``project_ab.device_ms``), and holds them to each other:
@@ -70,6 +75,18 @@ device times (calls queued behind a sleep of the card,
   4096 (B=8, k=40), and k = 65 (the row-warp route of both); idx identical
   between the forms and over two calls, and on integer duplicate points
   whose k-th and (k+1)-th scores tie.
+- ``--kernel knn_sum``: C = 3 and Ca = 9 (the HOG's centred clouds and
+  their moments) at the fusion Net's eval (B=16) and training (B=32)
+  graphs, N=2048, k=32; k = 40 (the tiled route's two-slot lists) and k =
+  65 (the row-warp route of both); idx and the sums bit-equal between the
+  forms and over two calls, and on integer duplicate points whose k-th and
+  (k+1)-th scores tie.
+- ``--kernel edge_sum``: the HOG's votes (Co = 18) over kernel 11's
+  neighbours of a random cloud at the Net's eval (B=16) and training (B=32)
+  shapes, N=2048, k=32; the generic instances at k = 40 and at Co = 9 (one
+  channel a lane), Co = 80 (the earlier form on both sides), and repeated
+  indices at k = 1, 32 and 40; the sums bit-equal between the forms and to
+  ``edge_sum_plain``.
 - ``--kernel banded_edge_conv_eval`` / ``banded_knn_edge2``: the banded
   eval stages (B=16) of partseg (N=2048, k=40, band 512) and semseg
   (N=4096, k=20, band 1024), kernel 12 at conv5 (64 -> 64), kernel 13 at
@@ -89,8 +106,8 @@ Exits non-zero without a CUDA card or when a check fails.
 
     python -m dgcnn_tpu_torch.tools.reduce_ab --kernel
         knn_reduce|edge2_bwd|edge_conv_eval|knn_edge2|edge_reduce_bwd|
-        edge2_fwd|knn_idx|banded_edge_conv_eval|banded_knn_edge2
-        [--root DIR] [--form NAME=PATH ...]
+        edge2_fwd|knn_idx|banded_edge_conv_eval|banded_knn_edge2|knn_sum|
+        edge_sum [--root DIR] [--form NAME=PATH ...]
 """
 from __future__ import annotations
 
@@ -117,7 +134,8 @@ SOURCES = {"knn_reduce": "knn_reduce.cu", "edge2_bwd": "edge2_bwd.cu",
            "edge_reduce_bwd": "edge_reduce_bwd.cu",
            "edge2_fwd": "edge2_reduce.cu", "knn_idx": "knn_idx.cu",
            "banded_edge_conv_eval": "edge_conv_eval.cu",
-           "banded_knn_edge2": "knn_edge2.cu"}
+           "banded_knn_edge2": "knn_edge2.cu", "knn_sum": "knn_sum.cu",
+           "edge_sum": "edge_sum.cu"}
 # the sources a form links: launch_sqnorm, dg_cuda_error_string and
 # launch_project
 HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu"),
@@ -126,17 +144,20 @@ HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu"),
            "edge_reduce_bwd": (), "edge2_fwd": (),
            "knn_idx": ("edge_conv_eval.cu", "project.cu"),
            "banded_edge_conv_eval": ("project.cu",),
-           "banded_knn_edge2": ("edge_conv_eval.cu", "project.cu")}
+           "banded_knn_edge2": ("edge_conv_eval.cu", "project.cu"),
+           "knn_sum": ("edge_conv_eval.cu", "project.cu"), "edge_sum": ()}
 # probe forms built beside the earlier one (never on any path)
 PROBES = {"edge_reduce_bwd": {"store": "edge_reduce_bwd_store.cu"}}
-# the kernels whose row-warp form is an entry of their own library: the
+# the kernels whose earlier form is an entry of their own library: the
 # row-warp route at any shape (for kernels 1 and 6 the banded entry's, at
-# band = N)
-ROWWARP_ENTRY = {"edge_conv_eval": "dg_banded_edge_conv_eval_rowwarp",
+# band = N), kernel 9's one thread an output
+EARLIER_ENTRY = {"edge_conv_eval": "dg_banded_edge_conv_eval_rowwarp",
                  "knn_edge2": "dg_banded_knn_edge2_rowwarp",
                  "knn_idx": "dg_knn_idx_rowwarp",
                  "banded_edge_conv_eval": "dg_banded_edge_conv_eval_rowwarp",
-                 "banded_knn_edge2": "dg_banded_knn_edge2_rowwarp"}
+                 "banded_knn_edge2": "dg_banded_knn_edge2_rowwarp",
+                 "knn_sum": "dg_knn_sum_rowwarp",
+                 "edge_sum": "dg_edge_sum_per_output"}
 # ptxas lines worth printing: the kernel's own instances
 PTXAS_KEYS = {"knn_reduce": ("reduce",), "edge2_bwd": ("bwd", "partial"),
               "edge_conv_eval": ("select_kernel", "edge_conv_eval"),
@@ -144,7 +165,8 @@ PTXAS_KEYS = {"knn_reduce": ("reduce",), "edge2_bwd": ("bwd", "partial"),
               "edge_reduce_bwd": ("edge_reduce_bwd",),
               "edge2_fwd": ("edge2_fwd",), "knn_idx": ("knn_idx",),
               "banded_edge_conv_eval": ("select_kernel", "edge_conv_eval"),
-              "banded_knn_edge2": ("knn_edge2",)}
+              "banded_knn_edge2": ("knn_edge2",), "knn_sum": ("knn_sum",),
+              "edge_sum": ("edge_sum",)}
 TB = 32
 # (cell, N, k, [(Cg, Co), ...])
 KNN_SHAPES = [
@@ -189,6 +211,16 @@ FWD_SHAPES = [("seg", 4096, 20, 64), ("part", 2048, 40, 64),
 KNN_IDX_SHAPES = [("part", TB, 2048, 40), ("net train", TB, 2048, 32),
                   ("N=4096", 8, 4096, 40), ("row-warp route k=65", TB, 1024,
                                              65)]
+# (cell, B, N, k): kernel 10 at the HOG's graphs (C = 3, Ca = 9)
+KNN_SUM_SHAPES = [("net eval", 16, 2048, 32), ("net train", TB, 2048, 32),
+                  ("two-slot lists k=40", 16, 2048, 40),
+                  ("row-warp route k=65", 16, 2048, 65)]
+# (cell, B, N, Co, k): kernel 9 at the HOG's votes (Co = 18) and beside
+EDGE_SUM_SHAPES = [("net eval", 16, 2048, 18, 32),
+                   ("net train", TB, 2048, 18, 32),
+                   ("generic k=40", 16, 2048, 18, 40),
+                   ("one channel a lane Co=9", 16, 2048, 9, 32),
+                   ("earlier form Co=80", 4, 2048, 80, 32)]
 # (cell, B, N, k, band, [dims, ...]): kernels 12 and 13 at the banded eval
 # stages (dims as kernels 1 and 6 take them)
 BANDED_SHAPES = {
@@ -210,8 +242,8 @@ def build(kernel: str, root: str,
     lines."""
     csrc = os.path.join(root, "dgcnn_tpu_torch", "csrc")
     forms = {"kernel": os.path.join(csrc, SOURCES[kernel])}
-    if kernel not in ROWWARP_ENTRY:
-        forms["rowwarp"] = os.path.join(
+    if kernel not in EARLIER_ENTRY:
+        forms["earlier"] = os.path.join(
             _FORMS_DIR, SOURCES[kernel][:-3] + "_rowwarp.cu")
     forms.update({name: os.path.join(_FORMS_DIR, src)
                   for name, src in PROBES.get(kernel, {}).items()})
@@ -241,8 +273,8 @@ def build(kernel: str, root: str,
             raise RuntimeError(f"nvcc failed on {forms[name]}:\n{log}")
         built[name] = (lib, [ln for ln in _ptxas_summary(log)
                              if any(key in ln for key in PTXAS_KEYS[kernel])])
-    if kernel in ROWWARP_ENTRY:  # the row-warp form: the kernel library's
-        built = {"kernel": built["kernel"], "rowwarp": built["kernel"],
+    if kernel in EARLIER_ENTRY:  # the row-warp form: the kernel library's
+        built = {"kernel": built["kernel"], "earlier": built["kernel"],
                  **{n: f for n, f in built.items() if n != "kernel"}}
     return built
 
@@ -254,15 +286,16 @@ def _entry(lib: str, kernel: str, name: str):
     row-warp route."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dll = ctypes.CDLL(lib)
-    if kernel == "knn_idx":
-        fn = getattr(dll, ROWWARP_ENTRY[kernel] if name == "rowwarp" else
-                     "dg_knn_idx")
-        fn.argtypes = [p] * 3 + [i] * 4 + [p]
+    if kernel in ("knn_idx", "knn_sum", "edge_sum"):
+        fn = getattr(dll, EARLIER_ENTRY[kernel] if name == "earlier" else
+                     "dg_" + kernel)
+        nptr, nint = (5, 5) if kernel == "knn_sum" else (3, 4)
+        fn.argtypes = [p] * nptr + [i] * nint + [p]
         fn.restype = i
         return fn, None
-    if kernel in ROWWARP_ENTRY:
-        banded = name == "rowwarp" or kernel.startswith("banded_")
-        fn = getattr(dll, ROWWARP_ENTRY[kernel] if name == "rowwarp" else
+    if kernel in EARLIER_ENTRY:
+        banded = name == "earlier" or kernel.startswith("banded_")
+        fn = getattr(dll, EARLIER_ENTRY[kernel] if name == "earlier" else
                      "dg_" + kernel)
         nptr = 8 if kernel.endswith("edge_conv_eval") else 10
         fn.argtypes = [p] * (nptr + banded) + [i] * (6 + 2 * banded) + [f, p]
@@ -319,7 +352,7 @@ def run_knn(entries: dict, result: dict, order: list[str]) -> list[str]:
                 result["forms"][name]["ms"].setdefault(key, []).append(ms)
                 print(f"{name} {key} ms {ms:.4f}", flush=True)
             same = all(torch.equal(x, y) for name in outs
-                       for x, y in zip(outs[name], outs["rowwarp"]))
+                       for x, y in zip(outs[name], outs["earlier"]))
             result["checks"].append({"shape": key, "bit_equal": same})
             print(f"{key}: idx and reductions bit-equal {same}", flush=True)
             if not same:
@@ -408,9 +441,9 @@ def run_edge2(entries: dict, result: dict, order: list[str]) -> list[str]:
             torch.cuda.synchronize()
             outs[name] = (da1.clone(), db1.clone(), dflat.clone(),
                           torch.equal(first, dflat))
-        old = outs["rowwarp"]
+        old = outs["earlier"]
         for name, new in outs.items():
-            if name == "rowwarp":
+            if name == "earlier":
                 continue
             dw_rel = ((new[2] - old[2]).norm() / old[2].norm()).item()
             check = {"shape": key, "form": name,
@@ -513,7 +546,7 @@ def run_eval(kernel: str, entries: dict, result: dict,
             scratch = [torch.empty(sh, device=dev) for sh in scratch_shapes]
             ints_ = (b, n, dims[0], dims[1], dims[2], k)
             stream = _build.stream_of(out)
-            if name == "rowwarp":  # band = N, tile 128, starts 0
+            if name == "earlier":  # band = N, tile 128, starts 0
                 args = (*map(p, ins), p(starts), *map(p, scratch), p(out),
                         *ints_, 128, n, slope, stream)
             else:
@@ -527,8 +560,8 @@ def run_eval(kernel: str, entries: dict, result: dict,
                 print(f"{name} {key} ms {ms:.4f}", flush=True)
             torch.cuda.synchronize()
             outs[name] = out
-        same = all(torch.equal(out, outs["rowwarp"]) for out in outs.values())
-        finite = bool(torch.isfinite(outs["rowwarp"]).all())
+        same = all(torch.equal(out, outs["earlier"]) for out in outs.values())
+        finite = bool(torch.isfinite(outs["earlier"]).all())
         result["checks"].append({"shape": key, "bit_equal": same,
                                  "finite": finite})
         print(f"{key}: outputs bit-equal {same}, finite {finite}",
@@ -608,8 +641,8 @@ def run_banded(kernel: str, entries: dict, result: dict,
                 print(f"{name} {key} ms {ms:.4f}", flush=True)
             torch.cuda.synchronize()
             outs[name] = out
-        same = all(torch.equal(out, outs["rowwarp"]) for out in outs.values())
-        finite = bool(torch.isfinite(outs["rowwarp"]).all())
+        same = all(torch.equal(out, outs["earlier"]) for out in outs.values())
+        finite = bool(torch.isfinite(outs["earlier"]).all())
         result["checks"].append({"shape": key, "bit_equal": same,
                                  "finite": finite})
         print(f"{key}: outputs bit-equal {same}, finite {finite}",
@@ -694,11 +727,11 @@ def run_bwd(entries: dict, result: dict, order: list[str]) -> list[str]:
             torch.cuda.synchronize()
             outs[name] = da
         check = {"shape": key,
-                 "da_row_rel": _row_rel(outs["kernel"], outs["rowwarp"])}
+                 "da_row_rel": _row_rel(outs["kernel"], outs["earlier"])}
         if integer:
             want = edge_reduce_bwd_plain(idx, a, amax, amin, *cts)
             check["exact"] = all(torch.equal(outs[name], want)
-                                 for name in ("kernel", "rowwarp"))
+                                 for name in ("kernel", "earlier"))
         ok = check["da_row_rel"] <= 1e-5 and check.get("exact", True)
         result["checks"].append(check)
         print(f"{key}: {json.dumps(check)}", flush=True)
@@ -774,7 +807,7 @@ def run_fwd(entries: dict, result: dict, order: list[str]) -> list[str]:
             torch.cuda.synchronize()
             outs[name] = red
         same = all(torch.equal(x, y) for name in outs
-                   for x, y in zip(outs[name], outs["rowwarp"]))
+                   for x, y in zip(outs[name], outs["earlier"]))
         finite = all(bool(torch.isfinite(x).all()) for x in outs["kernel"])
         result["checks"].append({"shape": key, "bit_equal": same,
                                  "finite": finite})
@@ -820,7 +853,7 @@ def run_knn_idx(entries: dict, result: dict, order: list[str]) -> list[str]:
             _call(fn, *args)
             torch.cuda.synchronize()
             outs[name] = (idx, torch.equal(first, idx))
-        same = all(torch.equal(idx, outs["rowwarp"][0]) and again
+        same = all(torch.equal(idx, outs["earlier"][0]) and again
                    for idx, again in outs.values())
         check = {"shape": key, "identical": same}
         if integer:  # the case must put the k-th boundary inside ties
@@ -835,6 +868,116 @@ def run_knn_idx(entries: dict, result: dict, order: list[str]) -> list[str]:
         if not same:
             bad.append(key)
         del x, outs
+        torch.cuda.empty_cache()
+    return bad
+
+
+def run_knn_sum(entries: dict, result: dict, order: list[str]) -> list[str]:
+    """Kernel 10: every form at the HOG's graphs (timed), then on integer
+    duplicate points; idx and the sums identical between the forms and
+    over two calls."""
+    from dgcnn_tpu_torch.ops.hog import centred_moments
+    from dgcnn_tpu_torch.ops.knn import pairwise_neg_sqdist
+
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    p = _build.ptr
+    cases = [(f"{cell} B={b} N={n} k={k} C=3 Ca=9", b, n, k, False)
+             for cell, b, n, k in KNN_SUM_SHAPES]
+    cases += [(f"integer duplicates B=2 N=2048 k={k} C=3 Ca=9", 2, 2048, k,
+               True) for k in (32, 40)]
+    bad = []
+    for key, b, n, k, integer in cases:
+        if integer:  # every point four times on a small grid
+            base = torch.randint(-2, 3, (b, n // 4, 3), generator=g).float()
+            x = torch.cat([base] * 4, dim=1).to(dev)
+            a = torch.randint(-3, 4, (b, n, 9), generator=g).float().to(dev)
+        else:
+            x, a = centred_moments(torch.randn((b, n, 3), generator=g).to(
+                dev))
+        x, a = x.contiguous(), a.contiguous()
+        outs = {}
+        for name in order:
+            fn = entries[name][0]
+            idx = torch.empty((b, n, k), device=dev, dtype=torch.int32)
+            asum = torch.empty((b, n, 9), device=dev)
+            sq = torch.empty((b * n,), device=dev)
+            args = (p(x), p(a), p(sq), p(idx), p(asum), b, n, 3, 9, k,
+                    _build.stream_of(x))
+            if not integer:
+                ms = device_ms(lambda: _call(fn, *args), reps=5, rounds=5)
+                result["forms"][name]["ms"].setdefault(key, []).append(ms)
+                print(f"{name} {key} ms {ms:.4f}", flush=True)
+            _call(fn, *args)
+            first = (idx.clone(), asum.clone())
+            _call(fn, *args)
+            torch.cuda.synchronize()
+            outs[name] = (idx, asum, torch.equal(first[0], idx)
+                          and torch.equal(first[1], asum))
+        want = outs["earlier"]
+        same = all(torch.equal(o[0], want[0]) and torch.equal(o[1], want[1])
+                   and o[2] for o in outs.values())
+        check = {"shape": key, "bit_equal": same,
+                 "finite": bool(torch.isfinite(want[1]).all())}
+        if integer:  # the case must put the k-th boundary inside ties
+            top = pairwise_neg_sqdist(x).topk(k + 1, dim=-1).values
+            check["rows_tied_at_kth"] = int(
+                (top[..., k - 1] == top[..., k]).sum())
+            same = same and check["rows_tied_at_kth"] > 0
+        result["checks"].append(check)
+        print(f"{key}: {json.dumps(check)}", flush=True)
+        if not (same and check["finite"]):
+            bad.append(key)
+        del x, a, outs
+        torch.cuda.empty_cache()
+    return bad
+
+
+def run_edge_sum(entries: dict, result: dict, order: list[str]) -> list[str]:
+    """Kernel 9: every form at the HOG's shapes and beside them (timed),
+    then on repeated indices; the sums bit-equal between the forms and to
+    the plain version."""
+    from dgcnn_tpu_torch.ops.edge_sum_kernel import edge_sum_plain
+    from dgcnn_tpu_torch.ops.knn import knn
+
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    p = _build.ptr
+    cases = [(f"{cell} B={b} N={n} Co={co} k={k}", b, n, co, k, False)
+             for cell, b, n, co, k in EDGE_SUM_SHAPES]
+    cases += [(f"repeated indices B=2 N=2048 Co={co} k={k}", 2, 2048, co, k,
+               True) for co in (18, 9) for k in (1, 32, 40)]
+    bad = []
+    for key, b, n, co, k, repeated in cases:
+        if repeated:  # random indices, one position a copy of another
+            idx = torch.randint(0, n, (b, n, k), generator=g,
+                                dtype=torch.int32)
+            idx[..., k // 2] = idx[..., k // 3]
+            idx = idx.to(dev)
+        else:
+            pts = torch.randn((b, n, 3), generator=g).to(dev)
+            idx = knn(pts, k).int()
+        a = torch.randn((b, n, co), generator=g).to(dev)
+        outs = {}
+        for name in order:
+            fn = entries[name][0]
+            out = torch.empty((b, n, co), device=dev)
+            args = (p(idx), p(a), p(out), b, n, co, k, _build.stream_of(a))
+            if not repeated:
+                ms = device_ms(lambda: _call(fn, *args), reps=20, rounds=5)
+                result["forms"][name]["ms"].setdefault(key, []).append(ms)
+                print(f"{name} {key} ms {ms:.4f}", flush=True)
+            _call(fn, *args)
+            torch.cuda.synchronize()
+            outs[name] = out
+        want = edge_sum_plain(a, idx)
+        same = all(torch.equal(out, want) for out in outs.values())
+        result["checks"].append({"shape": key, "bit_equal_plain": same})
+        print(f"{key}: every form bit-equal to edge_sum_plain {same}",
+              flush=True)
+        if not same:
+            bad.append(key)
+        del idx, a, outs, want
         torch.cuda.empty_cache()
     return bad
 
@@ -878,7 +1021,8 @@ def main() -> None:
            "banded_edge_conv_eval": functools.partial(
                run_banded, "banded_edge_conv_eval"),
            "banded_knn_edge2": functools.partial(run_banded,
-                                                 "banded_knn_edge2")}
+                                                 "banded_knn_edge2"),
+           "knn_sum": run_knn_sum, "edge_sum": run_edge_sum}
     bad = run[args.kernel](entries, result, order)
     print(json.dumps(result), flush=True)
     if bad:
