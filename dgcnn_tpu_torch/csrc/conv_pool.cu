@@ -46,6 +46,22 @@
 // concat and the (B, N, E) activation never reach device memory.  f32 on
 // the CUDA cores: the exact mode rules out TF32, and 3xTF32 would lose the
 // max row's bits.
+//
+// The AMP form (dg_conv_pool_amp), fused_conv_pool(compute_dtype=bf16)
+// (pallas_pool.py:31-48), the JAX package's default: bf16 operands (the
+// bf16 stage outputs as they come, W rounded to bf16), f32 products and
+// sums, summed split by split as the Pallas kernel does, h = ((x1 W1 +
+// x2 W2) + x3 W3) + x4 W4, each term its own fmaf chain from zero; then
+// the f32 epilogue and the max and mean rows.  The inputs go to f32 once
+// (upcast_bf16_kernel, and W's rounding), then the register-blocked route
+// runs with SPLIT: at the last chunk of each input a thread adds its
+// 8 x 8 partial into a second 8 x 8 block of registers, so the instance
+// takes one block of 256 threads an SM.  Its bound is bf16 tensor-core
+// operations (~0.07 ms at 989 TFLOP/s at the DGCNNCls head); the CUDA
+// cores run it at their f32 rate, a route that a later tensor-core form
+// would replace (the products of bf16 values are exact in f32 either way,
+// the sums' order is not).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -165,10 +181,22 @@ __device__ __forceinline__ void locate_chunk(const Inputs& xs, int b, int N,
   k0 = u * dg::G128_K;
 }
 
+// The chunks of a row tile up to the end of input q.
+__device__ __forceinline__ int split_end(const Inputs& xs, int q) {
+  int end = 0;
+#pragma unroll
+  for (int r = 0; r < MAX_INPUTS; ++r)
+    if (r <= q) end += (xs.c[r] + dg::G128_K - 1) / dg::G128_K;
+  return end;
+}
+
 // A block: column tile blockIdx.x, row tiles [per * g, per * g + per) of
 // cloud b = blockIdx.z (g = blockIdx.y).  With groups == 1 it writes out;
 // otherwise its partial max and sum rows go to part (B, groups, 2, E).
-__global__ void __launch_bounds__(dg::G128_THREADS, 2)
+// SPLIT (the AMP form): each input's product is its own chain, the
+// chains added in input order.
+template <bool SPLIT>
+__global__ void __launch_bounds__(dg::G128_THREADS, SPLIT ? 1 : 2)
     conv_pool_gemm_kernel(Inputs xs, int N, const float* __restrict__ w,
                           int E, const float* __restrict__ scale,
                           const float* __restrict__ bias, float slope,
@@ -197,7 +225,7 @@ __global__ void __launch_bounds__(dg::G128_THREADS, 2)
         make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  float acc[8][8];
+  float acc[8][8], tot[8][8];
   {
     const float *x, *wq;
     int c, k0;
@@ -212,6 +240,7 @@ __global__ void __launch_bounds__(dg::G128_THREADS, 2)
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    int split = 0, next_end = split_end(xs, 0);
 #pragma unroll 1
     for (int u = 0; u < chunks; ++u) {
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -234,6 +263,26 @@ __global__ void __launch_bounds__(dg::G128_THREADS, 2)
       dg::g128_fma_chunk(acc, gsm + buf * dg::G128_A,
                          gsm + 2 * dg::G128_A + buf * dg::G128_B);
       buf ^= 1;
+      if constexpr (SPLIT) {
+        if (u + 1 == next_end) {  // input `split` is done: fold its chain
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              tot[i][j] = split == 0 ? acc[i][j]
+                                     : __fadd_rn(tot[i][j], acc[i][j]);
+              acc[i][j] = 0.f;
+            }
+          ++split;
+          next_end = split_end(xs, split);
+        }
+      }
+    }
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = tot[i][j];
     }
     // the tile is done: affine, LeakyReLU, and the fold into the running
     // column max and sum, rows i ascending (the next tile's first chunk is
@@ -327,6 +376,41 @@ void pool_groups(int B, int N, int E, int* per, int* groups) {
 
 bool aligned16(const void* p) { return (size_t)p % 16 == 0; }
 
+__global__ void upcast_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                                   size_t n, float* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) out[e] = __bfloat162float(x[e]);
+}
+
+__global__ void round_bf16_kernel(const float* __restrict__ w, size_t n,
+                                  float* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) out[e] = __bfloat162float(__float2bfloat16_rn(w[e]));
+}
+
+// The register-blocked route (groups and combine) on f32 inputs.
+template <bool SPLIT>
+int launch_gemm(const Inputs& xs, const float* w, const float* scale,
+                const float* bias, float* part, float* out, int B, int N,
+                int E, float slope, int with_mean, cudaStream_t st) {
+  int per, groups;
+  pool_groups(B, N, E, &per, &groups);
+  if (groups > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_pool_gemm_kernel<SPLIT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)GEMM_POOL_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((E + dg::G128_N - 1) / dg::G128_N, groups, B);
+  conv_pool_gemm_kernel<SPLIT><<<grid, dg::G128_THREADS, GEMM_POOL_SMEM,
+                                 st>>>(xs, N, w, E, scale, bias, slope, per,
+                                       groups, with_mean, part, out);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || groups == 1) return (int)e;
+  conv_pool_combine_kernel<<<(B * E + 255) / 256, 256, 0, st>>>(
+      part, B, groups, N, E, with_mean, out);
+  return (int)cudaGetLastError();
+}
+
 int check_inputs(const float* const* ps, const int* cs, int n_inputs, int B,
                  int N, int E, Inputs* xs) {
   if (n_inputs < 1 || n_inputs > MAX_INPUTS || B < 1 || N < 1 || E < 1)
@@ -381,21 +465,46 @@ extern "C" int dg_conv_pool(const float* x0, const float* x1, const float* x2,
   if (!gemm)
     return launch_tile64(xs, w, scale, bias, out, B, N, E, slope, with_mean,
                          st);
-  int per, groups;
-  pool_groups(B, N, E, &per, &groups);
-  if (groups > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      conv_pool_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)GEMM_POOL_SMEM);
+  return launch_gemm<false>(xs, w, scale, bias, part, out, B, N, E, slope,
+                            with_mean, st);
+}
+
+// The AMP form: xs bf16 (B, N, c_q), c_q and E multiples of 4; w (sum
+// c_q, E), scale/bias (E,) f32; scratch xf (B * N * sum c_q floats: the
+// inputs in f32, one after another) and wb (sum c_q * E floats: w rounded
+// to bf16), part as dg_conv_pool; out (B, with_mean ? 2 : 1, E) f32.
+// Returns the first CUDA error.
+extern "C" int dg_conv_pool_amp(const void* x0, const void* x1,
+                                const void* x2, const void* x3, int c0,
+                                int c1, int c2, int c3, int n_inputs,
+                                const float* w, const float* scale,
+                                const float* bias, float* xf, float* wb,
+                                float* part, float* out, int B, int N, int E,
+                                float slope, int with_mean, void* stream) {
+  const void* ps[MAX_INPUTS] = {x0, x1, x2, x3};
+  const int cs[MAX_INPUTS] = {c0, c1, c2, c3};
+  const float* fs[MAX_INPUTS] = {nullptr, nullptr, nullptr, nullptr};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_inputs < 1 || n_inputs > MAX_INPUTS || E % 4 != 0 || B < 1 ||
+      N < 1)
+    return (int)cudaErrorInvalidValue;
+  size_t off = 0;
+  for (int q = 0; q < n_inputs; ++q) {
+    if (cs[q] < 1 || cs[q] % 4 != 0) return (int)cudaErrorInvalidValue;
+    const size_t n = (size_t)B * N * cs[q];
+    upcast_bf16_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+        reinterpret_cast<const __nv_bfloat16*>(ps[q]), n, xf + off);
+    fs[q] = xf + off;
+    off += n;
+  }
+  const size_t wn = (off / ((size_t)B * N)) * E;
+  round_bf16_kernel<<<(wn + 255) / 256, 256, 0, st>>>(w, wn, wb);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((E + dg::G128_N - 1) / dg::G128_N, groups, B);
-  conv_pool_gemm_kernel<<<grid, dg::G128_THREADS, GEMM_POOL_SMEM, st>>>(
-      xs, N, w, E, scale, bias, slope, per, groups, with_mean, part, out);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || groups == 1) return (int)e;
-  conv_pool_combine_kernel<<<(B * E + 255) / 256, 256, 0, st>>>(
-      part, B, groups, N, E, with_mean, out);
-  return (int)cudaGetLastError();
+  Inputs xs;
+  if (int rc = check_inputs(fs, cs, n_inputs, B, N, E, &xs)) return rc;
+  return launch_gemm<true>(xs, wb, scale, bias, part, out, B, N, E, slope,
+                           with_mean, st);
 }
 
 // As dg_conv_pool at any shape on the first form (conv_pool_kernel): the

@@ -44,26 +44,34 @@
 //   channel of every fourth edge, so no index divides by C1, C2 or k on
 //   their path, and the tile's b1 rows, s1 and t1 sit in shared memory:
 //   with the gathers' divisions and reloads these phases took ~0.9 ms of
-//   4.15 a semseg call (PERF.md, Findings).  da1 keeps its f32 atomics
-//   (~0.14 ms a semseg call).
+//   4.15 a semseg call (PERF.md, Findings).
 //   Any other shape  edge2_bwd_rowwarp_kernel: one warp per centre row, QB
 //   = 8 rows a block.  Pass 1 walks the k edges and counts the ties; pass
 //   2 walks them again: each warp forms its edge's h1 and dz2 rows in
 //   shared memory, its lanes form dh1 for their first-conv channels (w2
 //   read by rows of its padded copy), add db1 in registers and da1 into
-//   the neighbour's row with f32 atomics; then the whole block adds the QB
+//   the neighbour's row; then the whole block adds the QB
 //   edges' outer products h1^T dz2 into its dW2 partial in shared memory.
 // Both routes use a grid of a few blocks per SM that strides over the tiles
 // or row groups.  At the end each block writes its dW2, ds1 and dt1
 // partials, and a second launch sums them over the blocks in a fixed
 // order: dW2, ds1 and dt1 carry no atomics and come out the same from run
-// to run.  da1's last bits vary from run to run (the order of its atomics,
-// as in edge_reduce_bwd.cu).  The caller zeroes da1.
+// to run.  da1, two forms on either route (a template flag):
+//   pull (dg_edge2_bwd_pull, the kernel's): each edge's addend dsel is
+//     stored, (B * N * k, C1) f32 (~0.67 GB at semseg's B=32, N=4096, k=20,
+//     C1=64), and reverse_lists.cu sums each point's row over its list of
+//     in-edges in ascending edge id, from zero: no float atomic, the same
+//     bits from run to run (~2 x 0.67 GB more traffic than the atomics:
+//     ~0.4 ms at 3.35 TB/s).
+//   atomic (dg_edge2_bwd, the oracle): each dsel is added into the
+//     neighbour's row by an f32 atomicAdd, in an order that changes from
+//     run to run; the caller zeroes da1.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "edge2.cuh"
 #include "edge2_tile.cuh"
+#include "reverse_lists.cuh"
 
 namespace {
 
@@ -73,6 +81,7 @@ using dg::E2_MAXC;
 constexpr int QB = 8;  // rows (warps) per block of the row-warp route
 constexpr int THREADS = QB * 32;
 
+template <bool PULL>
 __global__ void __launch_bounds__(THREADS, 1)
     edge2_bwd_rowwarp_kernel(const int* __restrict__ idx,
                      const float* __restrict__ a1,
@@ -87,7 +96,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                      const float* __restrict__ ct_sum,
                      const float* __restrict__ ct_sumsq, int rows, int N,
                      int k, float* __restrict__ da1, float* __restrict__ db1,
-                     float* __restrict__ part) {
+                     float* __restrict__ part, float* __restrict__ dsel_e) {
   extern __shared__ float smem[];
   const int ldw = dg::e2_ldw(C2);
   float* ws = smem;                 // w2, row stride ldw
@@ -188,7 +197,10 @@ __global__ void __launch_bounds__(THREADS, 1)
           dt1[u] = __fadd_rn(dt1[u], dz1);
           const float dsel = __fmul_rn(dz1, ctr.s[u]);
           db[u] = __fadd_rn(db[u], dsel);
-          atomicAdd(da1 + j + c, dsel);
+          if constexpr (PULL)
+            dsel_e[(rr * k + t) * C1 + c] = dsel;
+          else
+            atomicAdd(da1 + j + c, dsel);
         }
       }
       __syncthreads();  // every warp's h1 and dz2 rows of this edge are set
@@ -241,6 +253,7 @@ constexpr size_t TSMEM =
     sizeof(float) * (2 * TC * TC + 2 * TE * TC + 7 * TR * TC + 2 * TC) +
     sizeof(int) * 2 * TE;
 
+template <bool PULL>
 __global__ void __launch_bounds__(TT, 2)
     edge2_bwd_tiled_kernel(const int* __restrict__ idx,
                            const float* __restrict__ a1,
@@ -256,7 +269,8 @@ __global__ void __launch_bounds__(TT, 2)
                            const float* __restrict__ ct_sumsq, int rows,
                            int N, int k, float* __restrict__ da1,
                            float* __restrict__ db1,
-                           float* __restrict__ part) {
+                           float* __restrict__ part,
+                           float* __restrict__ dsel_e) {
   extern __shared__ __align__(16) float tsm[];
   float* w2s = tsm;               // w2 (C1, C2), row stride C2
   float* w2t = w2s + TC * TC;     // w2^T (C2, C1), row stride C1
@@ -429,7 +443,10 @@ __global__ void __launch_bounds__(TT, 2)
           dt1p[i] = __fadd_rn(dt1p[i], dz1);
           const float dsel = __fmul_rn(dz1, s1s[c]);
           hb[e * TC + c] = dsel;
-          atomicAdd(da1 + (size_t)j * C1 + c, dsel);
+          if constexpr (PULL)  // edge (row0 + e / k, e % k): id row0 k + e
+            dsel_e[((size_t)row0 * k + e) * C1 + c] = dsel;
+          else
+            atomicAdd(da1 + (size_t)j * C1 + c, dsel);
         }
       }
     }
@@ -491,13 +508,62 @@ extern "C" int dg_edge2_bwd_tiles(int B, int N, int C1, int C2, int k) {
   return (B * N + R - 1) / R;
 }
 
+namespace {
+
+template <bool PULL>
+int launch_bwd(const int* idx, const float* a1, const float* b1,
+               const float* s1, const float* t1, const float* w2,
+               const float* amax, const float* amin, const float* ct_max,
+               const float* ct_min, const float* ct_sum,
+               const float* ct_sumsq, float* da1, float* db1, float* part,
+               float* dflat, float* dsel_e, int B, int N, int C1, int C2,
+               int k, int G, float slope, cudaStream_t st) {
+  const int rows = B * N;
+  cudaError_t e;
+  if (dg::e2t_train_route(C1, C2, k)) {
+    e = cudaFuncSetAttribute(edge2_bwd_tiled_kernel<PULL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TSMEM);
+    if (e != cudaSuccess) return (int)e;
+    edge2_bwd_tiled_kernel<PULL><<<G, TT, TSMEM, st>>>(
+        idx, a1, b1, C1, s1, t1, w2, C2, slope, amax, amin, ct_max, ct_min,
+        ct_sum, ct_sumsq, rows, N, k, da1, db1, part, dsel_e);
+  } else {
+    const size_t smem =
+        sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)C1 * C2 +
+                         (size_t)QB * (C1 + C2) + (size_t)QB * 2 * C1);
+    e = cudaFuncSetAttribute(edge2_bwd_rowwarp_kernel<PULL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    edge2_bwd_rowwarp_kernel<PULL><<<G, THREADS, smem, st>>>(
+        idx, a1, b1, C1, s1, t1, w2, C2, slope, amax, amin, ct_max, ct_min,
+        ct_sum, ct_sumsq, rows, N, k, da1, db1, part, dsel_e);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int width = C1 * C2 + 2 * C1;
+  partial_sum_kernel<<<(width + 255) / 256, 256, 0, st>>>(part, G, width,
+                                                          dflat);
+  return (int)cudaGetLastError();
+}
+
+bool valid_bwd(int B, int N, int C1, int C2, int k, int G) {
+  return B >= 1 && N >= 1 && C1 >= 1 && C1 <= E2_MAXC && C2 >= 1 &&
+         C2 <= E2_MAXC && k >= 1 && k <= N && G >= 1 &&
+         G <= dg_edge2_bwd_tiles(B, N, C1, C2, k);
+}
+
+}  // namespace
+
 // idx (B, N, k) int32; a1/b1 (B, N, C1), s1/t1 (C1,), w2 (C1, C2), amax/amin
 // and the cotangents ct_* (B, N, C2) f32; out da1 (B, N, C1) zeroed by the
 // caller, db1 (B, N, C1), dflat (C1*C2 + 2*C1,) = [dW2 | ds1 | dt1]; scratch
 // part (G, C1*C2 + 2*C1) for G blocks, 1 <= G <= dg_edge2_bwd_tiles; all
 // f32 unless said, contiguous, on the device.  C1, C2 <= 64 (multiples of
 // 4) and k <= 128 take the tiled route, other shapes the row-warp route.
-// Returns the first CUDA error.
+// da1 is added by f32 atomics (the oracle of the pull form).  Returns the
+// first CUDA error.
 extern "C" int dg_edge2_bwd(const int* idx, const float* a1, const float* b1,
                             const float* s1, const float* t1, const float* w2,
                             const float* amax, const float* amin,
@@ -506,36 +572,34 @@ extern "C" int dg_edge2_bwd(const int* idx, const float* a1, const float* b1,
                             float* da1, float* db1, float* part, float* dflat,
                             int B, int N, int C1, int C2, int k, int G,
                             float slope, void* stream) {
-  const int rows = B * N;
-  if (B < 1 || N < 1 || C1 < 1 || C1 > E2_MAXC || C2 < 1 || C2 > E2_MAXC ||
-      k < 1 || k > N || G < 1 || G > dg_edge2_bwd_tiles(B, N, C1, C2, k))
-    return (int)cudaErrorInvalidValue;
+  if (!valid_bwd(B, N, C1, C2, k, G)) return (int)cudaErrorInvalidValue;
+  return launch_bwd<false>(idx, a1, b1, s1, t1, w2, amax, amin, ct_max,
+                           ct_min, ct_sum, ct_sumsq, da1, db1, part, dflat,
+                           nullptr, B, N, C1, C2, k, G, slope,
+                           (cudaStream_t)stream);
+}
+
+// As dg_edge2_bwd with da1 in the pull form: every element of da1 written
+// (the caller need not zero it), the same bits from run to run; scratch
+// dsel_e (B * N * k * C1 floats) and iscratch (dg_reverse_list_ints(B, N,
+// k) ints).
+extern "C" int dg_edge2_bwd_pull(
+    const int* idx, const float* a1, const float* b1, const float* s1,
+    const float* t1, const float* w2, const float* amax, const float* amin,
+    const float* ct_max, const float* ct_min, const float* ct_sum,
+    const float* ct_sumsq, float* da1, float* db1, float* part, float* dflat,
+    float* dsel_e, int* iscratch, int B, int N, int C1, int C2, int k, int G,
+    float slope, void* stream) {
+  if (!valid_bwd(B, N, C1, C2, k, G)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e;
-  if (dg::e2t_train_route(C1, C2, k)) {
-    e = cudaFuncSetAttribute(edge2_bwd_tiled_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)TSMEM);
-    if (e != cudaSuccess) return (int)e;
-    edge2_bwd_tiled_kernel<<<G, TT, TSMEM, st>>>(
-        idx, a1, b1, C1, s1, t1, w2, C2, slope, amax, amin, ct_max, ct_min,
-        ct_sum, ct_sumsq, rows, N, k, da1, db1, part);
-  } else {
-    const size_t smem =
-        sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)C1 * C2 +
-                         (size_t)QB * (C1 + C2) + (size_t)QB * 2 * C1);
-    e = cudaFuncSetAttribute(edge2_bwd_rowwarp_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    edge2_bwd_rowwarp_kernel<<<G, THREADS, smem, st>>>(
-        idx, a1, b1, C1, s1, t1, w2, C2, slope, amax, amin, ct_max, ct_min,
-        ct_sum, ct_sumsq, rows, N, k, da1, db1, part);
-  }
-  e = cudaGetLastError();
+  const int *off, *lst;
+  cudaError_t e = dg::build_reverse_lists(idx, B, N, k, iscratch, &off,
+                                          &lst, st);
   if (e != cudaSuccess) return (int)e;
-  const int width = C1 * C2 + 2 * C1;
-  partial_sum_kernel<<<(width + 255) / 256, 256, 0, st>>>(part, G, width,
-                                                          dflat);
-  return (int)cudaGetLastError();
+  const int rc = launch_bwd<true>(idx, a1, b1, s1, t1, w2, amax, amin,
+                                  ct_max, ct_min, ct_sum, ct_sumsq, da1, db1,
+                                  part, dflat, dsel_e, B, N, C1, C2, k, G,
+                                  slope, st);
+  if (rc) return rc;
+  return (int)dg::launch_pull_sum(off, lst, dsel_e, B * N, C1, da1, st);
 }

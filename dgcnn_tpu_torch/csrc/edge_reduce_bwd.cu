@@ -21,8 +21,25 @@
 // stages, ~0.16 ms at 3.35 TB/s; its ~11 operations per (i, t, channel)
 // take ~0.06 ms at 67 TFLOP/s.
 //
-// Design, two routes decided from N before the launch:
-//   N <= 16384 (every model: N <= 4096 by ops/knn.py::use_kernel)
+// Three routes.  The pull route is the kernel's (dg_edge_reduce_bwd_pull,
+// every shape the wrapper takes); the slices and atomic routes stay as
+// oracles behind the wrapper's keywords.
+//   pull  (no float atomic: da's bits are the same from run to run, and
+//     those of an f32 scatter-add over the edges in ascending order).
+//     reverse_lists.cu builds each point's list of in-edges e = i * k + t
+//     in ascending e.  edge_reduce_bwd_addend_kernel is the atomic route
+//     below with a store for its atomicAdd: a warp a row i counts the ties
+//     and stores each edge's w_t as a row of Co floats (B N k Co floats:
+//     ~0.67 GB at the DGCNNCls stage Co = 256, B=32).  Then the lists'
+//     pull sum (reverse_lists.cu, kernel 8's) adds each point's rows in
+//     list order from zero, a warp a point.  Two first forms recomputed
+//     w_t in the pull instead of storing it (no per-edge buffer): a warp a
+//     point reading row i's six values for each edge from device memory,
+//     and the channel slices above with seven slices in shared memory.
+//     Both were 2-5x slower than this one at the shapes of the models' own
+//     graphs, and the second ran every point with many in-edges (a hub) in
+//     each slice's block (PERF.md, Findings).
+//   slices  (dg_edge_reduce_bwd; N <= 16384)
 //   edge_reduce_bwd_slices_kernel.  Every part of the function is
 //   independent per channel: the tie counts of (i, c), each w_t, and the
 //   adds into da[:, c].  So a block takes one cloud b and CS consecutive
@@ -50,16 +67,18 @@
 //   loop (ATOMS.CAST.SPIN in the SASS), ~30% of the kernel's time against
 //   a plain read-modify-write.  A row that many points pick (a hub) takes
 //   its adds one after another.
-//   Any larger N  edge_reduce_bwd_atomic_kernel, the earlier form: one warp
+//   atomic  (dg_edge_reduce_bwd_atomic, and the slices entry above N =
+//   16384) edge_reduce_bwd_atomic_kernel, the first form: one warp
 //   per row i (QB = 16 rows a block), lane owns channels lane + 32 u; pass
 //   1 reads the k neighbour rows of a (coalesced) and counts the ties, pass
 //   2 reads them again (from L2) and adds each w_t into da's neighbour row
 //   with a global f32 atomicAdd (one per (row, neighbour, channel)).  The
 //   entry zeroes da on the stream first.
-// On both routes the adds land in an order that changes from run to run,
-// so da's last bits do too: the checks compare it within a relative
-// tolerance, and exactly only where every addend is an integer.
+// On the slices and atomic routes the adds land in an order that changes
+// from run to run, so da's last bits do too.
 #include <cuda_runtime.h>
+
+#include "reverse_lists.cuh"
 
 namespace {
 
@@ -224,6 +243,88 @@ __global__ void __launch_bounds__(QB * 32)
   }
 }
 
+// The pull route's first pass: a warp a row i (8 a block), CPL channels a
+// lane: the ties of (i, c) among a's rows of i's neighbours, t ascending,
+// then each edge's w_t with the _rn operations of the note, stored at
+// wbuf[(i k + t) Co + c] (a row of Co floats an edge, coalesced).  The
+// atomic route's two passes with a store for its atomicAdd.
+template <int CPL>
+__global__ void __launch_bounds__(256)
+    edge_reduce_bwd_addend_kernel(const int* __restrict__ idx,
+                                  const float* __restrict__ a,
+                                  const float* __restrict__ amax,
+                                  const float* __restrict__ amin,
+                                  const float* __restrict__ ct_max,
+                                  const float* __restrict__ ct_min,
+                                  const float* __restrict__ ct_sum,
+                                  const float* __restrict__ ct_sumsq,
+                                  int rows, int N, int Co, int k,
+                                  float* __restrict__ wbuf) {
+  const size_t row = (size_t)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= (size_t)rows) return;
+  const size_t base = (row / N) * N * Co;  // the cloud's a
+  const int* irow = idx + row * k;
+  float vmax[CPL], vmin[CPL], cmax[CPL], cmin[CPL];
+#pragma unroll
+  for (int u = 0; u < CPL; ++u) {
+    const int c = lane + 32 * u;
+    vmax[u] = c < Co ? amax[row * Co + c] : 0.f;
+    vmin[u] = c < Co ? amin[row * Co + c] : 0.f;
+    cmax[u] = cmin[u] = 0.f;
+  }
+  for (int t = 0; t < k; ++t) {
+    const float* arow = a + base + (size_t)irow[t] * Co;
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      const int c = lane + 32 * u;
+      if (c < Co) {
+        const float v = arow[c];
+        cmax[u] += v == vmax[u] ? 1.f : 0.f;
+        cmin[u] += v == vmin[u] ? 1.f : 0.f;
+      }
+    }
+  }
+  float gmax[CPL], gmin[CPL], gsum[CPL], gsq2[CPL];
+#pragma unroll
+  for (int u = 0; u < CPL; ++u) {
+    const int c = lane + 32 * u;
+    const size_t o = row * Co + c;
+    gmax[u] = c < Co ? __fdiv_rn(ct_max[o], cmax[u]) : 0.f;
+    gmin[u] = c < Co ? __fdiv_rn(ct_min[o], cmin[u]) : 0.f;
+    gsum[u] = c < Co ? ct_sum[o] : 0.f;
+    gsq2[u] = c < Co ? __fmul_rn(2.f, ct_sumsq[o]) : 0.f;
+  }
+  for (int t = 0; t < k; ++t) {
+    const float* arow = a + base + (size_t)irow[t] * Co;
+    float* wrow = wbuf + (row * k + t) * Co;
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      const int c = lane + 32 * u;
+      if (c < Co) {
+        const float v = arow[c];
+        wrow[c] = __fadd_rn(
+            __fadd_rn(__fadd_rn(v == vmax[u] ? gmax[u] : 0.f,
+                                v == vmin[u] ? gmin[u] : 0.f),
+                      gsum[u]),
+            __fmul_rn(v, gsq2[u]));
+      }
+    }
+  }
+}
+
+template <int CPL>
+cudaError_t launch_addend(const int* idx, const float* a, const float* amax,
+                          const float* amin, const float* ct_max,
+                          const float* ct_min, const float* ct_sum,
+                          const float* ct_sumsq, int rows, int N, int Co,
+                          int k, float* wbuf, cudaStream_t st) {
+  edge_reduce_bwd_addend_kernel<CPL><<<(rows + 7) / 8, 256, 0, st>>>(
+      idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq, rows, N, Co, k,
+      wbuf);
+  return cudaGetLastError();
+}
+
 bool valid(int B, int N, int Co, int k) {
   return B >= 1 && N % 128 == 0 && Co >= 1 && Co <= 32 * MAXCPL && k >= 1 &&
          k <= N;
@@ -283,4 +384,37 @@ extern "C" int dg_edge_reduce_bwd_atomic(
   if (!valid(B, N, Co, k)) return (int)cudaErrorInvalidValue;
   return launch_atomic(idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq,
                        da, B, N, Co, k, (cudaStream_t)stream);
+}
+
+// The pull route, at any shape dg_edge_reduce_bwd takes; the same
+// arguments and two scratch buffers: wbuf (B * N * k * Co floats: each
+// edge's w_t) and iscratch (dg_reverse_list_ints(B, N, k) ints: the
+// reverse lists).  No float atomic: da has the same bits from run to run.
+extern "C" int dg_edge_reduce_bwd_pull(
+    const int* idx, const float* a, const float* amax, const float* amin,
+    const float* ct_max, const float* ct_min, const float* ct_sum,
+    const float* ct_sumsq, float* da, float* wbuf, int* iscratch, int B,
+    int N, int Co, int k, void* stream) {
+  if (!valid(B, N, Co, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int *off, *lst;
+  cudaError_t e = dg::build_reverse_lists(idx, B, N, k, iscratch, &off,
+                                          &lst, st);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = B * N;
+  auto go = [&](auto launch) {
+    return launch(idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq,
+                  rows, N, Co, k, wbuf, st);
+  };
+  e = Co <= 32    ? go(launch_addend<1>)
+      : Co <= 64  ? go(launch_addend<2>)
+      : Co <= 128 ? go(launch_addend<4>)
+                  : go(launch_addend<8>);
+  if (e != cudaSuccess) return (int)e;
+  return (int)dg::launch_pull_sum(off, lst, wbuf, rows, Co, da, st);
+}
+
+// The int32 scratch of the reverse lists (reverse_lists.cuh).
+extern "C" long long dg_reverse_list_ints(int B, int N, int k) {
+  return (long long)dg::reverse_list_ints(B, N, k);
 }

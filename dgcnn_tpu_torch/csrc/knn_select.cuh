@@ -264,10 +264,12 @@ __device__ __forceinline__ float4 ts_ld4(const float* p) {
 }
 
 // Starts the copies of channels [c0, c0 + nch) of the block's query rows
-// r0.. (into qb, k-major) and of the tile's columns, rows j0.. of the
-// cloud (into gb), nch = min(TS_C, Cg - c0); columns at or past row `end`
-// are zero-filled.  The product reads no channel past nch.
+// r0.. of Q (into qb, k-major) and of the tile's columns, rows j0.. of the
+// cloud G (into gb), nch = min(TS_C, Cg - c0); columns at or past row `end`
+// are zero-filled.  The product reads no channel past nch.  Q is G but for
+// the AMP scores of f32 inputs (the modes below tiled_topk's note).
 __device__ __forceinline__ void ts_load_chunk(const float* __restrict__ G,
+                                              const float* __restrict__ Q,
                                               int Cg, int end, int r0, int j0,
                                               int c0, float* qb, float* gb) {
   const int nch = min(TS_C, Cg - c0);
@@ -275,8 +277,9 @@ __device__ __forceinline__ void ts_load_chunk(const float* __restrict__ G,
     const int r = nch == TS_C ? e / TS_C : e / nch;
     const int c = e - r * nch;
     const bool in = !bound || row0 + r < end;
+    const float* src = rows == TS_R ? Q : G;
     async_copy4((rows == TS_R ? qb : gb) + c * ld + r,
-                in ? G + (size_t)(row0 + r) * Cg + c0 + c : G, in);
+                in ? src + (size_t)(row0 + r) * Cg + c0 + c : src, in);
   };
   for (int e = threadIdx.x; e < TS_R * nch; e += TS_THREADS)
     copy(e, TS_R, TS_LDQ, r0, false);
@@ -398,14 +401,44 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 // TS_WR * w + rr, k >= 1 entries, k <= W, as rows of the cloud.  ANY: the
 // query rows lie in the window, and the tile that holds them streams
 // first (see above).
-template <int KL, bool ANY = false>
+//
+// MODE picks what the stream makes of the scores; TS_TOPK is the above.
+// The other three are the AMP (bf16) selections of kernel 1's eval
+// stages (dgcnn_tpu/ops/pallas_knn.py, _extract_loop_v2 / v3), on the
+// whole cloud (ANY false).  Their query rows come from GQ (rows of the
+// cloud, Cg channels, like G): for f32 inputs the AMP score is three bf16
+// products, hi.hi + hi.lo + lo.hi, which the one product here gives as
+// the chain over GQ = [hi | hi | lo] against G = [hi | lo | hi] (3 Cg
+// channels).  GQ = G for bf16 inputs.
+//   TS_MIN      no list: rrow[r] = the least score of row r (the v2
+//               keys' grid).
+//   TS_KEYS     v2: each score becomes its key's quantized part, q =
+//               max(rint(s * scale_r), -lim) with scale_r = -lim /
+//               rrow[r] where rrow[r] < 0 (0 otherwise); q is an integer
+//               below 2^24 in magnitude, exact in f32, so the list's
+//               order (q desc, index asc) is the order of the packed keys
+//               (q * 2^b + n - 1 - j, b the index bits).
+//   TS_CLASSES  v3: the list holds the k largest DISTINCT scores of the
+//               row, -inf in the slots past them, li[.] = (the count of
+//               columns with that score) << 16 | (the lowest of them).
+//               Every tile inserts: a column whose score is in the list
+//               adds one to its count; one that is larger than the k-th
+//               distinct score (or the list is not full) enters with
+//               count 1 and the k-th drops out.
+constexpr int TS_TOPK = 0, TS_KEYS = 1, TS_MIN = 2, TS_CLASSES = 3;
+
+template <int KL, bool ANY = false, int MODE = TS_TOPK>
 __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
                                            int Cg,
                                            const float* __restrict__ SQ,
                                            int start, int W, int r0, int k,
                                            float* sm,
                                            float (&ls)[TS_WR][KL],
-                                           int (&li)[TS_WR][KL]) {
+                                           int (&li)[TS_WR][KL],
+                                           const float* __restrict__ GQ =
+                                               nullptr,
+                                           float* __restrict__ rrow = nullptr,
+                                           float lim = 0.f) {
   float* st = sm;                        // finished tile (TS_R, TS_J)
   float* qbuf = st + TS_R * TS_J;        // two query chunks
   float* gbuf = qbuf + 2 * TS_C * TS_LDQ;  // two column chunks
@@ -421,12 +454,33 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     return ANY ? (t == 0 ? first : t - (t <= first)) : t;
   };
   const int steps = tiles * chunks;
-  float qq[4];
+  const float* Q = MODE == TS_TOPK ? G : GQ;
+  float qq[4], rs[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) qq[i] = SQ[r0 + 4 * ty + i];
+  for (int i = 0; i < 4; ++i) {
+    qq[i] = SQ[r0 + 4 * ty + i];
+    if constexpr (MODE == TS_KEYS) {  // the row's scale
+      const float m = rrow[r0 + 4 * ty + i];
+      rs[i] = m < 0.f ? __fdiv_rn(-lim, m) : 0.f;
+    }
+  }
+  float rmin[TS_WR];
+  if constexpr (MODE == TS_MIN) {
+#pragma unroll
+    for (int rr = 0; rr < TS_WR; ++rr) rmin[rr] = INFINITY;
+  }
+  if constexpr (MODE == TS_CLASSES) {
+#pragma unroll
+    for (int rr = 0; rr < TS_WR; ++rr)
+#pragma unroll
+      for (int q = 0; q < KL; ++q) {
+        ls[rr][q] = -INFINITY;
+        li[rr][q] = 0;
+      }
+  }
   float acc[4][8], sqj[8];
 
-  ts_load_chunk(G, Cg, end, r0, start + tile_at(0) * TS_J, 0, qbuf, gbuf);
+  ts_load_chunk(G, Q, Cg, end, r0, start + tile_at(0) * TS_J, 0, qbuf, gbuf);
   for (int s = 0; s < steps; ++s) {
     const int t = s / chunks, c = s - t * chunks;
     const int j0 = tile_at(t) * TS_J;
@@ -447,7 +501,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     __syncthreads();
     if (s + 1 < steps) {
       const int tn = (s + 1) / chunks, cn = s + 1 - tn * chunks;
-      ts_load_chunk(G, Cg, end, r0, start + tile_at(tn) * TS_J, cn * TS_C,
+      ts_load_chunk(G, Q, Cg, end, r0, start + tile_at(tn) * TS_J, cn * TS_C,
                     qbuf + ((s + 1) & 1) * TS_C * TS_LDQ,
                     gbuf + ((s + 1) & 1) * TS_C * TS_LDG);
     }
@@ -485,7 +539,9 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
           const int col = j0 + 4 * tx + jj + 64 * h;
           v[jj] = col < W ? __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc[i][j]),
                                                 qq[i]), sqj[j])
-                          : -INFINITY;
+                          : (MODE == TS_MIN ? INFINITY : -INFINITY);
+          if constexpr (MODE == TS_KEYS)
+            if (col < W) v[jj] = fmaxf(rintf(__fmul_rn(v[jj], rs[i])), -lim);
         }
         *reinterpret_cast<float4*>(st + (4 * ty + i) * TS_J + 4 * tx +
                                    64 * h) = make_float4(v[0], v[1], v[2],
@@ -495,6 +551,51 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     __syncthreads();
     // each warp walks its rows' scores in ascending column order; the next
     // step's barrier keeps st until every warp is done
+    if constexpr (MODE == TS_MIN) {  // the rows' running minima
+#pragma unroll
+      for (int rr = 0; rr < TS_WR; ++rr) {
+        const float* srow = st + (TS_WR * warp + rr) * TS_J;
+        float m = fminf(fminf(srow[lane], srow[32 + lane]),
+                        fminf(srow[64 + lane], srow[96 + lane]));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          m = fminf(m, __shfl_xor_sync(0xffffffffu, m, o));
+        rmin[rr] = fminf(rmin[rr], m);
+      }
+      continue;
+    }
+    if constexpr (MODE == TS_CLASSES) {  // every tile inserts
+#pragma unroll
+      for (int rr = 0; rr < TS_WR; ++rr) {
+        const float* srow = st + (TS_WR * warp + rr) * TS_J;
+        float thr = ts_kth<KL>(ls[rr], k);
+#pragma unroll 1
+        for (int u = 0; u < TS_J / 32; ++u) {
+          const float sc = srow[32 * u + lane];
+          const int j = start + j0 + 32 * u;
+          unsigned m = __ballot_sync(0xffffffffu,
+                                     sc >= thr && sc > -INFINITY);
+          while (m) {
+            const int src = __ffs(m) - 1;
+            m &= m - 1;
+            const float v = __shfl_sync(0xffffffffu, sc, src);
+            bool found = false;
+#pragma unroll
+            for (int q = 0; q < KL; ++q) {
+              const bool here = lane + 32 * q < k && ls[rr][q] == v;
+              found |= __any_sync(0xffffffffu, here);
+              if (here) li[rr][q] += 1 << 16;
+            }
+            if (!found && v > thr) {
+              ts_insert<KL>(ls[rr], li[rr], k, v, (1 << 16) | (j + src),
+                            lane);
+              thr = ts_kth<KL>(ls[rr], k);
+            }
+          }
+        }
+      }
+      continue;
+    }
     if (t == 0) {  // the first tile (W >= TS_J >= k) fills the lists
       // one copy of the sorting network, rolled over the rows: each row's
       // best 64 go back to its row of st, scores then index bits
@@ -551,6 +652,12 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
         }
       }
     }
+  }
+  if constexpr (MODE == TS_MIN) {
+    if (lane == 0)
+#pragma unroll
+      for (int rr = 0; rr < TS_WR; ++rr)
+        rrow[r0 + TS_WR * warp + rr] = rmin[rr];
   }
 }
 

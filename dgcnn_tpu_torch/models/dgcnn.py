@@ -40,6 +40,7 @@ from dgcnn_tpu_torch.models.nn_layers import (
     leaky_relu,
 )
 from dgcnn_tpu_torch.models.torch_transformer import TorchMultiheadAttention
+from dgcnn_tpu_torch.ops.amp_select import use_amp_eval
 from dgcnn_tpu_torch.ops.banded import banded_applicable, banded_knn_edge2
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool
 from dgcnn_tpu_torch.ops.edge2_kernel import knn_edge2
@@ -219,7 +220,11 @@ class TransformNet(nn.Module):
     take (``use_kernel``), ``get_graph_feature`` (kernel 11) builds the (B,
     N, k, 6) edge tensor, which conv1 and conv2 run on in torch with their
     BatchNorm over B*N*k, as in the JAX package.  CUDA tensors launch the
-    kernels, CPU tensors take their plain versions."""
+    kernels, CPU tensors take their plain versions.
+
+    Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
+    form of its kernel 6 is not ported (DGCNNCls alone has the AMP
+    mode)."""
 
     def __init__(self):
         super().__init__()
@@ -305,7 +310,15 @@ class DGCNNCls(nn.Module):
     (backward: edge_reduce_bwd) and conv5 + pool is plain torch, as in the
     JAX package.  On the CPU the kernels' plain versions run.  Dropout
     ``dp1``/``dp2`` acts in training only, drawing from the ``generator``
-    given to ``forward``."""
+    given to ``forward``.
+
+    Eval has two numerics modes, as the JAX package's: the exact f32 one
+    and the AMP one, its default (bf16 selection payloads and stage
+    outputs, the v3 / v2 selections, bf16 operands of conv5; the head f32
+    on the pooled f32 rows).  ``forward``'s ``amp`` None takes AMP on the
+    card unless ``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU;
+    True or False asks for one (``ops.amp_select.use_amp_eval``: clouds
+    the kernels do not take and k > 64 stay exact).  Training is exact."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 20,
                  dropout: float = 0.5, output_channels: int = 40,
@@ -329,13 +342,23 @@ class DGCNNCls(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                amp: bool | None = None) -> torch.Tensor:
         kk = self.k
-        x1 = self.conv1(x, train=train, graph=x, k=kk)
-        x2 = self.conv2(x1, train=train, graph=x1, k=kk)
-        x3 = self.conv3(x2, train=train, graph=x2, k=kk)
-        x4 = self.conv4(x3, train=train, graph=x3, k=kk)
-        if x.is_cuda and not train:
+        if train and amp:
+            raise ValueError("DGCNNCls trains in the exact mode only")
+        amp = not train and use_amp_eval(amp, x.device, x.shape[1], kk)
+        x1 = self.conv1(x, train=train, graph=x, k=kk, amp=amp)
+        x2 = self.conv2(x1, train=train, graph=x1, k=kk, amp=amp)
+        x3 = self.conv3(x2, train=train, graph=x2, k=kk, amp=amp)
+        x4 = self.conv4(x3, train=train, graph=x3, k=kk, amp=amp)
+        if amp:
+            s, t = self.conv5[1].folded()
+            pm = conv_pool((x1, x2, x3, x4), self.conv5.kernel(), s, t,
+                           self.conv5.negative_slope, with_mean=True,
+                           amp=True)
+            pooled = torch.cat([pm[:, 0], pm[:, 1]], dim=-1)
+        elif x.is_cuda and not train:
             s, t = self.conv5[1].folded()
             pm = conv_pool((x1, x2, x3, x4), self.conv5.kernel(), s, t,
                            self.conv5.negative_slope, with_mean=True)
@@ -400,7 +423,12 @@ class DGCNNPartSeg(nn.Module):
     graph runs kernel 11 (knn), the two-conv stages knn_edge_reduce +
     edge2_reduce and conv5 knn_edge_reduce (backward: edge_reduce_bwd and
     edge2_bwd), the pools plain torch, as in the JAX package.  On the CPU
-    the kernels' plain versions run."""
+    the kernels' plain versions run.
+
+    Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
+    forms of its kernels 6, 12 and 13 are not ported, and its stages must
+    not mix kernel 1's AMP form with an exact kernel 6 (DGCNNCls alone has
+    the AMP mode)."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 40,
                  dropout: float = 0.5, seg_num_all: int = 50, band: int = 0,
@@ -460,7 +488,12 @@ class DGCNNSemSeg(nn.Module):
     conv_pool; in training on CUDA the two-conv stages run
     knn_edge_reduce + edge2_reduce and conv5 knn_edge_reduce (backward:
     edge_reduce_bwd and edge2_bwd), conv6 + pool plain torch, as in the JAX
-    package.  On the CPU the kernels' plain versions run."""
+    package.  On the CPU the kernels' plain versions run.
+
+    Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
+    forms of its kernels 6, 12 and 13 are not ported, and its stages must
+    not mix kernel 1's AMP form with an exact kernel 6 (DGCNNCls alone has
+    the AMP mode)."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 20,
                  dropout: float = 0.5, num_classes: int = 13, band: int = 0,

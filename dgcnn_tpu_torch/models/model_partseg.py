@@ -110,7 +110,12 @@ class Net(nn.Module):
     LeakyReLU(0.2) in the encoder and relu in the decoder (the reference's
     effective activations), and ``dropout`` in training.  HOG takes the
     reference's gather of same-axis triples with ``hog_bug_compat``, as a
-    reference-trained ``transformer.pt`` needs."""
+    reference-trained ``transformer.pt`` needs.
+
+    Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
+    forms of its kernels (1, 6, 10, 14) are not ported, and its backbone
+    must not mix kernel 1's AMP form with an exact kernel 6 (DGCNNCls
+    alone has the AMP mode)."""
 
     def __init__(self, emb_dim: int = 512, k: int = 32, n_heads: int = 4,
                  n_blocks: int = 2, ff_dims: int = 512, nclasses: int = 50,

@@ -193,7 +193,8 @@ class EdgeConv(nn.Sequential):
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor | None = None,
                 train: bool = False, *, graph: torch.Tensor | None = None,
-                k: int | None = None, band: int = 0) -> torch.Tensor:
+                k: int | None = None, band: int = 0,
+                amp: bool = False) -> torch.Tensor:
         """Either neighbour ``idx`` (B, N, k), or ``graph`` + ``k`` to build
         the graph in the layer.  With ``graph`` of a size the kernels take
         (``use_kernel``), eval runs the whole stage as one kernel
@@ -202,7 +203,9 @@ class EdgeConv(nn.Sequential):
         training runs the differentiable kNN reductions
         (ops/knn_edge_reduce.py): kernels for CUDA tensors and their plain
         versions for CPU tensors.  Other sizes take ``knn`` and the ``idx``
-        path, as the JAX package's XLA path does."""
+        path, as the JAX package's XLA path does.  ``amp`` runs the eval
+        stage in its AMP form (bf16 output; the caller resolves the mode,
+        ``ops.amp_select.use_amp_eval``)."""
         w_nbr, w_ctr = self.split_weights()
         bn = self[1]
         if idx is None:
@@ -210,6 +213,8 @@ class EdgeConv(nn.Sequential):
                 raise ValueError("EdgeConv needs either idx or (graph, k)")
             if not use_kernel(graph.shape[1]):
                 return self(x, knn(graph, k), train)
+            if amp and (train or band):
+                raise ValueError("the AMP form is the exact-graph eval's")
             if train:
                 return self._train_fused(x, graph, k, w_nbr, w_ctr)
             s, t = bn.folded()
@@ -217,7 +222,7 @@ class EdgeConv(nn.Sequential):
                 return banded_edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
                                              band, self.negative_slope)
             return edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
-                                  self.negative_slope)
+                                  self.negative_slope, amp=amp)
         if train:
             mean, var = edge_conv_batch_stats(x, idx, w_nbr, w_ctr)
             s, t = bn.push_stats(mean, var,

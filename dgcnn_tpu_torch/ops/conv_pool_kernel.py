@@ -17,6 +17,12 @@ is bit-equal between them; the mean sums in another fixed order on each,
 the same bits from call to call.  ``conv_pool_plain`` beside it is the same
 function in plain torch: the wrapper runs it for CPU tensors and launches
 the kernel for CUDA tensors.
+
+``amp=True`` is the AMP form, ``fused_conv_pool(compute_dtype=bf16)``
+(``pallas_pool.py:31-48``), the JAX package's default: bf16 inputs (the
+AMP stages' outputs) and W rounded to bf16, f32 products and sums, each
+input's product its own sum, added input by input; the epilogue and the
+pooled rows f32.  ``conv_pool_amp_plain`` is its plain version.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import ctypes
 import torch
 
 from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.amp_select import round_bf16
 
 MAX_INPUTS = 4
 
@@ -33,6 +40,22 @@ def conv_pool_plain(xs, w, scale, bias, slope: float = 0.2,
                     with_mean: bool = True) -> torch.Tensor:
     """Plain torch version of the kernel: (B, 2 | 1, E) f32."""
     h = torch.matmul(torch.cat(tuple(xs), dim=-1), w)
+    y = h * scale + bias
+    y = torch.where(y >= 0, y, slope * y)
+    rows = [y.amax(dim=1)] + ([y.mean(dim=1)] if with_mean else [])
+    return torch.stack(rows, dim=1)
+
+
+def conv_pool_amp_plain(xs, w, scale, bias, slope: float = 0.2,
+                        with_mean: bool = True) -> torch.Tensor:
+    """Plain torch version of the AMP form: (B, 2 | 1, E) f32."""
+    wb = round_bf16(w.float())
+    h, off = None, 0
+    for x in xs:
+        c = x.shape[-1]
+        d = torch.matmul(round_bf16(x.float()), wb[off:off + c])
+        h = d if h is None else h + d
+        off += c
     y = h * scale + bias
     y = torch.where(y >= 0, y, slope * y)
     rows = [y.amax(dim=1)] + ([y.mean(dim=1)] if with_mean else [])
@@ -64,7 +87,7 @@ def _require(cond: bool, msg: str) -> None:
 
 def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               slope: float = 0.2, with_mean: bool = True, *,
-              tile64: bool = False) -> torch.Tensor:
+              tile64: bool = False, amp: bool = False) -> torch.Tensor:
     """LeakyReLU((concat(xs) @ w) * scale + bias) pooled over N.
 
     ``xs``: up to four (B, N, Ci) tensors whose channel concat is the conv
@@ -74,10 +97,15 @@ def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     tensors launch the kernel, which takes f32 contiguous inputs and raises
     on anything else.  The kernel's route is decided from the shape before
     the launch (the module's note); ``tile64`` launches the first form at
-    any shape."""
+    any shape.  ``amp`` runs the AMP form (plain: ``conv_pool_amp_plain``),
+    whose kernel takes bf16 inputs of widths, and an E, that are multiples
+    of 4."""
     xs = tuple(xs)
     if xs[0].device.type == "cpu":
-        return conv_pool_plain(xs, w, scale, bias, slope, with_mean)
+        fn = conv_pool_amp_plain if amp else conv_pool_plain
+        return fn(xs, w, scale, bias, slope, with_mean)
+    if amp:
+        return _conv_pool_amp(xs, w, scale, bias, slope, with_mean)
     dev = xs[0].device
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _require(1 <= len(xs) <= MAX_INPUTS, f"1..{MAX_INPUTS} inputs")
@@ -123,5 +151,59 @@ def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-# launches of the kernel since the count was last set to 0
+def _conv_pool_amp(xs, w, scale, bias, slope, with_mean) -> torch.Tensor:
+    dev = xs[0].device
+    _require(dev.type == "cuda", f"no kernel for device {dev}")
+    _require(1 <= len(xs) <= MAX_INPUTS, f"1..{MAX_INPUTS} inputs")
+    _require(all(t.device == dev for t in xs + (w, scale, bias)),
+             "all tensors must be on one device")
+    _require(all(x.dtype == torch.bfloat16 for x in xs),
+             "the AMP form takes bf16 inputs")
+    _require(all(t.dtype == torch.float32 for t in (w, scale, bias)),
+             "w, scale and bias must be float32")
+    _require(all(x.is_contiguous() for x in xs), "inputs must be contiguous")
+    b, n, _ = xs[0].shape
+    _require(all(x.dim() == 3 and x.shape[:2] == (b, n) for x in xs),
+             "inputs must share (B, N)")
+    widths = [x.shape[2] for x in xs]
+    c = sum(widths)
+    e = w.shape[1]
+    _require(w.shape == (c, e), f"w {tuple(w.shape)} vs {c} input channels")
+    _require(scale.shape == (e,) and bias.shape == (e,),
+             "scale/bias must be (E,)")
+    _require(e % 4 == 0 and all(ci % 4 == 0 for ci in widths),
+             "the AMP form takes widths and E multiples of 4")
+    fn = getattr(_build.load_library(), "dg_conv_pool_amp")
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p] * 4 + [i] * 5 + [p] * 7 + [i] * 3
+                       + [ctypes.c_float, i, p])
+        fn.restype = i
+    # the launch is asynchronous on torch's current stream: tensors made here
+    # and freed on return are reused by the caching allocator only for work
+    # queued after it on that stream
+    w, scale, bias = (t.contiguous() for t in (w, scale, bias))
+    xf = torch.empty((b * n * c,), device=dev, dtype=torch.float32)
+    wb = torch.empty((c * e,), device=dev, dtype=torch.float32)
+    floats = _scratch_floats(b, n, e)
+    part = (torch.empty((floats,), device=dev, dtype=torch.float32)
+            if floats else None)
+    out = torch.empty((b, 2 if with_mean else 1, e), device=dev,
+                      dtype=torch.float32)
+    p = _build.ptr
+    ptrs = [p(x) for x in xs] + [None] * (MAX_INPUTS - len(xs))
+    widths += [0] * (MAX_INPUTS - len(xs))
+    with torch.cuda.device(dev):
+        rc = fn(*ptrs, *widths, len(xs), p(w), p(scale), p(bias), p(xf),
+                p(wb), None if part is None else p(part), p(out), b, n, e,
+                float(slope), int(with_mean), _build.stream_of(w))
+    _build.check(rc, "conv_pool")
+    conv_pool.launches += 1
+    conv_pool.amp_launches += 1
+    return out
+
+
+# launches of the kernel since the count was last set to 0 (amp_launches:
+# those of its AMP form)
 conv_pool.launches = 0
+conv_pool.amp_launches = 0

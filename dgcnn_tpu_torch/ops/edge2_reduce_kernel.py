@@ -7,7 +7,11 @@ Replace ``dgcnn_tpu/ops/pallas_knn.py::_edge2_fwd_call`` (body
 ``csrc/edge2_reduce.cu`` and ``csrc/edge2_bwd.cu``; their notes state the
 bounds on an H100 (operations: the per-edge second conv, 2 B N k C1 C2
 flops a call, and the backward's three such products), what the designs do
-about them and why ``da1``'s last bits vary from run to run (f32 atomics).
+about them.  Kernel 8 sums ``da1`` without float atomics by default: each
+edge's addend is stored and each point's row summed over its in-edges in
+ascending edge id (``csrc/reverse_lists.cu``), so ``da1`` has the same bits
+from run to run; ``atomic=True`` adds them by f32 atomics instead (the
+oracle), whose order, and so ``da1``'s last bits, change from run to run.
 Both take the same route from the shape (``csrc/edge2_tile.cuh``,
 ``e2t_train_route``): C1 and C2 multiples of 4 up to 64 and k <= 128 (every
 model's shapes) run tiles of whole rows' edges, whose second conv is a
@@ -27,6 +31,7 @@ import torch
 
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.edge2_kernel import MAX_C, edge2_z2
+from dgcnn_tpu_torch.ops.edge_reduce_bwd_kernel import reverse_list_ints
 
 
 def edge2_fwd_plain(a1, b1, s1, t1, w2, idx, slope: float = 0.2):
@@ -132,7 +137,8 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
               t1: torch.Tensor, w2: torch.Tensor, idx: torch.Tensor,
               amax: torch.Tensor, amin: torch.Tensor, ct_max: torch.Tensor,
               ct_min: torch.Tensor, ct_sum: torch.Tensor,
-              ct_sumsq: torch.Tensor, slope: float = 0.2):
+              ct_sumsq: torch.Tensor, slope: float = 0.2, *,
+              atomic: bool = False):
     """The gradients (da1, db1, ds1, dt1, dw2) of ``edge2_fwd``'s four
     reductions given their cotangents and its ``amax``/``amin``.
 
@@ -144,14 +150,17 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     and C2 multiples of 4 up to 64 and k <= 128
     (every model's shapes) take the tiled kernel (whole rows' edges a
     tile, register-blocked products), other shapes the row-warp kernel (a
-    warp a row).  dW2, ds1 and dt1 are the same bits from call to call on
-    either route; da1 sums by atomics."""
+    warp a row).  dW2, ds1, dt1 and da1 are the same bits from call to
+    call on either route: da1 is summed over each point's in-edges in
+    ascending edge id from a stored addend a edge (B * N * k * C1 floats
+    of scratch), unless ``atomic`` adds the addends by f32 atomics."""
     if a1.device.type == "cpu":
         return edge2_bwd_plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max,
                                ct_min, ct_sum, ct_sumsq, slope)
     feats = (amax, amin, ct_max, ct_min, ct_sum, ct_sumsq)
     b, n, c1, c2, k = _check("edge2_bwd", a1, b1, s1, t1, w2, idx, feats)
-    fn = _fn("dg_edge2_bwd", [_P] * 16 + [_I] * 6 + [_F, _P])
+    fn = (_fn("dg_edge2_bwd", [_P] * 16 + [_I] * 6 + [_F, _P]) if atomic
+          else _fn("dg_edge2_bwd_pull", [_P] * 18 + [_I] * 6 + [_F, _P]))
     small = [t.contiguous() for t in (s1, t1, w2)]
     # a few blocks per SM stride over the tiles (whole rows) or row groups;
     # each leaves one row of partial dW2/ds1/dt1 sums, which a second launch
@@ -162,13 +171,22 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     width = c1 * c2 + 2 * c1
     part = torch.empty((g, width), device=a1.device, dtype=torch.float32)
     dflat = torch.empty((width,), device=a1.device, dtype=torch.float32)
-    da1 = torch.zeros_like(a1)  # the kernel adds into da1
     db1 = torch.empty_like(a1)
     p = _build.ptr
+    if atomic:
+        da1 = torch.zeros_like(a1)  # the atomics add into da1
+        scratch = []
+    else:
+        da1 = torch.empty_like(a1)  # every element written
+        dsel_e = torch.empty((b * n * k * c1,), device=a1.device,
+                             dtype=torch.float32)
+        iscratch = torch.empty((reverse_list_ints(b, n, k),),
+                               device=a1.device, dtype=torch.int32)
+        scratch = [p(dsel_e), p(iscratch)]
     with torch.cuda.device(a1.device):
         rc = fn(p(idx), p(a1), p(b1), *map(p, small), *map(p, feats), p(da1),
-                p(db1), p(part), p(dflat), b, n, c1, c2, k, g, float(slope),
-                _build.stream_of(a1))
+                p(db1), p(part), p(dflat), *scratch, b, n, c1, c2, k, g,
+                float(slope), _build.stream_of(a1))
     _build.check(rc, "edge2_bwd")
     edge2_bwd.launches += 1
     dw2 = dflat[:c1 * c2].view(c1, c2)

@@ -5,22 +5,27 @@ Replaces ``dgcnn_tpu/ops/pallas_knn.py::edge_reduce_bwd`` (body
 ``_edge_reduce_bwd_kernel``) in its exact f32 mode.  The kernel is
 ``csrc/edge_reduce_bwd.cu``.  Its bound on an H100 is bytes: idx, a, amax,
 amin and the four cotangents read once, da written once (~0.16 ms over the
-four DGCNNCls training stages at B=32).  Two routes, decided from N before
-the launch:
+four DGCNNCls training stages at B=32).  Three routes:
 
-- N <= 16384 (every model: ``ops/knn.py::use_kernel`` stops at 4096), the
-  slices route: a block takes one cloud and CS channels (16 at N = 1024, 8
-  at 2048, 4 at 4096), holds that slice of ``a`` and of ``da`` in shared
-  memory, counts each (row, channel)'s ties there and adds every edge's
-  cotangent into the ``da`` slice with shared-memory atomics, then writes
-  the slice once.  No global atomic.
-- larger N, the atomic route: a warp a row, one global f32 atomicAdd per
-  (row, neighbour, channel) into ``da``.
+- the pull route, the kernel's: each point's list of in-edges e = i * k +
+  t is built on the card in ascending e (``csrc/reverse_lists.cu``); a
+  warp a row counts its ties and stores each edge's cotangent (B * N * k
+  * Co floats of scratch), and each ``da[j]`` is summed from zero over
+  j's list in order.  No float atomic: ``da`` has the same bits from run
+  to run, those of an f32 scatter-add over the edges in ascending
+  order.
+- ``slices=True``, the channel-slices route (N <= 16384): a
+  block takes one cloud and CS channels, holds that slice of ``a`` and of
+  ``da`` in shared memory and adds every edge's cotangent into the ``da``
+  slice with shared-memory float atomics (above N = 16384 it takes the
+  atomic route).
+- ``atomic=True``, the first form: a warp a row, one global f32 atomicAdd
+  per (row, neighbour, channel) into ``da``.
 
-Either way the adds land in an order that changes from run to run, so
-``da``'s last bits do too; they are exact where every addend is an integer.
-The kernel writes every element of ``da``.  ``edge_reduce_bwd_plain``
-beside it is the same function in plain torch with the semantics of
+The two atomic routes add in an order that changes from run to run, so
+their ``da``'s last bits do too; they stay as oracles for the checks.  The
+kernel writes every element of ``da``.  ``edge_reduce_bwd_plain`` beside
+it is the same function in plain torch with the semantics of
 ``_ker_bwd_xla``: autograd through the gather and the reductions, ties of
 max and min splitting their cotangent evenly.  The wrapper runs it for CPU
 tensors and launches the kernel for CUDA tensors.
@@ -52,6 +57,64 @@ def edge_reduce_bwd_plain(idx, a, amax, amin, ct_max, ct_min, ct_sum,
     return da
 
 
+def reverse_list_ints(b: int, n: int, k: int) -> int:
+    """The int32 scratch of the reverse neighbour lists of ``b`` clouds of
+    ``n`` points and ``k`` neighbours (``csrc/reverse_lists.cuh``)."""
+    fn = _build.load_library().dg_reverse_list_ints
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+    return fn(b, n, k)
+
+
+def reverse_lists_plain(idx: torch.Tensor):
+    """Plain torch version of the reverse neighbour lists: for ``idx`` (B,
+    N, k), the (B * N + 1,) offsets and (B * N * k,) edge ids, int64, the
+    list of point g = b * N + j being the edge ids (b * N + i) * k + t
+    with idx[b, i, t] == j, ascending, at lst[off[g]:off[g + 1]]."""
+    b, n, k = idx.shape
+    target = (idx.long() + n * torch.arange(b, device=idx.device)[:, None,
+                                                                  None])
+    target = target.reshape(-1)
+    lst = torch.sort(target, stable=True).indices
+    deg = torch.bincount(target, minlength=b * n)
+    off = torch.zeros(b * n + 1, dtype=torch.int64, device=idx.device)
+    off[1:] = torch.cumsum(deg, 0)
+    return off, lst
+
+
+def reverse_lists(idx: torch.Tensor):
+    """The reverse neighbour lists that the pull routes of kernels 5 and 8
+    build on the card (``csrc/reverse_lists.cu``), as ``reverse_lists_plain``
+    returns them: CPU tensors take the plain version; a CUDA ``idx`` (int32,
+    contiguous) launches the list-building kernels, whose lists come back
+    as int64."""
+    if idx.device.type == "cpu":
+        return reverse_lists_plain(idx)
+    _require(idx.is_cuda, f"no kernel for device {idx.device}")
+    _require(idx.dtype == torch.int32 and idx.is_contiguous()
+             and idx.dim() == 3, "idx must be a contiguous (B, N, k) int32")
+    b, n, k = idx.shape
+    fn = _build.load_library().dg_reverse_lists
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, i, i, i, p, p]
+        fn.restype = i
+    scratch = torch.empty((reverse_list_ints(b, n, k),), device=idx.device,
+                          dtype=torch.int32)
+    with torch.cuda.device(idx.device):
+        rc = fn(_build.ptr(idx), b, n, k, _build.ptr(scratch),
+                _build.stream_of(idx))
+    _build.check(rc, "reverse_lists")
+    reverse_lists.launches += 1
+    return scratch[:b * n + 1].long(), scratch[-b * n * k:].long()
+
+
+# launches of the list-building kernels on their own since the count was
+# last set to 0
+reverse_lists.launches = 0
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"edge_reduce_bwd: {msg}")
@@ -60,17 +123,17 @@ def _require(cond: bool, msg: str) -> None:
 def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
                     amin: torch.Tensor, ct_max: torch.Tensor,
                     ct_min: torch.Tensor, ct_sum: torch.Tensor,
-                    ct_sumsq: torch.Tensor, *,
-                    atomic: bool = False) -> torch.Tensor:
+                    ct_sumsq: torch.Tensor, *, atomic: bool = False,
+                    slices: bool = False) -> torch.Tensor:
     """``da`` of the reductions (amax, amin, asum, asumsq) of
     ``knn_reduce`` with respect to ``a`` (B, N, Co), given their cotangents
     and the forward's ``idx`` (B, N, k) and ``amax``/``amin``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes an int32 ``idx``, f32 contiguous tensors, N a multiple of
-    128 and Co <= 256, and raises on anything else.  ``atomic`` launches
-    the atomic route at any shape (the checks hold the slices route
-    against it)."""
+    128 and Co <= 256, and raises on anything else.  The pull route runs
+    unless ``atomic`` (the atomic route at any shape) or ``slices`` (the
+    channel-slices route) asks for an oracle."""
     if a.device.type == "cpu":
         return edge_reduce_bwd_plain(idx, a, amax, amin, ct_max, ct_min,
                                      ct_sum, ct_sumsq)
@@ -92,16 +155,30 @@ def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
     _require(n % 128 == 0, f"N={n} must be a multiple of 128")
     _require(1 <= co <= MAX_CO, f"Co={co} out of 1..{MAX_CO}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
-    fn = getattr(_build.load_library(), "dg_edge_reduce_bwd_atomic"
-                 if atomic else "dg_edge_reduce_bwd")
+    _require(not (atomic and slices), "atomic and slices are two routes")
+    pull = not (atomic or slices)
+    lib = _build.load_library()
+    fn = getattr(lib, "dg_edge_reduce_bwd_pull" if pull else
+                 "dg_edge_reduce_bwd_atomic" if atomic else
+                 "dg_edge_reduce_bwd")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 4 + [p]
+        fn.argtypes = [p] * (11 if pull else 9) + [i] * 4 + [p]
         fn.restype = i
+    # the launch is asynchronous on torch's current stream: tensors made here
+    # and freed on return are reused by the caching allocator only for work
+    # queued after it on that stream
     da = torch.empty_like(a)  # every element written
     p = _build.ptr
+    scratch = []
+    if pull:
+        wbuf = torch.empty((b * n * k * co,), device=a.device,
+                           dtype=torch.float32)
+        iscratch = torch.empty((reverse_list_ints(b, n, k),),
+                               device=a.device, dtype=torch.int32)
+        scratch = [p(wbuf), p(iscratch)]
     with torch.cuda.device(a.device):
-        rc = fn(p(idx), *map(p, feats), p(da), b, n, co, k,
+        rc = fn(p(idx), *map(p, feats), p(da), *scratch, b, n, co, k,
                 _build.stream_of(a))
     _build.check(rc, "edge_reduce_bwd")
     edge_reduce_bwd.launches += 1

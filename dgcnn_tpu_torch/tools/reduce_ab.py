@@ -44,7 +44,10 @@ device times (calls queued behind a sleep of the card,
   bit-equal between the forms (and on an integer case whose z2 ties, so
   that the tie counts enter it); dW2, ds1 and dt1 within rel 1e-5 of the
   earlier form's and the same bits over two calls; da1 within rel 1e-5 of
-  each row's norm.
+  each row's norm.  The form "kernel" is the
+  library's atomic da1 (``dg_edge2_bwd``), "pull" its pull route
+  (``dg_edge2_bwd_pull``), whose da1 must also be the same bits over two
+  calls.
 - ``--kernel edge_conv_eval``: the eval stages of DGCNNCls (B=64,
   N=1024, k=20, (Cg, Cin -> Co) = (3, 3 -> 64), (64, 64 -> 64), (64, 64
   -> 128), (128, 128 -> 256)), the semseg and partseg conv5 (B=16, 64 ->
@@ -64,7 +67,10 @@ device times (calls queued behind a sleep of the card,
   da (the zeroing is timed with them, as the earlier wrapper paid it), the
   kernel writes every element; da within rel 1e-5 of each row's norm of
   the earlier form's, and exact against it and the plain version on
-  integer duplicate points.
+  integer duplicate points.  The form "kernel" is the library's slices
+  route (``dg_edge_reduce_bwd``), "pull" its pull route
+  (``dg_edge_reduce_bwd_pull``, the reverse lists built in each call),
+  whose da must also be the same bits over two calls.
 - ``--kernel edge2_fwd``: B=32, C1 = C2 = 64 at the semseg (N=4096, k=20)
   and partseg (N=2048, k=40) shapes, on the kernel's tiled route; C2 = 128
   and k = 129 (its row-warp route); and integer duplicate points whose
@@ -139,9 +145,10 @@ SOURCES = {"knn_reduce": "knn_reduce.cu", "edge2_bwd": "edge2_bwd.cu",
 # the sources a form links: launch_sqnorm, dg_cuda_error_string and
 # launch_project
 HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu"),
-           "edge2_bwd": (), "edge_conv_eval": ("project.cu",),
+           "edge2_bwd": ("reverse_lists.cu",),
+           "edge_conv_eval": ("project.cu",),
            "knn_edge2": ("edge_conv_eval.cu", "project.cu"),
-           "edge_reduce_bwd": (), "edge2_fwd": (),
+           "edge_reduce_bwd": ("reverse_lists.cu",), "edge2_fwd": (),
            "knn_idx": ("edge_conv_eval.cu", "project.cu"),
            "banded_edge_conv_eval": ("project.cu",),
            "banded_knn_edge2": ("edge_conv_eval.cu", "project.cu"),
@@ -158,8 +165,14 @@ EARLIER_ENTRY = {"edge_conv_eval": "dg_banded_edge_conv_eval_rowwarp",
                  "banded_knn_edge2": "dg_banded_knn_edge2_rowwarp",
                  "knn_sum": "dg_knn_sum_rowwarp",
                  "edge_sum": "dg_edge_sum_per_output"}
+# the kernels whose library also holds their pull route (the kernel's own
+# route, da / da1 without float atomics): a form of the A/B beside the
+# library's entry (kernel 5: its slices route; kernel 8: its atomic da1)
+PULL_ENTRY = {"edge_reduce_bwd": "dg_edge_reduce_bwd_pull",
+              "edge2_bwd": "dg_edge2_bwd_pull"}
 # ptxas lines worth printing: the kernel's own instances
-PTXAS_KEYS = {"knn_reduce": ("reduce",), "edge2_bwd": ("bwd", "partial"),
+PTXAS_KEYS = {"knn_reduce": ("reduce",),
+              "edge2_bwd": ("bwd", "partial", "pull"),
               "edge_conv_eval": ("select_kernel", "edge_conv_eval"),
               "knn_edge2": ("knn_edge2",),
               "edge_reduce_bwd": ("edge_reduce_bwd",),
@@ -276,6 +289,9 @@ def build(kernel: str, root: str,
     if kernel in EARLIER_ENTRY:  # the row-warp form: the kernel library's
         built = {"kernel": built["kernel"], "earlier": built["kernel"],
                  **{n: f for n, f in built.items() if n != "kernel"}}
+    if kernel in PULL_ENTRY and hasattr(ctypes.CDLL(built["kernel"][0]),
+                                        PULL_ENTRY[kernel]):
+        built["pull"] = built["kernel"]
     return built
 
 
@@ -306,14 +322,17 @@ def _entry(lib: str, kernel: str, name: str):
         fn = dll.dg_knn_reduce
         fn.argtypes = [p] * 8 + [i] * 5 + [p]
     elif kernel == "edge_reduce_bwd":
-        fn = dll.dg_edge_reduce_bwd
-        fn.argtypes = [p] * 9 + [i] * 4 + [p]
+        pull = name == "pull"
+        fn = getattr(dll, PULL_ENTRY[kernel] if pull else
+                     "dg_edge_reduce_bwd")
+        fn.argtypes = [p] * (11 if pull else 9) + [i] * 4 + [p]
     elif kernel == "edge2_fwd":
         fn = dll.dg_edge2_fwd
         fn.argtypes = [p] * 10 + [i] * 5 + [f, p]
     else:
-        fn = dll.dg_edge2_bwd
-        fn.argtypes = [p] * 16 + [i] * 6 + [f, p]
+        pull = name == "pull"
+        fn = getattr(dll, PULL_ENTRY[kernel] if pull else "dg_edge2_bwd")
+        fn.argtypes = [p] * (18 if pull else 16) + [i] * 6 + [f, p]
         tiles = getattr(dll, "dg_edge2_bwd_tiles", None)
         if tiles is not None:
             tiles.argtypes = [i] * 5
@@ -389,6 +408,11 @@ def _edge2_inputs(g, n: int, k: int, dev, integer: bool = False):
     return tin, idx, [amax, amin, *cts]
 
 
+def _list_ints(b: int, n: int, k: int) -> int:
+    """The int32 scratch of the reverse lists (csrc/reverse_lists.cuh)."""
+    return 2 * b * n + 1 + 2 * b * n * k
+
+
 def _row_rel(got, want) -> float:
     return ((got - want).norm(dim=-1)
             / want.norm(dim=-1).clamp_min(1e-30)).max().item()
@@ -415,12 +439,18 @@ def run_edge2(entries: dict, result: dict, order: list[str]) -> list[str]:
         dflat = torch.empty((width,), device=dev)
         da1 = torch.zeros_like(tin[0])
         db1 = torch.empty_like(tin[0])
+        scratch = []
+        if name == "pull":  # each edge's addend and the reverse lists
+            scratch = [torch.empty((b * n * k * c1,), device=dev),
+                       torch.empty((_list_ints(b, n, k),), device=dev,
+                                   dtype=torch.int32)]
         args = (p(idx), *map(p, tin), *map(p, feats), p(da1), p(db1),
-                p(part), p(dflat), b, n, c1, c2, k, g_blocks, 0.2,
-                _build.stream_of(idx))
+                p(part), p(dflat), *map(p, scratch), b, n, c1, c2, k,
+                g_blocks, 0.2, _build.stream_of(idx))
 
-        def call():
-            da1.zero_()
+        def call(keep=(part, scratch)):  # alive as long as the call
+            if name != "pull":  # the atomic forms add into a zeroed da1
+                da1.zero_()
             _call(fn, *args)
         return call, da1, db1, dflat
 
@@ -436,11 +466,12 @@ def run_edge2(entries: dict, result: dict, order: list[str]) -> list[str]:
                 result["forms"][name]["ms"].setdefault(key, []).append(ms)
                 print(f"{name} {key} ms {ms:.4f}", flush=True)
             call()
-            first = dflat.clone()
+            first = dflat.clone(), da1.clone()
             call()
             torch.cuda.synchronize()
             outs[name] = (da1.clone(), db1.clone(), dflat.clone(),
-                          torch.equal(first, dflat))
+                          torch.equal(first[0], dflat),
+                          torch.equal(first[1], da1))
         old = outs["earlier"]
         for name, new in outs.items():
             if name == "earlier":
@@ -450,11 +481,13 @@ def run_edge2(entries: dict, result: dict, order: list[str]) -> list[str]:
                      "db1_bit_equal": torch.equal(new[1], old[1]),
                      "dflat_rel": dw_rel,
                      "dflat_same_bits_over_calls": new[3],
-                     "da1_row_rel": _row_rel(new[0], old[0])}
+                     "da1_row_rel": _row_rel(new[0], old[0]),
+                     "da1_same_bits_over_calls": new[4]}
             result["checks"].append(check)
             print(f"{key}: {json.dumps(check)}", flush=True)
             if not (check["db1_bit_equal"] and dw_rel <= 1e-5 and new[3]
-                    and check["da1_row_rel"] <= 1e-5):
+                    and check["da1_row_rel"] <= 1e-5
+                    and (new[4] or name != "pull")):
                 bad.append(f"{key} {name}")
         del tin, idx, feats, outs
         torch.cuda.empty_cache()
@@ -708,14 +741,20 @@ def run_bwd(entries: dict, result: dict, order: list[str]) -> list[str]:
                    for _ in range(4)]
             del graph
         b = a.shape[0]
-        outs = {}
+        outs, same = {}, True
         for name in order:
             fn = entries[name][0]
             da = torch.empty_like(a)
-            args = (p(idx), p(a), p(amax), p(amin), *map(p, cts), p(da), b,
-                    n, co, k, _build.stream_of(a))
+            scratch = []
+            if name == "pull":  # each edge's addend and the reverse lists
+                scratch = [torch.empty((b * n * k * co,), device=dev),
+                           torch.empty((_list_ints(b, n, k),), device=dev,
+                                       dtype=torch.int32)]
+            args = (p(idx), p(a), p(amax), p(amin), *map(p, cts), p(da),
+                    *map(p, scratch), b, n, co, k, _build.stream_of(a))
 
-            def call(fn=fn, args=args, da=da, zero=name != "kernel"):
+            def call(fn=fn, args=args, da=da,
+                     zero=name not in ("kernel", "pull")):
                 if zero:  # the earlier forms add into a zeroed da
                     da.zero_()
                 _call(fn, *args)
@@ -725,14 +764,24 @@ def run_bwd(entries: dict, result: dict, order: list[str]) -> list[str]:
                 print(f"{name} {key} ms {ms:.4f}", flush=True)
             call()
             torch.cuda.synchronize()
+            if name == "pull":  # no float atomic: the same bits each call
+                first = da.clone()
+                call()
+                torch.cuda.synchronize()
+                same = same and torch.equal(first, da)
             outs[name] = da
         check = {"shape": key,
                  "da_row_rel": _row_rel(outs["kernel"], outs["earlier"])}
+        if "pull" in outs:
+            check["pull_da_row_rel"] = _row_rel(outs["pull"],
+                                                outs["earlier"])
+            check["pull_same_bits_over_calls"] = same
         if integer:
             want = edge_reduce_bwd_plain(idx, a, amax, amin, *cts)
             check["exact"] = all(torch.equal(outs[name], want)
-                                 for name in ("kernel", "earlier"))
-        ok = check["da_row_rel"] <= 1e-5 and check.get("exact", True)
+                                 for name in outs if name != "store")
+        ok = (check["da_row_rel"] <= 1e-5 and check.get("exact", True)
+              and check.get("pull_da_row_rel", 0.0) <= 1e-5 and same)
         result["checks"].append(check)
         print(f"{key}: {json.dumps(check)}", flush=True)
         if not ok:
