@@ -10,6 +10,9 @@ keeps the best test IoU's model in the reference state-dict layout at
 ``<model_root>/model_<a>.t7`` for each area it tests (``--test_area=all``:
 areas 1-6 and the overall line).  ``--fast_extract BAND`` runs the eval
 forwards (a training run's test passes too) through the banded kernels.
+On the card the eval forwards run the AMP mode unless
+``DGCNN_TPU_PALLAS_EXACT`` is set; ``main`` pins ``DGCNN_TPU_EXTRACT=v2``
+for its run, as the JAX CLI does.
 
     python -m dgcnn_tpu_torch.cli.semseg --exp_name=s3dis6 --test_area=6
     python -m dgcnn_tpu_torch.cli.semseg --eval=True --test_area=all \
@@ -18,6 +21,7 @@ forwards (a training run's test passes too) through the banded kernels.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
@@ -34,6 +38,7 @@ from dgcnn_tpu_torch.cli.common import (
 from dgcnn_tpu_torch.convert import load_checkpoint
 from dgcnn_tpu_torch.data import S3DIS, make_loader
 from dgcnn_tpu_torch.models import DGCNNSemSeg, init_like_flax_
+from dgcnn_tpu_torch.ops.amp_select import EXTRACT_ENV
 from dgcnn_tpu_torch.train import (
     accuracy_score,
     balanced_accuracy_score,
@@ -216,6 +221,24 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+@contextlib.contextmanager
+def extract_pin():
+    """``DGCNN_TPU_EXTRACT=v2`` for the block, as the JAX CLI pins it: S3DIS
+    blocks are sampled with replacement, so they repeat points, and the
+    eval kernels' packed member-by-member extraction (v2) keeps a
+    duplicate's neighbourhood torch's (lowest index first) where v3 would
+    average tied classes.  A value the user set wins; the variable is as
+    it was afterwards, so that other entry points called in the same
+    process run their own variants."""
+    had = EXTRACT_ENV in os.environ
+    os.environ.setdefault(EXTRACT_ENV, "v2")
+    try:
+        yield
+    finally:
+        if not had:
+            os.environ.pop(EXTRACT_ENV, None)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     init_output_dir(args.exp_name, __file__)
@@ -223,10 +246,11 @@ def main(argv=None):
     io.cprint(str(args))
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
-    if not args.eval:
-        train(args, io)
-    else:
-        test(args, io)
+    with extract_pin():
+        if not args.eval:
+            train(args, io)
+        else:
+            test(args, io)
 
 
 if __name__ == "__main__":

@@ -46,10 +46,12 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 }
 
 // h1 of every edge slot of the tile into hb (E2T_EDGES x E2T_C1): slot e
-// takes row jrow[e] of A (-1: an empty slot, zeros) and the centre's row
-// eloc[e] of b1rows (row stride ldb); channels C1.. hold zeros.  Thread
-// tid takes channel tid % 64 of slots tid / 64 + 4 m.  The caller
-// synchronises the block before and after.
+// takes row jrow[e] of A (-1: an empty slot, zeros; MEANS and below -1:
+// the row already in its slot of hb, a class mean of kernel 6's v3) and the
+// centre's row eloc[e] of b1rows (row stride ldb); channels C1.. hold
+// zeros.  Thread tid takes channel tid % 64 of slots tid / 64 + 4 m.  The
+// caller synchronises the block before and after.
+template <bool MEANS = false>
 __device__ __forceinline__ void e2t_stage_h1(
     const float* __restrict__ A, const float* b1rows, int ldb,
     const int* jrow, const int* eloc, const float* s1s, const float* t1s,
@@ -58,10 +60,12 @@ __device__ __forceinline__ void e2t_stage_h1(
   for (int e = eb; e < E2T_EDGES; e += E2T_THREADS / E2T_C1) {
     const int j = jrow[e];
     float h = 0.f;
-    if (j >= 0 && cl < C1)
-      h = e2_lrelu(e2_z1(A[(size_t)j * C1 + cl], b1rows[eloc[e] * ldb + cl],
-                         s1s[cl], t1s[cl]),
+    if ((j >= 0 || (MEANS && j < -1)) && cl < C1) {
+      const float a = MEANS && j < -1 ? hb[e * E2T_C1 + cl]
+                                      : A[(size_t)j * C1 + cl];
+      h = e2_lrelu(e2_z1(a, b1rows[eloc[e] * ldb + cl], s1s[cl], t1s[cl]),
                    slope);
+    }
     hb[e * E2T_C1 + cl] = h;
   }
 }

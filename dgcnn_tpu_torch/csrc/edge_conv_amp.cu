@@ -1,0 +1,389 @@
+// edge_conv_amp: kernel 1's and kernel 12's forms other than the exact
+// v1 on Hopper (sm_90a): the AMP v3 and v2 forms and the exact v2 form.
+//
+// Replaces dgcnn_tpu/ops/pallas_knn.py::fused_edge_conv_eval (body
+// _edge_conv1_kernel) and pallas_banded.py::banded_edge_conv_eval (the same
+// body over each query tile's window) in the JAX package's default, the
+// AMP mode, and in the exact mode under DGCNN_TPU_EXTRACT=v2 (the semseg
+// CLI's pin; _extract_version, pallas_knn.py:225): the exact scores' keys
+// (TS_MIN + TS_KEYS over the f32 graph), the f32 payload and output.
+//
+// The AMP form, the JAX package's default: its _edge_conv1_kernel at
+// select_dtype bf16 (pallas_knn.py:830-907), on the tiled route only (k <=
+// 64, Co <= 256; the wrapper raises above).
+// The stage input is f32 (the cloud) or bf16 (an AMP stage's output), and
+// the output bf16.
+//   scores    _scores(exact=False): bf16 inputs give one product of bf16
+//             values (exact products, f32 sums); f32 inputs split into
+//             bf16 hi and lo parts and the inner product is hi.hi + hi.lo
+//             + lo.hi.  amp_graph_kernel writes the operands of one chain
+//             that gives it (knn_select.cuh's modes: [hi | hi | lo]
+//             against [hi | lo | hi], 3 Cg channels), or the bf16 graph
+//             as f32.  The squared norms are of the f32 values.
+//   payload   select_x_plan (:244): 3->64 and 64->64 project-first with
+//             v3, 64->128 project-first with v2, 128->256 select-x with
+//             v2.  Project-first selects a = x @ W_nbr rounded to bf16,
+//             W rounded to bf16 where x is bf16 (:868-879); the wrapper
+//             rounds W.  Select-x selects x's bf16 rows and projects each
+//             with the f32 W_nbr (:893): a selection commutes with the
+//             projection, so the kernel projects each point once (f32, not
+//             rounded) and selects those rows.  The centre term c = x @
+//             W_ctr is f32 (W_ctr rounded where x is bf16).
+//   v2        (_extract_loop_v2, _pack_keys :87-148) a TS_MIN pass of the
+//             tiled selection writes each row's least score; the TS_KEYS
+//             pass streams the scores again, each quantized to its row's
+//             grid, q = max(rint(s * scale), -lim), which is exact in f32
+//             (|q| < 2^24 for N >= 128): the list order (q desc, index
+//             asc) is the packed keys' order.  The fold is the exact
+//             route's over the k members.
+//   v3        (_extract_loop_v3 :151-196) the TS_CLASSES pass lists each
+//             row's k largest distinct scores with their member counts
+//             and lowest members.  A class of one member is that member's
+//             row; a tied class (duplicate points, or equal f32 scores) is
+//             the mean of its members' rows, summed in ascending column
+//             order from zero and divided by the count: the warp scores
+//             its row against the cloud again, with the tiled product's
+//             fmaf chain (the same bits), to find the members.  Slots
+//             past the row's last class are skipped (the walk consumes
+//             that class again, which max and min ignore).
+//   epilogue  the f32 affine and LeakyReLU of the exact route, rounded to
+//             bf16 (to nearest even) on the store.
+// Bound: as the exact stage at CUDA-core rates (the products are f32
+// FMAs; bf16 mma would change the sums' order); the v2 stages score the
+// cloud twice.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "knn_select.cuh"
+
+namespace {
+
+using dg::MAX_N;
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The score operands of the AMP stage: a bf16 graph as f32 into gc (gq is
+// gc), or an f32 graph's [hi | hi | lo] into gq and [hi | lo | hi] into gc
+// (3 Cg channels a row).
+template <bool BF16>
+__global__ void amp_graph_kernel(const void* __restrict__ graph, int rows,
+                                 int Cg, float* __restrict__ gq,
+                                 float* __restrict__ gc) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (size_t)rows * Cg) return;
+  if constexpr (BF16) {
+    gc[e] = __bfloat162float(
+        reinterpret_cast<const __nv_bfloat16*>(graph)[e]);
+  } else {
+    const float v = reinterpret_cast<const float*>(graph)[e];
+    const float h = round_bf16(v);
+    const float l = round_bf16(__fsub_rn(v, h));
+    const size_t r = e / Cg, c = e - r * Cg;
+    const size_t o = r * 3 * Cg + c;
+    gq[o] = h;
+    gq[o + Cg] = h;
+    gq[o + 2 * Cg] = l;
+    gc[o] = h;
+    gc[o + Cg] = l;
+    gc[o + 2 * Cg] = h;
+  }
+}
+
+__global__ void upcast_kernel(const __nv_bfloat16* __restrict__ x, size_t n,
+                              float* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) out[e] = __bfloat162float(x[e]);
+}
+
+// The v2 grid: each row's least score over its candidates (TS_MIN): the
+// cloud, or (BANDED) the window of W rows from starts[r0 / tile].
+template <bool BANDED>
+__global__ void __launch_bounds__(dg::TS_THREADS, 2)
+    amp_rowmin_kernel(const float* __restrict__ gc,
+                      const float* __restrict__ gq, int Cs,
+                      const float* __restrict__ sq, int N,
+                      const int* __restrict__ starts, int tile, int W,
+                      float* __restrict__ rmin) {
+  extern __shared__ __align__(16) float tsm[];
+  const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
+  float ls[dg::TS_WR][1];
+  int li[dg::TS_WR][1];
+  dg::tiled_topk<1, BANDED, dg::TS_MIN>(
+      gc + (size_t)b * N * Cs, Cs, sq + (size_t)b * N,
+      BANDED ? starts[r0 / tile] : 0, BANDED ? W : N, r0, 1, tsm, ls, li,
+      gq + (size_t)b * N * Cs, rmin + (size_t)b * N);
+}
+
+// The keyed (v2) and class (v3) selections and the fold of a block's 64
+// rows: V3 the class walk, else v2 (the rows' grids in rmin); ROUND: the
+// payload (project-first) rounded to bf16, else f32 (select-x, and the
+// exact v2 form).  ac holds [a | c] as in the exact route; the candidates
+// are the cloud or (BANDED, kernel 12) the query tile's window of W rows
+// from starts[r0 / tile]; OUT is bf16 (AMP) or float (exact v2).
+template <int KL, int CPL, bool V3, bool ROUND, bool BANDED, typename OUT>
+__global__ void __launch_bounds__(dg::TS_THREADS, 2)
+    edge_conv_amp_kernel(const float* __restrict__ gc,
+                         const float* __restrict__ gq, int Cs,
+                         const float* __restrict__ sq, float* rmin,
+                         float lim, const float* __restrict__ ac, int Co,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias, float slope, int N,
+                         int k, const int* __restrict__ starts, int tile,
+                         int W, OUT* __restrict__ out) {
+  extern __shared__ __align__(16) float tsm[];
+  const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* G = gc + (size_t)b * N * Cs;
+  const float* GQ = gq + (size_t)b * N * Cs;
+  const float* SQ = sq + (size_t)b * N;
+  const int start = BANDED ? starts[r0 / tile] : 0;
+  const int end = start + (BANDED ? W : N);
+  float ls[dg::TS_WR][KL];
+  int li[dg::TS_WR][KL];
+  dg::tiled_topk<KL, BANDED, V3 ? dg::TS_CLASSES : dg::TS_KEYS>(
+      G, Cs, SQ, start, end - start, r0, k, tsm, ls, li, GQ,
+      rmin + (size_t)b * N, lim);
+
+  const int row = 2 * Co;
+  const float* A = ac + (size_t)b * N * row;
+  auto payload = [&](const float* arow, int c) {
+    return ROUND ? round_bf16(arow[c]) : arow[c];
+  };
+#pragma unroll
+  for (int rr = 0; rr < dg::TS_WR; ++rr) {
+    const int i = r0 + dg::TS_WR * warp + rr;
+    float mx[CPL], mn[CPL];
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      mx[u] = -INFINITY;
+      mn[u] = INFINITY;
+    }
+#pragma unroll 1
+    for (int t = 0; t < k; ++t) {
+      float val = __shfl_sync(0xffffffffu, ls[rr][0], t & 31);
+      int pk = __shfl_sync(0xffffffffu, li[rr][0], t & 31);
+#pragma unroll
+      for (int q = 1; q < KL; ++q) {
+        const float vq = __shfl_sync(0xffffffffu, ls[rr][q], t & 31);
+        const int pq = __shfl_sync(0xffffffffu, li[rr][q], t & 31);
+        if (t >> 5 == q) {
+          val = vq;
+          pk = pq;
+        }
+      }
+      float sel[CPL];
+      if (!V3 || pk >> 16 == 1) {  // one row: v2's member, a v3 singleton
+        const float* arow = A + (size_t)(V3 ? pk & 0xffff : pk) * row;
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) {
+          const int c = lane + 32 * u;
+          sel[u] = c < Co ? payload(arow, c) : 0.f;
+        }
+      } else {
+        if (val == -INFINITY) continue;  // past the row's last class
+        // a tied class: its members are the candidates scoring val
+        float sum[CPL];
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) sum[u] = 0.f;
+        int cnt = 0;
+        const float* qrow = GQ + (size_t)i * Cs;
+        const float qq = SQ[i];
+        for (int j0 = start; j0 < end; j0 += 32) {
+          const float* grow = G + (size_t)(j0 + lane) * Cs;
+          float acc = 0.f;
+          for (int c = 0; c < Cs; ++c) acc = fmaf(qrow[c], grow[c], acc);
+          const float sc = __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc), qq),
+                                     SQ[j0 + lane]);
+          unsigned m = __ballot_sync(0xffffffffu, sc == val);
+          while (m) {
+            const int j = j0 + __ffs(m) - 1;
+            m &= m - 1;
+            ++cnt;
+            const float* arow = A + (size_t)j * row;
+#pragma unroll
+            for (int u = 0; u < CPL; ++u) {
+              const int c = lane + 32 * u;
+              if (c < Co) sum[u] = __fadd_rn(sum[u], payload(arow, c));
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) sel[u] = __fdiv_rn(sum[u], (float)cnt);
+      }
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) {
+        mx[u] = fmaxf(mx[u], sel[u]);
+        mn[u] = fminf(mn[u], sel[u]);
+      }
+    }
+    const float* crow = A + (size_t)i * row + Co;
+    OUT* orow = out + ((size_t)b * N + i) * Co;
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      const int c = lane + 32 * u;
+      if (c < Co) {
+        const float sc = scale[c];
+        const float sel = __fadd_rn(sc > 0.f ? mx[u] : mn[u], crow[c]);
+        const float y = __fadd_rn(__fmul_rn(sel, sc), bias[c]);
+        dg::store_out(orow + c, y >= 0.f ? y : __fmul_rn(slope, y));
+      }
+    }
+  }
+}
+
+struct VarArgs {
+  const float *gc, *gq, *sq, *ac, *scale, *bias;
+  float* rmin;
+  void* out;
+  const int* starts;
+  int B, N, Cs, Co, k, tile, W;
+  float lim, slope;
+};
+
+template <int KL, int CPL, bool V3, bool ROUND, bool BANDED, typename OUT>
+cudaError_t launch_var(const VarArgs& a, cudaStream_t st) {
+  auto kern = edge_conv_amp_kernel<KL, CPL, V3, ROUND, BANDED, OUT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dg::TS_SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(a.N / dg::TS_R, a.B), dg::TS_THREADS, dg::TS_SMEM_BYTES,
+         st>>>(a.gc, a.gq, a.Cs, a.sq, a.rmin, a.lim, a.ac, a.Co, a.scale,
+               a.bias, a.slope, a.N, a.k, a.starts, a.tile, a.W,
+               reinterpret_cast<OUT*>(a.out));
+  return cudaGetLastError();
+}
+
+// The list size from k, the output channels a lane from Co (the banded
+// instances: Co <= 64, kernel 12's conv5).
+template <bool V3, bool ROUND, bool BANDED, typename OUT>
+cudaError_t launch_var_shape(const VarArgs& a, cudaStream_t st) {
+  auto by_co = [&](auto kl) {
+    constexpr int KL = decltype(kl)::value;
+    if constexpr (BANDED) {
+      return launch_var<KL, 2, V3, ROUND, true, OUT>(a, st);
+    } else {
+      if (a.Co <= 64) return launch_var<KL, 2, V3, ROUND, false, OUT>(a, st);
+      if (a.Co <= 128)
+        return launch_var<KL, 4, V3, ROUND, false, OUT>(a, st);
+      return launch_var<KL, 8, V3, ROUND, false, OUT>(a, st);
+    }
+  };
+  if (a.k <= 32) return by_co(std::integral_constant<int, 1>{});
+  return by_co(std::integral_constant<int, 2>{});
+}
+
+template <bool BANDED>
+cudaError_t launch_rowmin_kernel(const float* gc, const float* gq, int Cs,
+                                 const float* sq, int B, int N,
+                                 const int* starts, int tile, int W,
+                                 float* rmin, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      amp_rowmin_kernel<BANDED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dg::TS_SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  amp_rowmin_kernel<BANDED>
+      <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
+          gc, gq, Cs, sq, N, starts, tile, W, rmin);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+namespace dg {
+
+cudaError_t launch_amp_graph(const void* graph, bool bf16, int rows, int Cg,
+                             float* gq, float* gc, cudaStream_t st) {
+  const size_t gn = (size_t)rows * Cg;
+  if (bf16)
+    amp_graph_kernel<true><<<(gn + 255) / 256, 256, 0, st>>>(graph, rows, Cg,
+                                                             gc, gc);
+  else
+    amp_graph_kernel<false><<<(gn + 255) / 256, 256, 0, st>>>(graph, rows,
+                                                              Cg, gq, gc);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rowmin(const float* gc, const float* gq, int Cs,
+                          const float* sq, int B, int N, const int* starts,
+                          int tile, int W, float* rmin, cudaStream_t st) {
+  if (starts)
+    return launch_rowmin_kernel<true>(gc, gq, Cs, sq, B, N, starts, tile, W,
+                                      rmin, st);
+  return launch_rowmin_kernel<false>(gc, gq, Cs, sq, B, N, nullptr, N, N,
+                                     rmin, st);
+}
+
+}  // namespace dg
+
+// Kernel 1's forms other than the exact v1 (and kernel 12's, with starts):
+// the AMP v3 and v2 forms and the exact v2 form.  graph (B, N, Cg) and x
+// (B, N, Cin), each f32 or bf16 in AMP (flags bit 0: graph bf16, bit 1: x
+// bf16), f32 in the exact form (bit 4); wcat (Cin, 2 Co) f32 = [W_nbr |
+// W_ctr] as the stage projects with them (rounded to bf16 where the plan
+// says); scale/bias (Co,) f32; bit 2: select-x (AMP v2, whole cloud), bit
+// 3: v3 (AMP).  Scratch (AMP only): gq and gc (B * N * Cs f32, Cs = Cg for
+// a bf16 graph, when gq is unread, 3 Cg for an f32 one), xf (B * N * Cin
+// f32, a bf16 x only); sq and rmin (B * N f32), ac (B * N * 2 Co f32);
+// out (B, N, Co), bf16 (AMP) or f32 (exact).  starts null: the candidates
+// are the cloud (tile and W = N); else kernel 12's windows: the W rows
+// from starts[r / tile] of a sorted cloud, Co <= 64.  N a multiple of 128,
+// N <= 4096, Co <= 256, k <= 64.  Returns the first CUDA error.
+extern "C" int dg_edge_conv_eval_variant(
+    const void* graph, const void* x, const float* wcat, const float* scale,
+    const float* bias, float* gq, float* gc, float* xf, float* sq,
+    float* rmin, float* ac, void* out, const int* starts, int B, int N,
+    int Cg, int Cin, int Co, int k, int tile, int W, float slope, int flags,
+    void* stream) {
+  const bool gbf = flags & 1, xbf = flags & 2, sx = flags & 4, v3 = flags & 8;
+  const bool exact = flags & 16, banded = starts != nullptr;
+  if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
+      Co > (banded ? 64 : 256) || Cg < 1 || Cin < 1 || k < 1 || k > W ||
+      k > dg::TS_LIST || W % 128 != 0 || W < 128 || W > N ||
+      (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0
+              : W != N) ||
+      (sx && (v3 || banded)) || (exact && (gbf || xbf || sx || v3)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int rows = B * N;
+  const float* gf = reinterpret_cast<const float*>(graph);
+  const float *gcp = gf, *gqp = gf;
+  int Cs = Cg;
+  cudaError_t e;
+  if (!exact) {
+    e = dg::launch_amp_graph(graph, gbf, rows, Cg, gq, gc, st);
+    if (e != cudaSuccess) return (int)e;
+    gcp = gc;
+    gqp = gbf ? gc : gq;
+    Cs = gbf ? Cg : 3 * Cg;
+  }
+  e = dg::launch_sqnorm(gbf ? gc : gf, rows, Cg, sq, st);
+  if (e != cudaSuccess) return (int)e;
+  const float* xp = reinterpret_cast<const float*>(x);
+  if (xbf) {
+    const size_t xn = (size_t)rows * Cin;
+    upcast_kernel<<<(xn + 255) / 256, 256, 0, st>>>(
+        reinterpret_cast<const __nv_bfloat16*>(x), xn, xf);
+    xp = xf;
+  }
+  e = dg::launch_project(xp, rows, Cin, wcat, 2 * Co, ac, st);
+  if (e != cudaSuccess) return (int)e;
+  const VarArgs a{gcp,  gqp, sq, ac,  scale, bias, rmin, out,
+                  starts, B, N,  Cs, Co, k,  tile, W,
+                  dg::keys_lim(W), slope};
+  using bf16 = __nv_bfloat16;
+  if (v3)
+    return (int)(banded ? launch_var_shape<true, true, true, bf16>(a, st)
+                        : launch_var_shape<true, true, false, bf16>(a, st));
+  e = dg::launch_rowmin(gcp, gqp, Cs, sq, B, N, starts, tile, W, rmin, st);
+  if (e != cudaSuccess) return (int)e;
+  if (exact)
+    return (int)(banded ? launch_var_shape<false, false, true, float>(a, st)
+                        : launch_var_shape<false, false, false, float>(a, st));
+  if (sx) return (int)launch_var_shape<false, false, false, bf16>(a, st);
+  return (int)(banded ? launch_var_shape<false, true, true, bf16>(a, st)
+                      : launch_var_shape<false, true, false, bf16>(a, st));
+}

@@ -50,7 +50,9 @@
 //   read from shared memory feeds one FMA.
 // Both routes pick the neighbours in torch.topk's order, compute each
 // edge's z2 and h2 with the same operations and take the max over the
-// edges in that order: their outputs are the same bits.  Neither the (B,
+// edges in that order: their outputs are the same bits.  The tiled
+// consumer is edge2_consume.cuh's, which knn_edge2_variant.cu's forms (the
+// AMP v3 and v2 forms, the exact v2 form) share.  Neither the (B,
 // N, k, C1) hidden tensor nor idx reaches device memory.
 //
 // Kernel 13, dgcnn_tpu/ops/pallas_banded.py::banded_knn_edge2 (the
@@ -70,6 +72,7 @@
 #include <math.h>
 
 #include "edge2.cuh"
+#include "edge2_consume.cuh"
 #include "edge2_tile.cuh"
 #include "knn_select.cuh"
 
@@ -158,32 +161,12 @@ __global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
 }
 
 // ---------------------------------------------------------------- tiled
-using dg::comp;
-using dg::ld4;
-constexpr int XE = dg::E2T_EDGES;  // edge slots a tile
-constexpr int XR = dg::E2T_ROWS;   // the most rows a tile
-constexpr int XC1 = dg::E2T_C1;    // C1 <= XC1: the row stride of h1
-static_assert(dg::TS_THREADS == dg::E2T_THREADS,
-              "the consumer stages h1 and z2 with edge2_tile.cuh's block");
-constexpr int XC2 = 128;  // C2 <= XC2
-constexpr int XP = 64;    // second-conv channels a pass: the row stride of y
-constexpr size_t XSMEM_CONSUME =
-    sizeof(float) * (XE * XC1 + XE * XP + XC1 * XC2 + 2 * XC1 + 2 * XC2) +
-    sizeof(int) * 2 * XE;
-constexpr size_t XSMEM_BYTES = XSMEM_CONSUME > dg::TS_SMEM_BYTES
-                                   ? XSMEM_CONSUME
-                                   : dg::TS_SMEM_BYTES;
+using namespace dg::e2c;
 
-bool tiled_route(int C1, int C2, int k) {
-  return k <= dg::TS_LIST && C1 <= XC1 && C2 <= XC2;
-}
-
-// The tiled route: the block's 64 rows' lists (tiled_topk), then their
-// edges in tiles of R = min(XR, XE / k) whole rows.  C1 and C2 are padded
-// to multiples of 4 in shared memory with zeros, which add nothing to a
-// z2 chain (a chain that starts at +0 never holds -0).  BANDED: the
-// candidates are the W rows from starts[r0 / tile] (kernel 13), the query
-// rows' own tile streamed first; else the whole cloud.
+// The tiled route: the block's 64 rows' lists (tiled_topk), then
+// e2t_consume.  BANDED: the candidates are the W rows from starts[r0 /
+// tile] (kernel 13), the query rows' own tile streamed first; else the
+// whole cloud.
 template <int KL, bool BANDED>
 __global__ void __launch_bounds__(dg::TS_THREADS, 2)
     knn_edge2_tiled_kernel(const float* __restrict__ graph, int Cg,
@@ -199,103 +182,16 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
                            int W, float* __restrict__ out) {
   extern __shared__ __align__(16) float tsm[];
   const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
   dg::tiled_topk<KL, BANDED>(graph + (size_t)b * N * Cg, Cg,
                              sq + (size_t)b * N,
                              BANDED ? starts[r0 / tile] : 0, BANDED ? W : N,
                              r0, k, tsm, ls, li);
-
-  float* hb = tsm;              // h1 of the tile's edges (XE, XC1)
-  float* yb = hb + XE * XC1;    // h2 of one pass (XE, XP)
-  float* w2s = yb + XE * XP;    // w2 (C1p, ldw)
-  float* s1s = w2s + XC1 * XC2;  // s1, t1 (XC1); s2, t2 (XC2)
-  float* t1s = s1s + XC1;
-  float* s2s = t1s + XC1;
-  float* t2s = s2s + XC2;
-  int* jrow = reinterpret_cast<int*>(t2s + XC2);  // a1 row of an edge, or -1
-  int* eloc = jrow + XE;                          // its row in the tile
-  const int C1p = (C1 + 3) & ~3, ldw = (C2 + 3) & ~3;
-  __syncthreads();  // every warp is done with the selection's shared memory
-  for (int e = tid; e < C1p * ldw; e += dg::TS_THREADS) {
-    const int r = e / ldw, c = e - r * ldw;
-    w2s[e] = r < C1 && c < C2 ? w2[r * C2 + c] : 0.f;
-  }
-  if (tid < XC1) {
-    s1s[tid] = tid < C1 ? s1[tid] : 0.f;
-    t1s[tid] = tid < C1 ? t1[tid] : 0.f;
-  }
-  if (tid < XC2) {
-    s2s[tid] = tid < C2 ? s2[tid] : 0.f;
-    t2s[tid] = tid < C2 ? t2[tid] : 0.f;
-  }
-  const int R = dg::e2t_rows(k);
-  const float* A = a1 + (size_t)b * N * C1;
-  // the products give thread (tx, ty) edges ty + 16 m and channels 4 tx + i
-  const int tx = tid & 15, ty = tid >> 4;
-
-  for (int rt = 0; rt < dg::TS_R; rt += R) {
-    const int nr = min(R, dg::TS_R - rt);  // rows r0 + rt .. of this tile
-    // each warp writes the lists of its rows that fall in the tile; the
-    // previous tile read jrow and eloc before two barriers
-#pragma unroll
-    for (int rr = 0; rr < dg::TS_WR; ++rr) {
-      const int r = dg::TS_WR * warp + rr - rt;
-      if (r >= 0 && r < nr) {
-#pragma unroll
-        for (int q = 0; q < KL; ++q) {
-          const int t = lane + 32 * q;
-          if (t < k) {
-            jrow[r * k + t] = li[rr][q];
-            eloc[r * k + t] = r;
-          }
-        }
-      }
-    }
-    for (int e = nr * k + tid; e < XE; e += dg::TS_THREADS) jrow[e] = -1;
-    __syncthreads();
-    // h1 of every edge (e2_h1_row's operations); empty slots hold zeros
-    dg::e2t_stage_h1(A, b1 + ((size_t)b * N + r0 + rt) * C1, C1, jrow, eloc,
-                     s1s, t1s, C1, slope, hb);
-    __syncthreads();
-    for (int p0 = 0; p0 < C2; p0 += XP) {
-      const int c0 = p0 + 4 * tx;
-      const bool active = c0 < ldw;
-      float acc[8][4];
-      if (active) dg::e2t_z2_block(hb, w2s, ldw, C1p, c0, ty, acc);
-      __syncthreads();  // the previous pass's (or tile's) reads of yb are done
-      if (active) {
-        float sc[4], tc[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          sc[i] = s2s[c0 + i];
-          tc[i] = t2s[c0 + i];
-        }
-#pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          float y[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            y[i] = dg::e2_lrelu(__fadd_rn(__fmul_rn(acc[m][i], sc[i]), tc[i]),
-                                slope);
-          *reinterpret_cast<float4*>(yb + (ty + 16 * m) * XP + 4 * tx) =
-              make_float4(y[0], y[1], y[2], y[3]);
-        }
-      }
-      __syncthreads();
-      // the max over each row's edges, t ascending: the row-warp order
-      for (int q = tid; q < nr * XP; q += dg::TS_THREADS) {
-        const int r = q / XP, c = q - r * XP;
-        if (p0 + c < C2) {
-          float mx = -INFINITY;
-          for (int t = 0; t < k; ++t)
-            mx = fmaxf(mx, yb[(r * k + t) * XP + c]);
-          out[((size_t)b * N + r0 + rt + r) * C2 + p0 + c] = mx;
-        }
-      }
-    }
-  }
+  e2t_consume<KL, false>(tsm, li, a1 + (size_t)b * N * C1,
+                         b1 + (size_t)b * N * C1, C1, w2, C2, s1, t1, s2, t2,
+                         slope, r0, k, out + (size_t)b * N * C2,
+                         ScoreOperands{});
 }
 
 template <int KL, bool BANDED>

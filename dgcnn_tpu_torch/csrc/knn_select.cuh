@@ -20,6 +20,7 @@
 // on (score, -index): torch.topk's order, lowest index first among ties.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -403,13 +404,14 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 // first (see above).
 //
 // MODE picks what the stream makes of the scores; TS_TOPK is the above.
-// The other three are the AMP (bf16) selections of kernel 1's eval
-// stages (dgcnn_tpu/ops/pallas_knn.py, _extract_loop_v2 / v3), on the
-// whole cloud (ANY false).  Their query rows come from GQ (rows of the
-// cloud, Cg channels, like G): for f32 inputs the AMP score is three bf16
-// products, hi.hi + hi.lo + lo.hi, which the one product here gives as
-// the chain over GQ = [hi | hi | lo] against G = [hi | lo | hi] (3 Cg
-// channels).  GQ = G for bf16 inputs.
+// The other three are the selections v2 and v3 of the eval kernels 1, 6,
+// 12 and 13 (dgcnn_tpu/ops/pallas_knn.py, _extract_loop_v2 / v3), on the
+// whole cloud or (ANY) a window.  Their query rows come from GQ (rows of
+// the cloud, Cg channels, like G): for the AMP scores of f32 inputs, three
+// bf16 products, hi.hi + hi.lo + lo.hi, which the one product here gives
+// as the chain over GQ = [hi | hi | lo] against G = [hi | lo | hi] (3 Cg
+// channels).  GQ = G for bf16 inputs and for the exact scores (the exact
+// v2 of the semseg CLI's pin).
 //   TS_MIN      no list: rrow[r] = the least score of row r (the v2
 //               keys' grid).
 //   TS_KEYS     v2: each score becomes its key's quantized part, q =
@@ -422,9 +424,15 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 //               row, -inf in the slots past them, li[.] = (the count of
 //               columns with that score) << 16 | (the lowest of them).
 //               Every tile inserts: a column whose score is in the list
-//               adds one to its count; one that is larger than the k-th
-//               distinct score (or the list is not full) enters with
-//               count 1 and the k-th drops out.
+//               adds one to its count (ANY: and lowers its lowest member
+//               if it is lower, since tiles come out of order); one that
+//               is larger than the k-th distinct score (or the list is not
+//               full) enters with count 1 and the k-th drops out.  The
+//               list holds the same classes in any tile order: a class of
+//               the final list is larger than the k-th of every earlier
+//               list, so its first member enters and none is dropped.
+// Over a window the v2 grid is the row's least score over the window, and
+// the keys' index bits those of the band (the caller's lim).
 constexpr int TS_TOPK = 0, TS_KEYS = 1, TS_MIN = 2, TS_CLASSES = 3;
 
 template <int KL, bool ANY = false, int MODE = TS_TOPK>
@@ -584,7 +592,11 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
             for (int q = 0; q < KL; ++q) {
               const bool here = lane + 32 * q < k && ls[rr][q] == v;
               found |= __any_sync(0xffffffffu, here);
-              if (here) li[rr][q] += 1 << 16;
+              if (here) {
+                li[rr][q] += 1 << 16;
+                if (ANY && (li[rr][q] & 0xffff) > j + src)
+                  li[rr][q] = (li[rr][q] & ~0xffff) | (j + src);
+              }
             }
             if (!found && v > thr) {
               ts_insert<KL>(ls[rr], li[rr], k, v, (1 << 16) | (j + src),
@@ -661,6 +673,13 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
   }
 }
 
+// An output element of the f32 forms, or of the AMP forms rounded to bf16
+// (to nearest even).
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // Calls f(std::integral_constant<int, NPL>{}) for the smallest register
 // bucket NPL (4, 8, 16, 32, 48, 64, 96 or 128) that holds N / 32 scores a
 // lane.
@@ -686,5 +705,22 @@ cudaError_t launch_sqnorm(const float* g, int rows, int C, float* out,
 // ncols are, so two calls on the same rows give the same bits:
 cudaError_t launch_project(const float* x, int M, int K, const float* w,
                            int ncols, float* out, cudaStream_t st);
+// The score operands of the AMP mode (edge_conv_eval.cu): a bf16 graph
+// (BF16) as f32 into gc, or an f32 graph's [hi | hi | lo] into gq and [hi |
+// lo | hi] into gc (3 Cg channels a row):
+cudaError_t launch_amp_graph(const void* graph, bool bf16, int rows, int Cg,
+                             float* gq, float* gc, cudaStream_t st);
+// The v2 grid (TS_MIN): rmin[b * N + r] = the least score of row r over
+// the whole cloud (starts null, W = N) or its query tile's window of W
+// rows from starts[r / tile] (edge_conv_eval.cu):
+cudaError_t launch_rowmin(const float* gc, const float* gq, int Cs,
+                          const float* sq, int B, int N, const int* starts,
+                          int tile, int W, float* rmin, cudaStream_t st);
+// The quantization limit of the v2 keys of a row of W candidates, 2^(31 -
+// b) - 1 with b the index bits of W (_pack_keys):
+inline float keys_lim(int W) {
+  const int bits = 32 - __builtin_clz((unsigned)(W - 1) | 1u);
+  return (float)((1u << (31 - bits)) - 1u);
+}
 
 }  // namespace dg

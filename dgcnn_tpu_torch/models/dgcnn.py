@@ -22,6 +22,14 @@ The eval forwards of ``DGCNNPartSeg`` and ``DGCNNSemSeg`` take a ``band``
 (their attribute): one that prunes the N points (``banded_applicable``)
 runs the EdgeConv stages of the backbone through the banded kernels of
 ops/banded.py, the JAX package's ``--fast_extract`` path; 0 is exact.
+
+The eval forwards of ``DGCNNCls``, ``DGCNNPartSeg`` and ``DGCNNSemSeg``
+have the JAX package's two numerics modes, exact f32 and AMP (its
+default): ``forward``'s ``amp`` None takes AMP on the card unless
+``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU; True or False asks
+for one (``ops.amp_select.use_amp_eval``: clouds the kernels do not take
+and k > 64 stay exact).  A forward runs every kernel in the one mode.
+Training is exact.
 """
 from __future__ import annotations
 
@@ -140,7 +148,8 @@ def init_like_flax_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
                 graph: torch.Tensor, k: int, train: bool,
-                slope: float = 0.2, band: int = 0) -> torch.Tensor:
+                slope: float = 0.2, band: int = 0,
+                amp: bool = False) -> torch.Tensor:
     """Two-conv EdgeConv stage (port of ``_edge_block2``, the upstream
     partseg/semseg block): conv ``ec`` on [neighbour, centre] edge features
     -> BN -> LeakyReLU -> conv ``cb`` -> BN -> LeakyReLU -> max over the k
@@ -153,7 +162,8 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
     versions.  A graph of a size the kernels do not take (``use_kernel``)
     takes the JAX package's XLA path: ``knn``, the per-edge tensor of the
     first conv, BatchNorm over B*N*k, the second conv and the max over
-    k in torch."""
+    k in torch.  ``amp`` runs the eval kernel's AMP form (a bf16 output;
+    ``a1``/``b1`` f32, of W rounded to bf16 where ``x`` is bf16)."""
     w_nbr, w_ctr = ec.split_weights()
     if not use_kernel(graph.shape[1]):
         idx = knn(graph, k)
@@ -174,8 +184,9 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
         s2, t2 = cb[1].folded()
         if banded_applicable(graph.shape[1], band):
             return banded_knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k,
-                                    band, slope)
-        return knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k, slope)
+                                    band, slope, amp=amp)
+        return knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
+                         amp=amp)
     idx, _, _, asum1, asumsq1 = knn_edge_reduce(graph, a1, k)
     count = x.shape[0] * x.shape[1] * k
     s1, t1 = ec[1].push_stats(
@@ -189,15 +200,17 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
     return leaky_relu(torch.where(s2 > 0, mx2, mn2) * s2 + t2, slope)
 
 
-def embed_max_pool(cb: ConvBN, x: torch.Tensor, train: bool) -> torch.Tensor:
+def embed_max_pool(cb: ConvBN, x: torch.Tensor, train: bool,
+                   amp: bool = False) -> torch.Tensor:
     """Embedding conv ``cb`` -> BN -> LeakyReLU -> max over the N points,
-    (B, 1, E) (port of ``_embed_max_pool`` with keepdims): one
+    (B, 1, E) f32 (port of ``_embed_max_pool`` with keepdims): one
     ``conv_pool`` launch in eval on CUDA, plain torch otherwise (training
-    too, as in the JAX package)."""
-    if x.is_cuda and not train:
+    too, as in the JAX package).  ``amp``: the AMP form on a bf16 ``x``
+    (its plain version on the CPU)."""
+    if (x.is_cuda or amp) and not train:
         s, t = cb[1].folded()
         return conv_pool((x,), cb.kernel(), s, t, cb.negative_slope,
-                         with_mean=False)
+                         with_mean=False, amp=amp)
     return global_max(cb(x, train), keepdims=True)
 
 
@@ -222,9 +235,9 @@ class TransformNet(nn.Module):
     BatchNorm over B*N*k, as in the JAX package.  CUDA tensors launch the
     kernels, CPU tensors take their plain versions.
 
-    Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
-    form of its kernel 6 is not ported (DGCNNCls alone has the AMP
-    mode)."""
+    ``amp`` (eval only; ``DGCNNPartSeg`` resolves it) runs the AMP forms
+    of kernels 6 and 2: the bf16 block output into conv3 + pool, whose
+    pooled row is f32, and the head f32."""
 
     def __init__(self):
         super().__init__()
@@ -238,8 +251,8 @@ class TransformNet(nn.Module):
             Linear(512, 256, bias=False), BatchNorm(256))
         self.transform = Linear(256, 9)
 
-    def forward(self, x: torch.Tensor, k: int,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, k: int, train: bool = False,
+                amp: bool = False) -> torch.Tensor:
         if train or not use_kernel(x.shape[1]):
             e = get_graph_feature(x, k)
             t = self.conv2(self.conv1(e, train), train).amax(dim=2)
@@ -251,8 +264,8 @@ class TransformNet(nn.Module):
             # edge concat order [neighbour, centre]
             t = knn_edge2(x, _project(x, w1[:c]), _project(x, w1[c:]), s1,
                           t1, self.conv2.kernel(), s2, t2, k,
-                          self.conv1.negative_slope)
-        t = embed_max_pool(self.conv3, t, train)[:, 0]        # (B, 1024)
+                          self.conv1.negative_slope, amp=amp)
+        t = embed_max_pool(self.conv3, t, train, amp)[:, 0]   # (B, 1024)
         for lin, bn in ((self.linear[0], self.linear[1]),
                         (self.linear[3], self.linear[4])):
             t = leaky_relu(bn(lin(t), train))
@@ -262,11 +275,13 @@ class TransformNet(nn.Module):
 class PositionEmbedding(TransformNet):
     """The fork's canonicalizer (reference models/layers.py:8-74): the
     TransformNet's 3x3 (its eval or training path) applied to the points,
-    (B, N, 3) -> (B, N, 3) in f32.  Its keys are the TransformNet's."""
+    (B, N, 3) -> (B, N, 3) in f32.  Its keys are the TransformNet's.
+    ``amp`` as the TransformNet's; the ``Net`` passes False."""
 
-    def forward(self, x: torch.Tensor, k: int,
-                train: bool = False) -> torch.Tensor:
-        return torch.einsum("bnc,bcd->bnd", x, super().forward(x, k, train))
+    def forward(self, x: torch.Tensor, k: int, train: bool = False,
+                amp: bool = False) -> torch.Tensor:
+        return torch.einsum("bnc,bcd->bnd", x,
+                            super().forward(x, k, train, amp))
 
 
 class DGCNN(nn.Module):
@@ -425,10 +440,13 @@ class DGCNNPartSeg(nn.Module):
     edge2_bwd), the pools plain torch, as in the JAX package.  On the CPU
     the kernels' plain versions run.
 
-    Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
-    forms of its kernels 6, 12 and 13 are not ported, and its stages must
-    not mix kernel 1's AMP form with an exact kernel 6 (DGCNNCls alone has
-    the AMP mode)."""
+    Eval has the exact f32 mode and the AMP one, the JAX package's
+    default, resolved as ``DGCNNCls``'s (``forward``'s ``amp``): the AMP
+    forms of kernels 6 (the TransformNet and the two-conv stages), 1
+    (conv5) and 2 (conv3 and conv6), or with ``band`` 13 and 12; bf16
+    stage outputs, the pooled rows f32, [global, label, stages]
+    concatenated in f32 and the head f32.  The 3x3 applies in f32.
+    Training is exact."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 40,
                  dropout: float = 0.5, seg_num_all: int = 50, band: int = 0,
@@ -456,19 +474,25 @@ class DGCNNPartSeg(nn.Module):
 
     def forward(self, x: torch.Tensor, label_one_hot: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                amp: bool | None = None) -> torch.Tensor:
         kk, band = self.k, self.band
-        t = self.transform_net(x, kk, train)                 # (B, 3, 3)
+        if train and amp:
+            raise ValueError("DGCNNPartSeg trains in the exact mode only")
+        amp = not train and use_amp_eval(amp, x.device, x.shape[1], kk)
+        t = self.transform_net(x, kk, train, amp)             # (B, 3, 3)
         x = torch.einsum("bnc,bcd->bnd", x, t)
-        x1 = edge_block2(self.conv1, self.conv2, x, x, kk, train, band=band)
+        x1 = edge_block2(self.conv1, self.conv2, x, x, kk, train, band=band,
+                         amp=amp)
         x2 = edge_block2(self.conv3, self.conv4, x1, x1, kk, train,
-                         band=band)
-        x3 = self.conv5(x2, train=train, graph=x2, k=kk, band=band)
+                         band=band, amp=amp)
+        x3 = self.conv5(x2, train=train, graph=x2, k=kk, band=band, amp=amp)
         cat = torch.cat([x1, x2, x3], dim=-1)                 # (B, N, 192)
-        g = embed_max_pool(self.conv6, cat, train)            # (B, 1, emb)
+        g = embed_max_pool(self.conv6, cat, train, amp)       # (B, 1, emb)
         lbl = self.conv7(label_one_hot[:, None, :], train)    # (B, 1, 64)
         g = torch.cat([g, lbl], dim=-1).expand(-1, x.shape[1], -1)
-        h = self.conv8(torch.cat([g, cat], dim=-1), train)
+        # AMP: the bf16 stage outputs join the f32 rows in f32
+        h = self.conv8(torch.cat([g, cat.float()], dim=-1), train)
         h = self.conv9(self.dp1(h, train, generator), train)
         h = self.conv10(self.dp2(h, train, generator), train)
         return torch.matmul(h, self.conv11.weight[:, :, 0].t())
@@ -490,10 +514,16 @@ class DGCNNSemSeg(nn.Module):
     edge_reduce_bwd and edge2_bwd), conv6 + pool plain torch, as in the JAX
     package.  On the CPU the kernels' plain versions run.
 
-    Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
-    forms of its kernels 6, 12 and 13 are not ported, and its stages must
-    not mix kernel 1's AMP form with an exact kernel 6 (DGCNNCls alone has
-    the AMP mode)."""
+    Eval has the exact f32 mode and the AMP one, the JAX package's
+    default, resolved as ``DGCNNCls``'s (``forward``'s ``amp``): the AMP
+    forms of kernels 6, 1 and 2, or with ``band`` 13 and 12; bf16 stage
+    outputs, the pooled row f32, [global, stages] concatenated in f32 and
+    the head f32.  Training is exact.
+
+    The semseg CLI pins ``DGCNN_TPU_EXTRACT=v2`` (S3DIS blocks repeat
+    points), as the JAX CLI does: the eval kernels 6, 1, 13 and 12 then
+    run v2 in both modes.  Training's kernel 3 does not honour the pin yet
+    (exact v1; ROADMAP C lists it)."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 20,
                  dropout: float = 0.5, num_classes: int = 13, band: int = 0,
@@ -516,17 +546,23 @@ class DGCNNSemSeg(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, *,
+                amp: bool | None = None) -> torch.Tensor:
         kk, band = self.k, self.band
+        if train and amp:
+            raise ValueError("DGCNNSemSeg trains in the exact mode only")
+        amp = not train and use_amp_eval(amp, x.device, x.shape[1], kk)
         # first graph: neighbours by the normalized room coordinates
         x1 = edge_block2(self.conv1, self.conv2, x,
-                         x[..., 6:9].contiguous(), kk, train, band=band)
+                         x[..., 6:9].contiguous(), kk, train, band=band,
+                         amp=amp)
         x2 = edge_block2(self.conv3, self.conv4, x1, x1, kk, train,
-                         band=band)
-        x3 = self.conv5(x2, train=train, graph=x2, k=kk, band=band)
+                         band=band, amp=amp)
+        x3 = self.conv5(x2, train=train, graph=x2, k=kk, band=band, amp=amp)
         cat = torch.cat([x1, x2, x3], dim=-1)                 # (B, N, 192)
-        g = embed_max_pool(self.conv6, cat, train)            # (B, 1, emb)
-        h = torch.cat([g.expand(-1, x.shape[1], -1), cat], dim=-1)
+        g = embed_max_pool(self.conv6, cat, train, amp)       # (B, 1, emb)
+        # AMP: the bf16 stage outputs join the f32 row in f32
+        h = torch.cat([g.expand(-1, x.shape[1], -1), cat.float()], dim=-1)
         h = self.conv8(self.conv7(h, train), train)
         h = self.dp1(h, train, generator)
         return torch.matmul(h, self.conv9.weight[:, :, 0].t())

@@ -113,9 +113,9 @@ class Net(nn.Module):
     reference-trained ``transformer.pt`` needs.
 
     Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
-    forms of its kernels (1, 6, 10, 14) are not ported, and its backbone
-    must not mix kernel 1's AMP form with an exact kernel 6 (DGCNNCls
-    alone has the AMP mode)."""
+    forms of its kernels 10 and 14 are not ported, so its backbone (no
+    mode) and its PositionEmbedding (``amp=False``) run exact too, and no
+    forward mixes AMP and exact kernels."""
 
     def __init__(self, emb_dim: int = 512, k: int = 32, n_heads: int = 4,
                  n_blocks: int = 2, ff_dims: int = 512, nclasses: int = 50,
@@ -154,7 +154,8 @@ class Net(nn.Module):
             h = _conv_bn(self.grads_emb[ci], self.grads_emb[ci + 1], h,
                          train)
         canonical = _conv_bn(self.pos_mlp[1], self.pos_mlp[2],
-                             self.pos_mlp[0](src, self.k, train),
+                             self.pos_mlp[0](src, self.k, train,
+                                             amp=False),
                              train)                            # (B, N, emb)
         src_e = src_embedding + canonical
         tgt_e = h + canonical

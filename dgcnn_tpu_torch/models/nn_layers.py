@@ -204,8 +204,8 @@ class EdgeConv(nn.Sequential):
         (ops/knn_edge_reduce.py): kernels for CUDA tensors and their plain
         versions for CPU tensors.  Other sizes take ``knn`` and the ``idx``
         path, as the JAX package's XLA path does.  ``amp`` runs the eval
-        stage in its AMP form (bf16 output; the caller resolves the mode,
-        ``ops.amp_select.use_amp_eval``)."""
+        stage in its AMP form, banded too (bf16 output; the caller resolves
+        the mode, ``ops.amp_select.use_amp_eval``)."""
         w_nbr, w_ctr = self.split_weights()
         bn = self[1]
         if idx is None:
@@ -213,14 +213,15 @@ class EdgeConv(nn.Sequential):
                 raise ValueError("EdgeConv needs either idx or (graph, k)")
             if not use_kernel(graph.shape[1]):
                 return self(x, knn(graph, k), train)
-            if amp and (train or band):
-                raise ValueError("the AMP form is the exact-graph eval's")
+            if amp and train:
+                raise ValueError("the AMP form is the eval's")
             if train:
                 return self._train_fused(x, graph, k, w_nbr, w_ctr)
             s, t = bn.folded()
             if banded_applicable(graph.shape[1], band):
                 return banded_edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
-                                             band, self.negative_slope)
+                                             band, self.negative_slope,
+                                             amp=amp)
             return edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
                                   self.negative_slope, amp=amp)
         if train:

@@ -111,8 +111,9 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> ctypes.c_void_p | None:
+    """The device address of tensor ``t`` (None: a null pointer)."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -6,6 +6,12 @@ pallas_knn.py``), which its kernels run unless ``DGCNN_TPU_PALLAS_EXACT``
 is set:
 
 - ``exact_mode`` reads the variable as ``_train_exact`` (:531) does.
+- ``extract_version``: ``_extract_version`` (:225), the extraction
+  variant of one kernel: a ``DGCNN_TPU_EXTRACT`` value the kernel allows
+  wins, else v1 under ``DGCNN_TPU_PALLAS_EXACT``, else the kernel's
+  default.  ``stage_variant`` applies it to the eval kernels 1, 6, 12 and
+  13 (default v1 in the exact mode), and ``require_ported`` names the
+  combinations of mode and variant that their CUDA forms take.
 - ``amp_scores``: ``_scores(exact=False)`` (:293).  Two bf16 inputs give
   one f32 product of bf16 values (exact products, f32 sums); otherwise
   each input splits into a bf16 high part and a bf16 low part and the
@@ -24,6 +30,9 @@ is set:
   rows, divided by the count), and a row with fewer than k distinct scores
   walks its last class again, which the max and min it feeds ignore.
 - ``select_x_plan``: ``select_x_plan`` (:244), copied.
+- ``select_rows``: the k selected payload rows of each row under v1, v2
+  or v3 (v3: the class means, and which slots hold a class), which every
+  eval kernel's plain version folds in its own way.
 
 The CUDA kernels of the AMP mode (``csrc/edge_conv_eval.cu``'s AMP
 instances) compute the same selections; these are their plain versions.
@@ -35,6 +44,12 @@ import os
 import torch
 
 EXACT_ENV = "DGCNN_TPU_PALLAS_EXACT"
+EXTRACT_ENV = "DGCNN_TPU_EXTRACT"
+VARIANTS = ("v1", "v2", "v3")
+# (AMP mode, variant) of the eval kernels 1, 6, 12 and 13 that their CUDA
+# forms take: the exact v1 and v2 (the semseg CLI's pin) and the AMP v2
+# (the pin, and the default at widths that are multiples of 128) and v3
+PORTED = ((False, "v1"), (False, "v2"), (True, "v2"), (True, "v3"))
 # the AMP kernel's longest list (its tiled route alone)
 AMP_MAX_K = 64
 
@@ -42,6 +57,37 @@ AMP_MAX_K = 64
 def exact_mode() -> bool:
     """Whether ``DGCNN_TPU_PALLAS_EXACT`` pins the exact f32 mode."""
     return bool(os.environ.get(EXACT_ENV))
+
+
+def extract_version(default: str, allow: tuple[str, ...]) -> str:
+    """The extraction variant of one kernel: a ``DGCNN_TPU_EXTRACT`` value
+    in ``allow`` wins; else v1 when ``DGCNN_TPU_PALLAS_EXACT`` is set;
+    else ``default``.  Read at each call."""
+    env = os.environ.get(EXTRACT_ENV)
+    if env in allow:
+        return env
+    if exact_mode():
+        return "v1"
+    return default
+
+
+def stage_variant(amp: bool, default: str) -> str:
+    """The variant of an eval kernel (1, 6, 12 or 13) in the AMP mode
+    (``amp``) or the exact one: ``default`` (the kernel's own) in AMP, v1
+    in the exact mode, each overridden as ``extract_version`` says."""
+    return extract_version(default if amp else "v1", VARIANTS)
+
+
+def require_ported(name: str, amp: bool, variant: str) -> None:
+    """Raise unless the CUDA form of ``name`` takes ``variant`` in this
+    mode (``PORTED``)."""
+    if (amp, variant) not in PORTED:
+        mode = "AMP" if amp else "exact"
+        why = (f"{EXTRACT_ENV}={os.environ[EXTRACT_ENV]}"
+               if os.environ.get(EXTRACT_ENV) == variant
+               else f"{EXACT_ENV} set")
+        raise ValueError(f"{name}: the {mode} mode's {variant} ({why}) has "
+                         f"no CUDA form; ported: exact v1, v2; AMP v2, v3")
 
 
 def use_amp_eval(amp: bool | None, device: torch.device, n: int,
@@ -125,6 +171,13 @@ def v2_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
     return torch.topk(pack_keys(scores), k, dim=-1).indices
 
 
+def v1_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, M, N) scores -> (B, M, k) int64 columns of the k largest scores,
+    largest first, lowest column first among equal ones."""
+    return torch.sort(scores, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+
+
 def v3_class_means(scores: torch.Tensor, payload: torch.Tensor,
                    k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The class walk: (means (B, M, k, C) f32, present (B, M, k) bool).
@@ -154,3 +207,27 @@ def v3_class_means(scores: torch.Tensor, payload: torch.Tensor,
                       device=scores.device)
     cnt.scatter_add_(2, slot, member.float())
     return sums / cnt.clamp_min(1.0)[..., None], cnt > 0
+
+
+def select_rows(scores: torch.Tensor, payload: torch.Tensor, k: int,
+                variant: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k selected rows of ``payload`` (B, N, C) for each score row
+    (``scores`` (B, M, N)): (rows (B, M, k, C) f32, present (B, M, k)
+    bool).  v1 and v2: the members in list order, all present; v3: the
+    class means (``v3_class_means``)."""
+    if variant == "v3":
+        return v3_class_means(scores, payload, k)
+    idx = v2_indices(scores, k) if variant == "v2" else v1_indices(scores, k)
+    bsz, m, _ = idx.shape
+    rows = torch.gather(
+        payload.float(), 1,
+        idx.reshape(bsz, m * k, 1).expand(-1, -1, payload.shape[-1]))
+    return (rows.reshape(bsz, m, k, -1),
+            torch.ones(idx.shape, dtype=torch.bool, device=idx.device))
+
+
+def max_min(rows: torch.Tensor, present: torch.Tensor):
+    """(max, min) over the present slots of ``rows`` (B, M, k, C)."""
+    p = present[..., None]
+    return (torch.where(p, rows, -torch.inf).amax(2),
+            torch.where(p, rows, torch.inf).amin(2))

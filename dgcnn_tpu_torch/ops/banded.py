@@ -32,6 +32,16 @@ of the sorted graph as the JAX package does; CPU tensors take them.  Both
 take an ``order`` to share one sort between them (a sum taken in another
 order can swap two close keys, which moves a point to another window).
 
+``amp=True`` runs each kernel's AMP form (the JAX package's default: the
+banded kernels run the bodies of kernels 1 and 6, ``pallas_banded.py:
+109-223``), and the extraction variant is the exact kernels'
+(``amp_select.stage_variant``): the CUDA forms take the exact v1 and v2
+and the AMP v2 and v3 (``launch_variant`` of ``edge_conv_kernel.py`` and
+``edge2_kernel.py`` with the window starts).  Over a window, a row's keys
+(v2) are packed for N = band, on its least score over the window, and
+its classes (v3) are the window's.  ``*_amp_plain`` and the ``variant`` of
+the ``*_plain`` versions select over the same windows.
+
 The JAX package reads ``DGCNN_TPU_FAST_EXTRACT`` when it traces; here the
 band is an argument of the models (``cli.common.resolve_band`` reads the
 flag and the variable).
@@ -44,9 +54,24 @@ import functools
 import numpy as np
 import torch
 
-from dgcnn_tpu_torch.ops import _build
-from dgcnn_tpu_torch.ops.edge2_kernel import MAX_C, edge2_z2
-from dgcnn_tpu_torch.ops.edge_conv import edge_conv_fused
+from dgcnn_tpu_torch.ops import _build, edge2_kernel, edge_conv_kernel
+from dgcnn_tpu_torch.ops.amp_select import (
+    amp_scores,
+    max_min,
+    require_ported,
+    round_bf16,
+    select_rows,
+    select_x_plan,
+    stage_variant,
+)
+from dgcnn_tpu_torch.ops.edge2_kernel import (
+    MAX_C,
+    edge2_fold,
+    edge2_variant,
+    edge2_z2,
+)
+from dgcnn_tpu_torch.ops.edge_conv import _project, edge_conv_fused
+from dgcnn_tpu_torch.ops.edge_conv_kernel import _amp_weights, stage_epilogue
 from dgcnn_tpu_torch.ops.knn import MAX_N, pairwise_neg_sqdist
 from dgcnn_tpu_torch.ops.knn_reduce_kernel import max_co
 
@@ -144,6 +169,26 @@ def banded_knn_plain(gs: torch.Tensor, k: int, band: int) -> torch.Tensor:
     return idx.reshape(b, n, k)
 
 
+def window_rows(gs: torch.Tensor, payload: torch.Tensor, k: int, band: int,
+                variant: str, amp: bool):
+    """The selection of a PC1-sorted cloud ``gs`` (B, N, C) over each
+    query tile's window: (rows (B, N, k, Cp) of ``payload`` (B, N, Cp),
+    present (B, N, k)), as ``select_rows`` gives them on the (B*T, tile,
+    band) scores, exact or AMP (``amp``); v1's and v2's ties go to the
+    lowest window position."""
+    b, n, c = gs.shape
+    tile = band_tile(n, band)
+    starts = window_starts(n, tile, band, gs.device).long()
+    t = n // tile
+    cols = (starts[:, None] + torch.arange(band, device=gs.device)).reshape(-1)
+    win = gs[:, cols].reshape(b * t, band, c)
+    q = gs.reshape(b * t, tile, c)
+    scores = amp_scores(q, win) if amp else pairwise_neg_sqdist(q, win)
+    rows, present = select_rows(
+        scores, payload[:, cols].reshape(b * t, band, -1), k, variant)
+    return rows.reshape(b, n, k, -1), present.reshape(b, n, k)
+
+
 def _require(name: str, cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"{name}: {msg}")
@@ -189,15 +234,45 @@ def _entry(name: str, rowwarp: bool, nptr: int):
 
 def banded_edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
                                 band: int, slope: float = 0.2,
-                                order: torch.Tensor | None = None):
+                                order: torch.Tensor | None = None,
+                                variant: str = "v1"):
     """Plain torch version of kernel 12: (B, N, Co) f32 in the input
+    order; ``variant`` as ``edge_conv_eval_plain``'s."""
+    if order is None:
+        order = sorted_order(graph)
+    gs, xs = sort_rows(graph, order), sort_rows(x, order)
+    if variant == "v1":
+        out = edge_conv_fused(xs, banded_knn_plain(gs, k, band), w_nbr,
+                              w_ctr, scale, bias, slope)
+    else:
+        rows, present = window_rows(gs, _project(xs, w_nbr), k, band,
+                                    variant, amp=False)
+        out = stage_epilogue(*max_min(rows, present), _project(xs, w_ctr),
+                             scale, bias, slope)
+    return sort_rows(out, inverse_order(order))
+
+
+def banded_edge_conv_eval_amp_plain(graph, x, w_nbr, w_ctr, scale, bias,
+                                    k: int, band: int, slope: float = 0.2,
+                                    order: torch.Tensor | None = None,
+                                    variant: str | None = None):
+    """Plain torch version of kernel 12's AMP form (kernel 1's over each
+    window, ``edge_conv_eval_amp_plain``): (B, N, Co) bf16 in the input
     order."""
     if order is None:
         order = sorted_order(graph)
-    idx = banded_knn_plain(sort_rows(graph, order), k, band)
-    out = edge_conv_fused(sort_rows(x, order), idx, w_nbr, w_ctr, scale,
-                          bias, slope)
-    return sort_rows(out, inverse_order(order))
+    select_x, plan = select_x_plan(*w_nbr.shape)
+    gs, xs = sort_rows(graph, order), sort_rows(x, order)
+    xf = xs.float()
+    wn, wc = _amp_weights(xs, w_nbr, w_ctr, select_x)
+    payload = round_bf16(xf) if select_x else round_bf16(xf @ wn)
+    rows, present = window_rows(gs, payload, k, band, variant or plan,
+                                amp=True)
+    if select_x:
+        rows = rows @ wn
+    out = stage_epilogue(*max_min(rows, present), xf @ wc, scale, bias,
+                         slope)
+    return sort_rows(out.to(torch.bfloat16), inverse_order(order))
 
 
 def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
@@ -205,7 +280,8 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
                           scale: torch.Tensor, bias: torch.Tensor, k: int,
                           band: int, slope: float = 0.2,
                           order: torch.Tensor | None = None, *,
-                          rowwarp: bool = False) -> torch.Tensor:
+                          rowwarp: bool = False,
+                          amp: bool = False) -> torch.Tensor:
     """``edge_conv_eval`` (kNN over ``graph`` (B, N, Cg), factorized conv of
     ``x`` (B, N, Cin) with ``w_nbr``/``w_ctr`` (Cin, Co), max/min over the
     k neighbours, folded-BN affine, LeakyReLU) with each point's candidates
@@ -216,11 +292,29 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
     which takes f32 tensors with N a multiple of 128 up to 4096, a band
     that is a multiple of 128 up to N, k <= band and Co <= 256, and raises
     on anything else: its tiled route at k <= 64, its row-warp route
-    otherwise or with ``rowwarp`` (the same bits)."""
-    if graph.device.type == "cpu":
-        return banded_edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale,
-                                           bias, k, band, slope, order)
+    otherwise or with ``rowwarp`` (the same bits).  ``amp`` runs the AMP
+    form (f32 or bf16 graph and x, bf16 output; plain:
+    ``banded_edge_conv_eval_amp_plain``); the variant is
+    ``stage_variant``'s, and the forms other than the exact v1 take Co <=
+    64 and k <= 64."""
     name = "banded_edge_conv_eval"
+    variant = stage_variant(amp, select_x_plan(*w_nbr.shape)[1])
+    if graph.device.type == "cpu":
+        fn = (banded_edge_conv_eval_amp_plain if amp
+              else banded_edge_conv_eval_plain)
+        return fn(graph, x, w_nbr, w_ctr, scale, bias, k, band, slope,
+                  order, variant=variant)
+    require_ported(name, amp, variant)
+    if amp or variant != "v1":
+        _require(name, not rowwarp, "the row-warp route is exact v1's")
+        order, inv, tile, starts = _launch_setup(graph, order, band)
+        out = edge_conv_kernel.launch_variant(
+            sort_rows(graph, order), sort_rows(x, order), w_nbr, w_ctr,
+            scale, bias, k, slope, amp, variant, starts, tile, band)
+        banded_edge_conv_eval.launches += 1
+        banded_edge_conv_eval.amp_launches += amp
+        banded_edge_conv_eval.v2_launches += not amp
+        return sort_rows(out, inv)
     b, n, cg = graph.shape
     cin, co = w_nbr.shape
     _check(name, (graph, x, w_nbr, w_ctr, scale, bias), n, k, band)
@@ -254,16 +348,38 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
 
 def banded_knn_edge2_plain(graph, a1, b1, s1, t1, w2, s2, t2, k: int,
                            band: int, slope: float = 0.2,
-                           order: torch.Tensor | None = None):
+                           order: torch.Tensor | None = None,
+                           variant: str = "v1"):
     """Plain torch version of kernel 13: (B, N, C2) f32 in the input
+    order; ``variant`` as ``knn_edge2_plain``'s."""
+    if order is None:
+        order = sorted_order(graph)
+    gs, a1s, b1s = (sort_rows(t, order) for t in (graph, a1, b1))
+    if variant == "v1":
+        z2 = edge2_z2(a1s, b1s, s1, t1, w2, banded_knn_plain(gs, k, band),
+                      slope) * s2 + t2
+        out = torch.where(z2 >= 0, z2, slope * z2).amax(dim=2)
+    else:
+        rows, present = window_rows(gs, a1s, k, band, variant, amp=False)
+        out = edge2_fold(rows, present, b1s, s1, t1, w2, s2, t2, slope)
+    return sort_rows(out, inverse_order(order))
+
+
+def banded_knn_edge2_amp_plain(graph, a1, b1, s1, t1, w2, s2, t2, k: int,
+                               band: int, slope: float = 0.2,
+                               order: torch.Tensor | None = None,
+                               variant: str | None = None):
+    """Plain torch version of kernel 13's AMP form (kernel 6's over each
+    window, ``knn_edge2_amp_plain``): (B, N, C2) bf16 in the input
     order."""
     if order is None:
         order = sorted_order(graph)
-    idx = banded_knn_plain(sort_rows(graph, order), k, band)
-    z2 = edge2_z2(sort_rows(a1, order), sort_rows(b1, order), s1, t1, w2,
-                  idx, slope) * s2 + t2
-    out = torch.where(z2 >= 0, z2, slope * z2).amax(dim=2)
-    return sort_rows(out, inverse_order(order))
+    gs, a1s, b1s = (sort_rows(t, order) for t in (graph, a1, b1))
+    rows, present = window_rows(gs, a1s, k, band,
+                                variant or edge2_variant(a1.shape[-1]),
+                                amp=True)
+    out = edge2_fold(rows, present, b1s, s1, t1, w2, s2, t2, slope)
+    return sort_rows(out.to(torch.bfloat16), inverse_order(order))
 
 
 def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
@@ -271,7 +387,8 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
                      s2: torch.Tensor, t2: torch.Tensor, k: int, band: int,
                      slope: float = 0.2,
                      order: torch.Tensor | None = None, *,
-                     rowwarp: bool = False) -> torch.Tensor:
+                     rowwarp: bool = False,
+                     amp: bool = False) -> torch.Tensor:
     """``knn_edge2`` (the two-conv block: for each neighbour j of point i
     ``LReLU((LReLU((a1[j] + b1[i]) * s1 + t1) @ w2) * s2 + t2)``, max over
     the neighbours) with each point's candidates pruned to the band of its
@@ -283,11 +400,28 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     that is a multiple of 128 up to N, k <= band and C1, C2 <= 128, and
     raises on anything else: its tiled route at k <= 64, C1 <= 64 and C2
     <= 128, its row-warp route otherwise or with ``rowwarp`` (the same
-    bits)."""
-    if graph.device.type == "cpu":
-        return banded_knn_edge2_plain(graph, a1, b1, s1, t1, w2, s2, t2, k,
-                                      band, slope, order)
+    bits).  ``amp`` runs the AMP form (f32 or bf16 graph, bf16 output;
+    plain: ``banded_knn_edge2_amp_plain``); the variant is
+    ``stage_variant``'s, and the forms other than the exact v1 take the
+    tiled route's shapes."""
     name = "banded_knn_edge2"
+    variant = stage_variant(amp, edge2_variant(w2.shape[0]))
+    if graph.device.type == "cpu":
+        fn = banded_knn_edge2_amp_plain if amp else banded_knn_edge2_plain
+        return fn(graph, a1, b1, s1, t1, w2, s2, t2, k, band, slope, order,
+                  variant=variant)
+    require_ported(name, amp, variant)
+    if amp or variant != "v1":
+        _require(name, not rowwarp, "the row-warp route is exact v1's")
+        order, inv, tile, starts = _launch_setup(graph, order, band)
+        gs, a1s, b1s = (sort_rows(t, order) for t in (graph, a1, b1))
+        out = edge2_kernel.launch_variant(gs, a1s, b1s, s1, t1, w2, s2, t2,
+                                          k, slope, amp, variant, starts,
+                                          tile, band)
+        banded_knn_edge2.launches += 1
+        banded_knn_edge2.amp_launches += amp
+        banded_knn_edge2.v2_launches += not amp
+        return sort_rows(out, inv)
     b, n, cg = graph.shape
     c1, c2 = w2.shape
     _check(name, (graph, a1, b1, s1, t1, w2, s2, t2), n, k, band)
@@ -313,6 +447,7 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     return sort_rows(out, inv)
 
 
-# launches of the kernels since the counts were last set to 0
-banded_edge_conv_eval.launches = 0
-banded_knn_edge2.launches = 0
+# launches of the kernels since the counts were last set to 0 (amp_launches:
+# those of their AMP forms; v2_launches: those of their exact v2 forms)
+for _fn in (banded_edge_conv_eval, banded_knn_edge2):
+    _fn.launches = _fn.amp_launches = _fn.v2_launches = 0

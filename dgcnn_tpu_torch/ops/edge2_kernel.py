@@ -11,6 +11,20 @@ otherwise the row-warp selection with each edge consumed as it is picked.
 Both give the same bits.  ``knn_edge2_plain`` beside it is the same function
 in plain torch (kNN, gather, both convs on every edge, max over k): the
 wrapper runs it for CPU tensors and launches the kernel for CUDA tensors.
+
+``amp=True`` is the AMP form, the JAX package's default
+(``_knn_edge2_kernel`` with ``_train_exact()`` false, ``pallas_knn.py:
+981-1027``, its bf16 output at :1096): AMP scores (bf16x3 for an f32
+graph, one product of bf16 values for a bf16 one), the selected a1 rows
+in f32 (the one-hot is f32, :1026: a1 is not rounded), v3 at C1 % 128 !=
+0 (each class consumed as the mean of its members' a1 rows, through both
+convs, then the max) and v2 otherwise, and a bf16 output.
+``knn_edge2_amp_plain`` is its plain version.  The extraction variant is
+``amp_select.stage_variant``'s, as for kernel 1: the CUDA forms take the
+exact v1 and v2 (the semseg CLI's pin: f32 payload and output) and the AMP
+v2 and v3, on the tiled route (k <= 64, C1 <= 64, C2 <= 128) for all but
+the exact v1; ``launch_variant`` launches them, for the whole cloud or
+(kernel 13) each query tile's window.
 """
 from __future__ import annotations
 
@@ -19,10 +33,26 @@ import ctypes
 import torch
 
 from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.amp_select import (
+    AMP_MAX_K,
+    amp_scores,
+    require_ported,
+    select_rows,
+    stage_variant,
+)
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
+from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain, pairwise_neg_sqdist
 
 MAX_C = 128
+# the widths of the tiled route, the only one of the forms but exact v1
+TILED_C1, TILED_C2 = 64, 128
+
+
+def edge2_variant(c1: int) -> str:
+    """The AMP default of kernels 6 and 13 at C1 first-conv channels: v2
+    at a multiple of 128 (no lane padding for v3's count), v3 otherwise
+    (``pallas_knn.py:1021-1023``)."""
+    return "v2" if c1 % 128 == 0 else "v3"
 
 
 def edge2_z2(a1, b1, s1, t1, w2, idx, slope: float = 0.2) -> torch.Tensor:
@@ -32,11 +62,40 @@ def edge2_z2(a1, b1, s1, t1, w2, idx, slope: float = 0.2) -> torch.Tensor:
     return torch.matmul(torch.where(z1 >= 0, z1, slope * z1), w2)
 
 
+def edge2_fold(rows, present, b1, s1, t1, w2, s2, t2,
+               slope: float = 0.2) -> torch.Tensor:
+    """Both convs on each selected a1 row (``rows`` (B, N, k, C1), as
+    ``edge2_z2`` orders the operations) and the max over the ``present``
+    slots -> (B, N, C2) f32."""
+    z1 = (rows + b1.float()[:, :, None]) * s1 + t1
+    z2 = torch.matmul(torch.where(z1 >= 0, z1, slope * z1), w2) * s2 + t2
+    h2 = torch.where(z2 >= 0, z2, slope * z2)
+    return torch.where(present[..., None], h2, -torch.inf).amax(dim=2)
+
+
 def knn_edge2_plain(graph, a1, b1, s1, t1, w2, s2, t2, k: int,
-                    slope: float = 0.2) -> torch.Tensor:
-    """Plain torch version of the kernel: (B, N, C2) f32."""
-    z2 = edge2_z2(a1, b1, s1, t1, w2, knn_plain(graph, k), slope) * s2 + t2
-    return torch.where(z2 >= 0, z2, slope * z2).amax(dim=2)
+                    slope: float = 0.2, variant: str = "v1") -> torch.Tensor:
+    """Plain torch version of the kernel: (B, N, C2) f32.  ``variant`` v1
+    (torch.topk's order), v2 (the packed keys of the exact scores) or v3
+    (the exact scores' classes)."""
+    if variant == "v1":
+        z2 = (edge2_z2(a1, b1, s1, t1, w2, knn_plain(graph, k), slope) * s2
+              + t2)
+        return torch.where(z2 >= 0, z2, slope * z2).amax(dim=2)
+    rows, present = select_rows(pairwise_neg_sqdist(graph), a1, k, variant)
+    return edge2_fold(rows, present, b1, s1, t1, w2, s2, t2, slope)
+
+
+def knn_edge2_amp_plain(graph, a1, b1, s1, t1, w2, s2, t2, k: int,
+                        slope: float = 0.2,
+                        variant: str | None = None) -> torch.Tensor:
+    """Plain torch version of the AMP form: (B, N, C2) bf16.  ``graph`` is
+    f32 or bf16, ``a1``/``b1`` f32; ``variant`` None takes
+    ``edge2_variant``'s."""
+    variant = variant or edge2_variant(a1.shape[-1])
+    rows, present = select_rows(amp_scores(graph, graph), a1, k, variant)
+    return edge2_fold(rows, present, b1, s1, t1, w2, s2, t2,
+                      slope).to(torch.bfloat16)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -47,7 +106,7 @@ def _require(cond: bool, msg: str) -> None:
 def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
               s1: torch.Tensor, t1: torch.Tensor, w2: torch.Tensor,
               s2: torch.Tensor, t2: torch.Tensor, k: int,
-              slope: float = 0.2) -> torch.Tensor:
+              slope: float = 0.2, *, amp: bool = False) -> torch.Tensor:
     """kNN over ``graph`` (B, N, Cg), then for each of the k neighbours j
     of point i ``LReLU((LReLU((a1[j] + b1[i]) * s1 + t1) @ w2) * s2 + t2)``
     and its max over the neighbours -> (B, N, C2).  ``a1``/``b1`` (B, N,
@@ -57,9 +116,24 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes f32 tensors (graph, a1 and b1 contiguous) with N a multiple
-    of 128, N <= 4096 and C1, C2 <= 128, and raises on anything else."""
+    of 128, N <= 4096 and C1, C2 <= 128, and raises on anything else.
+    ``amp`` runs the AMP form (plain: ``knn_edge2_amp_plain``): an f32 or
+    bf16 graph, a bf16 output.  The extraction variant is
+    ``stage_variant``'s; the forms other than the exact v1 take k <= 64,
+    C1 <= 64 and C2 <= 128."""
+    variant = stage_variant(amp, edge2_variant(w2.shape[0]))
     if graph.device.type == "cpu":
-        return knn_edge2_plain(graph, a1, b1, s1, t1, w2, s2, t2, k, slope)
+        fn = knn_edge2_amp_plain if amp else knn_edge2_plain
+        return fn(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
+                  variant=variant)
+    require_ported("knn_edge2", amp, variant)
+    if amp or variant != "v1":
+        out = launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
+                             amp, variant)
+        knn_edge2.launches += 1
+        knn_edge2.amp_launches += amp
+        knn_edge2.v2_launches += not amp
+        return out
     _require(graph.is_cuda, f"no kernel for device {graph.device}")
     tensors = (graph, a1, b1, s1, t1, w2, s2, t2)
     _require(all(t.device == graph.device for t in tensors),
@@ -101,5 +175,80 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     return out
 
 
-# launches of the kernel since the count was last set to 0
+def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
+                   amp: bool, variant: str, starts=None, tile: int = 0,
+                   band: int = 0) -> torch.Tensor:
+    """Launches the AMP v2 / v3 form or the exact v2 form of the block on
+    CUDA tensors: over the whole cloud, or with ``starts`` (the window
+    starts of each query tile of ``tile`` rows) over windows of ``band``
+    rows of a sorted cloud (kernel 13).  Checks the tensors and raises on
+    what the kernel does not take."""
+    name = "banded_knn_edge2" if starts is not None else "knn_edge2"
+
+    def need(cond, msg):
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+
+    need(graph.is_cuda, f"no kernel for device {graph.device}")
+    tensors = (graph, a1, b1, s1, t1, w2, s2, t2)
+    need(all(t.device == graph.device for t in tensors),
+         "all tensors must be on one device")
+    need(graph.dtype == torch.float32
+         or (amp and graph.dtype == torch.bfloat16),
+         "graph must be float32" + (" or bfloat16" if amp else ""))
+    need(all(t.dtype == torch.float32 for t in tensors[1:]),
+         "a1, b1, w2 and the affines must be float32")
+    need(graph.is_contiguous() and a1.is_contiguous()
+         and b1.is_contiguous(), "graph, a1 and b1 must be contiguous")
+    need(graph.dim() == 3, "graph must be (B, N, Cg)")
+    b, n, cg = graph.shape
+    c1, c2 = w2.shape
+    w = band or n
+    need(a1.shape == (b, n, c1) and b1.shape == (b, n, c1),
+         f"a1 {tuple(a1.shape)}, b1 {tuple(b1.shape)} vs graph "
+         f"{tuple(graph.shape)} and w2 {tuple(w2.shape)}")
+    need(s1.shape == (c1,) and t1.shape == (c1,)
+         and s2.shape == (c2,) and t2.shape == (c2,),
+         "s1/t1 must be (C1,) and s2/t2 (C2,)")
+    need(n % 128 == 0 and n <= MAX_N,
+         f"N={n} must be a multiple of 128 and <= {MAX_N}")
+    need(c1 <= TILED_C1 and c2 <= TILED_C2,
+         f"the {variant} form takes C1 <= {TILED_C1} and C2 <= {TILED_C2}")
+    need(1 <= k <= min(AMP_MAX_K, w),
+         f"the {variant} form takes 1 <= k <= {min(AMP_MAX_K, w)} (k={k})")
+    fn = _build.load_library().dg_knn_edge2_variant
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 14 + [i] * 8 + [ctypes.c_float, i, p]
+        fn.restype = i
+    # the launch is asynchronous on torch's current stream: tensors made here
+    # and freed on return are reused by the caching allocator only for work
+    # queued after it on that stream
+    dev = graph.device
+    gbf = graph.dtype == torch.bfloat16
+    cs = cg if gbf or not amp else 3 * cg
+
+    def scratch(*shape):
+        return torch.empty(shape, device=dev, dtype=torch.float32)
+
+    gc = scratch(b * n * cs) if amp else None
+    gq = scratch(b * n * cs) if amp and not gbf else None
+    sq, rmin = scratch(b * n), scratch(b * n)
+    small = [t.contiguous() for t in (w2, s1, t1, s2, t2)]
+    out = torch.empty((b, n, c2), device=dev,
+                      dtype=torch.bfloat16 if amp else torch.float32)
+    flags = gbf | (variant == "v3") << 1 | (not amp) << 2
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        rc = fn(p(graph), p(a1), p(b1), *map(p, small), p(starts), p(gq),
+                p(gc), p(sq), p(rmin), p(out), b, n, cg, c1, c2, k,
+                tile or n, w, float(slope), flags, _build.stream_of(graph))
+    _build.check(rc, name)
+    return out
+
+
+# launches of the kernel since the count was last set to 0 (amp_launches:
+# those of its AMP form; v2_launches: those of its exact v2 form)
 knn_edge2.launches = 0
+knn_edge2.amp_launches = 0
+knn_edge2.v2_launches = 0

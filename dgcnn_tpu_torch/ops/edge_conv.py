@@ -20,8 +20,13 @@ from dgcnn_tpu_torch.ops.graph import gather_neighbors
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, N, C) @ (C, Co) in f32."""
-    return torch.matmul(x.float(), w.float())
+    """(B, N, C) @ (C, Co) in f32.  A bf16 ``x`` (an AMP stage's output)
+    takes ``w`` rounded to bf16: f32 products of bf16 values, summed in
+    f32, as the JAX package's ``_project`` computes them."""
+    w = w.float()
+    if x.dtype == torch.bfloat16:
+        w = w.to(torch.bfloat16).float()
+    return torch.matmul(x.float(), w)
 
 
 def edge_linear(x, idx, w_nbr, w_ctr) -> torch.Tensor:

@@ -17,6 +17,14 @@ wrapper runs it for CPU tensors and launches the kernel for CUDA tensors.
 select-x), bf16 payloads and a bf16 output (``ops/amp_select.py``; the
 kernel's note says how ``csrc/edge_conv_eval.cu`` computes them).
 ``edge_conv_eval_amp_plain`` is its plain version.
+
+The extraction variant is the JAX package's (``amp_select.stage_variant``:
+``DGCNN_TPU_EXTRACT`` wins, v1 in the exact mode, the plan's in AMP).  The
+CUDA forms take the exact v1 and v2 (the semseg CLI's pin: the packed keys
+of the exact scores, f32 payload and output) and the AMP v2 and v3, and
+raise on the others; the plain versions take every variant.
+``launch_variant`` launches the forms other than the exact v1, for the
+whole cloud or (kernel 12, ``ops/banded.py``) each query tile's window.
 """
 from __future__ import annotations
 
@@ -28,22 +36,42 @@ from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.amp_select import (
     AMP_MAX_K,
     amp_scores,
+    max_min,
+    require_ported,
     round_bf16,
+    select_rows,
     select_x_plan,
+    stage_variant,
+    v1_indices,
     v2_indices,
     v3_class_means,
 )
-from dgcnn_tpu_torch.ops.edge_conv import edge_conv_fused
+from dgcnn_tpu_torch.ops.edge_conv import _project, edge_conv_fused
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
+from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain, pairwise_neg_sqdist
 from dgcnn_tpu_torch.ops.knn_reduce_kernel import max_co
 
 
 def edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
-                         slope: float = 0.2) -> torch.Tensor:
-    """Plain torch version of the kernel: (B, N, Co) f32."""
-    return edge_conv_fused(x, knn_plain(graph, k), w_nbr, w_ctr, scale, bias,
-                           slope)
+                         slope: float = 0.2,
+                         variant: str = "v1") -> torch.Tensor:
+    """Plain torch version of the kernel: (B, N, Co) f32.  ``variant``
+    v1 (torch.topk's order), v2 (the packed keys of the exact scores) or
+    v3 (the class means of the exact scores' classes)."""
+    if variant == "v1":
+        return edge_conv_fused(x, knn_plain(graph, k), w_nbr, w_ctr, scale,
+                               bias, slope)
+    rows, present = select_rows(pairwise_neg_sqdist(graph),
+                                _project(x, w_nbr), k, variant)
+    return stage_epilogue(*max_min(rows, present), _project(x, w_ctr),
+                          scale, bias, slope)
+
+
+def stage_epilogue(vmax, vmin, centre, scale, bias, slope: float):
+    """The folded BatchNorm and LeakyReLU of the selected max or min (by
+    the sign of ``scale``) plus the centre term, f32."""
+    y = (torch.where(scale > 0, vmax, vmin) + centre) * scale + bias
+    return torch.where(y >= 0, y, slope * y)
 
 
 def _amp_weights(x, w_nbr, w_ctr, select_x: bool):
@@ -57,18 +85,20 @@ def _amp_weights(x, w_nbr, w_ctr, select_x: bool):
 
 
 def edge_conv_eval_amp_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
-                             slope: float = 0.2) -> torch.Tensor:
+                             slope: float = 0.2,
+                             variant: str | None = None) -> torch.Tensor:
     """Plain torch version of the AMP form: (B, N, Co) bf16.  ``graph``
-    and ``x`` are f32 or bf16."""
+    and ``x`` are f32 or bf16; ``variant`` None takes the plan's."""
     cin, co = w_nbr.shape
-    select_x, variant = select_x_plan(cin, co)
+    select_x, plan = select_x_plan(cin, co)
+    variant = variant or plan
     scores = amp_scores(graph, graph)
     xf = x.float()
     wn, wc = _amp_weights(x, w_nbr, w_ctr, select_x)
     payload = round_bf16(xf) if select_x else round_bf16(xf @ wn)
-    if variant == "v2":
-        sel = gather_neighbors(payload @ wn if select_x else payload,
-                               v2_indices(scores, k))
+    if variant != "v3":
+        idx = (v2_indices if variant == "v2" else v1_indices)(scores, k)
+        sel = gather_neighbors(payload @ wn if select_x else payload, idx)
         vmax, vmin = sel.amax(dim=2), sel.amin(dim=2)
     else:
         means, present = v3_class_means(scores, payload, k)
@@ -110,13 +140,22 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     and Co <= 256 (Co <= 128 above N=2048), and raises on anything
     else.  ``amp`` runs the AMP form (plain: ``edge_conv_eval_amp_plain``),
     whose kernel takes f32 or bf16 ``graph`` and ``x``, the same N, Co <=
-    256 and k <= 64 (its tiled route alone), and returns bf16."""
+    256 and k <= 64 (its tiled route alone), and returns bf16.  The
+    extraction variant is ``stage_variant``'s; the exact v2 form takes the
+    AMP form's shapes and returns f32."""
+    variant = stage_variant(amp, select_x_plan(*w_nbr.shape)[1])
     if graph.device.type == "cpu":
         fn = edge_conv_eval_amp_plain if amp else edge_conv_eval_plain
-        return fn(graph, x, w_nbr, w_ctr, scale, bias, k, slope)
-    if amp:
-        return _edge_conv_eval_amp(graph, x, w_nbr, w_ctr, scale, bias, k,
-                                   slope)
+        return fn(graph, x, w_nbr, w_ctr, scale, bias, k, slope,
+                  variant=variant)
+    require_ported("edge_conv_eval", amp, variant)
+    if amp or variant != "v1":
+        out = launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k, slope,
+                             amp, variant)
+        edge_conv_eval.launches += 1
+        edge_conv_eval.amp_launches += amp
+        edge_conv_eval.v2_launches += not amp
+        return out
     _require(graph.is_cuda, f"no kernel for device {graph.device}")
     tensors = (graph, x, w_nbr, w_ctr, scale, bias)
     _require(all(t.device == graph.device for t in tensors),
@@ -156,65 +195,84 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     return out
 
 
-def _edge_conv_eval_amp(graph, x, w_nbr, w_ctr, scale, bias, k: int,
-                        slope: float) -> torch.Tensor:
-    _require(graph.is_cuda, f"no kernel for device {graph.device}")
+def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
+                   slope: float, amp: bool, variant: str, starts=None,
+                   tile: int = 0, band: int = 0) -> torch.Tensor:
+    """Launches the AMP v2 / v3 form or the exact v2 form of the stage on
+    CUDA tensors: over the whole cloud, or with ``starts`` (the window
+    starts of each query tile of ``tile`` rows) over windows of ``band``
+    rows of a sorted cloud (kernel 12).  Checks the tensors and raises on
+    what the kernel does not take."""
+    name = "banded_edge_conv_eval" if starts is not None else "edge_conv_eval"
+
+    def need(cond, msg):
+        if not cond:
+            raise ValueError(f"{name}: {msg}")
+
+    need(graph.is_cuda, f"no kernel for device {graph.device}")
     tensors = (graph, x, w_nbr, w_ctr, scale, bias)
-    _require(all(t.device == graph.device for t in tensors),
-             "all tensors must be on one device")
-    _require(all(t.dtype in (torch.float32, torch.bfloat16)
-                 for t in (graph, x)), "graph and x must be f32 or bf16")
-    _require(all(t.dtype == torch.float32 for t in tensors[2:]),
-             "weights, scale and bias must be float32")
-    _require(graph.is_contiguous() and x.is_contiguous(),
-             "graph and x must be contiguous")
+    need(all(t.device == graph.device for t in tensors),
+         "all tensors must be on one device")
+    dtypes = (torch.float32, torch.bfloat16) if amp else (torch.float32,)
+    need(all(t.dtype in dtypes for t in (graph, x)),
+         f"graph and x must be {' or '.join(map(str, dtypes))}")
+    need(all(t.dtype == torch.float32 for t in tensors[2:]),
+         "weights, scale and bias must be float32")
+    need(graph.is_contiguous() and x.is_contiguous(),
+         "graph and x must be contiguous")
     b, n, cg = graph.shape
     cin, co = w_nbr.shape
-    _require(x.shape == (b, n, cin), f"x {tuple(x.shape)} vs graph "
-             f"{tuple(graph.shape)} and w_nbr {tuple(w_nbr.shape)}")
-    _require(w_ctr.shape == (cin, co), "w_ctr must match w_nbr")
-    _require(scale.shape == (co,) and bias.shape == (co,),
-             "scale/bias must be (Co,)")
-    _require(n % 128 == 0 and n <= MAX_N,
-             f"N={n} must be a multiple of 128 and <= {MAX_N}")
-    _require(co <= AMP_MAX_CO, f"the AMP form takes Co <= {AMP_MAX_CO}")
-    _require(1 <= k <= AMP_MAX_K,
-             f"the AMP form takes 1 <= k <= {AMP_MAX_K} (k={k})")
-    select_x, variant = select_x_plan(cin, co)
-    _require(not (select_x and variant == "v3"),
-             "the AMP kernel does not take select-x with v3")
-    fn = getattr(_build.load_library(), "dg_edge_conv_eval_amp")
+    w = band or n
+    need(x.shape == (b, n, cin), f"x {tuple(x.shape)} vs graph "
+         f"{tuple(graph.shape)} and w_nbr {tuple(w_nbr.shape)}")
+    need(w_ctr.shape == (cin, co), "w_ctr must match w_nbr")
+    need(scale.shape == (co,) and bias.shape == (co,),
+         "scale/bias must be (Co,)")
+    need(n % 128 == 0 and n <= MAX_N,
+         f"N={n} must be a multiple of 128 and <= {MAX_N}")
+    need(co <= (64 if starts is not None else AMP_MAX_CO),
+         f"the {variant} form takes Co <= "
+         f"{64 if starts is not None else AMP_MAX_CO}")
+    need(1 <= k <= min(AMP_MAX_K, w),
+         f"the {variant} form takes 1 <= k <= {min(AMP_MAX_K, w)} (k={k})")
+    select_x = amp and select_x_plan(cin, co)[0]
+    need(not (select_x and (variant == "v3" or starts is not None)),
+         "the kernel takes select-x with v2 on the whole cloud only")
+    fn = getattr(_build.load_library(), "dg_edge_conv_eval_variant")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 12 + [i] * 6 + [ctypes.c_float, i, p]
+        fn.argtypes = [p] * 13 + [i] * 8 + [ctypes.c_float, i, p]
         fn.restype = i
     # the launch is asynchronous on torch's current stream: tensors made here
     # and freed on return are reused by the caching allocator only for work
     # queued after it on that stream
     dev = graph.device
     gbf, xbf = graph.dtype == torch.bfloat16, x.dtype == torch.bfloat16
-    wn, wc = _amp_weights(x, w_nbr, w_ctr, select_x)
+    if amp:
+        wn, wc = _amp_weights(x, w_nbr, w_ctr, select_x)
+    else:
+        wn, wc = w_nbr, w_ctr
     wcat = torch.cat([wn, wc], dim=1).contiguous()
-    cs = cg if gbf else 3 * cg
+    cs = cg if gbf or not amp else 3 * cg
 
     def scratch(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    gc = scratch(b * n * cs)
-    gq = gc if gbf else scratch(b * n * cs)
-    xf = scratch(b * n * cin) if xbf else gc
+    gc = scratch(b * n * cs) if amp else None
+    gq = scratch(b * n * cs) if amp and not gbf else None
+    xf = scratch(b * n * cin) if xbf else None
     sq, rmin, ac = scratch(b * n), scratch(b * n), scratch(b * n * 2 * co)
-    out = torch.empty((b, n, co), device=dev, dtype=torch.bfloat16)
-    flags = gbf | xbf << 1 | select_x << 2 | (variant == "v3") << 3
+    out = torch.empty((b, n, co), device=dev,
+                      dtype=torch.bfloat16 if amp else torch.float32)
+    flags = (gbf | xbf << 1 | select_x << 2 | (variant == "v3") << 3
+             | (not amp) << 4)
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(p(graph), p(x), p(wcat), p(scale.contiguous()),
                 p(bias.contiguous()), p(gq), p(gc), p(xf), p(sq), p(rmin),
-                p(ac), p(out), b, n, cg, cin, co, k, float(slope), flags,
-                _build.stream_of(graph))
-    _build.check(rc, "edge_conv_eval")
-    edge_conv_eval.launches += 1
-    edge_conv_eval.amp_launches += 1
+                p(ac), p(out), p(starts), b, n, cg, cin, co, k, tile or n,
+                w, float(slope), flags, _build.stream_of(graph))
+    _build.check(rc, name)
     return out
 
 
@@ -222,6 +280,7 @@ def _edge_conv_eval_amp(graph, x, w_nbr, w_ctr, scale, bias, k: int,
 AMP_MAX_CO = 256
 
 # launches of the kernel since the count was last set to 0 (amp_launches:
-# those of its AMP form)
+# those of its AMP form; v2_launches: those of its exact v2 form)
 edge_conv_eval.launches = 0
 edge_conv_eval.amp_launches = 0
+edge_conv_eval.v2_launches = 0

@@ -343,17 +343,34 @@ def test_pull_sum_is_the_ordered_scatter():
     assert rel.max() <= 1e-5, rel.max()
 
 
-def test_other_models_stay_exact():
-    """Only DGCNNCls has the AMP mode: the other models' forwards take no
-    mode, so they run exact whatever the variable says."""
+def test_other_models_stay_exact(monkeypatch):
+    """The fusion Net takes no mode and stays exact: with the variable
+    unset, its forward hands kernel 6 (its PositionEmbedding's
+    TransformNet) and kernel 2 amp=False, and kernel 1 (its backbone) no
+    AMP form."""
     import inspect
 
-    from dgcnn_tpu_torch.models import (
-        DGCNNPartSeg,
-        DGCNNSemSeg,
-        Net,
-        TransformNet,
-    )
+    from dgcnn_tpu_torch.models import Net, dgcnn, nn_layers
 
-    for cls in (DGCNNPartSeg, DGCNNSemSeg, Net, TransformNet):
-        assert "amp" not in inspect.signature(cls.forward).parameters
+    assert "amp" not in inspect.signature(Net.forward).parameters
+    monkeypatch.delenv(EXACT_ENV, raising=False)
+    modes = []
+
+    def spy(fn):
+        def wrapped(*args, amp=False, **kwargs):
+            modes.append((fn.__name__, amp))
+            return fn(*args, amp=amp, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(dgcnn, "knn_edge2", spy(dgcnn.knn_edge2))
+    monkeypatch.setattr(dgcnn, "conv_pool", spy(dgcnn.conv_pool))
+    monkeypatch.setattr(nn_layers, "edge_conv_eval",
+                        spy(nn_layers.edge_conv_eval))
+    net = Net(emb_dim=32, k=8, n_heads=2, n_blocks=1, ff_dims=32,
+              nclasses=5, device="cpu",
+              generator=torch.Generator().manual_seed(71))
+    pts = torch.randn(2, 128, 3, generator=torch.Generator().manual_seed(72))
+    with torch.no_grad():
+        net(pts, torch.eye(16)[[1, 4]])
+    assert sorted(modes) == [("edge_conv_eval", False)] * 4 + [
+        ("knn_edge2", False)]
