@@ -30,10 +30,16 @@
 //     selection, one warp a query row with its N scores in registers (N /
 //     32 a lane), the cloud staged through shared memory, and k rounds of
 //     warp arg-max on (score, -index), k * N comparisons a row.
-// Both give each score the same bits (one fmaf chain over the channels, 0
-// ascending, then the same _rn operations) and the same neighbours in
-// torch.topk's order, ties included: idx is identical on both routes and
-// from call to call.  The N x N scores never reach device memory.
+// The v2 form (dg_knn_idx_v2: DGCNN_TPU_EXTRACT=v2, read by
+// _knn_only_kernel at pallas_knn.py:1554) lists the k largest packed keys
+// of the same f32 scores (_pack_keys, :87): a TS_MIN pass of the tiled
+// selection writes each row's least score, the TS_KEYS pass lists the keys
+// (knn_select.cuh), lowest index first among equal ones; tiled route only
+// (k <= TS_LIST).
+// Both routes give each score the same bits (one fmaf chain over the
+// channels, 0 ascending, then the same _rn operations) and the same
+// neighbours in torch.topk's order, ties included: idx is identical on both
+// routes and from call to call.  The N x N scores never reach device memory.
 #include <cuda_runtime.h>
 
 #include "knn_select.cuh"
@@ -60,19 +66,24 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
 }
 
 // The tiled route: the block's 64 rows' lists, then each row's list
-// written in order, a warp its eight rows.
-template <int KL>
+// written in order, a warp its eight rows.  MODE TS_TOPK is v1; TS_KEYS
+// v2, on the rows' grids in rmin.
+template <int KL, int MODE>
 __global__ void __launch_bounds__(dg::TS_THREADS, 2)
     knn_idx_tiled_kernel(const float* __restrict__ x, int C,
                          const float* __restrict__ sq, int N, int k,
-                         int* __restrict__ idx) {
+                         int* __restrict__ idx, float* rmin, float lim) {
   extern __shared__ __align__(16) float tsm[];
   const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, 0, N, r0,
-                     k, tsm, ls, li);
+  const float* G = x + (size_t)b * N * C;
+  dg::tiled_topk<KL, false, MODE>(G, C, sq + (size_t)b * N, 0, N, r0, k, tsm,
+                                  ls, li, G,
+                                  MODE == dg::TS_KEYS ? rmin + (size_t)b * N
+                                                      : nullptr,
+                                  lim);
 #pragma unroll
   for (int rr = 0; rr < dg::TS_WR; ++rr) {
     int* irow = idx + ((size_t)b * N + r0 + dg::TS_WR * warp + rr) * k;
@@ -82,16 +93,17 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   }
 }
 
-template <int KL>
+template <int KL, int MODE = dg::TS_TOPK>
 cudaError_t launch_tiled(const float* x, const float* sq, int* idx, int B,
-                         int N, int C, int k, cudaStream_t st) {
+                         int N, int C, int k, cudaStream_t st,
+                         float* rmin = nullptr) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_idx_tiled_kernel<KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dg::TS_SMEM_BYTES);
+      knn_idx_tiled_kernel<KL, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dg::TS_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  knn_idx_tiled_kernel<KL>
+  knn_idx_tiled_kernel<KL, MODE>
       <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
-          x, C, sq, N, k, idx);
+          x, C, sq, N, k, idx, rmin, dg::keys_lim(N));
   return cudaGetLastError();
 }
 
@@ -111,12 +123,23 @@ cudaError_t launch_rowwarp(const float* x, const float* sq, int* idx, int B,
   });
 }
 
-int knn_idx(const float* x, float* sq, int* idx, int B, int N, int C, int k,
-            bool rowwarp, cudaStream_t st) {
-  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || k < 1 || k > N)
+// rmin (B * N scratch) asks for the v2 form.
+int knn_idx(const float* x, float* sq, float* rmin, int* idx, int B, int N,
+            int C, int k, bool rowwarp, cudaStream_t st) {
+  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || k < 1 || k > N ||
+      (rmin != nullptr && (rowwarp || k > dg::TS_LIST)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = dg::launch_sqnorm(x, B * N, C, sq, st);
   if (e != cudaSuccess) return (int)e;
+  if (rmin != nullptr) {
+    e = dg::launch_rowmin(x, x, C, sq, B, N, nullptr, N, N, rmin, st);
+    if (e != cudaSuccess) return (int)e;
+    if (k <= 32)
+      return (int)launch_tiled<1, dg::TS_KEYS>(x, sq, idx, B, N, C, k, st,
+                                               rmin);
+    return (int)launch_tiled<2, dg::TS_KEYS>(x, sq, idx, B, N, C, k, st,
+                                             rmin);
+  }
   if (!rowwarp && k <= 32) return (int)launch_tiled<1>(x, sq, idx, B, N, C, k,
                                                        st);
   if (!rowwarp && k <= dg::TS_LIST)
@@ -130,11 +153,22 @@ int knn_idx(const float* x, float* sq, int* idx, int B, int N, int C, int k,
 // contiguous, on the device.  Returns the first CUDA error.
 extern "C" int dg_knn_idx(const float* x, float* sq, int* idx, int B, int N,
                           int C, int k, void* stream) {
-  return knn_idx(x, sq, idx, B, N, C, k, false, (cudaStream_t)stream);
+  return knn_idx(x, sq, nullptr, idx, B, N, C, k, false,
+                 (cudaStream_t)stream);
+}
+
+// The v2 form of dg_knn_idx: rmin (B * N f32) is scratch for the rows'
+// grids; k <= 64.
+extern "C" int dg_knn_idx_v2(const float* x, float* sq, float* rmin,
+                             int* idx, int B, int N, int C, int k,
+                             void* stream) {
+  if (rmin == nullptr) return (int)cudaErrorInvalidValue;
+  return knn_idx(x, sq, rmin, idx, B, N, C, k, false, (cudaStream_t)stream);
 }
 
 // As dg_knn_idx on the row-warp route at any k.
 extern "C" int dg_knn_idx_rowwarp(const float* x, float* sq, int* idx, int B,
                                   int N, int C, int k, void* stream) {
-  return knn_idx(x, sq, idx, B, N, C, k, true, (cudaStream_t)stream);
+  return knn_idx(x, sq, nullptr, idx, B, N, C, k, true,
+                 (cudaStream_t)stream);
 }

@@ -14,6 +14,17 @@
 // where knn_reduce takes a (= x @ W_nbr, projected by the caller) and
 // knn_reduce_xw takes the raw features xf and w, a = xf @ w.
 //
+// The v2 form (dg_knn_reduce_v2, dg_knn_reduce_xw_v2: DGCNN_TPU_EXTRACT=v2,
+// as the semseg CLI pins it, read by _knn_reduce_kernel at
+// pallas_knn.py:386 and _knn_reduce_xw_kernel at :431) picks nbr(i) by the
+// packed keys of the same f32 scores (_pack_keys, :87; _extract_loop_v2,
+// :123): each score quantized to its row's grid, q = max(rint(s * scale),
+// -lim) with scale = -lim / min_j s(i, j), the k largest q, lowest index
+// first among equal ones.  A TS_MIN pass of the tiled selection writes
+// each row's least score, and the TS_KEYS pass lists the k largest keys
+// (knn_select.cuh); the reductions over the list are the v1 form's.  Tiled
+// route only: k <= TS_LIST, else the entry returns cudaErrorInvalidValue.
+//
 // Bound on an H100 SXM: operations.  At the DGCNNCls training shapes
 // (B=32, N=1024, k=20, Cg = 3 / 64 / 64 / 128) the scores are 2*B*N^2*Cg
 // flops, ~17 GFLOP over the four stages: ~0.26 ms at the f32 CUDA-core
@@ -118,22 +129,28 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
 }
 
 // The tiled route: the block's 64 rows' lists, then the reductions, a
-// warp its eight rows; CPL output channels a lane (Co <= 32 * CPL).
-template <int KL, int CPL>
+// warp its eight rows; CPL output channels a lane (Co <= 32 * CPL).  MODE
+// TS_TOPK is v1; TS_KEYS v2, on the rows' grids in rmin.
+template <int KL, int CPL, int MODE>
 __global__ void __launch_bounds__(dg::TS_THREADS, 2)
     knn_reduce_tiled_kernel(const float* __restrict__ graph, int Cg,
                             const float* __restrict__ sq,
                             const float* __restrict__ a, int Co, int N, int k,
                             int* __restrict__ idx, float* __restrict__ amax,
                             float* __restrict__ amin, float* __restrict__ asum,
-                            float* __restrict__ asumsq) {
+                            float* __restrict__ asumsq, float* rmin,
+                            float lim) {
   extern __shared__ __align__(16) float tsm[];
   const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, 0,
-                     N, r0, k, tsm, ls, li);
+  const float* G = graph + (size_t)b * N * Cg;
+  dg::tiled_topk<KL, false, MODE>(G, Cg, sq + (size_t)b * N, 0, N, r0, k,
+                                  tsm, ls, li, G,
+                                  MODE == dg::TS_KEYS ? rmin + (size_t)b * N
+                                                      : nullptr,
+                                  lim);
 
   const float* A = a + (size_t)b * N * Co;
 #pragma unroll
@@ -186,49 +203,55 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   }
 }
 
-template <int KL, int CPL>
-cudaError_t launch_tiled(const float* graph, const float* a, const float* sq,
-                         int* idx, float* amax, float* amin, float* asum,
-                         float* asumsq, int B, int N, int Cg, int Co, int k,
-                         cudaStream_t st) {
+struct TiledArgs {
+  const float *graph, *a, *sq;
+  int* idx;
+  float *amax, *amin, *asum, *asumsq, *rmin;
+  int B, N, Cg, Co, k;
+};
+
+template <int KL, int CPL, int MODE>
+cudaError_t launch_tiled(const TiledArgs& t, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_reduce_tiled_kernel<KL, CPL>,
+      knn_reduce_tiled_kernel<KL, CPL, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dg::TS_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  knn_reduce_tiled_kernel<KL, CPL>
-      <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
-          graph, Cg, sq, a, Co, N, k, idx, amax, amin, asum, asumsq);
+  knn_reduce_tiled_kernel<KL, CPL, MODE>
+      <<<dim3(t.N / dg::TS_R, t.B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
+          t.graph, t.Cg, t.sq, t.a, t.Co, t.N, t.k, t.idx, t.amax, t.amin,
+          t.asum, t.asumsq, t.rmin, dg::keys_lim(t.N));
   return cudaGetLastError();
 }
 
-template <int KL>
-cudaError_t launch_tiled_co(const float* graph, const float* a,
-                            const float* sq, int* idx, float* amax,
-                            float* amin, float* asum, float* asumsq, int B,
-                            int N, int Cg, int Co, int k, cudaStream_t st) {
-  if (Co <= 64)
-    return launch_tiled<KL, 2>(graph, a, sq, idx, amax, amin, asum, asumsq,
-                               B, N, Cg, Co, k, st);
-  if (Co <= 128)
-    return launch_tiled<KL, 4>(graph, a, sq, idx, amax, amin, asum, asumsq,
-                               B, N, Cg, Co, k, st);
-  return launch_tiled<KL, 8>(graph, a, sq, idx, amax, amin, asum, asumsq, B,
-                             N, Cg, Co, k, st);
+template <int KL, int MODE>
+cudaError_t launch_tiled_co(const TiledArgs& t, cudaStream_t st) {
+  if (t.Co <= 64) return launch_tiled<KL, 2, MODE>(t, st);
+  if (t.Co <= 128) return launch_tiled<KL, 4, MODE>(t, st);
+  return launch_tiled<KL, 8, MODE>(t, st);
 }
 
 // sqnorm of the graph, then the selection over a: the tiled route at
-// k <= TS_LIST, the row-warp route above.
+// k <= TS_LIST, the row-warp route above.  rmin (B * N scratch) asks for
+// the v2 form: the rows' grids first, then the keyed tiled route (k <=
+// TS_LIST only).
 cudaError_t reduce(const float* graph, const float* a, float* sq, int* idx,
                    float* amax, float* amin, float* asum, float* asumsq,
-                   int B, int N, int Cg, int Co, int k, cudaStream_t st) {
+                   float* rmin, int B, int N, int Cg, int Co, int k,
+                   cudaStream_t st) {
   cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
   if (e != cudaSuccess) return e;
-  if (k <= 32)
-    return launch_tiled_co<1>(graph, a, sq, idx, amax, amin, asum, asumsq, B,
-                              N, Cg, Co, k, st);
-  if (k <= dg::TS_LIST)
-    return launch_tiled_co<2>(graph, a, sq, idx, amax, amin, asum, asumsq, B,
-                              N, Cg, Co, k, st);
+  const TiledArgs t{graph, a,  sq, idx, amax, amin, asum, asumsq, rmin,
+                    B,     N, Cg, Co,  k};
+  if (rmin != nullptr) {
+    if (k > dg::TS_LIST) return cudaErrorInvalidValue;
+    e = dg::launch_rowmin(graph, graph, Cg, sq, B, N, nullptr, N, N, rmin,
+                          st);
+    if (e != cudaSuccess) return e;
+    if (k <= 32) return launch_tiled_co<1, dg::TS_KEYS>(t, st);
+    return launch_tiled_co<2, dg::TS_KEYS>(t, st);
+  }
+  if (k <= 32) return launch_tiled_co<1, dg::TS_TOPK>(t, st);
+  if (k <= dg::TS_LIST) return launch_tiled_co<2, dg::TS_TOPK>(t, st);
   return dg::with_npl(N, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
     const size_t smem = dg::select_smem_bytes<NPL>(N);
@@ -258,24 +281,56 @@ extern "C" int dg_knn_reduce(const float* graph, const float* a, float* sq,
                              float* asumsq, int B, int N, int Cg, int Co,
                              int k, void* stream) {
   if (bad_shape(B, N, Cg, Co, k)) return (int)cudaErrorInvalidValue;
-  return (int)reduce(graph, a, sq, idx, amax, amin, asum, asumsq, B, N, Cg,
-                     Co, k, (cudaStream_t)stream);
+  return (int)reduce(graph, a, sq, idx, amax, amin, asum, asumsq, nullptr, B,
+                     N, Cg, Co, k, (cudaStream_t)stream);
+}
+
+// The v2 form of dg_knn_reduce: rmin (B * N f32) is scratch for the rows'
+// grids; k <= 64.
+extern "C" int dg_knn_reduce_v2(const float* graph, const float* a,
+                                float* sq, float* rmin, int* idx, float* amax,
+                                float* amin, float* asum, float* asumsq,
+                                int B, int N, int Cg, int Co, int k,
+                                void* stream) {
+  if (bad_shape(B, N, Cg, Co, k) || rmin == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return (int)reduce(graph, a, sq, idx, amax, amin, asum, asumsq, rmin, B, N,
+                     Cg, Co, k, (cudaStream_t)stream);
 }
 
 // As dg_knn_reduce over a = xf (B, N, Cin) @ w (Cin, Co), projected into
-// the scratch a (B, N, Co) first.
+// the scratch a (B, N, Co) first; rmin non-null: the v2 form, as
+// dg_knn_reduce_v2.
+static int reduce_xw(const float* graph, const float* xf, const float* w,
+                     float* a, float* sq, float* rmin, int* idx, float* amax,
+                     float* amin, float* asum, float* asumsq, int B, int N,
+                     int Cg, int Cin, int Co, int k, cudaStream_t st) {
+  if (bad_shape(B, N, Cg, Co, k) || Cin < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = dg::launch_project(xf, B * N, Cin, w, Co, a, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce(graph, a, sq, idx, amax, amin, asum, asumsq, rmin, B, N,
+                     Cg, Co, k, st);
+}
+
 extern "C" int dg_knn_reduce_xw(const float* graph, const float* xf,
                                 const float* w, float* a, float* sq, int* idx,
                                 float* amax, float* amin, float* asum,
                                 float* asumsq, int B, int N, int Cg, int Cin,
                                 int Co, int k, void* stream) {
-  if (bad_shape(B, N, Cg, Co, k) || Cin < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = dg::launch_project(xf, B * N, Cin, w, Co, a, st);
-  if (e != cudaSuccess) return (int)e;
-  return (int)reduce(graph, a, sq, idx, amax, amin, asum, asumsq, B, N, Cg,
-                     Co, k, st);
+  return reduce_xw(graph, xf, w, a, sq, nullptr, idx, amax, amin, asum,
+                   asumsq, B, N, Cg, Cin, Co, k, (cudaStream_t)stream);
+}
+
+extern "C" int dg_knn_reduce_xw_v2(const float* graph, const float* xf,
+                                   const float* w, float* a, float* sq,
+                                   float* rmin, int* idx, float* amax,
+                                   float* amin, float* asum, float* asumsq,
+                                   int B, int N, int Cg, int Cin, int Co,
+                                   int k, void* stream) {
+  if (rmin == nullptr) return (int)cudaErrorInvalidValue;
+  return reduce_xw(graph, xf, w, a, sq, rmin, idx, amax, amin, asum, asumsq,
+                   B, N, Cg, Cin, Co, k, (cudaStream_t)stream);
 }
 
 // out (M, ncols) = x (M, K) @ w (K, ncols): the projection of

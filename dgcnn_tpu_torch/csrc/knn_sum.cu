@@ -44,6 +44,16 @@
 //     selection, one warp a query row with its N scores in registers, k
 //     rounds of warp arg-max, with the sum folded into the rounds: every
 //     lane learns each round's winner j and lane c < Ca adds a[j, c].
+// The v2 form (dg_knn_sum_v2), the JAX package's default: _knn_sum_kernel's
+// variant is _extract_version("v2", ...) (pallas_knn.py:1518), so the AMP
+// Net runs it and DGCNN_TPU_EXTRACT=v2 asks for it in the exact mode.  It
+// lists the k largest packed keys of the same exact f32 scores (_pack_keys,
+// :87): a TS_MIN pass of the tiled selection writes each row's least
+// score, the TS_KEYS pass lists the keys (knn_select.cuh), lowest index
+// first among equal ones; then the v1 form's list-order store and fold.
+// Its sums stay the exact f32 sums in list order t = 0..k-1 (the TPU's v2
+// sums the multi-hot rows of the same set).  Tiled route only (k <=
+// TS_LIST).
 // Both routes pick the same neighbours in the same order (kernel 11's
 // routes give the same idx, ties included) and sum them in that order from
 // the t = 0 term: idx and asum are the same bits on both routes.  Neither
@@ -85,19 +95,25 @@ constexpr int LS = dg::TS_LIST + 1;  // a staged list's stride (words)
 
 // The tiled route: the block's 64 rows' lists, each written to idx in list
 // order and staged in shared memory, then the sums, a warp its eight rows.
-template <int KL>
+// MODE TS_TOPK is v1; TS_KEYS v2, on the rows' grids in rmin.
+template <int KL, int MODE>
 __global__ void __launch_bounds__(dg::TS_THREADS, 2)
     knn_sum_tiled_kernel(const float* __restrict__ x, int C,
                          const float* __restrict__ sq, int N, int k,
                          const float* __restrict__ a, int Ca,
-                         int* __restrict__ idx, float* __restrict__ asum) {
+                         int* __restrict__ idx, float* __restrict__ asum,
+                         float* rmin, float lim) {
   extern __shared__ __align__(16) float tsm[];
   const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, 0, N, r0,
-                     k, tsm, ls, li);
+  const float* X = x + (size_t)b * N * C;
+  dg::tiled_topk<KL, false, MODE>(X, C, sq + (size_t)b * N, 0, N, r0, k, tsm,
+                                  ls, li, X,
+                                  MODE == dg::TS_KEYS ? rmin + (size_t)b * N
+                                                      : nullptr,
+                                  lim);
   // the warp's own rows of tiled_topk's finished-tile buffer (TS_WR rows
   // of TS_J words from row TS_WR * warp): the eight lists at stride LS
   static_assert(dg::TS_WR * LS <= dg::TS_WR * dg::TS_J, "lists fit");
@@ -130,17 +146,17 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   }
 }
 
-template <int KL>
+template <int KL, int MODE = dg::TS_TOPK>
 cudaError_t launch_tiled(const float* x, const float* a, const float* sq,
                          int* idx, float* asum, int B, int N, int C, int Ca,
-                         int k, cudaStream_t st) {
+                         int k, cudaStream_t st, float* rmin = nullptr) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_sum_tiled_kernel<KL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dg::TS_SMEM_BYTES);
+      knn_sum_tiled_kernel<KL, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dg::TS_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  knn_sum_tiled_kernel<KL>
+  knn_sum_tiled_kernel<KL, MODE>
       <<<dim3(N / dg::TS_R, B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
-          x, C, sq, N, k, a, Ca, idx, asum);
+          x, C, sq, N, k, a, Ca, idx, asum, rmin, dg::keys_lim(N));
   return cudaGetLastError();
 }
 
@@ -161,14 +177,25 @@ cudaError_t launch_rowwarp(const float* x, const float* a, const float* sq,
   });
 }
 
-int knn_sum(const float* x, const float* a, float* sq, int* idx, float* asum,
-            int B, int N, int C, int Ca, int k, bool rowwarp,
+// rmin (B * N scratch) asks for the v2 form.
+int knn_sum(const float* x, const float* a, float* sq, float* rmin, int* idx,
+            float* asum, int B, int N, int C, int Ca, int k, bool rowwarp,
             cudaStream_t st) {
   if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || Ca < 1 ||
-      Ca > 32 || k < 1 || k > N)
+      Ca > 32 || k < 1 || k > N ||
+      (rmin != nullptr && (rowwarp || k > dg::TS_LIST)))
     return (int)cudaErrorInvalidValue;
   cudaError_t e = dg::launch_sqnorm(x, B * N, C, sq, st);
   if (e != cudaSuccess) return (int)e;
+  if (rmin != nullptr) {
+    e = dg::launch_rowmin(x, x, C, sq, B, N, nullptr, N, N, rmin, st);
+    if (e != cudaSuccess) return (int)e;
+    if (k <= 32)
+      return (int)launch_tiled<1, dg::TS_KEYS>(x, a, sq, idx, asum, B, N, C,
+                                               Ca, k, st, rmin);
+    return (int)launch_tiled<2, dg::TS_KEYS>(x, a, sq, idx, asum, B, N, C, Ca,
+                                             k, st, rmin);
+  }
   if (!rowwarp && k <= 32)
     return (int)launch_tiled<1>(x, a, sq, idx, asum, B, N, C, Ca, k, st);
   if (!rowwarp && k <= dg::TS_LIST)
@@ -184,7 +211,17 @@ int knn_sum(const float* x, const float* a, float* sq, int* idx, float* asum,
 extern "C" int dg_knn_sum(const float* x, const float* a, float* sq,
                           int* idx, float* asum, int B, int N, int C,
                           int Ca, int k, void* stream) {
-  return knn_sum(x, a, sq, idx, asum, B, N, C, Ca, k, false,
+  return knn_sum(x, a, sq, nullptr, idx, asum, B, N, C, Ca, k, false,
+                 (cudaStream_t)stream);
+}
+
+// The v2 form of dg_knn_sum: rmin (B * N f32) is scratch for the rows'
+// grids; k <= 64.
+extern "C" int dg_knn_sum_v2(const float* x, const float* a, float* sq,
+                             float* rmin, int* idx, float* asum, int B, int N,
+                             int C, int Ca, int k, void* stream) {
+  if (rmin == nullptr) return (int)cudaErrorInvalidValue;
+  return knn_sum(x, a, sq, rmin, idx, asum, B, N, C, Ca, k, false,
                  (cudaStream_t)stream);
 }
 
@@ -192,6 +229,6 @@ extern "C" int dg_knn_sum(const float* x, const float* a, float* sq,
 extern "C" int dg_knn_sum_rowwarp(const float* x, const float* a, float* sq,
                                   int* idx, float* asum, int B, int N, int C,
                                   int Ca, int k, void* stream) {
-  return knn_sum(x, a, sq, idx, asum, B, N, C, Ca, k, true,
+  return knn_sum(x, a, sq, nullptr, idx, asum, B, N, C, Ca, k, true,
                  (cudaStream_t)stream);
 }

@@ -276,7 +276,9 @@ class PositionEmbedding(TransformNet):
     """The fork's canonicalizer (reference models/layers.py:8-74): the
     TransformNet's 3x3 (its eval or training path) applied to the points,
     (B, N, 3) -> (B, N, 3) in f32.  Its keys are the TransformNet's.
-    ``amp`` as the TransformNet's; the ``Net`` passes False."""
+    ``amp`` as the TransformNet's (the ``Net`` passes its mode): kernel
+    6's AMP form (v3 at C1 = 64) and kernel 2's for conv3 (128 -> 1024, max
+    only)."""
 
     def forward(self, x: torch.Tensor, k: int, train: bool = False,
                 amp: bool = False) -> torch.Tensor:
@@ -294,7 +296,13 @@ class DGCNN(nn.Module):
     edge_reduce_bwd), as ``DGCNNCls`` trains, with conv5's BatchNorm on the
     batch's statistics; their plain versions on CPU tensors.  conv5 is
     plain torch, as in the JAX package.  Its keys are
-    ``export_dgcnn_backbone``'s."""
+    ``export_dgcnn_backbone``'s.
+
+    ``amp`` (eval only; the ``Net`` resolves it) runs the stages in kernel
+    1's AMP form (at the Net's N = 2048, k = 32: v3, v3, v2 and select-x
+    v2, as ``select_x_plan`` gives), whose bf16 outputs conv5 takes
+    promoted to f32, as the JAX package's f32 conv5 does
+    (dgcnn_tpu/models/dgcnn.py:147-155)."""
 
     def __init__(self, emb_dims: int = 512, k: int = 32):
         super().__init__()
@@ -305,13 +313,14 @@ class DGCNN(nn.Module):
         self.conv4 = EdgeConv(128, 256)
         self.conv5 = ConvBN(512, emb_dims, dims=2)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                amp: bool = False) -> torch.Tensor:
         kk = self.k
-        x1 = self.conv1(x, train=train, graph=x, k=kk)
-        x2 = self.conv2(x1, train=train, graph=x1, k=kk)
-        x3 = self.conv3(x2, train=train, graph=x2, k=kk)
-        x4 = self.conv4(x3, train=train, graph=x3, k=kk)
-        return self.conv5(torch.cat([x1, x2, x3, x4], dim=-1), train)
+        x1 = self.conv1(x, train=train, graph=x, k=kk, amp=amp)
+        x2 = self.conv2(x1, train=train, graph=x1, k=kk, amp=amp)
+        x3 = self.conv3(x2, train=train, graph=x2, k=kk, amp=amp)
+        x4 = self.conv4(x3, train=train, graph=x3, k=kk, amp=amp)
+        return self.conv5(torch.cat([x1, x2, x3, x4], dim=-1).float(), train)
 
 
 class DGCNNCls(nn.Module):
@@ -522,8 +531,7 @@ class DGCNNSemSeg(nn.Module):
 
     The semseg CLI pins ``DGCNN_TPU_EXTRACT=v2`` (S3DIS blocks repeat
     points), as the JAX CLI does: the eval kernels 6, 1, 13 and 12 then
-    run v2 in both modes.  Training's kernel 3 does not honour the pin yet
-    (exact v1; ROADMAP C lists it)."""
+    run v2 in both modes, and training's kernel 3 its exact v2 form."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 20,
                  dropout: float = 0.5, num_classes: int = 13, band: int = 0,

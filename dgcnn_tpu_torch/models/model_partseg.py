@@ -33,6 +33,18 @@ state-dict keys are ``export_net``'s (``emb_nn.*``, ``grads_emb.{0,1,3,4,
 ``transformer.pt`` loads with ``convert.load_checkpoint``.  The custom
 vector-attention transformer (``use_custom_attention``) is not ported
 yet.
+
+The eval has the JAX package's two numerics modes (``Net.forward``'s
+``amp``, resolved by ``ops.amp_select.use_amp_eval``): exact f32, and AMP
+(the JAX ``Net``'s default, dgcnn_tpu/models/model_partseg.py:95-111):
+the backbone's four stages, the PositionEmbedding's TransformNet and
+conv3 pool in their AMP forms (kernels 1, 6 and 2), kernel 10 in v2, the
+grads_emb convs, the transformer, the last attention (kernel 14's AMP
+form) and the head's fc1-fc3 computing in bf16 (f32 parameters cast
+down; BatchNorm, LayerNorm statistics and the softmax in f32), conv5, the
+PositionEmbedding's conv and the label conv in f32, the logits f32.  The
+whole forward switches at once: no forward mixes AMP and exact kernels.
+Training is exact.
 """
 from __future__ import annotations
 
@@ -56,16 +68,18 @@ from dgcnn_tpu_torch.models.torch_transformer import (
     TorchMultiheadAttention,
     TorchTransformer,
 )
+from dgcnn_tpu_torch.ops.amp_select import use_amp_eval
 from dgcnn_tpu_torch.ops.hog import compute_hog
 
 _HOG_CHANNELS = 18
 
 
-def _conv_bn(conv: Weight, bn: BatchNorm, x: torch.Tensor,
-             train: bool) -> torch.Tensor:
-    """1x1 conv (no bias) + BatchNorm (the batch's statistics in training,
-    the running ones otherwise) + LeakyReLU(0.2)."""
-    return leaky_relu(bn(conv.matmul(x), train), 0.2)
+def _conv_bn(conv: Weight, bn: BatchNorm, x: torch.Tensor, train: bool,
+             dtype: torch.dtype | None = None) -> torch.Tensor:
+    """1x1 conv (no bias) in the compute ``dtype`` + BatchNorm (the batch's
+    statistics in training, the running ones otherwise) + LeakyReLU(0.2),
+    both in f32."""
+    return leaky_relu(bn(conv.matmul(x, dtype), train), 0.2)
 
 
 class MLPHead(nn.Module):
@@ -74,7 +88,10 @@ class MLPHead(nn.Module):
     broadcast to every point and concatenated before the features, then
     ``nn``: three conv + BatchNorm + LeakyReLU + dropout (``dp1``-``dp3``,
     training only) blocks (emb + 64 -> emb/2 -> emb/4 -> emb/8) and the
-    conv with bias to the part labels (``nn.12``)."""
+    conv with bias to the part labels (``nn.12``).  ``dtype`` is the
+    compute dtype of ``nn.0``/``nn.4``/``nn.8`` (fc1-fc3); the label conv
+    computes in f32 and its output joins ``attn`` in ``attn``'s dtype; the
+    last conv promotes to f32."""
 
     def __init__(self, emb_dim: int = 512, nclasses: int = 50,
                  dropout: float = 0.5):
@@ -91,12 +108,14 @@ class MLPHead(nn.Module):
 
     def forward(self, label_one_hot: torch.Tensor, attn: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
         b, n, _ = attn.shape
         lbl = self.label_conv(label_one_hot[:, None, :], train)  # (B, 1, 64)
-        x = torch.cat([lbl.expand(b, n, 64), attn], dim=-1)    # (B, N, emb+64)
+        x = torch.cat([lbl.to(attn.dtype).expand(b, n, 64), attn],
+                      dim=-1)                                # (B, N, emb+64)
         for ci in (0, 4, 8):
-            x = _conv_bn(self.nn[ci], self.nn[ci + 1], x, train)
+            x = _conv_bn(self.nn[ci], self.nn[ci + 1], x, train, dtype)
             x = self.nn[ci + 3](x, train, generator)
         return self.nn[12].matmul(x)                         # (B, N, classes)
 
@@ -112,10 +131,11 @@ class Net(nn.Module):
     reference's gather of same-axis triples with ``hog_bug_compat``, as a
     reference-trained ``transformer.pt`` needs.
 
-    Exact f32 mode only, whatever ``DGCNN_TPU_PALLAS_EXACT`` says: the AMP
-    forms of its kernels 10 and 14 are not ported, so its backbone (no
-    mode) and its PositionEmbedding (``amp=False``) run exact too, and no
-    forward mixes AMP and exact kernels."""
+    Eval has two numerics modes (module docstring): ``forward``'s ``amp``
+    None takes AMP on the card unless ``DGCNN_TPU_PALLAS_EXACT`` is set
+    and exact on the CPU; True or False asks for one (clouds the kNN
+    kernels do not take, and k > 64, stay exact).  Training is exact:
+    ``train=True`` with ``amp=True`` raises."""
 
     def __init__(self, emb_dim: int = 512, k: int = 32, n_heads: int = 4,
                  n_blocks: int = 2, ff_dims: int = 512, nclasses: int = 50,
@@ -147,15 +167,20 @@ class Net(nn.Module):
 
     def forward(self, src: torch.Tensor, label_one_hot: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        src_embedding = self.emb_nn(src, train)                # (B, N, emb)
-        h = compute_hog(src, self.k, bug_compat=self.hog_bug_compat)
+                generator: torch.Generator | None = None, *,
+                amp: bool | None = None) -> torch.Tensor:
+        if train and amp:
+            raise ValueError("Net trains in the exact mode only")
+        amp = not train and use_amp_eval(amp, src.device, src.shape[1],
+                                         self.k)
+        dt = torch.bfloat16 if amp else torch.float32
+        src_embedding = self.emb_nn(src, train, amp)           # (B, N, emb)
+        h = compute_hog(src, self.k, bug_compat=self.hog_bug_compat, amp=amp)
         for ci in range(0, len(self.grads_emb), 3):
             h = _conv_bn(self.grads_emb[ci], self.grads_emb[ci + 1], h,
-                         train)
+                         train, dt)
         canonical = _conv_bn(self.pos_mlp[1], self.pos_mlp[2],
-                             self.pos_mlp[0](src, self.k, train,
-                                             amp=False),
+                             self.pos_mlp[0](src, self.k, train, amp=amp),
                              train)                            # (B, N, emb)
         src_e = src_embedding + canonical
         tgt_e = h + canonical
@@ -167,7 +192,7 @@ class Net(nn.Module):
         # two calls do
         both = self.transformer(torch.cat([src_e, tgt_e], dim=0),
                                 torch.cat([tgt_e, src_e], dim=0), train,
-                                generator)
+                                generator, dt)
         src_p, tgt_p = both.chunk(2, dim=0)
-        scores = self.attention(tgt_p, src_p, src_p, train, generator)
-        return self.head(label_one_hot, scores, train, generator)
+        scores = self.attention(tgt_p, src_p, src_p, train, generator, dt)
+        return self.head(label_one_hot, scores, train, generator, dt)

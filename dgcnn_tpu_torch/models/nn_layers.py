@@ -10,6 +10,12 @@ reference checkpoint, or a flax model exported by
 ``train=True`` follows torch's BatchNorm: the batch's mean and biased
 variance normalize, and the running statistics move by momentum 0.1 with
 the unbiased variance.  The updates happen in place under ``no_grad``.
+
+A compute dtype (the AMP eval of the fusion Net) follows flax's
+``nn.Dense(dtype=bf16)`` (dgcnn_tpu/models/nn_layers.py:100-135): the
+input and the f32 parameters cast down, the product rounded to bf16 and
+then the bias added in bf16 (``dense``); BatchNorm and LeakyReLU after it
+in f32 (a bf16 input promotes), as ``ConvBN`` with ``dtype`` does.
 """
 from __future__ import annotations
 
@@ -33,7 +39,57 @@ from dgcnn_tpu_torch.ops.knn_edge_reduce import (
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """LeakyReLU in ``x``'s dtype; on bf16 values the slope is a bf16
+    value too, as jnp rounds a Python scalar to its array's dtype."""
+    if x.dtype == torch.bfloat16:
+        return torch.where(x >= 0, x, x * torch.tensor(
+            negative_slope, dtype=x.dtype, device=x.device))
     return torch.where(x >= 0, x, negative_slope * x)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
+          dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ w (+ bias)`` in flax ``nn.Dense``'s compute ``dtype``.  None
+    or f32: the f32 product, then the bias.  bf16: ``x``, ``w`` and the bias
+    cast to bf16, the product of the bf16 values with f32 sums rounded to
+    bf16 once, then the bias added in bf16.  On the CPU the product is
+    taken in f32 on the bf16 values and rounded (torch's CPU bf16 matmul
+    can round partial sums); on the card it is torch's bf16 matmul with
+    reduced-precision reductions off for the call (torch allows cuBLAS to
+    round partial sums to bf16 by default), so f32 sums on the tensor
+    cores."""
+    if dtype is None or dtype == torch.float32:
+        y = torch.matmul(x, w)
+        return y if bias is None else y + bias
+    xb, wb = x.to(dtype), w.to(dtype)
+    if x.device.type == "cpu":
+        y = torch.matmul(xb.float(), wb.float()).to(dtype)
+    else:
+        flags = torch.backends.cuda.matmul
+        allowed = flags.allow_bf16_reduced_precision_reduction
+        flags.allow_bf16_reduced_precision_reduction = False
+        try:
+            y = torch.matmul(xb, wb)
+        finally:
+            flags.allow_bf16_reduced_precision_reduction = allowed
+    return y if bias is None else y + bias.to(dtype)
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``ln`` (eps and affine) over the last axis.  None or f32: torch's
+    LayerNorm.  bf16: flax's ``nn.LayerNorm(dtype=bf16)``: the statistics in
+    f32 on ``x`` promoted (mean, and the variance as the mean of the squares
+    less the squared mean, floored at 0), ``(x - mean) * (rsqrt(var + eps)
+    * weight) + bias`` in f32, the result cast to bf16."""
+    if dtype is None or dtype == torch.float32:
+        return ln(x)
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf.square().mean(dim=-1, keepdim=True)
+           - mean.square()).clamp(min=0.0)
+    mul = torch.rsqrt(var + ln.eps) * ln.weight
+    return ((xf - mean) * mul + ln.bias).to(dtype)
 
 
 class Dropout(nn.Module):
@@ -67,11 +123,13 @@ class Weight(nn.Module):
         if bias:
             self.bias = nn.Parameter(torch.zeros(shape[0]))
 
-    def matmul(self, x: torch.Tensor) -> torch.Tensor:
-        """The 1x1 conv over the trailing axis of ``x``, plus the bias."""
+    def matmul(self, x: torch.Tensor,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The 1x1 conv over the trailing axis of ``x``, plus the bias, in
+        the compute ``dtype`` (``dense``)."""
         w = self.weight
-        y = torch.matmul(x, w.reshape(w.shape[0], w.shape[1]).t())
-        return y + self.bias if hasattr(self, "bias") else y
+        return dense(x, w.reshape(w.shape[0], w.shape[1]).t(),
+                     getattr(self, "bias", None), dtype)
 
 
 class Linear(nn.Module):
@@ -83,8 +141,12 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(torch.zeros((out_features, in_features)))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nn.functional.linear(x, self.weight, self.bias)
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """``x W^T + b``; a bf16 ``dtype`` computes as ``dense``."""
+        if dtype is None or dtype == torch.float32:
+            return nn.functional.linear(x, self.weight, self.bias)
+        return dense(x, self.weight.t(), self.bias, dtype)
 
 
 class BatchNorm(nn.Module):
@@ -154,9 +216,12 @@ class ConvBN(nn.Sequential):
         w = self[0].weight
         return w.reshape(w.shape[0], w.shape[1]).t()
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        return leaky_relu(self[1](torch.matmul(x, self.kernel()), train),
-                          self.negative_slope)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The conv in the compute ``dtype`` (``dense``), then BatchNorm and
+        LeakyReLU in f32."""
+        return leaky_relu(self[1](dense(x, self.kernel(), dtype=dtype),
+                                  train), self.negative_slope)
 
 
 class DenseBNReLU(nn.Sequential):

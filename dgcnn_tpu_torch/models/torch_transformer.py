@@ -23,6 +23,19 @@ Feed-forward activation quirk, kept: the reference asks for
 ``F.relu``, so the trained reference ran LeakyReLU(0.2) in the encoder and
 relu in the decoder; each stack takes its own activation.
 
+Each ``forward`` takes a compute ``dtype``: f32 (the default, the exact
+mode) or bf16, the AMP eval of the fusion Net, which mirrors flax's
+``nn.Dense(dtype=bf16)`` and ``nn.LayerNorm(dtype=bf16)`` as
+dgcnn_tpu/models/torch_transformer.py:133-152,247-375 use them: the
+projections in bf16 (``nn_layers.dense``: the product rounded to bf16,
+then the bias added in bf16), the attention on bf16 q, k and v (kernel
+14's AMP form on CUDA tensors with d in ``HEAD_DIMS``, its plain version
+``attention_amp_plain`` otherwise), the feed-forward's activation on bf16
+values, each residual sum in the promoted dtype of its operands (an f32
+input plus a bf16 branch is f32) and each LayerNorm's statistics in f32
+with a bf16 result (``nn_layers.layer_norm``).  It is eval only: kernel 14
+has no bf16 training form yet.
+
 Training (``train=True``) drops, at the modules' ``dropout`` rate, the
 attention probabilities (in the kernels, a fresh int64 seed a call drawn
 from the caller's ``generator``), the feed-forward hidden layer and every
@@ -36,19 +49,29 @@ import math
 import torch
 from torch import nn
 
-from dgcnn_tpu_torch.models.nn_layers import Dropout, Linear, leaky_relu
+from dgcnn_tpu_torch.models.nn_layers import (
+    Dropout,
+    Linear,
+    dense,
+    layer_norm,
+    leaky_relu,
+)
 from dgcnn_tpu_torch.ops.attention import (
     HEAD_DIMS,
+    attention_amp_plain,
     attention_plain,
     fused_attention,
 )
+
+F32 = torch.float32
 
 
 class TorchMultiheadAttention(nn.Module):
     """``nn.MultiheadAttention(batch_first=True)``'s parameters and math: q,
     k and v projected by the three row blocks of ``in_proj_weight``, split
     into heads, dropout(softmax(q k^T / sqrt(d))) v per head (kernels 14
-    and 15; dropout in training only), heads merged, ``out_proj``."""
+    and 15; dropout in training only), heads merged, ``out_proj``; in the
+    compute ``dtype`` of ``forward`` (module docstring)."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -64,16 +87,19 @@ class TorchMultiheadAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, key: torch.Tensor,
                 value: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype = F32) -> torch.Tensor:
         e, h = self.embed_dim, self.num_heads
         d = e // h
         b, nq, _ = query.shape
         w, bias = self.in_proj_weight, self.in_proj_bias
+        if dtype != F32 and train:
+            raise ValueError("the bf16 attention is the eval's")
 
         def heads(x, i):
             # (B, N, E) -> (B, h, N, d), a view of the projection
-            y = torch.matmul(x, w[i * e:(i + 1) * e].t()) + bias[
-                i * e:(i + 1) * e]
+            sl = slice(i * e, (i + 1) * e)
+            y = dense(x, w[sl].t(), bias[sl], dtype)
             return y.reshape(b, -1, h, d).transpose(1, 2)
 
         rate = self.dropout if train else 0.0
@@ -84,10 +110,15 @@ class TorchMultiheadAttention(nn.Module):
                                  "torch.Generator")
             seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
                                  device=query.device)
-        attend = fused_attention if d in HEAD_DIMS else attention_plain
-        out = attend(heads(query, 0), heads(key, 1), heads(value, 2),
-                     1.0 / math.sqrt(d), rate, seed)
-        return self.out_proj(out.transpose(1, 2).reshape(b, nq, e))
+        q, k, v = heads(query, 0), heads(key, 1), heads(value, 2)
+        scale = 1.0 / math.sqrt(d)
+        if d in HEAD_DIMS:
+            out = fused_attention(q, k, v, scale, rate, seed)
+        elif dtype == F32:
+            out = attention_plain(q, k, v, scale, rate, seed)
+        else:
+            out = attention_amp_plain(q, k, v, scale)
+        return self.out_proj(out.transpose(1, 2).reshape(b, nq, e), dtype)
 
 
 def _activation(name: str):
@@ -99,10 +130,12 @@ def _activation(name: str):
 
 
 def _feed_forward(layer: nn.Module, x: torch.Tensor, train: bool,
-                  generator: torch.Generator | None) -> torch.Tensor:
-    """linear2(dropout(act(linear1(x)))) of an encoder or decoder layer."""
-    h = layer.dropout(layer._act(layer.linear1(x)), train, generator)
-    return layer.linear2(h)
+                  generator: torch.Generator | None,
+                  dtype: torch.dtype = F32) -> torch.Tensor:
+    """linear2(dropout(act(linear1(x)))) of an encoder or decoder layer, in
+    the compute ``dtype``."""
+    h = layer.dropout(layer._act(layer.linear1(x, dtype)), train, generator)
+    return layer.linear2(h, dtype)
 
 
 class TorchTransformerEncoderLayer(nn.Module):
@@ -125,11 +158,14 @@ class TorchTransformerEncoderLayer(nn.Module):
         self._act = _activation(activation)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        sa = self.self_attn(x, x, x, train, generator)
-        x = self.norm1(x + self.dropout1(sa, train, generator))
-        ff = _feed_forward(self, x, train, generator)
-        return self.norm2(x + self.dropout2(ff, train, generator))
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype = F32) -> torch.Tensor:
+        sa = self.self_attn(x, x, x, train, generator, dtype)
+        x = layer_norm(self.norm1, x + self.dropout1(sa, train, generator),
+                       dtype)
+        ff = _feed_forward(self, x, train, generator, dtype)
+        return layer_norm(self.norm2, x + self.dropout2(ff, train, generator),
+                          dtype)
 
 
 class TorchTransformerDecoderLayer(nn.Module):
@@ -155,13 +191,17 @@ class TorchTransformerDecoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, memory: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        sa = self.self_attn(x, x, x, train, generator)
-        x = self.norm1(x + self.dropout1(sa, train, generator))
-        ca = self.multihead_attn(x, memory, memory, train, generator)
-        x = self.norm2(x + self.dropout2(ca, train, generator))
-        ff = _feed_forward(self, x, train, generator)
-        return self.norm3(x + self.dropout3(ff, train, generator))
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype = F32) -> torch.Tensor:
+        sa = self.self_attn(x, x, x, train, generator, dtype)
+        x = layer_norm(self.norm1, x + self.dropout1(sa, train, generator),
+                       dtype)
+        ca = self.multihead_attn(x, memory, memory, train, generator, dtype)
+        x = layer_norm(self.norm2, x + self.dropout2(ca, train, generator),
+                       dtype)
+        ff = _feed_forward(self, x, train, generator, dtype)
+        return layer_norm(self.norm3, x + self.dropout3(ff, train, generator),
+                          dtype)
 
 
 class _Stack(nn.Module):
@@ -197,12 +237,13 @@ class TorchTransformer(nn.Module):
 
     def forward(self, src: torch.Tensor, tgt: torch.Tensor,
                 train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype = F32) -> torch.Tensor:
         mem = src
         for layer in self.encoder.layers:
-            mem = layer(mem, train, generator)
-        mem = self.encoder.norm(mem)
+            mem = layer(mem, train, generator, dtype)
+        mem = layer_norm(self.encoder.norm, mem, dtype)
         out = tgt
         for layer in self.decoder.layers:
-            out = layer(out, mem, train, generator)
-        return self.decoder.norm(out)
+            out = layer(out, mem, train, generator, dtype)
+        return layer_norm(self.decoder.norm, out, dtype)

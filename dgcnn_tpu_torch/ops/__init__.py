@@ -2,9 +2,11 @@
 paths."""
 from dgcnn_tpu_torch.ops.attention import (
     FusedAttention,
+    attention_amp_plain,
     attention_bwd,
     attention_bwd_plain,
     attention_fwd,
+    attention_fwd_amp,
     attention_plain,
     dropout_mask,
     dropout_mask_plain,
@@ -62,9 +64,11 @@ __all__ = [
     "FusedAttention",
     "KnnEdgeReduce",
     "KnnEdgeReduceXW",
+    "attention_amp_plain",
     "attention_bwd",
     "attention_bwd_plain",
     "attention_fwd",
+    "attention_fwd_amp",
     "attention_plain",
     "conv_pool",
     "conv_pool_plain",

@@ -29,6 +29,12 @@ is set:
   consumed as the mean of its members' payload rows (f32 sums of the bf16
   rows, divided by the count), and a row with fewer than k distinct scores
   walks its last class again, which the max and min it feeds ignore.
+- ``training_variant``: the variant of kernels 3, 4 and 11 (``knn_reduce``,
+  ``knn_reduce_xw``, ``knn``), v1 unless ``DGCNN_TPU_EXTRACT=v2``
+  (:386, :431, :1554; the port trains in the exact mode), and
+  ``knn_sum_variant``: kernel 10's, ``_extract_version("v2", ...)``
+  (:1518), so v2 in the AMP mode and v1 in the exact one, the variable
+  overriding either.
 - ``select_x_plan``: ``select_x_plan`` (:244), copied.
 - ``select_rows``: the k selected payload rows of each row under v1, v2
   or v3 (v3: the class means, and which slots hold a class), which every
@@ -69,6 +75,19 @@ def extract_version(default: str, allow: tuple[str, ...]) -> str:
     if exact_mode():
         return "v1"
     return default
+
+
+def training_variant() -> str:
+    """The variant of the training kNN kernels 3 and 4 and of kernel 11:
+    ``extract_version("v1", ("v1", "v2"))``, which is the JAX kernels'
+    under the exact pin, the port's training mode."""
+    return extract_version("v1", ("v1", "v2"))
+
+
+def knn_sum_variant(amp: bool) -> str:
+    """Kernel 10's variant: v2 in the AMP mode, v1 in the exact one, each
+    overridden by a ``DGCNN_TPU_EXTRACT`` of v1 or v2."""
+    return extract_version("v2" if amp else "v1", ("v1", "v2"))
 
 
 def stage_variant(amp: bool, default: str) -> str:

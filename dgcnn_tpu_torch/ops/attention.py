@@ -34,6 +34,15 @@ pin the arithmetic by materializing the port's own mask
 kernels.  The seed is one int64 on the device, drawn per call from the
 caller's ``torch.Generator``, which the kernels read through a pointer.
 
+Kernel 14's AMP form (``csrc/attention_fwd_bf16.cu``) takes bf16 q, k and
+v at rate 0, the AMP fusion Net's eval: the JAX package's
+``_attn_fwd_kernel`` on bf16 inputs, scores from bf16 products with f32
+sums, the softmax in f32, the normalized probabilities rounded to bf16,
+P V with f32 sums and the output rounded to bf16; ``attention_amp_plain``
+is its plain version.  ``fused_attention`` picks it by the inputs' dtype.
+Its training form (dropout, kernel 15 on bf16) is not ported: bf16 inputs
+that need a gradient raise.
+
 CPU tensors take the plain versions; CUDA tensors launch the kernels,
 which raise on what they do not take.
 """
@@ -152,6 +161,29 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lses[0] if len(lses) == 1 else torch.cat(lses, dim=2)
 
 
+def attention_amp_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        sm_scale: float) -> torch.Tensor:
+    """Plain torch version of kernel 14's AMP form over (B, h, N, d) bf16
+    tensors, rate 0, the JAX kernel's arithmetic step by step: s = (q k^T)
+    * sm_scale with the bf16 values' products summed in f32, s - its row's
+    max, exp, divided by the row's sum, in f32; those probabilities rounded
+    to bf16, their product with v summed in f32 and rounded to bf16.
+    Queries run in chunks whose f32 score slab stays under 512 MB."""
+    b, h, nq, _ = q.shape
+    nk = k.shape[2]
+    rows = max(1, _CHUNK_BYTES // (4 * b * h * nk))
+    kt = k.float().transpose(2, 3)
+    vf = v.float()
+    outs = []
+    for r0 in range(0, nq, rows):
+        s = torch.matmul(q[:, :, r0:r0 + rows].float(), kt) * sm_scale
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = p / p.sum(dim=-1, keepdim=True)
+        outs.append(torch.matmul(p.to(torch.bfloat16).float(), vf).to(
+            torch.bfloat16))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
 def attention_bwd_plain(q, k, v, seed, do, sm_scale: float,
                         rate: float = 0.0):
     """Plain version of kernel 15: (dq, dk, dv) by torch autograd through
@@ -170,8 +202,9 @@ def _require(cond: bool, msg: str) -> None:
 def _rows_aligned(t: torch.Tensor) -> bool:
     """Whether every (b, h, row) of t starts 16-byte aligned, d contiguous:
     the kernels copy rows 16 bytes at a time."""
+    per = 16 // t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-            and all(s % 4 == 0 for s in t.stride()[:3]))
+            and all(s % per == 0 for s in t.stride()[:3]))
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -199,11 +232,12 @@ def _check_seed(seed, rate: float, device) -> None:
                  f"seed must be one int64 on {device}")
 
 
-def _check_qkv(q, k, v) -> tuple[int, int, int, int, int]:
+def _check_qkv(q, k, v, dtype=torch.float32) -> tuple[int, int, int, int,
+                                                     int]:
     _require(q.is_cuda and k.device == q.device and v.device == q.device,
              f"no kernel for devices {q.device}, {k.device}, {v.device}")
-    _require(all(t.dtype == torch.float32 for t in (q, k, v)),
-             "q, k and v must be float32")
+    _require(all(t.dtype == dtype for t in (q, k, v)),
+             f"q, k and v must be {dtype}")
     _require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
              "q, k and v must be (B, h, N, d)")
     b, h, nq, d = q.shape
@@ -217,11 +251,12 @@ def _check_qkv(q, k, v) -> tuple[int, int, int, int, int]:
     return b, h, nq, nk, d
 
 
-def _heads(b: int, n: int, h: int, d: int, device) -> torch.Tensor:
+def _heads(b: int, n: int, h: int, d: int, device,
+           dtype=torch.float32) -> torch.Tensor:
     """A (B, h, N, d) view of a new (B, N, h, d) tensor: merging the heads
     back into (B, N, h * d) costs no copy."""
     return torch.empty((b, n, h, d), device=device,
-                       dtype=torch.float32).transpose(1, 2)
+                       dtype=dtype).transpose(1, 2)
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -270,6 +305,30 @@ def attention_fwd(q, k, v, sm_scale: float, rate: float = 0.0,
     _build.check(rc, "fused_attention")
     fused_attention.launches += 1
     return out, lse
+
+
+def attention_fwd_amp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      sm_scale: float) -> torch.Tensor:
+    """Kernel 14's AMP form: o (B, h, Nq, d) bf16 of bf16 q, k and v at
+    rate 0 (module docstring).  CPU tensors take ``attention_amp_plain``.
+    On CUDA tensors, q, k and v with rows that are not 16-byte aligned are
+    copied first; the output is a (B, h, Nq, d) view of a (B, Nq, h, d)
+    tensor."""
+    if q.device.type == "cpu":
+        return attention_amp_plain(q, k, v, sm_scale)
+    b, h, nq, nk, d = _check_qkv(q, k, v, torch.bfloat16)
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    out = _heads(b, nq, h, d, q.device, torch.bfloat16)
+    p = _build.ptr
+    with torch.cuda.device(q.device):
+        rc = _fn("dg_attention_fwd_bf16",
+                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P])(
+            p(q), p(k), p(v), p(out), b, h, nq, nk, d,
+            _strides(q, k, v, out), float(sm_scale), _build.stream_of(q))
+    _build.check(rc, "fused_attention (bf16)")
+    fused_attention.launches += 1
+    fused_attention.amp_launches += 1
+    return out
 
 
 def attention_bwd(q, k, v, o, lse, seed, do, sm_scale: float,
@@ -344,6 +403,9 @@ class FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float, rate: float, seed):
+        if q.dtype != torch.float32:
+            raise ValueError("fused_attention: no training form for "
+                             f"{q.dtype} inputs (kernel 15 takes f32)")
         out, lse = attention_fwd(q, k, v, sm_scale, rate, seed,
                                  with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, seed)
@@ -375,18 +437,29 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     an input whose rows do not start 16-byte aligned, or that is not
     contiguous along d, is copied first.  The output is a (B, h, Nq, d)
     view of a (B, Nq, h, d) tensor, so that merging the heads back into (B,
-    Nq, h * d) costs no copy."""
+    Nq, h * d) costs no copy.
+
+    bf16 q, k and v take kernel 14's AMP form (``attention_fwd_amp``; on
+    the CPU ``attention_amp_plain``), at rate 0 and without a gradient:
+    anything else raises."""
     if rate > 0.0 and seed is None:
         raise ValueError("fused_attention: a dropout rate > 0 needs a seed")
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        if rate > 0.0 or grad:
+            raise ValueError("fused_attention: bf16 inputs take the eval "
+                             "form only (rate 0, no gradient)")
+        return attention_fwd_amp(q, k, v, sm_scale)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, sm_scale, rate, seed)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if grad:
         return FusedAttention.apply(q, k, v, sm_scale, rate, seed)
     return attention_fwd(q, k, v, sm_scale, rate, seed)[0]
 
 
 # launches of each kernel since its count was last set to 0 (kernel 15's
-# three CUDA launches count once)
-fused_attention.launches = 0
+# three CUDA launches count once; amp_launches: kernel 14's AMP form)
+fused_attention.launches = fused_attention.amp_launches = 0
 attention_bwd.launches = 0
 dropout_mask.launches = 0

@@ -146,32 +146,37 @@ def point_votes(msum: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(torch.isfinite(vflat), vflat, 0.0).contiguous()
 
 
-def _compute_hog_fused(x: torch.Tensor, k: int) -> torch.Tensor:
-    """The moment form (module docstring): kernel 10, the votes of each
-    point, kernel 9."""
+def _compute_hog_fused(x: torch.Tensor, k: int,
+                       amp: bool = False) -> torch.Tensor:
+    """The moment form (module docstring): kernel 10 (its variant from the
+    mode ``amp``), the votes of each point, kernel 9."""
     b, n, _ = x.shape
     xc, moments = centred_moments(x)
-    idx, msum = knn_sum(xc, moments, k)
+    idx, msum = knn_sum(xc, moments, k, amp=amp)
     hist = edge_sum(point_votes(msum, k), idx)                  # (B, N, 18)
     return _normalize_hist(hist.reshape(b, n, _NUM_BINS, 2))
 
 
 @torch.no_grad()
-def compute_hog(x: torch.Tensor, k: int,
-                bug_compat: bool = False) -> torch.Tensor:
+def compute_hog(x: torch.Tensor, k: int, bug_compat: bool = False,
+                amp: bool = False) -> torch.Tensor:
     """Histograms of oriented gradients with cell size 1 (every point).
 
     Args:
       x: (B, N, 3) f32 points (channels last; the reference takes (B, 3, N)).
       k: neighbourhood size.
       bug_compat: replicate the reference's gather (module docstring).
+      amp: the caller's mode: the moment form's kernel 10 takes its
+        variant from it (``knn_sum``: v2 in the AMP mode, as the JAX
+        package's kernel does by default); kernel 9 and the gather form
+        are the same in both modes.
     Returns:
       (B, N, 18) L2-normalized histograms, 9 bins x (zenith, azimuth),
       interleaved as the reference's (B, N, 9, 2) row-major reshape.
     """
     b, n, _ = x.shape
     if not bug_compat and use_kernel(n):
-        return _compute_hog_fused(x, k)
+        return _compute_hog_fused(x, k, amp)
     idx = knn(x, k)
     if bug_compat:
         # reference model_partseg.py:26-30: a view of the untransposed

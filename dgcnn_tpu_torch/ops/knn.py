@@ -21,6 +21,12 @@ selection.  At k <= 64 (every model) it runs the tiled selection of
 above, the row-warp selection (a warp a row, k rounds of arg-max), which
 ``rowwarp=True`` forces at any k for the checks.  Both give the same
 indices, ties included, and the same from call to call.
+
+The variant is the JAX kernel's (``_knn_only_kernel``, read at each call):
+v1 as above, or v2 under ``DGCNN_TPU_EXTRACT=v2``
+(``amp_select.training_variant``): the k largest packed keys of the same
+f32 scores (``amp_select.v2_indices``), the tiled route's keyed mode on
+the card (k <= 64; above, it raises).
 """
 from __future__ import annotations
 
@@ -59,13 +65,15 @@ def pairwise_neg_sqdist(x: torch.Tensor,
     return 2.0 * inner - xx[:, :, None] - yy[:, None, :]
 
 
-def knn_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+def knn_plain(x: torch.Tensor, k: int, variant: str = "v1") -> torch.Tensor:
     """Plain torch version of kernel 11: (B, N, C) -> (B, N, k) int64
     neighbour indices, nearest (self) first, lowest index first among
-    equal scores."""
+    equal scores; ``variant`` v2: the k largest packed keys of the scores
+    (``amp_select.v2_indices``)."""
+    from dgcnn_tpu_torch.ops.amp_select import v1_indices, v2_indices
+
     scores = pairwise_neg_sqdist(x)
-    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
-    return order[..., :k]
+    return (v2_indices if variant == "v2" else v1_indices)(scores, k)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -85,34 +93,50 @@ def knn(x: torch.Tensor, k: int, *, rowwarp: bool = False) -> torch.Tensor:
     int32 indices; they are widened to int64, the index type of torch's
     gathers, so that both devices return the same type.  ``rowwarp``
     launches the kernel's row-warp route at any k (k <= 64 takes the tiled
-    route otherwise)."""
+    route otherwise).  The variant is ``amp_select.training_variant``'s
+    where the kernel takes the cloud (module docstring); the v2 form has
+    the tiled route only."""
+    from dgcnn_tpu_torch.ops.amp_select import training_variant
+
     x = x.detach()
-    if x.device.type == "cpu" or not use_kernel(x.shape[1]):
+    if not use_kernel(x.shape[1]):
         return knn_plain(x, k)
+    variant = training_variant()
+    if x.device.type == "cpu":
+        return knn_plain(x, k, variant)
     _require(x.is_cuda, f"no kernel for device {x.device}")
     _require(x.dtype == torch.float32, "x must be float32")
     _require(x.dim() == 3 and x.is_contiguous(),
              "x must be a contiguous (B, N, C) tensor")
     b, n, c = x.shape
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
+    v2 = variant == "v2"
+    _require(not v2 or (k <= 64 and not rowwarp),
+             f"the v2 form (DGCNN_TPU_EXTRACT=v2) has the tiled route only "
+             f"(k <= 64): k={k}, rowwarp={rowwarp}")
+    p, i = ctypes.c_void_p, ctypes.c_int
     fn = getattr(_build.load_library(),
+                 "dg_knn_idx_v2" if v2 else
                  "dg_knn_idx_rowwarp" if rowwarp else "dg_knn_idx")
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, p]
+        fn.argtypes = [p] * (4 if v2 else 3) + [i] * 4 + [p]
         fn.restype = i
     # the launch is asynchronous on torch's current stream: tensors made here
     # and freed on return are reused by the caching allocator only for work
     # queued after it on that stream
     sq = torch.empty((b * n,), device=x.device, dtype=torch.float32)
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
+    scratch = [torch.empty((b * n,), device=x.device,
+                           dtype=torch.float32)] if v2 else []
     with torch.cuda.device(x.device):
-        rc = fn(_build.ptr(x), _build.ptr(sq), _build.ptr(idx), b, n, c, k,
-                _build.stream_of(x))
+        rc = fn(_build.ptr(x), _build.ptr(sq), *map(_build.ptr, scratch),
+                _build.ptr(idx), b, n, c, k, _build.stream_of(x))
     _build.check(rc, "knn")
     knn.launches += 1
+    knn.v2_launches += v2
     return idx.long()
 
 
-# launches of the kernel since the count was last set to 0
-knn.launches = 0
+# launches of the kernel since the count was last set to 0 (v2_launches:
+# those of its v2 form)
+knn.launches = knn.v2_launches = 0

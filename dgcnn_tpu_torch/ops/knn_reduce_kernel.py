@@ -10,6 +10,13 @@ an H100 and what the design does about it.  ``knn_reduce_plain`` and
 (kNN, gather, then the reductions over k): the wrappers run them for CPU
 tensors and launch the kernels for CUDA tensors.
 
+The variant is the JAX kernels' (read at each call): v1, or v2 under
+``DGCNN_TPU_EXTRACT=v2`` (``amp_select.training_variant``; the semseg CLI
+pins it), which picks the k largest packed keys of the same f32 scores
+(``amp_select.v2_indices``; on the card the tiled route's keyed mode, k <=
+64, the kernels' ``v2`` entries); the reductions over the list are the
+same.
+
 ``xw_project`` is the one projection routine of the select-x form: the
 backward of ``knn_reduce_xw`` recomputes ``a = x @ w`` through it, and on
 CUDA it launches the projection that ``knn_reduce_xw``'s kernel runs, so
@@ -22,6 +29,7 @@ import ctypes
 import torch
 
 from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.amp_select import training_variant
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
 from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
 
@@ -38,20 +46,22 @@ def max_co(n: int) -> int:
     return 256 if n <= 2048 else 128
 
 
-def knn_reduce_plain(graph: torch.Tensor, a: torch.Tensor, k: int):
+def knn_reduce_plain(graph: torch.Tensor, a: torch.Tensor, k: int,
+                     variant: str = "v1"):
     """Plain torch version of kernel 3: (idx (B, N, k) int32, amax, amin,
-    asum, asumsq (B, N, Co))."""
-    idx = knn_plain(graph, k)
+    asum, asumsq (B, N, Co)); ``variant`` picks the neighbours as
+    ``knn_plain``'s."""
+    idx = knn_plain(graph, k, variant)
     ag = gather_neighbors(a, idx)
     return (idx.int(), ag.amax(dim=2), ag.amin(dim=2), ag.sum(dim=2),
             ag.square().sum(dim=2))
 
 
 def knn_reduce_xw_plain(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                        k: int):
+                        k: int, variant: str = "v1"):
     """Plain torch version of kernel 4: ``knn_reduce_plain`` over
     ``a = x @ w``."""
-    return knn_reduce_plain(graph, torch.matmul(x, w), k)
+    return knn_reduce_plain(graph, torch.matmul(x, w), k, variant)
 
 
 def _fn(name: str, argtypes):
@@ -70,9 +80,9 @@ def _require(name: str, cond: bool, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-def _check_select(name, graph, feats, co: int, k: int) -> None:
+def _check_select(name, graph, feats, co: int, k: int, v2: bool) -> None:
     """The checks both select kernels share: device, f32, contiguity and
-    the shapes the kernels take."""
+    the shapes the kernels take (the v2 form: k <= 64)."""
     _require(name, graph.is_cuda, f"no kernel for device {graph.device}")
     _require(name, all(t.device == graph.device for t in feats),
              "all tensors must be on one device")
@@ -87,15 +97,21 @@ def _check_select(name, graph, feats, co: int, k: int) -> None:
     _require(name, 1 <= co <= max_co(n),
              f"Co={co} out of 1..{max_co(n)} for N={n}")
     _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
+    _require(name, not v2 or k <= TILED_MAX_K,
+             f"the v2 form (DGCNN_TPU_EXTRACT=v2) takes k <= {TILED_MAX_K}, "
+             f"not {k}")
 
 
-def _outputs(graph: torch.Tensor, co: int, k: int):
+def _outputs(graph: torch.Tensor, co: int, k: int, v2: bool):
+    """idx, the four reductions and the scratch: sq, and for the v2 form
+    the rows' grids."""
     b, n, _ = graph.shape
     idx = torch.empty((b, n, k), device=graph.device, dtype=torch.int32)
     red = [torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
            for _ in range(4)]
-    sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)
-    return idx, red, sq
+    scratch = [torch.empty((b * n,), device=graph.device,
+                           dtype=torch.float32) for _ in range(1 + v2)]
+    return idx, red, scratch
 
 
 def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int):
@@ -106,28 +122,33 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int):
     equal scores; amax, amin, asum, asumsq (B, N, Co) f32).  CPU tensors
     take the plain version; CUDA tensors launch the kernel, which takes f32
     contiguous tensors with N a multiple of 128, N <= 4096 and Co <= 256
-    (Co <= 128 above N=2048), and raises on anything else.
+    (Co <= 128 above N=2048), and raises on anything else.  The variant is
+    ``amp_select.training_variant``'s (module docstring).
 
     The kernel's route is decided from k before the launch: up to
     ``TILED_MAX_K`` (every model's k) the tiled selection (blocks of 64
     query rows, register-blocked score tiles, a running top-k a row), above
     it the row-warp selection (a warp a row, its N scores in registers).
-    Both give the same bits."""
+    Both give the same bits.  The v2 form has the tiled route only."""
+    variant = training_variant()
     if graph.device.type == "cpu":
-        return knn_reduce_plain(graph, a, k)
+        return knn_reduce_plain(graph, a, k, variant)
+    v2 = variant == "v2"
     co = a.shape[-1]
-    _check_select("knn_reduce", graph, (a,), co, k)
+    _check_select("knn_reduce", graph, (a,), co, k, v2)
     b, n, cg = graph.shape
     _require("knn_reduce", a.shape == (b, n, co),
              f"a {tuple(a.shape)} vs graph {tuple(graph.shape)}")
-    fn = _fn("dg_knn_reduce", [_P] * 8 + [_I] * 5 + [_P])
-    idx, red, sq = _outputs(graph, co, k)
+    fn = _fn("dg_knn_reduce_v2" if v2 else "dg_knn_reduce",
+             [_P] * (9 if v2 else 8) + [_I] * 5 + [_P])
+    idx, red, scratch = _outputs(graph, co, k, v2)
     p = _build.ptr
     with torch.cuda.device(graph.device):
-        rc = fn(p(graph), p(a), p(sq), p(idx), *map(p, red), b, n, cg, co, k,
-                _build.stream_of(graph))
+        rc = fn(p(graph), p(a), *map(p, scratch), p(idx), *map(p, red), b, n,
+                cg, co, k, _build.stream_of(graph))
     _build.check(rc, "knn_reduce")
     knn_reduce.launches += 1
+    knn_reduce.v2_launches += v2
     return (idx, *red)
 
 
@@ -136,26 +157,30 @@ def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     """``knn_reduce(graph, x @ w, k)`` with the projection inside the
     kernel's launch: ``x`` (B, N, Cin), ``w`` (Cin, Co).  Same outputs and
     the same rules for CPU and CUDA tensors as ``knn_reduce``."""
+    variant = training_variant()
     if graph.device.type == "cpu":
-        return knn_reduce_xw_plain(graph, x, w, k)
+        return knn_reduce_xw_plain(graph, x, w, k, variant)
+    v2 = variant == "v2"
     cin, co = w.shape
-    _check_select("knn_reduce_xw", graph, (x, w), co, k)
+    _check_select("knn_reduce_xw", graph, (x, w), co, k, v2)
     b, n, cg = graph.shape
     _require("knn_reduce_xw", x.shape == (b, n, cin),
              f"x {tuple(x.shape)} vs graph {tuple(graph.shape)} and w "
              f"{tuple(w.shape)}")
-    fn = _fn("dg_knn_reduce_xw", [_P] * 10 + [_I] * 6 + [_P])
-    idx, red, sq = _outputs(graph, co, k)
+    fn = _fn("dg_knn_reduce_xw_v2" if v2 else "dg_knn_reduce_xw",
+             [_P] * (11 if v2 else 10) + [_I] * 6 + [_P])
+    idx, red, scratch = _outputs(graph, co, k, v2)
     a = torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
     p = _build.ptr
     # the launch is asynchronous on torch's current stream: scratch made
     # here and freed on return is reused by the caching allocator only for
     # work queued after it on that stream
     with torch.cuda.device(graph.device):
-        rc = fn(p(graph), p(x), p(w), p(a), p(sq), p(idx), *map(p, red), b, n,
-                cg, cin, co, k, _build.stream_of(graph))
+        rc = fn(p(graph), p(x), p(w), p(a), *map(p, scratch), p(idx),
+                *map(p, red), b, n, cg, cin, co, k, _build.stream_of(graph))
     _build.check(rc, "knn_reduce_xw")
     knn_reduce_xw.launches += 1
+    knn_reduce_xw.v2_launches += v2
     return (idx, *red)
 
 
@@ -188,7 +213,8 @@ def xw_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# launches of each kernel since its count was last set to 0
-knn_reduce.launches = 0
-knn_reduce_xw.launches = 0
+# launches of each kernel since its count was last set to 0 (v2_launches:
+# those of its v2 form)
+knn_reduce.launches = knn_reduce.v2_launches = 0
+knn_reduce_xw.launches = knn_reduce_xw.v2_launches = 0
 xw_project.launches = 0

@@ -18,6 +18,13 @@ selection with the sum folded into its k arg-max rounds, which
 and sums, bit for bit.  CPU tensors take the plain version; CUDA tensors
 launch the kernel, which raises on what it does not take.  No gradient:
 HOG is detached, as in the reference.
+
+The v2 form (``amp=True``, the AMP Net's HOG; the JAX kernel's variant is
+``_extract_version("v2", ...)``, pallas_knn.py:1518: ``amp_select.
+knn_sum_variant``, ``DGCNN_TPU_EXTRACT`` overriding either mode) picks the
+k largest packed keys of the same exact f32 scores (``amp_select.
+v2_indices``; on the card the tiled route's keyed mode, k <= 64) and sums
+over them in list order, f32, as the v1 form does.
 """
 from __future__ import annotations
 
@@ -26,16 +33,18 @@ import ctypes
 import torch
 
 from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.amp_select import knn_sum_variant
 from dgcnn_tpu_torch.ops.edge_sum_kernel import ordered_neighbour_sum
 from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
 
 
-def knn_sum_plain(x: torch.Tensor, a: torch.Tensor,
-                  k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def knn_sum_plain(x: torch.Tensor, a: torch.Tensor, k: int,
+                  variant: str = "v1") -> tuple[torch.Tensor, torch.Tensor]:
     """Plain torch version of kernel 10: (idx (B, N, k) int32, nearest
-    (self) first, lowest index first among equal scores; the ordered sums
-    (B, N, Ca) of ``a``'s rows over them)."""
-    idx = knn_plain(x, k)
+    (self) first, lowest index first among equal scores (``variant`` v2:
+    the packed keys' order, ``knn_plain``'s); the ordered sums (B, N, Ca)
+    of ``a``'s rows over them)."""
+    idx = knn_plain(x, k, variant)
     return idx.int(), ordered_neighbour_sum(a.float(), idx)
 
 
@@ -44,18 +53,20 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"knn_sum: {msg}")
 
 
-def _lib(rowwarp: bool):
+def _lib(rowwarp: bool, v2: bool):
     fn = getattr(_build.load_library(),
+                 "dg_knn_sum_v2" if v2 else
                  "dg_knn_sum_rowwarp" if rowwarp else "dg_knn_sum")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+        fn.argtypes = [p] * (6 if v2 else 5) + [i] * 5 + [p]
         fn.restype = i
     return fn
 
 
 def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
-            rowwarp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            rowwarp: bool = False,
+            amp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """kNN over ``x`` (B, N, C) and the sums of ``a`` (B, N, Ca) over each
     point's k neighbours -> (idx (B, N, k) int32, asum (B, N, Ca) f32).
 
@@ -63,10 +74,14 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
     which takes f32 contiguous tensors with N a multiple of 128, N <= 4096
     and Ca <= 32, and raises on anything else.  ``rowwarp`` launches the
     kernel's row-warp route at any k (k <= 64 takes the tiled route
-    otherwise)."""
+    otherwise).  ``amp`` is the caller's mode, from which
+    ``amp_select.knn_sum_variant`` takes the variant (module docstring);
+    the v2 form has the tiled route only."""
     x, a = x.detach(), a.detach()
+    variant = knn_sum_variant(amp)
     if x.device.type == "cpu":
-        return knn_sum_plain(x, a, k)
+        return knn_sum_plain(x, a, k, variant)
+    v2 = variant == "v2"
     _require(x.is_cuda and a.device == x.device,
              f"no kernel for devices {x.device}, {a.device}")
     _require(x.dtype == torch.float32 and a.dtype == torch.float32,
@@ -80,22 +95,28 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
     _require(n % 128 == 0 and n <= MAX_N,
              f"N={n} must be a multiple of 128 and <= {MAX_N}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
+    _require(not v2 or (k <= 64 and not rowwarp),
+             f"the v2 form has the tiled route only (k <= 64): k={k}, "
+             f"rowwarp={rowwarp}")
     ca = a.shape[2]
-    fn = _lib(rowwarp)
+    fn = _lib(rowwarp, v2)
     # the launch is asynchronous on torch's current stream: tensors made here
     # and freed on return are reused by the caching allocator only for work
     # queued after it on that stream
-    sq = torch.empty((b * n,), device=x.device, dtype=torch.float32)
+    scratch = [torch.empty((b * n,), device=x.device, dtype=torch.float32)
+               for _ in range(1 + v2)]
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
     asum = torch.empty((b, n, ca), device=x.device, dtype=torch.float32)
     q = _build.ptr
     with torch.cuda.device(x.device):
-        rc = fn(q(x), q(a), q(sq), q(idx), q(asum), b, n, c, ca, k,
-                _build.stream_of(x))
+        rc = fn(q(x), q(a), *map(q, scratch), q(idx), q(asum), b, n, c, ca,
+                k, _build.stream_of(x))
     _build.check(rc, "knn_sum")
     knn_sum.launches += 1
+    knn_sum.v2_launches += v2
     return idx, asum
 
 
-# launches of the kernel since the count was last set to 0
-knn_sum.launches = 0
+# launches of the kernel since the count was last set to 0 (v2_launches:
+# those of its v2 form)
+knn_sum.launches = knn_sum.v2_launches = 0

@@ -10,13 +10,18 @@ median of ``--iters`` after warm-up (the step: half as many), as
 ``chip_smoke.py``'s phases 27 and 31 time them.  Reads the card's SM
 clock, power draw and temperature before and after each.
 
+``--amp`` times the eval forward in the AMP mode (the JAX package's
+default on the card: ``DGCNN_TPU_PALLAS_EXACT`` unset, the Net's default
+forward); without it ``DGCNN_TPU_PALLAS_EXACT=1`` pins the exact mode, as
+the Net ran before it had the AMP mode.  The step is exact either way.
+
 ``--root DIR`` imports ``dgcnn_tpu_torch`` from another checkout (its
 kernels built there), so that two trees are timed by one script: run it
 in turns (a b b a ...) inside one call.  Prints the card's name and power
 limit, one line a timing, and last one JSON object.  Exits non-zero
 without a CUDA card.
 
-    python dgcnn_tpu_torch/tools/net_ab.py [--root DIR] [--iters N]
+    python dgcnn_tpu_torch/tools/net_ab.py [--root DIR] [--iters N] [--amp]
 """
 from __future__ import annotations
 
@@ -59,7 +64,13 @@ def main() -> None:
                     help="checkout whose dgcnn_tpu_torch to time (default: "
                          "this one)")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--amp", action="store_true",
+                    help="time the eval forward in the AMP mode")
     args = ap.parse_args()
+    if args.amp:
+        os.environ.pop("DGCNN_TPU_PALLAS_EXACT", None)
+    else:
+        os.environ["DGCNN_TPU_PALLAS_EXACT"] = "1"
     root = os.path.abspath(args.root or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
     sys.path.insert(0, root)
@@ -112,7 +123,8 @@ def main() -> None:
         train_step(model, opt, x, oh, seg, gen)
 
     clock = "clocks.sm,power.draw,temperature.gpu"
-    result = {"card": card, "root": root}
+    result = {"card": card, "root": root,
+              "eval_mode": "amp" if args.amp else "exact"}
     for name, fn, iters, warmup in [
             ("eval_ms", forward, args.iters, 5),
             ("step_ms", step, max(3, args.iters // 2), 3)]:

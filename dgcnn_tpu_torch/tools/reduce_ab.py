@@ -142,17 +142,20 @@ SOURCES = {"knn_reduce": "knn_reduce.cu", "edge2_bwd": "edge2_bwd.cu",
            "banded_edge_conv_eval": "edge_conv_eval.cu",
            "banded_knn_edge2": "knn_edge2.cu", "knn_sum": "knn_sum.cu",
            "edge_sum": "edge_sum.cu"}
-# the sources a form links: launch_sqnorm, dg_cuda_error_string and
-# launch_project
-HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu"),
+# the sources a form links: launch_sqnorm, dg_cuda_error_string,
+# launch_project and launch_rowmin (the v2 grid of kernels 3, 11 and 10)
+HELPERS = {"knn_reduce": ("edge_conv_eval.cu", "project.cu",
+                          "edge_conv_amp.cu"),
            "edge2_bwd": ("reverse_lists.cu",),
            "edge_conv_eval": ("project.cu",),
            "knn_edge2": ("edge_conv_eval.cu", "project.cu"),
            "edge_reduce_bwd": ("reverse_lists.cu",), "edge2_fwd": (),
-           "knn_idx": ("edge_conv_eval.cu", "project.cu"),
+           "knn_idx": ("edge_conv_eval.cu", "project.cu",
+                       "edge_conv_amp.cu"),
            "banded_edge_conv_eval": ("project.cu",),
            "banded_knn_edge2": ("edge_conv_eval.cu", "project.cu"),
-           "knn_sum": ("edge_conv_eval.cu", "project.cu"), "edge_sum": ()}
+           "knn_sum": ("edge_conv_eval.cu", "project.cu",
+                       "edge_conv_amp.cu"), "edge_sum": ()}
 # probe forms built beside the earlier one (never on any path)
 PROBES = {"edge_reduce_bwd": {"store": "edge_reduce_bwd_store.cu"}}
 # the kernels whose earlier form is an entry of their own library: the

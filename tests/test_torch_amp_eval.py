@@ -344,15 +344,13 @@ def test_pull_sum_is_the_ordered_scatter():
 
 
 def test_other_models_stay_exact(monkeypatch):
-    """The fusion Net takes no mode and stays exact: with the variable
-    unset, its forward hands kernel 6 (its PositionEmbedding's
-    TransformNet) and kernel 2 amp=False, and kernel 1 (its backbone) no
-    AMP form."""
-    import inspect
-
+    """The fusion Net's default forward on the CPU stays exact: with the
+    variable unset, it hands kernel 6 (its PositionEmbedding's
+    TransformNet) and kernel 1 (its backbone) amp=False and runs kernel 2's
+    plain pool; with amp=True the whole forward switches, kernels 1, 6 and
+    2 to their AMP forms at once."""
     from dgcnn_tpu_torch.models import Net, dgcnn, nn_layers
 
-    assert "amp" not in inspect.signature(Net.forward).parameters
     monkeypatch.delenv(EXACT_ENV, raising=False)
     modes = []
 
@@ -374,3 +372,8 @@ def test_other_models_stay_exact(monkeypatch):
         net(pts, torch.eye(16)[[1, 4]])
     assert sorted(modes) == [("edge_conv_eval", False)] * 4 + [
         ("knn_edge2", False)]
+    modes.clear()
+    with torch.no_grad():
+        net(pts, torch.eye(16)[[1, 4]], amp=True)
+    assert sorted(modes) == [("conv_pool", True)] + [
+        ("edge_conv_eval", True)] * 4 + [("knn_edge2", True)]

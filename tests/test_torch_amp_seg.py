@@ -50,6 +50,7 @@ from dgcnn_tpu_torch.ops.edge2_kernel import (
     knn_edge2_plain,
 )
 from dgcnn_tpu_torch.ops.edge_conv_kernel import edge_conv_eval
+from dgcnn_tpu_torch.ops.knn import pairwise_neg_sqdist
 
 from test_torch_banded_tiled import _cloud, _jax_order, _sorted
 from test_torch_port_partseg import flax_partseg_variables
@@ -493,13 +494,12 @@ def test_semseg_cli_pins_v2_and_restores(monkeypatch, tmp_path):
 
 
 
-def test_training_selection_ignores_the_pin(jax_env):
-    """ROADMAP C's open fault, shown: under the semseg CLI's pin the JAX
-    package's training kernel 3 runs v2 in the exact mode, and the port's
-    kernel 3 still v1.  Row 0's two nearest candidates after itself score
-    within one step of v2's grid (the row's far point sets the grid): v1
-    takes the nearer (column 2), v2 the lower index (column 1).  When the
-    fault is fixed, this test holds the port to the JAX pick."""
+def test_training_selection_honours_the_pin(jax_env):
+    """Under the semseg CLI's pin the JAX package's training kernel 3 runs
+    v2 in the exact mode, and so does the port's.  Row 0's two nearest
+    candidates after itself score within one step of v2's grid (the row's
+    far point sets the grid): v1 takes the nearer (column 2), v2 the lower
+    index (column 1).  Unset, the port's kernel 3 keeps v1."""
     from dgcnn_tpu.ops.pallas_knn import fused_knn_reduce
 
     from dgcnn_tpu_torch.ops.knn_reduce_kernel import knn_reduce
@@ -519,4 +519,74 @@ def test_training_selection_ignores_the_pin(jax_env):
             interpret=True)[0])
     got = knn_reduce(torch.from_numpy(g), torch.from_numpy(a), 2)[0].numpy()
     assert list(want[0, 0]) == [0, 1]   # v2: the lower index
-    assert list(got[0, 0]) == [0, 2]    # the port's v1: the nearer point
+    np.testing.assert_array_equal(got, want)
+    jax_env.delenv(EXTRACT_ENV)
+    got = knn_reduce(torch.from_numpy(g), torch.from_numpy(a), 2)[0].numpy()
+    assert list(got[0, 0]) == [0, 2]    # v1: the nearer point
+
+
+def _train_cloud(kind: str, seed: int, b: int = 2, n: int = 256, c: int = 3):
+    rng = np.random.default_rng(seed)
+    if kind == "ints":  # integer points, each four times
+        return np.concatenate([rng.integers(-3, 4, (b, n // 4, c))] * 4,
+                              axis=1).astype(np.float32)
+    return rng.standard_normal((b, n, c)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["random", "ints"])
+@pytest.mark.parametrize("kernel", ["knn_reduce", "knn_reduce_xw", "knn"])
+def test_training_kernels_v2_match_pallas(kernel, kind, jax_env):
+    """Kernels 3, 4 and 11 under DGCNN_TPU_PALLAS_EXACT=1 and
+    DGCNN_TPU_EXTRACT=v2 (the semseg CLI's pin): the same idx as
+    ``fused_knn_reduce``, ``fused_knn_reduce_xw`` and ``knn_pallas`` on
+    every row (the packed keys of the exact scores), the reductions within
+    rel 1e-5 of each row's norm (bit-equal on integer duplicates, where
+    every sum is exact)."""
+    from dgcnn_tpu.ops import pallas_knn
+
+    from dgcnn_tpu_torch.ops.knn import knn
+    from dgcnn_tpu_torch.ops.knn_reduce_kernel import (
+        knn_reduce,
+        knn_reduce_xw,
+    )
+
+    jax_env.setenv(EXACT_ENV, "1")
+    jax_env.setenv(EXTRACT_ENV, "v2")
+    ints = kind == "ints"
+    g = _train_cloud(kind, 91)
+    rng = np.random.default_rng(92)
+    x = (rng.integers(-3, 4, (2, 256, 16)) if ints
+         else rng.standard_normal((2, 256, 16))).astype(np.float32)
+    w = rng.integers(-2, 3, (16, 24)).astype(np.float32) / (1 if ints else 4)
+    gj, xj, wj = map(jnp.asarray, (g, x, w))
+    with jax.default_matmul_precision(F32):
+        if kernel == "knn":
+            want = (np.asarray(pallas_knn.knn_pallas(gj, 20,
+                                                     interpret=True)),)
+        elif kernel == "knn_reduce":
+            want = pallas_knn.fused_knn_reduce(
+                gj, xj, 20, select_dtype=jnp.float32, interpret=True,
+                with_sumsq=True)
+        else:
+            want = pallas_knn.fused_knn_reduce_xw(
+                gj, xj, wj, 20, select_dtype=jnp.float32, interpret=True,
+                with_sumsq=True)
+    gt, xt, wt = map(torch.from_numpy, (g, x, w))
+    got = {"knn": lambda: (knn(gt, 20),),
+           "knn_reduce": lambda: knn_reduce(gt, xt, 20),
+           "knn_reduce_xw": lambda: knn_reduce_xw(gt, xt, wt, 20)}[kernel]()
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for gr, wr in zip(got[1:], want[1:]):
+        if ints:
+            np.testing.assert_array_equal(gr.numpy(), _np(wr))
+        else:
+            assert _row_rel(gr, wr) <= 1e-5
+    # the pin unset: v1, the exact scores' stable order, as before the pin
+    # reached these kernels
+    jax_env.delenv(EXTRACT_ENV)
+    v1 = {"knn": lambda: knn(gt, 20),
+          "knn_reduce": lambda: knn_reduce(gt, xt, 20)[0],
+          "knn_reduce_xw": lambda: knn_reduce_xw(gt, xt, wt, 20)[0]}[kernel]()
+    assert torch.equal(v1.long(), torch.sort(
+        pairwise_neg_sqdist(gt), dim=-1, descending=True,
+        stable=True).indices[..., :20])

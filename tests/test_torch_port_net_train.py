@@ -254,9 +254,9 @@ def _record_selection_gaps(monkeypatch, k: int):
         gaps.append(((top[..., k - 1] - top[..., k]) / scale).min().item())
 
     def wrap(fn):
-        def run(graph, *rest):
+        def run(graph, *rest, **kwargs):
             gap(graph)
-            return fn(graph, *rest)
+            return fn(graph, *rest, **kwargs)
         return run
 
     for mod, name in [(nn_layers, "knn_edge_reduce"),
