@@ -4,10 +4,10 @@ and evaluation.
 Same flags as the JAX CLI apart from its TPU-only ones, and the same
 ``Train %d, ...``, ``Test %d, ...`` and ``Test :: test acc: ...`` lines.
 Training keeps the best test accuracy's model in the reference state-dict
-layout at ``outputs/<exp>/models/model.t7``.  Evaluation on the card runs
-the AMP (bf16) mode, the JAX package's default, unless
-``DGCNN_TPU_PALLAS_EXACT`` is set; on the CPU it runs the exact mode
-(``models.DGCNNCls``).
+layout at ``outputs/<exp>/models/model.t7``.  Training and evaluation on
+the card run the AMP (bf16) mode, the JAX package's default, unless
+``DGCNN_TPU_PALLAS_EXACT`` is set; on the CPU they run the exact mode
+(``models.DGCNNCls``).  No flag, as the JAX CLI has none.
 
     python -m dgcnn_tpu_torch.cli.cls --eval=False --exp_name=cls1024
     python -m dgcnn_tpu_torch.cli.cls --eval=True \

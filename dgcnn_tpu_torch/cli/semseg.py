@@ -10,9 +10,10 @@ keeps the best test IoU's model in the reference state-dict layout at
 ``<model_root>/model_<a>.t7`` for each area it tests (``--test_area=all``:
 areas 1-6 and the overall line).  ``--fast_extract BAND`` runs the eval
 forwards (a training run's test passes too) through the banded kernels.
-On the card the eval forwards run the AMP mode unless
+On the card the training steps and eval forwards run the AMP mode unless
 ``DGCNN_TPU_PALLAS_EXACT`` is set; ``main`` pins ``DGCNN_TPU_EXTRACT=v2``
-for its run, as the JAX CLI does.
+for its run, as the JAX CLI does (the AMP training's kNN kernels take v2
+anyway).
 
     python -m dgcnn_tpu_torch.cli.semseg --exp_name=s3dis6 --test_area=6
     python -m dgcnn_tpu_torch.cli.semseg --eval=True --test_area=all \

@@ -23,6 +23,7 @@
 // conflicts.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace dg {
@@ -42,6 +43,12 @@ __device__ __forceinline__ void e2_stage_w2(const float* __restrict__ w2,
     const int r = e / C2, c = e - r * C2;
     ws[r * ldw + c] = w2[e];
   }
+}
+
+// v rounded to bf16 (to nearest even), as f32: the a1 rows and the da1
+// addends of the AMP forms of the training kernels 7 and 8.
+__device__ __forceinline__ float e2_round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __device__ __forceinline__ float e2_lrelu(float z, float slope) {

@@ -66,6 +66,15 @@
 //   atomic (dg_edge2_bwd, the oracle): each dsel is added into the
 //     neighbour's row by an f32 atomicAdd, in an order that changes from
 //     run to run; the caller zeroes da1.
+//
+// The AMP form (dg_edge2_bwd_pull_amp), the JAX package's default in
+// training (_edge2_bwd_kernel with exact=False, pallas_knn.py:1200-1285),
+// on the tiled route and the pull form only: sel is a1's value rounded to
+// bf16 (to nearest even; _parts(a1, False), :1217), staged into h1 with
+// edge2_reduce.cu's AMP rounding, so z2 and the ties are its bits; each
+// edge's dsel is rounded to bf16 before it is stored for the da1 sum
+// (:1282-1283, the bf16 operand of the scatter product); db1, dW2, ds1 and
+// dt1 are the f32 sums of the exact form, on the rounded sel.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -253,7 +262,7 @@ constexpr size_t TSMEM =
     sizeof(float) * (2 * TC * TC + 2 * TE * TC + 7 * TR * TC + 2 * TC) +
     sizeof(int) * 2 * TE;
 
-template <bool PULL>
+template <bool PULL, bool AMP>
 __global__ void __launch_bounds__(TT, 2)
     edge2_bwd_tiled_kernel(const int* __restrict__ idx,
                            const float* __restrict__ a1,
@@ -336,7 +345,8 @@ __global__ void __launch_bounds__(TT, 2)
     }
     __syncthreads();
     // h1 of every edge (e2_h1_row's operations); empty slots hold zeros
-    dg::e2t_stage_h1(a1, b1s, TC, jrow, eloc, s1s, t1s, C1, slope, hb);
+    dg::e2t_stage_h1<false, AMP>(a1, b1s, TC, jrow, eloc, s1s, t1s, C1,
+                                 slope, hb);
     __syncthreads();
 
     // z2 = h1 w2: edges ty + 16 m, second-conv channels 4 tx + i
@@ -436,7 +446,9 @@ __global__ void __launch_bounds__(TT, 2)
         for (int i = 0; i < 4; ++i) {
           const int c = 4 * tx + i;
           if (c >= C1) continue;
-          const float sel = __fadd_rn(a1[(size_t)j * C1 + c], brow[c]);
+          const float av = a1[(size_t)j * C1 + c];
+          const float sel = __fadd_rn(AMP ? dg::e2_round_bf16(av) : av,
+                                      brow[c]);
           const float z1 = __fadd_rn(__fmul_rn(sel, s1s[c]), t1s[c]);
           const float dz1 = z1 >= 0.f ? dh[m][i] : __fmul_rn(dh[m][i], slope);
           ds1p[i] = __fadd_rn(ds1p[i], __fmul_rn(dz1, sel));
@@ -444,7 +456,8 @@ __global__ void __launch_bounds__(TT, 2)
           const float dsel = __fmul_rn(dz1, s1s[c]);
           hb[e * TC + c] = dsel;
           if constexpr (PULL)  // edge (row0 + e / k, e % k): id row0 k + e
-            dsel_e[((size_t)row0 * k + e) * C1 + c] = dsel;
+            dsel_e[((size_t)row0 * k + e) * C1 + c] =
+                AMP ? dg::e2_round_bf16(dsel) : dsel;
           else
             atomicAdd(da1 + (size_t)j * C1 + c, dsel);
         }
@@ -510,7 +523,7 @@ extern "C" int dg_edge2_bwd_tiles(int B, int N, int C1, int C2, int k) {
 
 namespace {
 
-template <bool PULL>
+template <bool PULL, bool AMP = false>
 int launch_bwd(const int* idx, const float* a1, const float* b1,
                const float* s1, const float* t1, const float* w2,
                const float* amax, const float* amin, const float* ct_max,
@@ -521,13 +534,15 @@ int launch_bwd(const int* idx, const float* a1, const float* b1,
   const int rows = B * N;
   cudaError_t e;
   if (dg::e2t_train_route(C1, C2, k)) {
-    e = cudaFuncSetAttribute(edge2_bwd_tiled_kernel<PULL>,
+    e = cudaFuncSetAttribute(edge2_bwd_tiled_kernel<PULL, AMP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)TSMEM);
     if (e != cudaSuccess) return (int)e;
-    edge2_bwd_tiled_kernel<PULL><<<G, TT, TSMEM, st>>>(
+    edge2_bwd_tiled_kernel<PULL, AMP><<<G, TT, TSMEM, st>>>(
         idx, a1, b1, C1, s1, t1, w2, C2, slope, amax, amin, ct_max, ct_min,
         ct_sum, ct_sumsq, rows, N, k, da1, db1, part, dsel_e);
+  } else if (AMP) {
+    return (int)cudaErrorInvalidValue;  // the AMP form is tiled only
   } else {
     const size_t smem =
         sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)C1 * C2 +
@@ -579,6 +594,32 @@ extern "C" int dg_edge2_bwd(const int* idx, const float* a1, const float* b1,
                            (cudaStream_t)stream);
 }
 
+namespace {
+
+template <bool AMP>
+int pull(const int* idx, const float* a1, const float* b1, const float* s1,
+         const float* t1, const float* w2, const float* amax,
+         const float* amin, const float* ct_max, const float* ct_min,
+         const float* ct_sum, const float* ct_sumsq, float* da1, float* db1,
+         float* part, float* dflat, float* dsel_e, int* iscratch, int B,
+         int N, int C1, int C2, int k, int G, float slope, cudaStream_t st) {
+  if (!valid_bwd(B, N, C1, C2, k, G) ||
+      (AMP && !dg::e2t_train_route(C1, C2, k)))
+    return (int)cudaErrorInvalidValue;
+  const int *off, *lst;
+  cudaError_t e = dg::build_reverse_lists(idx, B, N, k, iscratch, &off,
+                                          &lst, st);
+  if (e != cudaSuccess) return (int)e;
+  const int rc = launch_bwd<true, AMP>(idx, a1, b1, s1, t1, w2, amax, amin,
+                                       ct_max, ct_min, ct_sum, ct_sumsq, da1,
+                                       db1, part, dflat, dsel_e, B, N, C1,
+                                       C2, k, G, slope, st);
+  if (rc) return rc;
+  return (int)dg::launch_pull_sum(off, lst, dsel_e, B * N, C1, da1, st);
+}
+
+}  // namespace
+
 // As dg_edge2_bwd with da1 in the pull form: every element of da1 written
 // (the caller need not zero it), the same bits from run to run; scratch
 // dsel_e (B * N * k * C1 floats) and iscratch (dg_reverse_list_ints(B, N,
@@ -590,16 +631,23 @@ extern "C" int dg_edge2_bwd_pull(
     const float* ct_sumsq, float* da1, float* db1, float* part, float* dflat,
     float* dsel_e, int* iscratch, int B, int N, int C1, int C2, int k, int G,
     float slope, void* stream) {
-  if (!valid_bwd(B, N, C1, C2, k, G)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int *off, *lst;
-  cudaError_t e = dg::build_reverse_lists(idx, B, N, k, iscratch, &off,
-                                          &lst, st);
-  if (e != cudaSuccess) return (int)e;
-  const int rc = launch_bwd<true>(idx, a1, b1, s1, t1, w2, amax, amin,
-                                  ct_max, ct_min, ct_sum, ct_sumsq, da1, db1,
-                                  part, dflat, dsel_e, B, N, C1, C2, k, G,
-                                  slope, st);
-  if (rc) return rc;
-  return (int)dg::launch_pull_sum(off, lst, dsel_e, B * N, C1, da1, st);
+  return pull<false>(idx, a1, b1, s1, t1, w2, amax, amin, ct_max, ct_min,
+                     ct_sum, ct_sumsq, da1, db1, part, dflat, dsel_e,
+                     iscratch, B, N, C1, C2, k, G, slope,
+                     (cudaStream_t)stream);
+}
+
+// The AMP form of dg_edge2_bwd_pull (the note): the same arguments, the
+// tiled route's shapes only (cudaErrorInvalidValue at any other).
+extern "C" int dg_edge2_bwd_pull_amp(
+    const int* idx, const float* a1, const float* b1, const float* s1,
+    const float* t1, const float* w2, const float* amax, const float* amin,
+    const float* ct_max, const float* ct_min, const float* ct_sum,
+    const float* ct_sumsq, float* da1, float* db1, float* part, float* dflat,
+    float* dsel_e, int* iscratch, int B, int N, int C1, int C2, int k, int G,
+    float slope, void* stream) {
+  return pull<true>(idx, a1, b1, s1, t1, w2, amax, amin, ct_max, ct_min,
+                    ct_sum, ct_sumsq, da1, db1, part, dflat, dsel_e,
+                    iscratch, B, N, C1, C2, k, G, slope,
+                    (cudaStream_t)stream);
 }

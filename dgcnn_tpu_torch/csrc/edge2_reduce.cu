@@ -46,6 +46,14 @@
 //   memory (two shared loads an FMA).
 // Neither per-edge tensor reaches device memory on either route, and no
 // output has an atomic: the bits are the same from run to run.
+//
+// The AMP form (dg_edge2_fwd_amp), the JAX package's default in training
+// (_edge2_train_kernel with exact=False, pallas_knn.py:1120-1161): a1's
+// selected values rounded to bf16 (to nearest even; _parts(a1, False),
+// :1131) as the tile stages h1; z1, h1, z2 and the four reductions are the
+// exact form's f32 operations on them.  edge2_bwd.cu's AMP form stages h1
+// with the same rounding, so its z2 and the ties it finds are the same
+// bits.  Tiled route only (e2t_train_route's shapes: every model's).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -128,6 +136,7 @@ constexpr size_t TSMEM =
     sizeof(float) * (TC * TC + TE * TC + TR * TC + 2 * TC) +
     sizeof(int) * 2 * TE;
 
+template <bool AMP>
 __global__ void __launch_bounds__(TT, 3)
     edge2_fwd_tiled_kernel(const int* __restrict__ idx,
                            const float* __restrict__ a1,
@@ -166,7 +175,8 @@ __global__ void __launch_bounds__(TT, 3)
     b1s[q] = row < rows && c < C1 ? b1[(size_t)row * C1 + c] : 0.f;
   }
   __syncthreads();
-  dg::e2t_stage_h1(a1, b1s, TC, jrow, eloc, s1s, t1s, C1, slope, hb);
+  dg::e2t_stage_h1<false, AMP>(a1, b1s, TC, jrow, eloc, s1s, t1s, C1, slope,
+                               hb);
   __syncthreads();
   // z2 = h1 w2: edges ty + 16 m, second-conv channels 4 tx + i
   const bool active = 4 * tx < C2;
@@ -225,6 +235,22 @@ int launch_rowwarp(const int* idx, const float* a1, const float* b1,
   return (int)cudaGetLastError();
 }
 
+template <bool AMP>
+int launch_tiled(const int* idx, const float* a1, const float* b1,
+                 const float* s1, const float* t1, const float* w2,
+                 float* amax, float* amin, float* asum, float* asumsq, int B,
+                 int N, int C1, int C2, int k, float slope, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      edge2_fwd_tiled_kernel<AMP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TSMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int rows = B * N, R = dg::e2t_rows(k);
+  edge2_fwd_tiled_kernel<AMP><<<(rows + R - 1) / R, TT, TSMEM, st>>>(
+      idx, a1, b1, C1, s1, t1, w2, C2, slope, rows, N, k, amax, amin, asum,
+      asumsq);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // idx (B, N, k) int32; a1/b1 (B, N, C1), s1/t1 (C1,), w2 (C1, C2) f32; out
@@ -241,15 +267,23 @@ extern "C" int dg_edge2_fwd(const int* idx, const float* a1, const float* b1,
   if (!dg::e2t_train_route(C1, C2, k))
     return launch_rowwarp(idx, a1, b1, s1, t1, w2, amax, amin, asum, asumsq,
                           B, N, C1, C2, k, slope, st);
-  const cudaError_t e = cudaFuncSetAttribute(
-      edge2_fwd_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)TSMEM);
-  if (e != cudaSuccess) return (int)e;
-  const int rows = B * N, R = dg::e2t_rows(k);
-  edge2_fwd_tiled_kernel<<<(rows + R - 1) / R, TT, TSMEM, st>>>(
-      idx, a1, b1, C1, s1, t1, w2, C2, slope, rows, N, k, amax, amin, asum,
-      asumsq);
-  return (int)cudaGetLastError();
+  return launch_tiled<false>(idx, a1, b1, s1, t1, w2, amax, amin, asum,
+                             asumsq, B, N, C1, C2, k, slope, st);
+}
+
+// The AMP form of dg_edge2_fwd (the note): the same arguments, the tiled
+// route's shapes only (cudaErrorInvalidValue at any other).
+extern "C" int dg_edge2_fwd_amp(const int* idx, const float* a1,
+                                const float* b1, const float* s1,
+                                const float* t1, const float* w2,
+                                float* amax, float* amin, float* asum,
+                                float* asumsq, int B, int N, int C1, int C2,
+                                int k, float slope, void* stream) {
+  if (!valid(B, N, C1, C2, k) || !dg::e2t_train_route(C1, C2, k))
+    return (int)cudaErrorInvalidValue;
+  return launch_tiled<true>(idx, a1, b1, s1, t1, w2, amax, amin, asum,
+                            asumsq, B, N, C1, C2, k, slope,
+                            (cudaStream_t)stream);
 }
 
 // The row-warp route at any shape dg_edge2_fwd takes (the checks hold the

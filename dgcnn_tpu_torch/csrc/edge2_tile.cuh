@@ -49,9 +49,10 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
 // takes row jrow[e] of A (-1: an empty slot, zeros; MEANS and below -1:
 // the row already in its slot of hb, a class mean of kernel 6's v3) and the
 // centre's row eloc[e] of b1rows (row stride ldb); channels C1.. hold
-// zeros.  Thread tid takes channel tid % 64 of slots tid / 64 + 4 m.  The
+// zeros.  ROUND: A's values rounded to bf16 (the AMP forms of kernels 7 and
+// 8).  Thread tid takes channel tid % 64 of slots tid / 64 + 4 m.  The
 // caller synchronises the block before and after.
-template <bool MEANS = false>
+template <bool MEANS = false, bool ROUND = false>
 __device__ __forceinline__ void e2t_stage_h1(
     const float* __restrict__ A, const float* b1rows, int ldb,
     const int* jrow, const int* eloc, const float* s1s, const float* t1s,
@@ -62,6 +63,7 @@ __device__ __forceinline__ void e2t_stage_h1(
     float h = 0.f;
     if ((j >= 0 || (MEANS && j < -1)) && cl < C1) {
       const float a = MEANS && j < -1 ? hb[e * E2T_C1 + cl]
+                      : ROUND         ? e2_round_bf16(A[(size_t)j * C1 + cl])
                                       : A[(size_t)j * C1 + cl];
       h = e2_lrelu(e2_z1(a, b1rows[eloc[e] * ldb + cl], s1s[cl], t1s[cl]),
                    slope);

@@ -76,6 +76,17 @@
 //   entry zeroes da on the stream first.
 // On the slices and atomic routes the adds land in an order that changes
 // from run to run, so da's last bits do too.
+//
+// The AMP form (dg_edge_reduce_bwd_pull_amp), the JAX package's default in
+// training (_edge_reduce_bwd_kernel with exact=False, pallas_knn.py:
+// 666-718), on the pull route: sel_t is a's value rounded to bf16 (to
+// nearest even; _parts(a, False), :690), so the ties are counted against
+// the AMP forward's amax / amin, which are values of round_bf16(a); w_t is
+// formed as above in f32 and rounded to bf16 before it is stored (:716-
+// 717, the bf16 operand of the scatter product), and each da[j] is the f32
+// sum of its edges' rounded addends in ascending edge order.  No float
+// atomic: the same bits from run to run.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "reverse_lists.cuh"
@@ -243,12 +254,17 @@ __global__ void __launch_bounds__(QB * 32)
   }
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // The pull route's first pass: a warp a row i (8 a block), CPL channels a
 // lane: the ties of (i, c) among a's rows of i's neighbours, t ascending,
 // then each edge's w_t with the _rn operations of the note, stored at
 // wbuf[(i k + t) Co + c] (a row of Co floats an edge, coalesced).  The
-// atomic route's two passes with a store for its atomicAdd.
-template <int CPL>
+// atomic route's two passes with a store for its atomicAdd.  AMP: a's
+// values and the stored w_t rounded to bf16.
+template <int CPL, bool AMP>
 __global__ void __launch_bounds__(256)
     edge_reduce_bwd_addend_kernel(const int* __restrict__ idx,
                                   const float* __restrict__ a,
@@ -279,7 +295,7 @@ __global__ void __launch_bounds__(256)
     for (int u = 0; u < CPL; ++u) {
       const int c = lane + 32 * u;
       if (c < Co) {
-        const float v = arow[c];
+        const float v = AMP ? round_bf16(arow[c]) : arow[c];
         cmax[u] += v == vmax[u] ? 1.f : 0.f;
         cmin[u] += v == vmin[u] ? 1.f : 0.f;
       }
@@ -302,24 +318,25 @@ __global__ void __launch_bounds__(256)
     for (int u = 0; u < CPL; ++u) {
       const int c = lane + 32 * u;
       if (c < Co) {
-        const float v = arow[c];
-        wrow[c] = __fadd_rn(
+        const float v = AMP ? round_bf16(arow[c]) : arow[c];
+        const float w = __fadd_rn(
             __fadd_rn(__fadd_rn(v == vmax[u] ? gmax[u] : 0.f,
                                 v == vmin[u] ? gmin[u] : 0.f),
                       gsum[u]),
             __fmul_rn(v, gsq2[u]));
+        wrow[c] = AMP ? round_bf16(w) : w;
       }
     }
   }
 }
 
-template <int CPL>
+template <int CPL, bool AMP>
 cudaError_t launch_addend(const int* idx, const float* a, const float* amax,
                           const float* amin, const float* ct_max,
                           const float* ct_min, const float* ct_sum,
                           const float* ct_sumsq, int rows, int N, int Co,
                           int k, float* wbuf, cudaStream_t st) {
-  edge_reduce_bwd_addend_kernel<CPL><<<(rows + 7) / 8, 256, 0, st>>>(
+  edge_reduce_bwd_addend_kernel<CPL, AMP><<<(rows + 7) / 8, 256, 0, st>>>(
       idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq, rows, N, Co, k,
       wbuf);
   return cudaGetLastError();
@@ -386,17 +403,14 @@ extern "C" int dg_edge_reduce_bwd_atomic(
                        da, B, N, Co, k, (cudaStream_t)stream);
 }
 
-// The pull route, at any shape dg_edge_reduce_bwd takes; the same
-// arguments and two scratch buffers: wbuf (B * N * k * Co floats: each
-// edge's w_t) and iscratch (dg_reverse_list_ints(B, N, k) ints: the
-// reverse lists).  No float atomic: da has the same bits from run to run.
-extern "C" int dg_edge_reduce_bwd_pull(
-    const int* idx, const float* a, const float* amax, const float* amin,
-    const float* ct_max, const float* ct_min, const float* ct_sum,
-    const float* ct_sumsq, float* da, float* wbuf, int* iscratch, int B,
-    int N, int Co, int k, void* stream) {
+namespace {
+
+template <bool AMP>
+int pull(const int* idx, const float* a, const float* amax, const float* amin,
+         const float* ct_max, const float* ct_min, const float* ct_sum,
+         const float* ct_sumsq, float* da, float* wbuf, int* iscratch, int B,
+         int N, int Co, int k, cudaStream_t st) {
   if (!valid(B, N, Co, k)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
   const int *off, *lst;
   cudaError_t e = dg::build_reverse_lists(idx, B, N, k, iscratch, &off,
                                           &lst, st);
@@ -406,12 +420,37 @@ extern "C" int dg_edge_reduce_bwd_pull(
     return launch(idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq,
                   rows, N, Co, k, wbuf, st);
   };
-  e = Co <= 32    ? go(launch_addend<1>)
-      : Co <= 64  ? go(launch_addend<2>)
-      : Co <= 128 ? go(launch_addend<4>)
-                  : go(launch_addend<8>);
+  e = Co <= 32    ? go(launch_addend<1, AMP>)
+      : Co <= 64  ? go(launch_addend<2, AMP>)
+      : Co <= 128 ? go(launch_addend<4, AMP>)
+                  : go(launch_addend<8, AMP>);
   if (e != cudaSuccess) return (int)e;
   return (int)dg::launch_pull_sum(off, lst, wbuf, rows, Co, da, st);
+}
+
+}  // namespace
+
+// The pull route, at any shape dg_edge_reduce_bwd takes; the same
+// arguments and two scratch buffers: wbuf (B * N * k * Co floats: each
+// edge's w_t) and iscratch (dg_reverse_list_ints(B, N, k) ints: the
+// reverse lists).  No float atomic: da has the same bits from run to run.
+extern "C" int dg_edge_reduce_bwd_pull(
+    const int* idx, const float* a, const float* amax, const float* amin,
+    const float* ct_max, const float* ct_min, const float* ct_sum,
+    const float* ct_sumsq, float* da, float* wbuf, int* iscratch, int B,
+    int N, int Co, int k, void* stream) {
+  return pull<false>(idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq,
+                     da, wbuf, iscratch, B, N, Co, k, (cudaStream_t)stream);
+}
+
+// The AMP form of dg_edge_reduce_bwd_pull (the note): the same arguments.
+extern "C" int dg_edge_reduce_bwd_pull_amp(
+    const int* idx, const float* a, const float* amax, const float* amin,
+    const float* ct_max, const float* ct_min, const float* ct_sum,
+    const float* ct_sumsq, float* da, float* wbuf, int* iscratch, int B,
+    int N, int Co, int k, void* stream) {
+  return pull<true>(idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq,
+                    da, wbuf, iscratch, B, N, Co, k, (cudaStream_t)stream);
 }
 
 // The int32 scratch of the reverse lists (reverse_lists.cuh).

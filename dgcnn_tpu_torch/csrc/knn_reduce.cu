@@ -32,6 +32,31 @@
 // at 3.35 TB/s.  At the DGCNNSemSeg ones (B=32, N=4096, k=20, Cg = 3 /
 // 64 / 64) the scores are ~140 GFLOP, ~2.1 ms.
 //
+// The AMP form (dg_knn_reduce_amp, dg_knn_reduce_xw_amp), the JAX
+// package's default in training (_knn_reduce_kernel and
+// _knn_reduce_xw_kernel at select_dtype bf16, pallas_knn.py:371-467):
+//   scores    _scores(exact=False) of the f32 graph: bf16 hi and lo parts,
+//             hi.hi + hi.lo + lo.hi, as kernel 1's AMP form takes them
+//             (edge_conv_amp.cu's launch_amp_graph: one chain over [hi |
+//             hi | lo] against [hi | lo | hi], 3 Cg channels), less the
+//             squared norms of the f32 values.
+//   v2        the packed keys of those scores (TS_MIN, then TS_KEYS), as
+//             the exact v2 form above.
+//   payload   a's rows rounded to bf16 (to nearest even) as they are read
+//             (_parts(a, exact=False), :388-389); max, min, the sum and
+//             the sum of squares of those values in f32, t ascending, with
+//             the exact form's operations.  So amax and amin are values of
+//             round_bf16(a): kernel 5's AMP form finds its ties on them.
+//   select-x  (kernel 4, :441-452) the TPU kernel selects x's bf16 rows
+//             and rounds each projected selection to bf16.  A selection
+//             commutes with the projection, so the port rounds x to bf16
+//             once (xw_round_kernel), projects the whole cloud with
+//             launch_project and rounds each selected row of that product
+//             to bf16 as above.  Its backward recomputes the product with
+//             the same launch (dg_project on the rounded x) and so finds
+//             the bits the forward reduced.
+// Tiled route only (k <= TS_LIST), f32 inputs and outputs.
+//
 // Design, two routes decided from k before the launch:
 //   k <= TS_LIST (64; every model: k = 20, 32, 40)  knn_reduce_tiled_kernel:
 //     the tiled selection of knn_select.cuh.  A block of 256 threads owns 64
@@ -61,6 +86,7 @@
 // backward recomputes a with the same launch (dg_project below), which
 // sums each element in the same order, so its a and the forward's are the
 // same bits.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -128,12 +154,19 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
   }
 }
 
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // The tiled route: the block's 64 rows' lists, then the reductions, a
 // warp its eight rows; CPL output channels a lane (Co <= 32 * CPL).  MODE
-// TS_TOPK is v1; TS_KEYS v2, on the rows' grids in rmin.
-template <int KL, int CPL, int MODE>
+// TS_TOPK is v1; TS_KEYS v2, on the rows' grids in rmin, its query rows
+// from gq.  AMP: the AMP form (TS_KEYS over the AMP score operands, Cg =
+// 3 x the graph's channels), a's values rounded to bf16 as they are read.
+template <int KL, int CPL, int MODE, bool AMP>
 __global__ void __launch_bounds__(dg::TS_THREADS, 2)
-    knn_reduce_tiled_kernel(const float* __restrict__ graph, int Cg,
+    knn_reduce_tiled_kernel(const float* __restrict__ graph,
+                            const float* __restrict__ gq, int Cg,
                             const float* __restrict__ sq,
                             const float* __restrict__ a, int Co, int N, int k,
                             int* __restrict__ idx, float* __restrict__ amax,
@@ -147,7 +180,7 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   int li[dg::TS_WR][KL];
   const float* G = graph + (size_t)b * N * Cg;
   dg::tiled_topk<KL, false, MODE>(G, Cg, sq + (size_t)b * N, 0, N, r0, k,
-                                  tsm, ls, li, G,
+                                  tsm, ls, li, gq + (size_t)b * N * Cg,
                                   MODE == dg::TS_KEYS ? rmin + (size_t)b * N
                                                       : nullptr,
                                   lim);
@@ -181,7 +214,7 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
       for (int u = 0; u < CPL; ++u) {
         const int c = lane + 32 * u;
         if (c < Co) {
-          const float v = arow[c];
+          const float v = AMP ? round_bf16(arow[c]) : arow[c];
           mx[u] = fmaxf(mx[u], v);
           mn[u] = fminf(mn[u], v);
           sm[u] = __fadd_rn(sm[u], v);
@@ -203,31 +236,33 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   }
 }
 
+// gq: the query rows' operands of TS_KEYS (graph, but for the AMP form);
+// Cg: the channels of graph and gq.
 struct TiledArgs {
-  const float *graph, *a, *sq;
+  const float *graph, *gq, *a, *sq;
   int* idx;
   float *amax, *amin, *asum, *asumsq, *rmin;
   int B, N, Cg, Co, k;
 };
 
-template <int KL, int CPL, int MODE>
+template <int KL, int CPL, int MODE, bool AMP>
 cudaError_t launch_tiled(const TiledArgs& t, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(
-      knn_reduce_tiled_kernel<KL, CPL, MODE>,
+      knn_reduce_tiled_kernel<KL, CPL, MODE, AMP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dg::TS_SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  knn_reduce_tiled_kernel<KL, CPL, MODE>
+  knn_reduce_tiled_kernel<KL, CPL, MODE, AMP>
       <<<dim3(t.N / dg::TS_R, t.B), dg::TS_THREADS, dg::TS_SMEM_BYTES, st>>>(
-          t.graph, t.Cg, t.sq, t.a, t.Co, t.N, t.k, t.idx, t.amax, t.amin,
-          t.asum, t.asumsq, t.rmin, dg::keys_lim(t.N));
+          t.graph, t.gq, t.Cg, t.sq, t.a, t.Co, t.N, t.k, t.idx, t.amax,
+          t.amin, t.asum, t.asumsq, t.rmin, dg::keys_lim(t.N));
   return cudaGetLastError();
 }
 
-template <int KL, int MODE>
+template <int KL, int MODE, bool AMP = false>
 cudaError_t launch_tiled_co(const TiledArgs& t, cudaStream_t st) {
-  if (t.Co <= 64) return launch_tiled<KL, 2, MODE>(t, st);
-  if (t.Co <= 128) return launch_tiled<KL, 4, MODE>(t, st);
-  return launch_tiled<KL, 8, MODE>(t, st);
+  if (t.Co <= 64) return launch_tiled<KL, 2, MODE, AMP>(t, st);
+  if (t.Co <= 128) return launch_tiled<KL, 4, MODE, AMP>(t, st);
+  return launch_tiled<KL, 8, MODE, AMP>(t, st);
 }
 
 // sqnorm of the graph, then the selection over a: the tiled route at
@@ -240,8 +275,8 @@ cudaError_t reduce(const float* graph, const float* a, float* sq, int* idx,
                    cudaStream_t st) {
   cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
   if (e != cudaSuccess) return e;
-  const TiledArgs t{graph, a,  sq, idx, amax, amin, asum, asumsq, rmin,
-                    B,     N, Cg, Co,  k};
+  const TiledArgs t{graph, graph, a,  sq, idx, amax, amin, asum, asumsq,
+                    rmin,  B,     N, Cg, Co,  k};
   if (rmin != nullptr) {
     if (k > dg::TS_LIST) return cudaErrorInvalidValue;
     e = dg::launch_rowmin(graph, graph, Cg, sq, B, N, nullptr, N, N, rmin,
@@ -269,6 +304,37 @@ cudaError_t reduce(const float* graph, const float* a, float* sq, int* idx,
 bool bad_shape(int B, int N, int Cg, int Co, int k) {
   return B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
          Co > dg::max_co(N) || Cg < 1 || k < 1 || k > N;
+}
+
+// The AMP form: the score operands (gq, gc: B * N * 3 Cg floats each) and
+// the squared norms of the f32 graph, the rows' grids, then the keyed
+// tiled route with a's values rounded to bf16.
+cudaError_t reduce_amp(const float* graph, const float* a, float* gq,
+                       float* gc, float* sq, float* rmin, int* idx,
+                       float* amax, float* amin, float* asum, float* asumsq,
+                       int B, int N, int Cg, int Co, int k,
+                       cudaStream_t st) {
+  if (bad_shape(B, N, Cg, Co, k) || k > dg::TS_LIST)
+    return cudaErrorInvalidValue;
+  cudaError_t e = dg::launch_amp_graph(graph, false, B * N, Cg, gq, gc, st);
+  if (e != cudaSuccess) return e;
+  e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
+  if (e != cudaSuccess) return e;
+  const int Cs = 3 * Cg;
+  e = dg::launch_rowmin(gc, gq, Cs, sq, B, N, nullptr, N, N, rmin, st);
+  if (e != cudaSuccess) return e;
+  const TiledArgs t{gc,   gq,   a, sq, idx, amax, amin, asum, asumsq,
+                    rmin, B,    N, Cs, Co,  k};
+  if (k <= 32) return launch_tiled_co<1, dg::TS_KEYS, true>(t, st);
+  return launch_tiled_co<2, dg::TS_KEYS, true>(t, st);
+}
+
+// x rounded to bf16 (to nearest even), as f32: the AMP select-x form's
+// raw rows.
+__global__ void xw_round_kernel(const float* __restrict__ x, size_t n,
+                                float* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) out[e] = round_bf16(x[e]);
 }
 
 }  // namespace
@@ -331,6 +397,42 @@ extern "C" int dg_knn_reduce_xw_v2(const float* graph, const float* xf,
   if (rmin == nullptr) return (int)cudaErrorInvalidValue;
   return reduce_xw(graph, xf, w, a, sq, rmin, idx, amax, amin, asum, asumsq,
                    B, N, Cg, Cin, Co, k, (cudaStream_t)stream);
+}
+
+// The AMP form of dg_knn_reduce (k <= 64): scratch gq and gc (B * N * 3
+// Cg f32 each: the score operands), sq and rmin (B * N f32).
+extern "C" int dg_knn_reduce_amp(const float* graph, const float* a,
+                                 float* gq, float* gc, float* sq,
+                                 float* rmin, int* idx, float* amax,
+                                 float* amin, float* asum, float* asumsq,
+                                 int B, int N, int Cg, int Co, int k,
+                                 void* stream) {
+  return (int)reduce_amp(graph, a, gq, gc, sq, rmin, idx, amax, amin, asum,
+                         asumsq, B, N, Cg, Co, k, (cudaStream_t)stream);
+}
+
+// The AMP form of dg_knn_reduce_xw: xr (B * N * Cin f32) takes x rounded
+// to bf16, a (B, N, Co) its product with w (launch_project), then the
+// reductions of dg_knn_reduce_amp over a's values rounded to bf16; the
+// same scratch as dg_knn_reduce_amp.
+extern "C" int dg_knn_reduce_xw_amp(const float* graph, const float* xf,
+                                    const float* w, float* xr, float* a,
+                                    float* gq, float* gc, float* sq,
+                                    float* rmin, int* idx, float* amax,
+                                    float* amin, float* asum, float* asumsq,
+                                    int B, int N, int Cg, int Cin, int Co,
+                                    int k, void* stream) {
+  if (bad_shape(B, N, Cg, Co, k) || Cin < 1 || k > dg::TS_LIST)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t xn = (size_t)B * N * Cin;
+  xw_round_kernel<<<(unsigned)((xn + 255) / 256), 256, 0, st>>>(xf, xn, xr);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = dg::launch_project(xr, B * N, Cin, w, Co, a, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)reduce_amp(graph, a, gq, gc, sq, rmin, idx, amax, amin, asum,
+                         asumsq, B, N, Cg, Co, k, st);
 }
 
 // out (M, ncols) = x (M, K) @ w (K, ncols): the projection of

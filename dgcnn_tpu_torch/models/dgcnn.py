@@ -24,12 +24,17 @@ runs the EdgeConv stages of the backbone through the banded kernels of
 ops/banded.py, the JAX package's ``--fast_extract`` path; 0 is exact.
 
 The eval forwards of ``DGCNNCls``, ``DGCNNPartSeg`` and ``DGCNNSemSeg``
-have the JAX package's two numerics modes, exact f32 and AMP (its
-default): ``forward``'s ``amp`` None takes AMP on the card unless
-``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU; True or False asks
-for one (``ops.amp_select.use_amp_eval``: clouds the kernels do not take
-and k > 64 stay exact).  A forward runs every kernel in the one mode.
-Training is exact.
+and their training steps have the JAX package's two numerics modes,
+exact f32 and AMP (its default): ``forward``'s ``amp`` None takes AMP on
+the card unless ``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU;
+True or False asks for one (``ops.amp_select.use_amp_eval`` and
+``use_amp_train``: clouds the kernels do not take and k > 64 stay exact).
+A forward, and a training step with its backward, runs every kernel in
+the one mode.  In training the AMP mode is the kernels' AMP forms (3, 4,
+5, 7 and 8: bf16 selected values, f32 sums); every product outside them
+stays f32, as the JAX package's training computes it on the CPU.  The
+fusion ``Net``'s ``DGCNN`` backbone trains exact (the ``Net`` passes it
+``amp`` False).
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ from dgcnn_tpu_torch.models.nn_layers import (
     leaky_relu,
 )
 from dgcnn_tpu_torch.models.torch_transformer import TorchMultiheadAttention
-from dgcnn_tpu_torch.ops.amp_select import use_amp_eval
+from dgcnn_tpu_torch.ops.amp_select import use_amp_eval, use_amp_train
 from dgcnn_tpu_torch.ops.banded import banded_applicable, banded_knn_edge2
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool
 from dgcnn_tpu_torch.ops.edge2_kernel import knn_edge2
@@ -163,7 +168,11 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
     takes the JAX package's XLA path: ``knn``, the per-edge tensor of the
     first conv, BatchNorm over B*N*k, the second conv and the max over
     k in torch.  ``amp`` runs the eval kernel's AMP form (a bf16 output;
-    ``a1``/``b1`` f32, of W rounded to bf16 where ``x`` is bf16)."""
+    ``a1``/``b1`` f32, of W rounded to bf16 where ``x`` is bf16), and in
+    training kernels 3, 5, 7 and 8 in theirs: kernel 7 selects ``a1``'s
+    rows rounded to bf16, as kernel 8 re-selects them, and the first
+    BatchNorm's statistics come from kernel 3's AMP sums (the JAX
+    package's ``_edge_block2``, dgcnn_tpu/models/dgcnn.py:66-89)."""
     w_nbr, w_ctr = ec.split_weights()
     if not use_kernel(graph.shape[1]):
         idx = knn(graph, k)
@@ -187,11 +196,11 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
                                     band, slope, amp=amp)
         return knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
                          amp=amp)
-    idx, _, _, asum1, asumsq1 = knn_edge_reduce(graph, a1, k)
+    idx, _, _, asum1, asumsq1 = knn_edge_reduce(graph, a1, k, amp)
     count = x.shape[0] * x.shape[1] * k
     s1, t1 = ec[1].push_stats(
         *edge_stats_from_sums(asum1, asumsq1, b1, k), count)
-    mx2, mn2, sm2, sq2 = edge2_reduce(a1, b1, s1, t1, w2, idx, slope)
+    mx2, mn2, sm2, sq2 = edge2_reduce(a1, b1, s1, t1, w2, idx, slope, amp)
     mean2 = sm2.mean(dim=(0, 1)) / k
     var2 = (sq2.mean(dim=(0, 1)) / k - mean2.square()).clamp(min=0.0)
     s2, t2 = cb[1].push_stats(mean2, var2, count)
@@ -342,7 +351,10 @@ class DGCNNCls(nn.Module):
     on the pooled f32 rows).  ``forward``'s ``amp`` None takes AMP on the
     card unless ``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU;
     True or False asks for one (``ops.amp_select.use_amp_eval``: clouds
-    the kernels do not take and k > 64 stay exact).  Training is exact."""
+    the kernels do not take and k > 64 stay exact).  Training has the same
+    two modes (``ops.amp_select.use_amp_train``): in AMP the stages run
+    kernels 3, 4 (the 128 -> 256 stage) and 5 in their AMP forms, and
+    every product outside them stays f32."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 20,
                  dropout: float = 0.5, output_channels: int = 40,
@@ -369,14 +381,13 @@ class DGCNNCls(nn.Module):
                 generator: torch.Generator | None = None, *,
                 amp: bool | None = None) -> torch.Tensor:
         kk = self.k
-        if train and amp:
-            raise ValueError("DGCNNCls trains in the exact mode only")
-        amp = not train and use_amp_eval(amp, x.device, x.shape[1], kk)
+        amp = (use_amp_train if train else use_amp_eval)(
+            amp, x.device, x.shape[1], kk)
         x1 = self.conv1(x, train=train, graph=x, k=kk, amp=amp)
         x2 = self.conv2(x1, train=train, graph=x1, k=kk, amp=amp)
         x3 = self.conv3(x2, train=train, graph=x2, k=kk, amp=amp)
         x4 = self.conv4(x3, train=train, graph=x3, k=kk, amp=amp)
-        if amp:
+        if amp and not train:
             s, t = self.conv5[1].folded()
             pm = conv_pool((x1, x2, x3, x4), self.conv5.kernel(), s, t,
                            self.conv5.negative_slope, with_mean=True,
@@ -455,7 +466,10 @@ class DGCNNPartSeg(nn.Module):
     (conv5) and 2 (conv3 and conv6), or with ``band`` 13 and 12; bf16
     stage outputs, the pooled rows f32, [global, label, stages]
     concatenated in f32 and the head f32.  The 3x3 applies in f32.
-    Training is exact."""
+    Training has the two modes too (``use_amp_train``): in AMP the two
+    two-conv stages and conv5 run kernels 3, 5, 7 and 8 in their AMP
+    forms; the TransformNet's graph (kernel 11) and every product outside
+    the kernels stay as in the exact mode."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 40,
                  dropout: float = 0.5, seg_num_all: int = 50, band: int = 0,
@@ -486,9 +500,8 @@ class DGCNNPartSeg(nn.Module):
                 generator: torch.Generator | None = None, *,
                 amp: bool | None = None) -> torch.Tensor:
         kk, band = self.k, self.band
-        if train and amp:
-            raise ValueError("DGCNNPartSeg trains in the exact mode only")
-        amp = not train and use_amp_eval(amp, x.device, x.shape[1], kk)
+        amp = (use_amp_train if train else use_amp_eval)(
+            amp, x.device, x.shape[1], kk)
         t = self.transform_net(x, kk, train, amp)             # (B, 3, 3)
         x = torch.einsum("bnc,bcd->bnd", x, t)
         x1 = edge_block2(self.conv1, self.conv2, x, x, kk, train, band=band,
@@ -527,11 +540,14 @@ class DGCNNSemSeg(nn.Module):
     default, resolved as ``DGCNNCls``'s (``forward``'s ``amp``): the AMP
     forms of kernels 6, 1 and 2, or with ``band`` 13 and 12; bf16 stage
     outputs, the pooled row f32, [global, stages] concatenated in f32 and
-    the head f32.  Training is exact.
+    the head f32.  Training has the two modes too (``use_amp_train``): in
+    AMP the two two-conv stages and conv5 run kernels 3, 5, 7 and 8 in
+    their AMP forms, every product outside them f32.
 
     The semseg CLI pins ``DGCNN_TPU_EXTRACT=v2`` (S3DIS blocks repeat
     points), as the JAX CLI does: the eval kernels 6, 1, 13 and 12 then
-    run v2 in both modes, and training's kernel 3 its exact v2 form."""
+    run v2 in both modes, and training's kernel 3 too (its AMP default is
+    v2 anyway)."""
 
     def __init__(self, emb_dims: int = 1024, k: int = 20,
                  dropout: float = 0.5, num_classes: int = 13, band: int = 0,
@@ -557,9 +573,8 @@ class DGCNNSemSeg(nn.Module):
                 generator: torch.Generator | None = None, *,
                 amp: bool | None = None) -> torch.Tensor:
         kk, band = self.k, self.band
-        if train and amp:
-            raise ValueError("DGCNNSemSeg trains in the exact mode only")
-        amp = not train and use_amp_eval(amp, x.device, x.shape[1], kk)
+        amp = (use_amp_train if train else use_amp_eval)(
+            amp, x.device, x.shape[1], kk)
         # first graph: neighbours by the normalized room coordinates
         x1 = edge_block2(self.conv1, self.conv2, x,
                          x[..., 6:9].contiguous(), kk, train, band=band,

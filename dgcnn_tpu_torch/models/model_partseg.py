@@ -134,8 +134,10 @@ class Net(nn.Module):
     Eval has two numerics modes (module docstring): ``forward``'s ``amp``
     None takes AMP on the card unless ``DGCNN_TPU_PALLAS_EXACT`` is set
     and exact on the CPU; True or False asks for one (clouds the kNN
-    kernels do not take, and k > 64, stay exact).  Training is exact:
-    ``train=True`` with ``amp=True`` raises."""
+    kernels do not take, and k > 64, stay exact).  Training is exact (the
+    AMP forms of its training kernels are not ported yet): ``train=True``
+    with ``amp=True`` raises, and the backbone's training stages take the
+    exact mode."""
 
     def __init__(self, emb_dim: int = 512, k: int = 32, n_heads: int = 4,
                  n_blocks: int = 2, ff_dims: int = 512, nclasses: int = 50,

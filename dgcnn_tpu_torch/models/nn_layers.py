@@ -269,8 +269,9 @@ class EdgeConv(nn.Sequential):
         (ops/knn_edge_reduce.py): kernels for CUDA tensors and their plain
         versions for CPU tensors.  Other sizes take ``knn`` and the ``idx``
         path, as the JAX package's XLA path does.  ``amp`` runs the eval
-        stage in its AMP form, banded too (bf16 output; the caller resolves
-        the mode, ``ops.amp_select.use_amp_eval``)."""
+        stage in its AMP form, banded too (bf16 output), and training's
+        kernels in theirs (f32 output); the caller resolves the mode
+        (``ops.amp_select.use_amp_eval`` / ``use_amp_train``)."""
         w_nbr, w_ctr = self.split_weights()
         bn = self[1]
         if idx is None:
@@ -278,10 +279,8 @@ class EdgeConv(nn.Sequential):
                 raise ValueError("EdgeConv needs either idx or (graph, k)")
             if not use_kernel(graph.shape[1]):
                 return self(x, knn(graph, k), train)
-            if amp and train:
-                raise ValueError("the AMP form is the eval's")
             if train:
-                return self._train_fused(x, graph, k, w_nbr, w_ctr)
+                return self._train_fused(x, graph, k, w_nbr, w_ctr, amp)
             s, t = bn.folded()
             if banded_applicable(graph.shape[1], band):
                 return banded_edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
@@ -297,22 +296,26 @@ class EdgeConv(nn.Sequential):
             s, t = bn.folded()
         return edge_conv_fused(x, idx, w_nbr, w_ctr, s, t, self.negative_slope)
 
-    def _train_fused(self, x, graph, k: int, w_nbr, w_ctr) -> torch.Tensor:
+    def _train_fused(self, x, graph, k: int, w_nbr, w_ctr,
+                     amp: bool = False) -> torch.Tensor:
         """Training stage from the kernel sums: kNN + max/min/sum/sum² over
         the neighbours of ``a = x @ W_nbr``, the BatchNorm statistics of the
         virtual edge tensor in closed form from them, then the affine and
         LeakyReLU of max over k (dgcnn_tpu nn_layers.py:226-248, 280-282).
         Stages whose raw input needs fewer 128-lane passes than the
-        projection (128 -> 256) select raw rows (the select-x form)."""
+        projection (128 -> 256) select raw rows (the select-x form).
+        ``amp``: the kernels' AMP forms (the selected values bf16, the
+        sums f32); the projections stay f32 products, as the JAX
+        package's are on the CPU."""
         bn = self[1]
         b = _project(x, w_ctr)
         cin, co = w_nbr.shape
         if -(-cin // 128) < -(-co // 128):
             _, amax, amin, asum, asumsq = knn_edge_reduce_xw(
-                graph, x, w_nbr.contiguous(), k)
+                graph, x, w_nbr.contiguous(), k, amp)
         else:
             _, amax, amin, asum, asumsq = knn_edge_reduce(
-                graph, _project(x, w_nbr), k)
+                graph, _project(x, w_nbr), k, amp)
         mean, var = edge_stats_from_sums(asum, asumsq, b, k)
         s, t = bn.push_stats(mean, var, x.shape[0] * x.shape[1] * k)
         sel = torch.where(s > 0, amax, amin) + b

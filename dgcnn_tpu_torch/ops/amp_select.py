@@ -1,5 +1,6 @@
-"""The AMP (bf16) mode of the eval kNN kernels in plain torch: the mode
-switch, the scores, the packed-key selection v2 and the class walk v3.
+"""The AMP (bf16) mode of the kNN kernels in plain torch: the mode
+switches of eval and training, the scores, the packed-key selection v2
+and the class walk v3.
 
 Ports of the JAX package's default numerics (``dgcnn_tpu/ops/
 pallas_knn.py``), which its kernels run unless ``DGCNN_TPU_PALLAS_EXACT``
@@ -29,19 +30,23 @@ is set:
   consumed as the mean of its members' payload rows (f32 sums of the bf16
   rows, divided by the count), and a row with fewer than k distinct scores
   walks its last class again, which the max and min it feeds ignore.
-- ``training_variant``: the variant of kernels 3, 4 and 11 (``knn_reduce``,
-  ``knn_reduce_xw``, ``knn``), v1 unless ``DGCNN_TPU_EXTRACT=v2``
-  (:386, :431, :1554; the port trains in the exact mode), and
-  ``knn_sum_variant``: kernel 10's, ``_extract_version("v2", ...)``
-  (:1518), so v2 in the AMP mode and v1 in the exact one, the variable
-  overriding either.
+- ``training_variant``: the variant of kernels 3 and 4 (``knn_reduce``,
+  ``knn_reduce_xw``), ``_extract_version("v1" if exact else "v2", ...)``
+  (:386, :431): v2 in the AMP mode and v1 in the exact one, the variable
+  overriding either; kernel 11 (``knn``) takes the exact mode's rule
+  whatever the mode (:1554).  ``knn_sum_variant``: kernel 10's,
+  ``_extract_version("v2", ...)`` (:1518), the same rule.
+- ``use_amp_train`` and ``use_amp_eval``: whether a training step or an
+  eval forward runs in the AMP mode.
 - ``select_x_plan``: ``select_x_plan`` (:244), copied.
 - ``select_rows``: the k selected payload rows of each row under v1, v2
   or v3 (v3: the class means, and which slots hold a class), which every
   eval kernel's plain version folds in its own way.
 
-The CUDA kernels of the AMP mode (``csrc/edge_conv_eval.cu``'s AMP
-instances) compute the same selections; these are their plain versions.
+The CUDA kernels of the AMP mode (the AMP instances of
+``csrc/edge_conv_eval.cu``, ``edge_conv_amp.cu``, ``knn_edge2_variant.cu``
+and, for training, ``knn_reduce.cu``) compute the same selections; these
+are their plain versions.
 """
 from __future__ import annotations
 
@@ -77,11 +82,12 @@ def extract_version(default: str, allow: tuple[str, ...]) -> str:
     return default
 
 
-def training_variant() -> str:
-    """The variant of the training kNN kernels 3 and 4 and of kernel 11:
-    ``extract_version("v1", ("v1", "v2"))``, which is the JAX kernels'
-    under the exact pin, the port's training mode."""
-    return extract_version("v1", ("v1", "v2"))
+def training_variant(amp: bool = False) -> str:
+    """The variant of the training kNN kernels 3 and 4 in the AMP mode
+    (``amp``) or the exact one: v2 in AMP, v1 in the exact mode, each
+    overridden by a ``DGCNN_TPU_EXTRACT`` of v1 or v2.  Kernel 11 takes
+    the exact mode's (``amp`` False) in either mode."""
+    return extract_version("v2" if amp else "v1", ("v1", "v2"))
 
 
 def knn_sum_variant(amp: bool) -> str:
@@ -125,6 +131,17 @@ def use_amp_eval(amp: bool | None, device: torch.device, n: int,
     if amp is None:
         return device.type == "cuda" and not exact_mode()
     return amp
+
+
+def use_amp_train(amp: bool | None, device: torch.device, n: int,
+                  k: int) -> bool:
+    """Whether a training step of ``n`` points and ``k`` neighbours runs in
+    the AMP mode (``use_amp_eval``'s twin): ``amp`` None takes the JAX
+    package's default, AMP on the card unless ``DGCNN_TPU_PALLAS_EXACT``
+    is set and exact on the CPU; True or False asks for one.  Clouds the
+    kNN kernels do not take, and k above the AMP kernels' lists, train
+    exact either way."""
+    return use_amp_eval(amp, device, n, k)
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:

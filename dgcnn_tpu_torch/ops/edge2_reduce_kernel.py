@@ -22,6 +22,15 @@ routes and from run to run.  ``edge2_fwd_plain`` and
 backward by autograd through the forward, ties of max and min splitting
 their cotangent evenly): the wrappers run them for CPU tensors and launch
 the kernels for CUDA tensors.
+
+``amp=True`` is the AMP form of either kernel, the JAX package's default
+in training (``exact=False``, ``pallas_knn.py:1120-1161, 1200-1285``), on
+the tiled route only (the wrappers raise at other shapes): a1's selected
+rows rounded to bf16, z1, h1, z2 and the reductions f32; in the backward
+each edge's dsel rounded to bf16 before the da1 sum over a point's
+in-edges (the pull form), db1, dW2, ds1 and dt1 f32.
+``edge2_fwd_amp_plain`` and ``edge2_bwd_amp_plain`` are their plain
+versions.
 """
 from __future__ import annotations
 
@@ -30,8 +39,17 @@ import ctypes
 import torch
 
 from dgcnn_tpu_torch.ops import _build
+from dgcnn_tpu_torch.ops.amp_select import round_bf16
 from dgcnn_tpu_torch.ops.edge2_kernel import MAX_C, edge2_z2
-from dgcnn_tpu_torch.ops.edge_reduce_bwd_kernel import reverse_list_ints
+from dgcnn_tpu_torch.ops.edge_reduce_bwd_kernel import (
+    reverse_list_ints,
+    scatter_edges,
+)
+from dgcnn_tpu_torch.ops.graph import gather_neighbors
+
+# the shapes of the tiled route (csrc/edge2_tile.cuh, e2t_train_route), the
+# AMP forms' only one
+TILED_C, TILED_K = 64, 128
 
 
 def edge2_fwd_plain(a1, b1, s1, t1, w2, idx, slope: float = 0.2):
@@ -55,13 +73,52 @@ def edge2_bwd_plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max, ct_min,
                                    (ct_max, ct_min, ct_sum, ct_sumsq))
 
 
+def edge2_fwd_amp_plain(a1, b1, s1, t1, w2, idx, slope: float = 0.2):
+    """Plain torch version of kernel 7's AMP form: ``edge2_fwd_plain`` on
+    a1 rounded to bf16."""
+    return edge2_fwd_plain(round_bf16(a1), b1, s1, t1, w2, idx, slope)
+
+
+def edge2_bwd_amp_edges(a1, b1, s1, t1, w2, idx, ct_max, ct_min, ct_sum,
+                        ct_sumsq, slope: float = 0.2):
+    """Kernel 8's AMP form by autograd through ``edge2_fwd_amp_plain`` with
+    each edge's selected row a leaf: (dsel (B, N, k, C1), each edge's da1
+    addend before its bf16 rounding; db1, ds1, dt1, dw2)."""
+    with torch.enable_grad():
+        sel = gather_neighbors(round_bf16(a1), idx.long()).requires_grad_(
+            True)
+        leaves = [t.detach().requires_grad_(True) for t in (b1, s1, t1, w2)]
+        bb, ss, tt, ww = leaves
+        z1 = (sel + bb[:, :, None]) * ss + tt
+        z2 = torch.matmul(torch.where(z1 >= 0, z1, slope * z1), ww)
+        outs = (z2.amax(dim=2), z2.amin(dim=2), z2.sum(dim=2),
+                z2.square().sum(dim=2))
+        return torch.autograd.grad(outs, [sel, *leaves],
+                                   (ct_max, ct_min, ct_sum, ct_sumsq))
+
+
+def edge2_bwd_amp_plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max, ct_min,
+                        ct_sum, ct_sumsq, slope: float = 0.2):
+    """Plain torch version of kernel 8's AMP form: (da1, db1, ds1, dt1,
+    dw2), each edge's dsel (``edge2_bwd_amp_edges``) rounded to bf16
+    before the sum into da1; db1, ds1, dt1 and dw2 of the unrounded
+    values.  ``amax`` and ``amin`` are not read: autograd recomputes
+    them."""
+    del amax, amin
+    dsel, *rest = edge2_bwd_amp_edges(a1, b1, s1, t1, w2, idx, ct_max,
+                                      ct_min, ct_sum, ct_sumsq, slope)
+    return (scatter_edges(round_bf16(dsel), idx), *rest)
+
+
 def _require(name: str, cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"{name}: {msg}")
 
 
-def _check(name: str, a1, b1, s1, t1, w2, idx, feats=()) -> tuple:
-    """The checks both kernels share; returns (B, N, C1, C2, k)."""
+def _check(name: str, a1, b1, s1, t1, w2, idx, feats=(),
+           amp: bool = False) -> tuple:
+    """The checks both kernels share (the AMP forms: the tiled route's
+    shapes); returns (B, N, C1, C2, k)."""
     _require(name, a1.is_cuda, f"no kernel for device {a1.device}")
     tensors = (a1, b1, s1, t1, w2, *feats)
     _require(name, all(t.device == a1.device for t in (*tensors, idx)),
@@ -87,6 +144,11 @@ def _check(name: str, a1, b1, s1, t1, w2, idx, feats=()) -> tuple:
     _require(name, c1 <= MAX_C and c2 <= MAX_C, f"C1, C2 must be <= {MAX_C}")
     k = idx.shape[2]
     _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
+    _require(name, not amp or (c1 <= TILED_C and c2 <= TILED_C
+                               and c1 % 4 == 0 and c2 % 4 == 0
+                               and k <= TILED_K),
+             f"the AMP form takes C1, C2 <= {TILED_C} (multiples of 4) and "
+             f"k <= {TILED_K}: C1={c1}, C2={c2}, k={k}")
     return b, n, c1, c2, k
 
 
@@ -103,7 +165,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
               t1: torch.Tensor, w2: torch.Tensor, idx: torch.Tensor,
-              slope: float = 0.2, *, rowwarp: bool = False):
+              slope: float = 0.2, *, rowwarp: bool = False,
+              amp: bool = False):
     """Max, min, sum and sum of squares over the k neighbours ``idx`` (B,
     N, k) of ``z2 = LReLU((a1[idx] + b1) * s1 + t1) @ w2`` -> four (B, N,
     C2) tensors.  ``a1``/``b1`` (B, N, C1), ``s1``/``t1`` (C1,), ``w2``
@@ -115,11 +178,15 @@ def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     of 4 up to 64 and k <= 128 (every model's shapes) take the tiled
     route, other shapes the row-warp route; ``rowwarp`` launches the
     row-warp route at any shape (the checks hold the tiled route bit-equal
-    to it)."""
+    to it).  ``amp`` runs the AMP form (module docstring)."""
     if a1.device.type == "cpu":
-        return edge2_fwd_plain(a1, b1, s1, t1, w2, idx, slope)
-    b, n, c1, c2, k = _check("edge2_fwd", a1, b1, s1, t1, w2, idx)
-    fn = _fn("dg_edge2_fwd_rowwarp" if rowwarp else "dg_edge2_fwd",
+        plain = edge2_fwd_amp_plain if amp else edge2_fwd_plain
+        return plain(a1, b1, s1, t1, w2, idx, slope)
+    b, n, c1, c2, k = _check("edge2_fwd", a1, b1, s1, t1, w2, idx, amp=amp)
+    _require("edge2_fwd", not (amp and rowwarp),
+             "the AMP form has the tiled route only")
+    fn = _fn("dg_edge2_fwd_amp" if amp else
+             "dg_edge2_fwd_rowwarp" if rowwarp else "dg_edge2_fwd",
              [_P] * 10 + [_I] * 5 + [_F, _P])
     small = [t.contiguous() for t in (s1, t1, w2)]
     red = [torch.empty((b, n, c2), device=a1.device, dtype=torch.float32)
@@ -130,6 +197,7 @@ def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
                 c1, c2, k, float(slope), _build.stream_of(a1))
     _build.check(rc, "edge2_fwd")
     edge2_fwd.launches += 1
+    edge2_fwd.amp_launches += amp
     return tuple(red)
 
 
@@ -138,7 +206,7 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
               amax: torch.Tensor, amin: torch.Tensor, ct_max: torch.Tensor,
               ct_min: torch.Tensor, ct_sum: torch.Tensor,
               ct_sumsq: torch.Tensor, slope: float = 0.2, *,
-              atomic: bool = False):
+              atomic: bool = False, amp: bool = False):
     """The gradients (da1, db1, ds1, dt1, dw2) of ``edge2_fwd``'s four
     reductions given their cotangents and its ``amax``/``amin``.
 
@@ -153,14 +221,20 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     warp a row).  dW2, ds1, dt1 and da1 are the same bits from call to
     call on either route: da1 is summed over each point's in-edges in
     ascending edge id from a stored addend a edge (B * N * k * C1 floats
-    of scratch), unless ``atomic`` adds the addends by f32 atomics."""
+    of scratch), unless ``atomic`` adds the addends by f32 atomics.
+    ``amp`` runs the AMP form (module docstring), in the pull form."""
     if a1.device.type == "cpu":
-        return edge2_bwd_plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max,
-                               ct_min, ct_sum, ct_sumsq, slope)
+        plain = edge2_bwd_amp_plain if amp else edge2_bwd_plain
+        return plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max, ct_min,
+                     ct_sum, ct_sumsq, slope)
     feats = (amax, amin, ct_max, ct_min, ct_sum, ct_sumsq)
-    b, n, c1, c2, k = _check("edge2_bwd", a1, b1, s1, t1, w2, idx, feats)
+    b, n, c1, c2, k = _check("edge2_bwd", a1, b1, s1, t1, w2, idx, feats,
+                             amp)
+    _require("edge2_bwd", not (amp and atomic),
+             "the AMP form has the pull form only")
     fn = (_fn("dg_edge2_bwd", [_P] * 16 + [_I] * 6 + [_F, _P]) if atomic
-          else _fn("dg_edge2_bwd_pull", [_P] * 18 + [_I] * 6 + [_F, _P]))
+          else _fn("dg_edge2_bwd_pull_amp" if amp else "dg_edge2_bwd_pull",
+                   [_P] * 18 + [_I] * 6 + [_F, _P]))
     small = [t.contiguous() for t in (s1, t1, w2)]
     # a few blocks per SM stride over the tiles (whole rows) or row groups;
     # each leaves one row of partial dW2/ds1/dt1 sums, which a second launch
@@ -189,10 +263,12 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
                 float(slope), _build.stream_of(a1))
     _build.check(rc, "edge2_bwd")
     edge2_bwd.launches += 1
+    edge2_bwd.amp_launches += amp
     dw2 = dflat[:c1 * c2].view(c1, c2)
     return da1, db1, dflat[c1 * c2:c1 * c2 + c1], dflat[c1 * c2 + c1:], dw2
 
 
-# launches of each kernel since its count was last set to 0
-edge2_fwd.launches = 0
-edge2_bwd.launches = 0
+# launches of each kernel since its count was last set to 0 (amp_launches:
+# those of its AMP form)
+edge2_fwd.launches = edge2_fwd.amp_launches = 0
+edge2_bwd.launches = edge2_bwd.amp_launches = 0

@@ -29,6 +29,14 @@ it is the same function in plain torch with the semantics of
 ``_ker_bwd_xla``: autograd through the gather and the reductions, ties of
 max and min splitting their cotangent evenly.  The wrapper runs it for CPU
 tensors and launches the kernel for CUDA tensors.
+
+``amp=True`` is the AMP form, the JAX package's default in training
+(``_edge_reduce_bwd_kernel`` with ``exact=False``, ``pallas_knn.py:
+666-718``), on the pull route only: ``a``'s values rounded to bf16, the
+ties counted against the given ``amax``/``amin`` (the AMP forward's
+values of ``round_bf16(a)``), and each edge's addend rounded to bf16
+before the f32 sum over a point's in-edges in ascending edge order.
+``edge_reduce_bwd_amp_plain`` is its plain version.
 """
 from __future__ import annotations
 
@@ -55,6 +63,47 @@ def edge_reduce_bwd_plain(idx, a, amax, amin, ct_max, ct_min, ct_sum,
         (da,) = torch.autograd.grad(outs, a,
                                     (ct_max, ct_min, ct_sum, ct_sumsq))
     return da
+
+
+def edge_reduce_bwd_amp_addends(idx, a, amax, amin, ct_max, ct_min, ct_sum,
+                                ct_sumsq) -> torch.Tensor:
+    """Each edge's addend of the AMP form before its bf16 rounding, (B, N,
+    k, Co): with sel = round_bf16(a)[idx] and the ties counted against
+    ``amax``/``amin``, ``((max term + min term) + ct_sum) + sel * 2
+    ct_sumsq``."""
+    from dgcnn_tpu_torch.ops.amp_select import round_bf16
+
+    sel = gather_neighbors(round_bf16(a), idx.long())
+    is_max = sel == amax[:, :, None]
+    is_min = sel == amin[:, :, None]
+    gmax = ct_max / is_max.sum(dim=2)
+    gmin = ct_min / is_min.sum(dim=2)
+    return (torch.where(is_max, gmax[:, :, None], 0.0)
+            + torch.where(is_min, gmin[:, :, None], 0.0)
+            + ct_sum[:, :, None]) + sel * (2.0 * ct_sumsq)[:, :, None]
+
+
+def scatter_edges(addends: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, k, C) per-edge values, each added into its neighbour's row
+    (``idx`` (B, N, k)), in ascending edge order on the CPU -> (B, N, C)
+    f32."""
+    b, n, _, c = addends.shape
+    target = (idx.long() + n * torch.arange(b, device=idx.device)[:, None,
+                                                                 None])
+    out = torch.zeros((b * n, c), dtype=torch.float32, device=idx.device)
+    out.index_add_(0, target.reshape(-1), addends.reshape(-1, c))
+    return out.reshape(b, n, c)
+
+
+def edge_reduce_bwd_amp_plain(idx, a, amax, amin, ct_max, ct_min, ct_sum,
+                              ct_sumsq) -> torch.Tensor:
+    """Plain torch version of the AMP form: ``da`` (B, N, Co), each edge's
+    addend (``edge_reduce_bwd_amp_addends``) rounded to bf16 and added
+    into its neighbour's row."""
+    from dgcnn_tpu_torch.ops.amp_select import round_bf16
+
+    return scatter_edges(round_bf16(edge_reduce_bwd_amp_addends(
+        idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq)), idx)
 
 
 def reverse_list_ints(b: int, n: int, k: int) -> int:
@@ -124,7 +173,7 @@ def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
                     amin: torch.Tensor, ct_max: torch.Tensor,
                     ct_min: torch.Tensor, ct_sum: torch.Tensor,
                     ct_sumsq: torch.Tensor, *, atomic: bool = False,
-                    slices: bool = False) -> torch.Tensor:
+                    slices: bool = False, amp: bool = False) -> torch.Tensor:
     """``da`` of the reductions (amax, amin, asum, asumsq) of
     ``knn_reduce`` with respect to ``a`` (B, N, Co), given their cotangents
     and the forward's ``idx`` (B, N, k) and ``amax``/``amin``.
@@ -133,10 +182,11 @@ def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
     which takes an int32 ``idx``, f32 contiguous tensors, N a multiple of
     128 and Co <= 256, and raises on anything else.  The pull route runs
     unless ``atomic`` (the atomic route at any shape) or ``slices`` (the
-    channel-slices route) asks for an oracle."""
+    channel-slices route) asks for an oracle.  ``amp`` runs the AMP form
+    (module docstring), on the pull route only."""
     if a.device.type == "cpu":
-        return edge_reduce_bwd_plain(idx, a, amax, amin, ct_max, ct_min,
-                                     ct_sum, ct_sumsq)
+        plain = edge_reduce_bwd_amp_plain if amp else edge_reduce_bwd_plain
+        return plain(idx, a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq)
     _require(a.is_cuda, f"no kernel for device {a.device}")
     feats = (a, amax, amin, ct_max, ct_min, ct_sum, ct_sumsq)
     _require(all(t.device == a.device for t in (idx, *feats)),
@@ -157,8 +207,10 @@ def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
     _require(not (atomic and slices), "atomic and slices are two routes")
     pull = not (atomic or slices)
+    _require(pull or not amp, "the AMP form has the pull route only")
     lib = _build.load_library()
-    fn = getattr(lib, "dg_edge_reduce_bwd_pull" if pull else
+    fn = getattr(lib, "dg_edge_reduce_bwd_pull_amp" if amp else
+                 "dg_edge_reduce_bwd_pull" if pull else
                  "dg_edge_reduce_bwd_atomic" if atomic else
                  "dg_edge_reduce_bwd")
     if fn.argtypes is None:
@@ -182,8 +234,10 @@ def edge_reduce_bwd(idx: torch.Tensor, a: torch.Tensor, amax: torch.Tensor,
                 _build.stream_of(a))
     _build.check(rc, "edge_reduce_bwd")
     edge_reduce_bwd.launches += 1
+    edge_reduce_bwd.amp_launches += amp
     return da
 
 
-# launches of the kernel since the count was last set to 0
-edge_reduce_bwd.launches = 0
+# launches of the kernel since the count was last set to 0 (amp_launches:
+# those of its AMP form)
+edge_reduce_bwd.launches = edge_reduce_bwd.amp_launches = 0

@@ -17,10 +17,22 @@ pins it), which picks the k largest packed keys of the same f32 scores
 64, the kernels' ``v2`` entries); the reductions over the list are the
 same.
 
+``amp=True`` is the AMP form, the JAX package's default in training
+(``select_dtype=bf16``, ``pallas_knn.py:371-467``): the AMP scores
+(``amp_select.amp_scores``, bf16x3 of the f32 graph), v2 (the packed keys
+of those scores) unless ``DGCNN_TPU_EXTRACT`` says v1, and the rows of
+``a`` rounded to bf16 before max, min, sum and sum of squares, which are
+f32.  ``knn_reduce_amp_plain`` and ``knn_reduce_xw_amp_plain`` are its
+plain versions; the CUDA form takes v2 and k <= 64 and raises on the rest.
+Its select-x form (kernel 4) rounds x to bf16, projects the cloud and
+rounds each selected row of the product to bf16: the TPU kernel's
+``bf16(bf16(x)[idx] @ w)``, a selection commuting with the projection.
+
 ``xw_project`` is the one projection routine of the select-x form: the
-backward of ``knn_reduce_xw`` recomputes ``a = x @ w`` through it, and on
-CUDA it launches the projection that ``knn_reduce_xw``'s kernel runs, so
-the backward's ties (``a == amax``) are found on the same bits.
+backward of ``knn_reduce_xw`` recomputes ``a = x @ w`` through it (in the
+AMP form on x rounded to bf16), and on CUDA it launches the projection
+that ``knn_reduce_xw``'s kernel runs, so the backward's ties (``a ==
+amax``) are found on the same bits.
 """
 from __future__ import annotations
 
@@ -29,7 +41,13 @@ import ctypes
 import torch
 
 from dgcnn_tpu_torch.ops import _build
-from dgcnn_tpu_torch.ops.amp_select import training_variant
+from dgcnn_tpu_torch.ops.amp_select import (
+    amp_scores,
+    round_bf16,
+    training_variant,
+    v1_indices,
+    v2_indices,
+)
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
 from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
 
@@ -64,6 +82,27 @@ def knn_reduce_xw_plain(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return knn_reduce_plain(graph, torch.matmul(x, w), k, variant)
 
 
+def knn_reduce_amp_plain(graph: torch.Tensor, a: torch.Tensor, k: int,
+                         variant: str = "v2"):
+    """Plain torch version of kernel 3's AMP form: the k largest packed
+    keys (v2) or AMP scores (v1) of ``amp_scores(graph, graph)``, then the
+    max, min, sum and sum of squares over them of ``a``'s rows rounded to
+    bf16, in f32."""
+    scores = amp_scores(graph, graph)
+    idx = (v2_indices if variant == "v2" else v1_indices)(scores, k)
+    ag = gather_neighbors(round_bf16(a), idx)
+    return (idx.int(), ag.amax(dim=2), ag.amin(dim=2), ag.sum(dim=2),
+            ag.square().sum(dim=2))
+
+
+def knn_reduce_xw_amp_plain(graph: torch.Tensor, x: torch.Tensor,
+                            w: torch.Tensor, k: int, variant: str = "v2"):
+    """Plain torch version of kernel 4's AMP form: ``knn_reduce_amp_plain``
+    over ``round_bf16(x) @ w``."""
+    return knn_reduce_amp_plain(graph, torch.matmul(round_bf16(x), w), k,
+                                variant)
+
+
 def _fn(name: str, argtypes):
     fn = getattr(_build.load_library(), name)
     if fn.argtypes is None:
@@ -80,9 +119,14 @@ def _require(name: str, cond: bool, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-def _check_select(name, graph, feats, co: int, k: int, v2: bool) -> None:
+def _check_select(name, graph, feats, co: int, k: int, variant: str,
+                  amp: bool = False) -> None:
     """The checks both select kernels share: device, f32, contiguity and
-    the shapes the kernels take (the v2 form: k <= 64)."""
+    the shapes the kernels take (the v2 and AMP forms: k <= 64; the AMP
+    form: v2)."""
+    _require(name, not amp or variant == "v2",
+             f"the AMP mode's {variant} (DGCNN_TPU_EXTRACT={variant}) has "
+             f"no CUDA form; ported: v2")
     _require(name, graph.is_cuda, f"no kernel for device {graph.device}")
     _require(name, all(t.device == graph.device for t in feats),
              "all tensors must be on one device")
@@ -97,24 +141,30 @@ def _check_select(name, graph, feats, co: int, k: int, v2: bool) -> None:
     _require(name, 1 <= co <= max_co(n),
              f"Co={co} out of 1..{max_co(n)} for N={n}")
     _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
-    _require(name, not v2 or k <= TILED_MAX_K,
-             f"the v2 form (DGCNN_TPU_EXTRACT=v2) takes k <= {TILED_MAX_K}, "
-             f"not {k}")
+    form = "AMP form" if amp else "v2 form (DGCNN_TPU_EXTRACT=v2)"
+    _require(name, not (amp or variant == "v2") or k <= TILED_MAX_K,
+             f"the {form} takes k <= {TILED_MAX_K}, not {k}")
 
 
-def _outputs(graph: torch.Tensor, co: int, k: int, v2: bool):
-    """idx, the four reductions and the scratch: sq, and for the v2 form
-    the rows' grids."""
-    b, n, _ = graph.shape
+def _outputs(graph: torch.Tensor, co: int, k: int, v2: bool,
+             amp: bool = False):
+    """idx, the four reductions and the scratch: sq, for the v2 form the
+    rows' grids, and for the AMP form before them the two score operands
+    (B * N * 3 Cg floats each)."""
+    b, n, cg = graph.shape
     idx = torch.empty((b, n, k), device=graph.device, dtype=torch.int32)
     red = [torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
            for _ in range(4)]
-    scratch = [torch.empty((b * n,), device=graph.device,
-                           dtype=torch.float32) for _ in range(1 + v2)]
+    scratch = [torch.empty((b * n * 3 * cg,), device=graph.device,
+                           dtype=torch.float32) for _ in range(2 * amp)]
+    scratch += [torch.empty((b * n,), device=graph.device,
+                            dtype=torch.float32)
+                for _ in range(1 + (v2 or amp))]
     return idx, red, scratch
 
 
-def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int):
+def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
+               amp: bool = False):
     """kNN over ``graph`` (B, N, Cg), then the max, min, sum and sum of
     squares over the k neighbours of ``a`` (B, N, Co).
 
@@ -129,19 +179,24 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int):
     ``TILED_MAX_K`` (every model's k) the tiled selection (blocks of 64
     query rows, register-blocked score tiles, a running top-k a row), above
     it the row-warp selection (a warp a row, its N scores in registers).
-    Both give the same bits.  The v2 form has the tiled route only."""
-    variant = training_variant()
+    Both give the same bits.  The v2 form has the tiled route only.
+
+    ``amp`` runs the AMP form (module docstring), tiled route only."""
+    variant = training_variant(amp)
     if graph.device.type == "cpu":
+        if amp:
+            return knn_reduce_amp_plain(graph, a, k, variant)
         return knn_reduce_plain(graph, a, k, variant)
-    v2 = variant == "v2"
+    v2 = variant == "v2" and not amp
     co = a.shape[-1]
-    _check_select("knn_reduce", graph, (a,), co, k, v2)
+    _check_select("knn_reduce", graph, (a,), co, k, variant, amp)
     b, n, cg = graph.shape
     _require("knn_reduce", a.shape == (b, n, co),
              f"a {tuple(a.shape)} vs graph {tuple(graph.shape)}")
-    fn = _fn("dg_knn_reduce_v2" if v2 else "dg_knn_reduce",
-             [_P] * (9 if v2 else 8) + [_I] * 5 + [_P])
-    idx, red, scratch = _outputs(graph, co, k, v2)
+    name = ("dg_knn_reduce_amp" if amp else
+            "dg_knn_reduce_v2" if v2 else "dg_knn_reduce")
+    idx, red, scratch = _outputs(graph, co, k, v2, amp)
+    fn = _fn(name, [_P] * (7 + len(scratch)) + [_I] * 5 + [_P])
     p = _build.ptr
     with torch.cuda.device(graph.device):
         rc = fn(p(graph), p(a), *map(p, scratch), p(idx), *map(p, red), b, n,
@@ -149,38 +204,49 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int):
     _build.check(rc, "knn_reduce")
     knn_reduce.launches += 1
     knn_reduce.v2_launches += v2
+    knn_reduce.amp_launches += amp
     return (idx, *red)
 
 
 def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                  k: int):
+                  k: int, *, amp: bool = False):
     """``knn_reduce(graph, x @ w, k)`` with the projection inside the
     kernel's launch: ``x`` (B, N, Cin), ``w`` (Cin, Co).  Same outputs and
-    the same rules for CPU and CUDA tensors as ``knn_reduce``."""
-    variant = training_variant()
+    the same rules for CPU and CUDA tensors as ``knn_reduce``; ``amp``:
+    ``knn_reduce(graph, round_bf16(x) @ w, k, amp=True)``, whose rows of
+    the product are rounded to bf16 before the reductions."""
+    variant = training_variant(amp)
     if graph.device.type == "cpu":
+        if amp:
+            return knn_reduce_xw_amp_plain(graph, x, w, k, variant)
         return knn_reduce_xw_plain(graph, x, w, k, variant)
-    v2 = variant == "v2"
+    v2 = variant == "v2" and not amp
     cin, co = w.shape
-    _check_select("knn_reduce_xw", graph, (x, w), co, k, v2)
+    _check_select("knn_reduce_xw", graph, (x, w), co, k, variant, amp)
     b, n, cg = graph.shape
     _require("knn_reduce_xw", x.shape == (b, n, cin),
              f"x {tuple(x.shape)} vs graph {tuple(graph.shape)} and w "
              f"{tuple(w.shape)}")
-    fn = _fn("dg_knn_reduce_xw_v2" if v2 else "dg_knn_reduce_xw",
-             [_P] * (11 if v2 else 10) + [_I] * 6 + [_P])
-    idx, red, scratch = _outputs(graph, co, k, v2)
-    a = torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
+    name = ("dg_knn_reduce_xw_amp" if amp else
+            "dg_knn_reduce_xw_v2" if v2 else "dg_knn_reduce_xw")
+    idx, red, scratch = _outputs(graph, co, k, v2, amp)
+    # the projection's scratch: a, after x rounded to bf16 in the AMP form
+    proj = [torch.empty((b * n * cin,), device=graph.device,
+                        dtype=torch.float32)] * amp + [
+        torch.empty((b, n, co), device=graph.device, dtype=torch.float32)]
+    fn = _fn(name, [_P] * (8 + len(proj) + len(scratch)) + [_I] * 6 + [_P])
     p = _build.ptr
     # the launch is asynchronous on torch's current stream: scratch made
     # here and freed on return is reused by the caching allocator only for
     # work queued after it on that stream
     with torch.cuda.device(graph.device):
-        rc = fn(p(graph), p(x), p(w), p(a), *map(p, scratch), p(idx),
-                *map(p, red), b, n, cg, cin, co, k, _build.stream_of(graph))
+        rc = fn(p(graph), p(x), p(w), *map(p, proj), *map(p, scratch),
+                p(idx), *map(p, red), b, n, cg, cin, co, k,
+                _build.stream_of(graph))
     _build.check(rc, "knn_reduce_xw")
     knn_reduce_xw.launches += 1
     knn_reduce_xw.v2_launches += v2
+    knn_reduce_xw.amp_launches += amp
     return (idx, *red)
 
 
@@ -214,7 +280,8 @@ def xw_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # launches of each kernel since its count was last set to 0 (v2_launches:
-# those of its v2 form)
-knn_reduce.launches = knn_reduce.v2_launches = 0
+# those of its exact v2 form, amp_launches: those of its AMP form)
+knn_reduce.launches = knn_reduce.v2_launches = knn_reduce.amp_launches = 0
 knn_reduce_xw.launches = knn_reduce_xw.v2_launches = 0
+knn_reduce_xw.amp_launches = 0
 xw_project.launches = 0

@@ -36,6 +36,7 @@ from dgcnn_tpu_torch.ops.amp_select import (
     amp_scores,
     pack_keys,
     use_amp_eval,
+    use_amp_train,
     v2_indices,
 )
 from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool, conv_pool_amp_plain
@@ -283,8 +284,11 @@ def test_exact_pin_gives_the_exact_path(monkeypatch):
     assert not use_amp_eval(False, cuda, 1024, 20)
     assert not use_amp_eval(None, cuda, 1000, 20)
     assert not use_amp_eval(True, cuda, 1024, 65)
-    with pytest.raises(ValueError):
-        model(x, train=True, amp=True)
+    # training takes the twin switch (tests/test_torch_amp_train.py holds
+    # its AMP step; the fusion Net's refusal is held in
+    # tests/test_torch_amp_net.py)
+    assert use_amp_train(True, cpu, 1024, 20)
+    assert not use_amp_train(True, cuda, 1024, 65)
 
 
 def test_reverse_lists_match_numpy():

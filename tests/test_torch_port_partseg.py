@@ -671,7 +671,7 @@ def test_dgcnn_partseg_band_runs_the_banded_stages(monkeypatch):
 
 
 @pytest.mark.cuda
-def test_dgcnn_partseg_kernel_path_matches_plain_path():
+def test_dgcnn_partseg_kernel_path_matches_plain_path(monkeypatch):
     """Full-width DGCNNPartSeg on the card: 3 / 1 / 2 launches per forward
     and the CPU plain path's per-point predictions; one SGD step launches
     1 / 3 / 2 / 2 / 3 and gives the CPU plain path's loss."""
@@ -704,6 +704,9 @@ def test_dgcnn_partseg_kernel_path_matches_plain_path():
     assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.995
     train_step, _ = make_seg_steps(with_label=True)
     sched = make_schedule("cos", 0.001, epochs=100, steps_per_epoch=1)
+    # the step in the exact mode, which the CPU plain path runs (the
+    # card's default is AMP)
+    monkeypatch.setenv("DGCNN_TPU_PALLAS_EXACT", "1")
     for f in (knn, knn_reduce, edge2_fwd, edge2_bwd, edge_reduce_bwd):
         f.launches = 0
     got = train_step(dev, make_optimizer(dev.parameters(), use_sgd=True,

@@ -107,14 +107,14 @@ def _record_knn_gaps(monkeypatch, k: int):
     gaps = []
     inner = dgcnn.knn_edge_reduce
 
-    def recording(graph, a, kk):
+    def recording(graph, a, kk, *mode):
         g = graph.detach()
         sq = (g * g).sum(-1)
         top = (2 * torch.bmm(g, g.transpose(1, 2)) - sq[:, :, None]
                - sq[:, None, :]).topk(k + 1, dim=-1).values
         scale = sq + sq.amax(-1, keepdim=True)
         gaps.append(((top[..., k - 1] - top[..., k]) / scale).min().item())
-        return inner(graph, a, kk)
+        return inner(graph, a, kk, *mode)
 
     monkeypatch.setattr(dgcnn, "knn_edge_reduce", recording)
     monkeypatch.setattr(nn_layers, "knn_edge_reduce", recording)
@@ -348,7 +348,7 @@ def test_semseg_cli_needs_an_area_and_a_device(s3dis_dir, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_dgcnn_semseg_kernel_path_matches_plain_path():
+def test_dgcnn_semseg_kernel_path_matches_plain_path(monkeypatch):
     """Full-width DGCNNSemSeg on the card: 2 / 1 / 1 launches per forward
     and the CPU plain path's per-point predictions; one SGD step launches
     3 / 2 / 2 / 3 and gives the CPU plain path's loss and gradients."""
@@ -379,6 +379,9 @@ def test_dgcnn_semseg_kernel_path_matches_plain_path():
     assert (got.argmax(-1) == want.argmax(-1)).float().mean() >= 0.995
     train_step, _ = make_seg_steps()
     sched = make_schedule("cos", 0.001, epochs=100, steps_per_epoch=1)
+    # the step in the exact mode, which the CPU plain path runs (the
+    # card's default is AMP)
+    monkeypatch.setenv("DGCNN_TPU_PALLAS_EXACT", "1")
     knn_reduce.launches = edge2_fwd.launches = edge2_bwd.launches = 0
     edge_reduce_bwd.launches = 0
     got = train_step(dev, make_optimizer(dev.parameters(), use_sgd=True,

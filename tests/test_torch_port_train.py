@@ -383,12 +383,14 @@ def test_init_like_flax_matches_flax_statistics():
 
 
 @pytest.mark.cuda
-def test_dgcnn_cls_train_step_kernel_path_matches_plain():
-    """Full-width DGCNNCls training step on the card: 3 + 1 forward and 4
-    backward kernel launches, and the loss and gradients of the plain path
-    on the CPU from the same weights and batch."""
+def test_dgcnn_cls_train_step_kernel_path_matches_plain(monkeypatch):
+    """Full-width DGCNNCls training step on the card in the exact mode (the
+    pin: the card's default is AMP): 3 + 1 forward and 4 backward kernel
+    launches, and the loss and gradients of the plain path on the CPU from
+    the same weights and batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    monkeypatch.setenv("DGCNN_TPU_PALLAS_EXACT", "1")
     from dgcnn_tpu_torch.ops import edge_reduce_bwd, knn_reduce, knn_reduce_xw
 
     torch.backends.cuda.matmul.allow_tf32 = False
