@@ -3,10 +3,10 @@ training and evaluation of the canonical DGCNN (``--model dgcnn``) and of
 the fork's fusion Net (``--model transformer``, the parser's default:
 DGCNN + HOG + ``torch.nn.Transformer``, dropout ``--dropout`` on its
 attention probabilities, feed-forward, residual branches and head).
-Both models' evals and the canonical DGCNN's training take the JAX
-package's mode as the models resolve it (``amp`` None): AMP (bf16) on
-the card unless ``DGCNN_TPU_PALLAS_EXACT`` is set, exact on the CPU; the
-fusion Net trains exact f32.  No flag, as the JAX CLI has none.
+Both models' evals and training take the JAX package's mode as the
+models resolve it (``amp`` None): AMP (bf16) on the card unless
+``DGCNN_TPU_PALLAS_EXACT`` is set, exact f32 on the CPU.  No flag, as the
+JAX CLI has none.
 
 The JAX CLI's parser and defaults, apart from its runtime flags; the
 options the port does not have yet are refused by the parser with a

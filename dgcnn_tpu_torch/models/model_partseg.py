@@ -34,17 +34,21 @@ state-dict keys are ``export_net``'s (``emb_nn.*``, ``grads_emb.{0,1,3,4,
 vector-attention transformer (``use_custom_attention``) is not ported
 yet.
 
-The eval has the JAX package's two numerics modes (``Net.forward``'s
-``amp``, resolved by ``ops.amp_select.use_amp_eval``): exact f32, and AMP
-(the JAX ``Net``'s default, dgcnn_tpu/models/model_partseg.py:95-111):
-the backbone's four stages, the PositionEmbedding's TransformNet and
-conv3 pool in their AMP forms (kernels 1, 6 and 2), kernel 10 in v2, the
-grads_emb convs, the transformer, the last attention (kernel 14's AMP
-form) and the head's fc1-fc3 computing in bf16 (f32 parameters cast
-down; BatchNorm, LayerNorm statistics and the softmax in f32), conv5, the
-PositionEmbedding's conv and the label conv in f32, the logits f32.  The
-whole forward switches at once: no forward mixes AMP and exact kernels.
-Training is exact.
+Eval and training have the JAX package's two numerics modes
+(``Net.forward``'s ``amp``, resolved by ``ops.amp_select.use_amp_eval``
+or, in training, ``use_amp_train``): exact f32, and AMP (the JAX ``Net``'s
+default in both, dgcnn_tpu/models/model_partseg.py:95-111): the
+backbone's four stages in their AMP forms (eval: kernel 1; training:
+kernels 3, 4 and 5), kernel 10 in v2, the grads_emb convs, the
+transformer, the last attention (kernel 14's AMP forms; in training
+kernel 15's bf16 form backward) and the head's fc1-fc3 computing in bf16
+(f32 parameters cast down; BatchNorm, its batch statistics included,
+LayerNorm statistics and the softmax in f32), conv5, the
+PositionEmbedding (in eval the AMP forms of kernels 6 and 2; in training
+kernel 11, exact in both modes, and f32 convs), its conv and the label
+conv in f32, the logits f32.  The whole forward or step switches at once:
+none mixes AMP and exact kernels.  The head's dropout acts on the f32
+outputs of its BatchNorm and LeakyReLU, as flax's does.
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ from dgcnn_tpu_torch.models.torch_transformer import (
     TorchMultiheadAttention,
     TorchTransformer,
 )
-from dgcnn_tpu_torch.ops.amp_select import use_amp_eval
+from dgcnn_tpu_torch.ops.amp_select import use_amp_eval, use_amp_train
 from dgcnn_tpu_torch.ops.hog import compute_hog
 
 _HOG_CHANNELS = 18
@@ -131,13 +135,11 @@ class Net(nn.Module):
     reference's gather of same-axis triples with ``hog_bug_compat``, as a
     reference-trained ``transformer.pt`` needs.
 
-    Eval has two numerics modes (module docstring): ``forward``'s ``amp``
-    None takes AMP on the card unless ``DGCNN_TPU_PALLAS_EXACT`` is set
-    and exact on the CPU; True or False asks for one (clouds the kNN
-    kernels do not take, and k > 64, stay exact).  Training is exact (the
-    AMP forms of its training kernels are not ported yet): ``train=True``
-    with ``amp=True`` raises, and the backbone's training stages take the
-    exact mode."""
+    Eval and training have two numerics modes (module docstring):
+    ``forward``'s ``amp`` None takes AMP on the card unless
+    ``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU; True or False
+    asks for one (clouds the kNN kernels do not take, and k > 64, stay
+    exact)."""
 
     def __init__(self, emb_dim: int = 512, k: int = 32, n_heads: int = 4,
                  n_blocks: int = 2, ff_dims: int = 512, nclasses: int = 50,
@@ -171,10 +173,8 @@ class Net(nn.Module):
                 train: bool = False,
                 generator: torch.Generator | None = None, *,
                 amp: bool | None = None) -> torch.Tensor:
-        if train and amp:
-            raise ValueError("Net trains in the exact mode only")
-        amp = not train and use_amp_eval(amp, src.device, src.shape[1],
-                                         self.k)
+        amp = (use_amp_train if train else use_amp_eval)(
+            amp, src.device, src.shape[1], self.k)
         dt = torch.bfloat16 if amp else torch.float32
         src_embedding = self.emb_nn(src, train, amp)           # (B, N, emb)
         h = compute_hog(src, self.k, bug_compat=self.hog_bug_compat, amp=amp)

@@ -11,11 +11,12 @@ reference checkpoint, or a flax model exported by
 variance normalize, and the running statistics move by momentum 0.1 with
 the unbiased variance.  The updates happen in place under ``no_grad``.
 
-A compute dtype (the AMP eval of the fusion Net) follows flax's
+A compute dtype (the AMP fusion Net, eval and training) follows flax's
 ``nn.Dense(dtype=bf16)`` (dgcnn_tpu/models/nn_layers.py:100-135): the
 input and the f32 parameters cast down, the product rounded to bf16 and
-then the bias added in bf16 (``dense``); BatchNorm and LeakyReLU after it
-in f32 (a bf16 input promotes), as ``ConvBN`` with ``dtype`` does.
+then the bias added in bf16 (``dense``; its backward's products with f32
+sums too); BatchNorm and LeakyReLU after it in f32 (a bf16 input promotes,
+its batch statistics in training too), as ``ConvBN`` with ``dtype`` does.
 """
 from __future__ import annotations
 
@@ -47,31 +48,59 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+def _bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two bf16 tensors with f32 sums, rounded to bf16 once.
+    On the CPU the product is taken in f32 on the bf16 values and rounded
+    (torch's CPU bf16 matmul can round partial sums); on the card it is
+    torch's bf16 matmul with reduced-precision reductions off for the call
+    (torch allows cuBLAS to round partial sums to bf16 by default), so f32
+    sums on the tensor cores."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.float(), b.float()).to(torch.bfloat16)
+    flags = torch.backends.cuda.matmul
+    allowed = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return torch.matmul(a, b)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = allowed
+
+
+class Bf16Product(torch.autograd.Function):
+    """(x (..., K), w (K, M)) bf16 -> x @ w bf16, and its backward: dx =
+    g @ w^T and dw = x^T g over every row, each with f32 sums rounded to
+    bf16 once (``_bf16_product``), as flax's ``nn.Dense(dtype=bf16)``
+    differentiates: autograd's own bf16 products could round partial sums
+    to bf16."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _bf16_product(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _bf16_product(g, w.t())
+        if ctx.needs_input_grad[1]:
+            dw = _bf16_product(x.reshape(-1, x.shape[-1]).t(),
+                               g.reshape(-1, g.shape[-1]))
+        return dx, dw
+
+
 def dense(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor | None = None,
           dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ w (+ bias)`` in flax ``nn.Dense``'s compute ``dtype``.  None
     or f32: the f32 product, then the bias.  bf16: ``x``, ``w`` and the bias
     cast to bf16, the product of the bf16 values with f32 sums rounded to
-    bf16 once, then the bias added in bf16.  On the CPU the product is
-    taken in f32 on the bf16 values and rounded (torch's CPU bf16 matmul
-    can round partial sums); on the card it is torch's bf16 matmul with
-    reduced-precision reductions off for the call (torch allows cuBLAS to
-    round partial sums to bf16 by default), so f32 sums on the tensor
-    cores."""
+    bf16 once (``Bf16Product``: its backward's two products too), then the
+    bias added in bf16."""
     if dtype is None or dtype == torch.float32:
         y = torch.matmul(x, w)
         return y if bias is None else y + bias
-    xb, wb = x.to(dtype), w.to(dtype)
-    if x.device.type == "cpu":
-        y = torch.matmul(xb.float(), wb.float()).to(dtype)
-    else:
-        flags = torch.backends.cuda.matmul
-        allowed = flags.allow_bf16_reduced_precision_reduction
-        flags.allow_bf16_reduced_precision_reduction = False
-        try:
-            y = torch.matmul(xb, wb)
-        finally:
-            flags.allow_bf16_reduced_precision_reduction = allowed
+    y = Bf16Product.apply(x.to(dtype), w.to(dtype))
     return y if bias is None else y + bias.to(dtype)
 
 
@@ -191,6 +220,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
+            # the statistics in f32 on a bf16 input promoted, as the JAX
+            # BatchNorm's (a bf16 mean would round the moments)
+            x = x.float()
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(dim=axes)
             var = (x.square().mean(dim=axes) - mean.square()).clamp(min=0.0)

@@ -24,23 +24,23 @@ Feed-forward activation quirk, kept: the reference asks for
 relu in the decoder; each stack takes its own activation.
 
 Each ``forward`` takes a compute ``dtype``: f32 (the default, the exact
-mode) or bf16, the AMP eval of the fusion Net, which mirrors flax's
-``nn.Dense(dtype=bf16)`` and ``nn.LayerNorm(dtype=bf16)`` as
+mode) or bf16, the AMP fusion Net in eval and in training, which mirrors
+flax's ``nn.Dense(dtype=bf16)`` and ``nn.LayerNorm(dtype=bf16)`` as
 dgcnn_tpu/models/torch_transformer.py:133-152,247-375 use them: the
 projections in bf16 (``nn_layers.dense``: the product rounded to bf16,
-then the bias added in bf16), the attention on bf16 q, k and v (kernel
-14's AMP form on CUDA tensors with d in ``HEAD_DIMS``, its plain version
-``attention_amp_plain`` otherwise), the feed-forward's activation on bf16
-values, each residual sum in the promoted dtype of its operands (an f32
-input plus a bf16 branch is f32) and each LayerNorm's statistics in f32
-with a bf16 result (``nn_layers.layer_norm``).  It is eval only: kernel 14
-has no bf16 training form yet.
+then the bias added in bf16; its backward's products with f32 sums), the
+attention on bf16 q, k and v (kernel 14's AMP forms on CUDA tensors with d
+in ``HEAD_DIMS``, kernel 15's bf16 form backward; their plain versions
+otherwise), the feed-forward's activation on bf16 values, each residual
+sum in the promoted dtype of its operands (an f32 input plus a bf16 branch
+is f32) and each LayerNorm's statistics in f32 with a bf16 result
+(``nn_layers.layer_norm``).
 
 Training (``train=True``) drops, at the modules' ``dropout`` rate, the
 attention probabilities (in the kernels, a fresh int64 seed a call drawn
 from the caller's ``generator``), the feed-forward hidden layer and every
-residual branch (``nn_layers.Dropout``, from the same generator), as the
-JAX modules do.
+residual branch (``nn_layers.Dropout``, from the same generator, on the
+values in their compute dtype: bf16 ones in bf16), as the JAX modules do.
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ from dgcnn_tpu_torch.models.nn_layers import (
 )
 from dgcnn_tpu_torch.ops.attention import (
     HEAD_DIMS,
-    attention_amp_plain,
+    attention_amp_train_plain,
     attention_plain,
     fused_attention,
 )
@@ -93,8 +93,6 @@ class TorchMultiheadAttention(nn.Module):
         d = e // h
         b, nq, _ = query.shape
         w, bias = self.in_proj_weight, self.in_proj_bias
-        if dtype != F32 and train:
-            raise ValueError("the bf16 attention is the eval's")
 
         def heads(x, i):
             # (B, N, E) -> (B, h, N, d), a view of the projection
@@ -117,7 +115,7 @@ class TorchMultiheadAttention(nn.Module):
         elif dtype == F32:
             out = attention_plain(q, k, v, scale, rate, seed)
         else:
-            out = attention_amp_plain(q, k, v, scale)
+            out = attention_amp_train_plain(q, k, v, scale, rate, seed)[0]
         return self.out_proj(out.transpose(1, 2).reshape(b, nq, e), dtype)
 
 

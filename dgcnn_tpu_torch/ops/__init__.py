@@ -2,8 +2,12 @@
 paths."""
 from dgcnn_tpu_torch.ops.attention import (
     FusedAttention,
+    FusedAttentionAMP,
+    attention_amp_bwd_plain,
     attention_amp_plain,
+    attention_amp_train_plain,
     attention_bwd,
+    attention_bwd_amp,
     attention_bwd_plain,
     attention_fwd,
     attention_fwd_amp,
@@ -62,10 +66,14 @@ from dgcnn_tpu_torch.ops.pool import global_max, global_mean
 __all__ = [
     "Edge2Reduce",
     "FusedAttention",
+    "FusedAttentionAMP",
     "KnnEdgeReduce",
     "KnnEdgeReduceXW",
+    "attention_amp_bwd_plain",
     "attention_amp_plain",
+    "attention_amp_train_plain",
     "attention_bwd",
+    "attention_bwd_amp",
     "attention_bwd_plain",
     "attention_fwd",
     "attention_fwd_amp",

@@ -35,13 +35,19 @@ kernels.  The seed is one int64 on the device, drawn per call from the
 caller's ``torch.Generator``, which the kernels read through a pointer.
 
 Kernel 14's AMP form (``csrc/attention_fwd_bf16.cu``) takes bf16 q, k and
-v at rate 0, the AMP fusion Net's eval: the JAX package's
-``_attn_fwd_kernel`` on bf16 inputs, scores from bf16 products with f32
-sums, the softmax in f32, the normalized probabilities rounded to bf16,
-P V with f32 sums and the output rounded to bf16; ``attention_amp_plain``
-is its plain version.  ``fused_attention`` picks it by the inputs' dtype.
-Its training form (dropout, kernel 15 on bf16) is not ported: bf16 inputs
-that need a gradient raise.
+v, the AMP fusion Net's attention: the JAX package's ``_attn_fwd_kernel``
+on bf16 inputs, scores from bf16 products with f32 sums, the softmax in
+f32, in training the kept probabilities times 1 / (1 - rate) in f32, the
+probabilities rounded to bf16, P V with f32 sums and the output rounded to
+bf16.  Its evaluation form (rate 0) has the plain version
+``attention_amp_plain``; its training form also writes each row's max m
+and sum l (``attention_amp_train_plain``), and kernel 15's bf16 form
+(``csrc/attention_bwd_bf16.cu``, plain version ``attention_amp_bwd_plain``)
+mirrors ``_attn_bwd_kernel`` on bf16 inputs: p rebuilt from (m, l) with
+the forward's instructions, Delta = sum_j dp_ij p_ij in f32 (the TPU
+kernel's, not rowsum(dO o) of the bf16 output), bf16 operands, f32 sums,
+bf16 gradients.  ``fused_attention`` picks the form by the inputs' dtype;
+``FusedAttentionAMP`` joins the two in training.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels,
 which raise on what they do not take.
@@ -161,27 +167,92 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lses[0] if len(lses) == 1 else torch.cat(lses, dim=2)
 
 
+def attention_amp_train_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, sm_scale: float,
+                              rate: float = 0.0,
+                              seed: torch.Tensor | None = None):
+    """Plain torch version of kernel 14's AMP training form over (B, h, N,
+    d) bf16 tensors, the JAX kernel's arithmetic step by step: s = (q k^T)
+    * sm_scale with the bf16 values' products summed in f32; each row's
+    max m and sum l of exp(s - m), p = exp(s - m) / l, in f32; at rate > 0
+    the kept probabilities (the port's mask of ``seed``) times 1 / (1 -
+    rate) in f32, the others 0; those rounded to bf16, their product with v
+    summed in f32 and rounded to bf16.  Returns (o, m, l), m and l (B, h,
+    Nq) f32.  Queries run in chunks whose f32 score slab stays under 512
+    MB."""
+    if rate > 0.0 and seed is None:
+        raise ValueError("attention: a dropout rate > 0 needs a seed")
+    b, h, nq, _ = q.shape
+    nk = k.shape[2]
+    rows = max(1, _CHUNK_BYTES // ((4 if rate == 0.0 else 16) * b * h * nk))
+    kt = k.float().transpose(2, 3)
+    vf = v.float()
+    outs, ms, ls = [], [], []
+    for r0 in range(0, nq, rows):
+        s = torch.matmul(q[:, :, r0:r0 + rows].float(), kt) * sm_scale
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        p = p / l
+        if rate > 0.0:
+            keep = _keep_plain(b, h, r0, min(r0 + rows, nq), nk, seed, rate,
+                               q.device)
+            p = torch.where(keep, p * (1.0 / (1.0 - rate)), 0.0)
+        outs.append(torch.matmul(p.to(torch.bfloat16).float(), vf).to(
+            torch.bfloat16))
+        ms.append(m[..., 0])
+        ls.append(l[..., 0])
+    return tuple(t[0] if len(t) == 1 else torch.cat(t, dim=2)
+                 for t in (outs, ms, ls))
+
+
 def attention_amp_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         sm_scale: float) -> torch.Tensor:
     """Plain torch version of kernel 14's AMP form over (B, h, N, d) bf16
-    tensors, rate 0, the JAX kernel's arithmetic step by step: s = (q k^T)
-    * sm_scale with the bf16 values' products summed in f32, s - its row's
+    tensors, rate 0: ``attention_amp_train_plain``'s output (s = (q k^T) *
+    sm_scale with the bf16 values' products summed in f32, s - its row's
     max, exp, divided by the row's sum, in f32; those probabilities rounded
-    to bf16, their product with v summed in f32 and rounded to bf16.
-    Queries run in chunks whose f32 score slab stays under 512 MB."""
+    to bf16, their product with v summed in f32 and rounded to bf16)."""
+    return attention_amp_train_plain(q, k, v, sm_scale)[0]
+
+
+def attention_amp_bwd_plain(q, k, v, m, l, seed, do, sm_scale: float,
+                            rate: float = 0.0):
+    """Plain version of kernel 15's bf16 form: (dq, dk, dv) bf16 of bf16
+    q, k, v and the output's cotangent ``do``, from the forward's row max
+    ``m`` and sum ``l`` (B, h, Nq) f32 and its mask's ``seed``, the JAX
+    ``_attn_bwd_kernel``'s arithmetic on bf16 inputs: p = exp(s * sm_scale
+    - m) / l (the forward's p), p~ = keep ? p / (1 - rate) : 0, dv = bf16(p~)^T
+    dO, dp = keep ? (dO v^T) / (1 - rate) : 0, Delta = sum_j dp p in f32,
+    dS = p (dp - Delta), dSb = bf16(dS * sm_scale), dq = dSb k, dk = dSb^T q;
+    every product of bf16 values summed in f32 and rounded to bf16 once (dk
+    and dv over all query rows: the tile-free function).  Queries run in
+    the forward's chunks."""
     b, h, nq, _ = q.shape
     nk = k.shape[2]
-    rows = max(1, _CHUNK_BYTES // (4 * b * h * nk))
-    kt = k.float().transpose(2, 3)
-    vf = v.float()
-    outs = []
+    rows = max(1, _CHUNK_BYTES // ((4 if rate == 0.0 else 16) * b * h * nk))
+    kf, vf = k.float(), v.float()
+    inv = 1.0 / (1.0 - rate)
+    dqs, dk, dv = [], 0.0, 0.0
     for r0 in range(0, nq, rows):
-        s = torch.matmul(q[:, :, r0:r0 + rows].float(), kt) * sm_scale
-        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-        p = p / p.sum(dim=-1, keepdim=True)
-        outs.append(torch.matmul(p.to(torch.bfloat16).float(), vf).to(
-            torch.bfloat16))
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+        r1 = min(r0 + rows, nq)
+        qc, doc = q[:, :, r0:r1].float(), do[:, :, r0:r1].float()
+        s = torch.matmul(qc, kf.transpose(2, 3)) * sm_scale
+        p = torch.exp(s - m[:, :, r0:r1, None]) / l[:, :, r0:r1, None]
+        dp = torch.matmul(doc, vf.transpose(2, 3))
+        pt = p
+        if rate > 0.0:
+            keep = _keep_plain(b, h, r0, r1, nk, seed, rate, q.device)
+            pt = torch.where(keep, p * inv, 0.0)
+            dp = torch.where(keep, dp * inv, 0.0)
+        dv = dv + torch.matmul(
+            pt.to(torch.bfloat16).float().transpose(2, 3), doc)
+        delta = (dp * p).sum(dim=-1, keepdim=True)
+        ds = (p * (dp - delta) * sm_scale).to(torch.bfloat16).float()
+        dqs.append(torch.matmul(ds, kf).to(torch.bfloat16))
+        dk = dk + torch.matmul(ds.transpose(2, 3), qc)
+    dq = dqs[0] if len(dqs) == 1 else torch.cat(dqs, dim=2)
+    return dq, dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
 def attention_bwd_plain(q, k, v, seed, do, sm_scale: float,
@@ -308,27 +379,85 @@ def attention_fwd(q, k, v, sm_scale: float, rate: float = 0.0,
 
 
 def attention_fwd_amp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      sm_scale: float) -> torch.Tensor:
-    """Kernel 14's AMP form: o (B, h, Nq, d) bf16 of bf16 q, k and v at
-    rate 0 (module docstring).  CPU tensors take ``attention_amp_plain``.
-    On CUDA tensors, q, k and v with rows that are not 16-byte aligned are
-    copied first; the output is a (B, h, Nq, d) view of a (B, Nq, h, d)
-    tensor."""
+                      sm_scale: float, rate: float = 0.0,
+                      seed: torch.Tensor | None = None,
+                      with_stats: bool = False):
+    """Kernel 14's AMP form: (o (B, h, Nq, d) bf16, each row's max m and
+    sum l (B, h, Nq) f32, or None twice) of bf16 q, k and v (module
+    docstring).  ``with_stats`` or dropout (rate > 0, the mask of ``seed``)
+    asks for its training form, which writes m and l; else its evaluation
+    form.  At rate 0 the two give the same o, bit for bit.  CPU tensors
+    take ``attention_amp_train_plain``.  On CUDA tensors, q, k and v with
+    rows that are not 16-byte aligned are copied first; the output is a
+    (B, h, Nq, d) view of a (B, Nq, h, d) tensor."""
+    train = with_stats or rate > 0.0
     if q.device.type == "cpu":
-        return attention_amp_plain(q, k, v, sm_scale)
+        if train:
+            return attention_amp_train_plain(q, k, v, sm_scale, rate, seed)
+        return attention_amp_plain(q, k, v, sm_scale), None, None
     b, h, nq, nk, d = _check_qkv(q, k, v, torch.bfloat16)
     q, k, v = (_aligned(t) for t in (q, k, v))
+    _check_seed(seed, rate, q.device)
     out = _heads(b, nq, h, d, q.device, torch.bfloat16)
+    m = l = None
+    if train:
+        m, l = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+                for _ in range(2))
     p = _build.ptr
     with torch.cuda.device(q.device):
         rc = _fn("dg_attention_fwd_bf16",
-                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P])(
+                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P, _U, _F, _P,
+                  _P, _P])(
             p(q), p(k), p(v), p(out), b, h, nq, nk, d,
-            _strides(q, k, v, out), float(sm_scale), _build.stream_of(q))
+            _strides(q, k, v, out), float(sm_scale),
+            p(seed) if rate > 0.0 else None, keep_threshold(rate),
+            1.0 / (1.0 - rate), p(m) if train else None,
+            p(l) if train else None, _build.stream_of(q))
     _build.check(rc, "fused_attention (bf16)")
     fused_attention.launches += 1
     fused_attention.amp_launches += 1
-    return out
+    if train:
+        fused_attention.amp_train_launches += 1
+    return out, m, l
+
+
+def attention_bwd_amp(q, k, v, m, l, seed, do, sm_scale: float,
+                      rate: float = 0.0):
+    """Kernel 15's bf16 form: (dq, dk, dv) bf16 of ``fused_attention`` on
+    bf16 q, k and v, from the forward's row max ``m`` and sum ``l`` (B, h,
+    Nq) f32, the ``seed`` of its mask and the output's bf16 cotangent
+    ``do``, the mask regenerated.  CPU tensors take
+    ``attention_amp_bwd_plain``; CUDA tensors launch the kernel (two
+    launches, one count): q, k, v and do with rows that are not 16-byte
+    aligned are copied first.  The gradients are (B, h, N, d) views of (B,
+    N, h, d) tensors."""
+    if q.device.type == "cpu":
+        return attention_amp_bwd_plain(q, k, v, m, l, seed, do, sm_scale,
+                                       rate)
+    b, h, nq, nk, d = _check_qkv(q, k, v, torch.bfloat16)
+    _check_seed(seed, rate, q.device)
+    _require(do.shape == q.shape and do.dtype == torch.bfloat16
+             and do.device == q.device, "do must be bf16 like q")
+    _require(all(t.shape == (b, h, nq) and t.is_contiguous()
+                 and t.dtype == torch.float32 and t.device == q.device
+                 for t in (m, l)),
+             "m and l must be contiguous (B, h, Nq) float32 tensors")
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    dq = _heads(b, nq, h, d, q.device, torch.bfloat16)
+    dk, dv = (_heads(b, nk, h, d, q.device, torch.bfloat16)
+              for _ in range(2))
+    delta = torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+    p = _build.ptr
+    with torch.cuda.device(q.device):
+        rc = _fn("dg_attention_bwd_bf16",
+                 [_P] * 10 + [_I] * 5 + [_P, _F, _P, _U, _F, _P])(
+            p(q), p(k), p(v), p(do), p(m), p(l), p(delta), p(dq), p(dk),
+            p(dv), b, h, nq, nk, d, _strides(q, k, v, do, dq, dk, dv),
+            float(sm_scale), p(seed) if rate > 0.0 else None,
+            keep_threshold(rate), 1.0 / (1.0 - rate), _build.stream_of(q))
+    _build.check(rc, "attention_bwd (bf16)")
+    attention_bwd_amp.launches += 1
+    return dq, dk, dv
 
 
 def attention_bwd(q, k, v, o, lse, seed, do, sm_scale: float,
@@ -403,9 +532,6 @@ class FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float, rate: float, seed):
-        if q.dtype != torch.float32:
-            raise ValueError("fused_attention: no training form for "
-                             f"{q.dtype} inputs (kernel 15 takes f32)")
         out, lse = attention_fwd(q, k, v, sm_scale, rate, seed,
                                  with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse, seed)
@@ -418,6 +544,30 @@ class FusedAttention(torch.autograd.Function):
         q, k, v, out, lse, seed = ctx.saved_tensors
         dq, dk, dv = attention_bwd(q, k, v, out, lse, seed, do,
                                    ctx.sm_scale, ctx.rate)
+        return dq, dk, dv, None, None, None
+
+
+class FusedAttentionAMP(torch.autograd.Function):
+    """(q, k, v, sm_scale, rate, seed) -> the attention's bf16 output:
+    kernel 14's AMP training form forward, kernel 15's bf16 form backward.
+    It saves q, k, v, each row's max and sum and the seed, never a (B, h,
+    N, N) tensor; not the output, which the backward does not read (its
+    Delta comes from the rebuilt p)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale: float, rate: float, seed):
+        out, m, l = attention_fwd_amp(q, k, v, sm_scale, rate, seed,
+                                      with_stats=True)
+        ctx.save_for_backward(q, k, v, m, l, seed)
+        ctx.sm_scale, ctx.rate = sm_scale, rate
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, m, l, seed = ctx.saved_tensors
+        dq, dk, dv = attention_bwd_amp(q, k, v, m, l, seed, do,
+                                       ctx.sm_scale, ctx.rate)
         return dq, dk, dv, None, None, None
 
 
@@ -439,18 +589,18 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     view of a (B, Nq, h, d) tensor, so that merging the heads back into (B,
     Nq, h * d) costs no copy.
 
-    bf16 q, k and v take kernel 14's AMP form (``attention_fwd_amp``; on
-    the CPU ``attention_amp_plain``), at rate 0 and without a gradient:
-    anything else raises."""
+    bf16 q, k and v take kernel 14's AMP form, with a bf16 output: its
+    evaluation form at rate 0 without a gradient (``attention_fwd_amp``),
+    else ``FusedAttentionAMP`` (its training form, kernel 15's bf16 form
+    backward); their plain versions on the CPU."""
     if rate > 0.0 and seed is None:
         raise ValueError("fused_attention: a dropout rate > 0 needs a seed")
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
     if q.dtype == torch.bfloat16:
         if rate > 0.0 or grad:
-            raise ValueError("fused_attention: bf16 inputs take the eval "
-                             "form only (rate 0, no gradient)")
-        return attention_fwd_amp(q, k, v, sm_scale)
+            return FusedAttentionAMP.apply(q, k, v, sm_scale, rate, seed)
+        return attention_fwd_amp(q, k, v, sm_scale)[0]
     if q.device.type == "cpu":
         return attention_plain(q, k, v, sm_scale, rate, seed)
     if grad:
@@ -459,7 +609,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # launches of each kernel since its count was last set to 0 (kernel 15's
-# three CUDA launches count once; amp_launches: kernel 14's AMP form)
+# CUDA launches count once a call; amp_launches: kernel 14's AMP forms,
+# amp_train_launches: its AMP training form; attention_bwd_amp: kernel
+# 15's bf16 form)
 fused_attention.launches = fused_attention.amp_launches = 0
-attention_bwd.launches = 0
+fused_attention.amp_train_launches = 0
+attention_bwd.launches = attention_bwd_amp.launches = 0
 dropout_mask.launches = 0

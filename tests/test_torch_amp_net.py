@@ -174,13 +174,25 @@ def test_attention_amp_matches_pallas(d, nq, nk, amp_env):
 
 
 def test_attention_amp_refuses_training():
-    """Kernel 14's AMP form is the eval's: a dropout rate or a gradient on
-    bf16 inputs raises."""
-    q = torch.zeros((1, 1, 128, 128), dtype=BF16)
-    with pytest.raises(ValueError, match="eval form"):
-        fused_attention(q, q, q, 0.1, 0.5, torch.zeros(1, dtype=torch.int64))
-    with pytest.raises(ValueError, match="eval form"):
-        fused_attention(q.clone().requires_grad_(), q, q, 0.1)
+    """bf16 q, k and v with a gradient or a dropout rate take kernel 14's
+    AMP training form (``FusedAttentionAMP``; kernel 15's bf16 form
+    backward): at rate 0 its output is the evaluation form's bit for bit
+    and its gradients are bf16; a rate needs a seed, and picks the mask."""
+    g = torch.Generator().manual_seed(176)
+    q, k, v = (torch.randn((1, 2, 128, 128), generator=g).to(BF16)
+               for _ in range(3))
+    with pytest.raises(ValueError, match="needs a seed"):
+        fused_attention(q, k, v, 0.1, 0.5)
+    qg = q.clone().requires_grad_()
+    out = fused_attention(qg, k, v, 0.1)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), fused_attention(q, k, v, 0.1))
+    (dq,) = torch.autograd.grad(out.float().sum(), qg)
+    assert dq.dtype == BF16 and dq.shape == q.shape
+    seed = torch.zeros(1, dtype=torch.int64)
+    dropped = fused_attention(q, k, v, 0.1, 0.5, seed)
+    assert dropped.dtype == BF16 and not torch.equal(dropped, out.detach())
+    assert torch.equal(dropped, fused_attention(q, k, v, 0.1, 0.5, seed))
 
 
 def _mha_params(mha: TorchMultiheadAttention) -> dict:
@@ -460,7 +472,7 @@ def test_net_amp_matches_jax_amp(amp_env):
 def test_net_exact_pin_and_cpu_default_are_the_exact_path(amp_env):
     """On the CPU the Net's default forward is the exact path, and with
     DGCNN_TPU_PALLAS_EXACT set too, bit for bit (kernel 10's v1 included);
-    amp=True is another path; training refuses amp=True."""
+    amp=True is another path, in training too."""
     model = Net(emb_dim=32, k=10, ff_dims=16, n_heads=2, n_blocks=1,
                 device="cpu", generator=torch.Generator().manual_seed(91))
     x = torch.randn(2, 128, 3, generator=torch.Generator().manual_seed(92))
@@ -472,5 +484,9 @@ def test_net_exact_pin_and_cpu_default_are_the_exact_path(amp_env):
         amp_env.setenv(EXACT_ENV, "1")
         assert torch.equal(model(x, oh), exact)
     assert "amp" in inspect.signature(Net.forward).parameters
-    with pytest.raises(ValueError, match="exact mode only"):
-        model(x, oh, train=True, amp=True)
+    trained = model(x, oh, train=True, amp=True,
+                    generator=torch.Generator().manual_seed(93))
+    assert trained.dtype == torch.float32 and not torch.equal(
+        trained.detach(), model(x, oh, train=True, amp=False,
+                                generator=torch.Generator().manual_seed(93)
+                                ).detach())

@@ -316,12 +316,16 @@ def test_training_mode_switch(cls, monkeypatch):
 
 
 def test_net_trains_exact(monkeypatch):
-    """The fusion Net refuses AMP training and hands its DGCNN backbone's
-    training stages the exact mode, so that no step mixes the two."""
-    from dgcnn_tpu_torch.models import Net, nn_layers
+    """The fusion Net's training takes the mode of ``use_amp_train``: on
+    the CPU its default step is the exact one, bit for bit, and so it is
+    under DGCNN_TPU_PALLAS_EXACT, every backbone stage exact and the
+    attention in f32; amp=True switches every stage to the AMP forms and
+    the attention to bf16 at once, and its step differs, so that no step
+    mixes the two."""
+    from dgcnn_tpu_torch.models import Net, nn_layers, torch_transformer
 
     monkeypatch.delenv(EXACT_ENV, raising=False)
-    modes = []
+    modes, dtypes = [], []
 
     def spy(fn):
         def run(*args):
@@ -329,14 +333,38 @@ def test_net_trains_exact(monkeypatch):
             return fn(*args)
         return run
 
+    attention = torch_transformer.fused_attention
+
+    def spy_attention(q, *rest):
+        dtypes.append(q.dtype)
+        return attention(q, *rest)
+
     for name in ("knn_edge_reduce", "knn_edge_reduce_xw"):
         monkeypatch.setattr(nn_layers, name, spy(getattr(nn_layers, name)))
-    net = Net(emb_dim=32, k=8, n_heads=2, n_blocks=1, ff_dims=32,
+    monkeypatch.setattr(torch_transformer, "fused_attention", spy_attention)
+    net = Net(emb_dim=128, k=8, n_heads=1, n_blocks=1, ff_dims=32,
               nclasses=5, dropout=0.0, device="cpu",
               generator=torch.Generator().manual_seed(73))
     pts = torch.randn(2, 128, 3, generator=torch.Generator().manual_seed(74))
     oh = torch.eye(16)[[1, 4]]
-    with pytest.raises(ValueError, match="exact mode only"):
-        net(pts, oh, train=True, amp=True)
-    net(pts, oh, train=True).sum().backward()
-    assert modes == [False] * 4
+
+    def step(**kw):
+        m = copy.deepcopy(net)
+        out = m(pts, oh, train=True, **kw)
+        out.square().mean().backward()
+        return out.detach(), [p.grad for p in m.parameters()]
+
+    exact = step(amp=False)
+    default = step()
+    monkeypatch.setenv(EXACT_ENV, "1")
+    pinned = step()
+    assert modes == [False] * 12 and set(dtypes) == {torch.float32}
+    for got in (default, pinned):
+        assert torch.equal(got[0], exact[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], exact[1]))
+    monkeypatch.delenv(EXACT_ENV)
+    modes.clear()
+    dtypes.clear()
+    amp = step(amp=True)
+    assert modes == [True] * 4 and dtypes == [torch.bfloat16] * 4
+    assert not torch.equal(amp[0], exact[0])
