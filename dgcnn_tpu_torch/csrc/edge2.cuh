@@ -92,14 +92,31 @@ __device__ __forceinline__ E2Centre e2_centre(const float* __restrict__ b1row,
 
 // Writes the h1 row of the edge to neighbour row `arow` of a1 into the
 // warp's shared row `hrow`.  The caller __syncwarp()s before reading it.
+// ROUND: a1's values rounded to bf16 (the AMP forms of kernels 7 and 8).
+template <bool ROUND = false>
 __device__ __forceinline__ void e2_h1_row(const float* __restrict__ arow,
                                           const E2Centre& ctr, float slope,
                                           int C1, int lane, float* hrow) {
 #pragma unroll
   for (int u = 0; u < E2_CPL; ++u) {
     const int c = lane + 32 * u;
+    if (c < C1) {
+      const float a = ROUND ? e2_round_bf16(arow[c]) : arow[c];
+      hrow[c] = e2_lrelu(e2_z1(a, ctr.b[u], ctr.s[u], ctr.t[u]), slope);
+    }
+  }
+}
+
+// e2_h1_row's operations on a1 values the lanes hold (channel lane + 32 u
+// in a[u]): the mean row of a tied class of kernel 6's v3.
+__device__ __forceinline__ void e2_h1_vals(const float (&a)[E2_CPL],
+                                           const E2Centre& ctr, float slope,
+                                           int C1, int lane, float* hrow) {
+#pragma unroll
+  for (int u = 0; u < E2_CPL; ++u) {
+    const int c = lane + 32 * u;
     if (c < C1)
-      hrow[c] = e2_lrelu(e2_z1(arow[c], ctr.b[u], ctr.s[u], ctr.t[u]), slope);
+      hrow[c] = e2_lrelu(e2_z1(a[u], ctr.b[u], ctr.s[u], ctr.t[u]), slope);
   }
 }
 

@@ -69,7 +69,8 @@
 //
 // The AMP form (dg_edge2_bwd_pull_amp), the JAX package's default in
 // training (_edge2_bwd_kernel with exact=False, pallas_knn.py:1200-1285),
-// on the tiled route and the pull form only: sel is a1's value rounded to
+// on either route (the row-warp one at k > 128 and the other shapes the
+// tiled one does not take), pull form only: sel is a1's value rounded to
 // bf16 (to nearest even; _parts(a1, False), :1217), staged into h1 with
 // edge2_reduce.cu's AMP rounding, so z2 and the ties are its bits; each
 // edge's dsel is rounded to bf16 before it is stored for the da1 sum
@@ -90,7 +91,9 @@ using dg::E2_MAXC;
 constexpr int QB = 8;  // rows (warps) per block of the row-warp route
 constexpr int THREADS = QB * 32;
 
-template <bool PULL>
+// AMP: sel is a1's value rounded to bf16 (e2_h1_row<true> stages h1 with
+// edge2_reduce.cu's rounding) and each stored dsel is rounded to bf16.
+template <bool PULL, bool AMP>
 __global__ void __launch_bounds__(THREADS, 1)
     edge2_bwd_rowwarp_kernel(const int* __restrict__ idx,
                      const float* __restrict__ a1,
@@ -145,8 +148,8 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
     // pass 1: tie counts
     for (int t = 0; t < k; ++t) {
-      dg::e2_h1_row(a1 + base + (size_t)irow[t] * C1, ctr, slope, C1, lane,
-                    hrow);
+      dg::e2_h1_row<AMP>(a1 + base + (size_t)irow[t] * C1, ctr, slope, C1,
+                         lane, hrow);
       __syncwarp();
 #pragma unroll
       for (int v = 0; v < E2_CPL; ++v) {
@@ -176,7 +179,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int u = 0; u < E2_CPL; ++u) db[u] = 0.f;
     for (int t = 0; t < k; ++t) {
       const size_t j = base + (size_t)irow[t] * C1;
-      dg::e2_h1_row(a1 + j, ctr, slope, C1, lane, hrow);
+      dg::e2_h1_row<AMP>(a1 + j, ctr, slope, C1, lane, hrow);
       __syncwarp();
 #pragma unroll
       for (int v = 0; v < E2_CPL; ++v) {
@@ -199,7 +202,9 @@ __global__ void __launch_bounds__(THREADS, 1)
           float dh = 0.f;
           for (int c2 = 0; c2 < C2; ++c2)
             dh = fmaf(grow[c2], ws[c * ldw + c2], dh);
-          const float sel = __fadd_rn(a1[j + c], ctr.b[u]);
+          const float av = a1[j + c];
+          const float sel = __fadd_rn(AMP ? dg::e2_round_bf16(av) : av,
+                                      ctr.b[u]);
           const float z1 = __fadd_rn(__fmul_rn(sel, ctr.s[u]), ctr.t[u]);
           const float dz1 = z1 >= 0.f ? dh : __fmul_rn(dh, slope);
           ds1[u] = __fadd_rn(ds1[u], __fmul_rn(dz1, sel));
@@ -207,7 +212,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           const float dsel = __fmul_rn(dz1, ctr.s[u]);
           db[u] = __fadd_rn(db[u], dsel);
           if constexpr (PULL)
-            dsel_e[(rr * k + t) * C1 + c] = dsel;
+            dsel_e[(rr * k + t) * C1 + c] =
+                AMP ? dg::e2_round_bf16(dsel) : dsel;
           else
             atomicAdd(da1 + j + c, dsel);
         }
@@ -541,17 +547,15 @@ int launch_bwd(const int* idx, const float* a1, const float* b1,
     edge2_bwd_tiled_kernel<PULL, AMP><<<G, TT, TSMEM, st>>>(
         idx, a1, b1, C1, s1, t1, w2, C2, slope, amax, amin, ct_max, ct_min,
         ct_sum, ct_sumsq, rows, N, k, da1, db1, part, dsel_e);
-  } else if (AMP) {
-    return (int)cudaErrorInvalidValue;  // the AMP form is tiled only
   } else {
     const size_t smem =
         sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)C1 * C2 +
                          (size_t)QB * (C1 + C2) + (size_t)QB * 2 * C1);
-    e = cudaFuncSetAttribute(edge2_bwd_rowwarp_kernel<PULL>,
+    e = cudaFuncSetAttribute(edge2_bwd_rowwarp_kernel<PULL, AMP>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
-    edge2_bwd_rowwarp_kernel<PULL><<<G, THREADS, smem, st>>>(
+    edge2_bwd_rowwarp_kernel<PULL, AMP><<<G, THREADS, smem, st>>>(
         idx, a1, b1, C1, s1, t1, w2, C2, slope, amax, amin, ct_max, ct_min,
         ct_sum, ct_sumsq, rows, N, k, da1, db1, part, dsel_e);
   }
@@ -603,9 +607,7 @@ int pull(const int* idx, const float* a1, const float* b1, const float* s1,
          const float* ct_sum, const float* ct_sumsq, float* da1, float* db1,
          float* part, float* dflat, float* dsel_e, int* iscratch, int B,
          int N, int C1, int C2, int k, int G, float slope, cudaStream_t st) {
-  if (!valid_bwd(B, N, C1, C2, k, G) ||
-      (AMP && !dg::e2t_train_route(C1, C2, k)))
-    return (int)cudaErrorInvalidValue;
+  if (!valid_bwd(B, N, C1, C2, k, G)) return (int)cudaErrorInvalidValue;
   const int *off, *lst;
   cudaError_t e = dg::build_reverse_lists(idx, B, N, k, iscratch, &off,
                                           &lst, st);
@@ -637,8 +639,8 @@ extern "C" int dg_edge2_bwd_pull(
                      (cudaStream_t)stream);
 }
 
-// The AMP form of dg_edge2_bwd_pull (the note): the same arguments, the
-// tiled route's shapes only (cudaErrorInvalidValue at any other).
+// The AMP form of dg_edge2_bwd_pull (the note): the same arguments and
+// routes.
 extern "C" int dg_edge2_bwd_pull_amp(
     const int* idx, const float* a1, const float* b1, const float* s1,
     const float* t1, const float* w2, const float* amax, const float* amin,

@@ -53,7 +53,9 @@
 // :1131) as the tile stages h1; z1, h1, z2 and the four reductions are the
 // exact form's f32 operations on them.  edge2_bwd.cu's AMP form stages h1
 // with the same rounding, so its z2 and the ties it finds are the same
-// bits.  Tiled route only (e2t_train_route's shapes: every model's).
+// bits.  Both routes, as the exact form takes them: the tiled one at
+// e2t_train_route's shapes (every model's), the row-warp one (h1 rounded
+// the same way, e2_h1_row<true>) at the others, k > 128 among them.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -67,6 +69,8 @@ using dg::E2_MAXC;
 
 constexpr int QB = 16;  // rows (warps) per block
 
+// The row-warp route; AMP: a1's values rounded to bf16 as h1 is formed.
+template <bool AMP>
 __global__ void __launch_bounds__(QB * 32)
     edge2_fwd_kernel(const int* __restrict__ idx,
                      const float* __restrict__ a1,
@@ -99,7 +103,8 @@ __global__ void __launch_bounds__(QB * 32)
   float* hrow = hb + warp * C1;
   const int ldw = dg::e2_ldw(C2);
   for (int t = 0; t < k; ++t) {
-    dg::e2_h1_row(A + (size_t)irow[t] * C1, ctr, slope, C1, lane, hrow);
+    dg::e2_h1_row<AMP>(A + (size_t)irow[t] * C1, ctr, slope, C1, lane,
+                       hrow);
     __syncwarp();
 #pragma unroll
     for (int v = 0; v < E2_CPL; ++v) {
@@ -217,6 +222,7 @@ bool valid(int B, int N, int C1, int C2, int k) {
          C2 <= E2_MAXC && k >= 1 && k <= N;
 }
 
+template <bool AMP>
 int launch_rowwarp(const int* idx, const float* a1, const float* b1,
                    const float* s1, const float* t1, const float* w2,
                    float* amax, float* amin, float* asum, float* asumsq,
@@ -226,10 +232,10 @@ int launch_rowwarp(const int* idx, const float* a1, const float* b1,
   const size_t smem =
       sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)QB * C1);
   cudaError_t e = cudaFuncSetAttribute(
-      edge2_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      edge2_fwd_kernel<AMP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  edge2_fwd_kernel<<<(rows + QB - 1) / QB, QB * 32, smem, st>>>(
+  edge2_fwd_kernel<AMP><<<(rows + QB - 1) / QB, QB * 32, smem, st>>>(
       idx, a1, b1, C1, s1, t1, w2, C2, slope, rows, N, k, amax, amin, asum,
       asumsq);
   return (int)cudaGetLastError();
@@ -265,25 +271,26 @@ extern "C" int dg_edge2_fwd(const int* idx, const float* a1, const float* b1,
   if (!valid(B, N, C1, C2, k)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (!dg::e2t_train_route(C1, C2, k))
-    return launch_rowwarp(idx, a1, b1, s1, t1, w2, amax, amin, asum, asumsq,
-                          B, N, C1, C2, k, slope, st);
+    return launch_rowwarp<false>(idx, a1, b1, s1, t1, w2, amax, amin, asum,
+                                 asumsq, B, N, C1, C2, k, slope, st);
   return launch_tiled<false>(idx, a1, b1, s1, t1, w2, amax, amin, asum,
                              asumsq, B, N, C1, C2, k, slope, st);
 }
 
-// The AMP form of dg_edge2_fwd (the note): the same arguments, the tiled
-// route's shapes only (cudaErrorInvalidValue at any other).
+// The AMP form of dg_edge2_fwd (the note): the same arguments and routes.
 extern "C" int dg_edge2_fwd_amp(const int* idx, const float* a1,
                                 const float* b1, const float* s1,
                                 const float* t1, const float* w2,
                                 float* amax, float* amin, float* asum,
                                 float* asumsq, int B, int N, int C1, int C2,
                                 int k, float slope, void* stream) {
-  if (!valid(B, N, C1, C2, k) || !dg::e2t_train_route(C1, C2, k))
-    return (int)cudaErrorInvalidValue;
+  if (!valid(B, N, C1, C2, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!dg::e2t_train_route(C1, C2, k))
+    return launch_rowwarp<true>(idx, a1, b1, s1, t1, w2, amax, amin, asum,
+                                asumsq, B, N, C1, C2, k, slope, st);
   return launch_tiled<true>(idx, a1, b1, s1, t1, w2, amax, amin, asum,
-                            asumsq, B, N, C1, C2, k, slope,
-                            (cudaStream_t)stream);
+                            asumsq, B, N, C1, C2, k, slope, st);
 }
 
 // The row-warp route at any shape dg_edge2_fwd takes (the checks hold the
@@ -296,6 +303,21 @@ extern "C" int dg_edge2_fwd_rowwarp(const int* idx, const float* a1,
                                     int C2, int k, float slope,
                                     void* stream) {
   if (!valid(B, N, C1, C2, k)) return (int)cudaErrorInvalidValue;
-  return launch_rowwarp(idx, a1, b1, s1, t1, w2, amax, amin, asum, asumsq,
-                        B, N, C1, C2, k, slope, (cudaStream_t)stream);
+  return launch_rowwarp<false>(idx, a1, b1, s1, t1, w2, amax, amin, asum,
+                               asumsq, B, N, C1, C2, k, slope,
+                               (cudaStream_t)stream);
+}
+
+// As dg_edge2_fwd_amp on the row-warp route at any shape.
+extern "C" int dg_edge2_fwd_amp_rowwarp(const int* idx, const float* a1,
+                                        const float* b1, const float* s1,
+                                        const float* t1, const float* w2,
+                                        float* amax, float* amin, float* asum,
+                                        float* asumsq, int B, int N, int C1,
+                                        int C2, int k, float slope,
+                                        void* stream) {
+  if (!valid(B, N, C1, C2, k)) return (int)cudaErrorInvalidValue;
+  return launch_rowwarp<true>(idx, a1, b1, s1, t1, w2, amax, amin, asum,
+                              asumsq, B, N, C1, C2, k, slope,
+                              (cudaStream_t)stream);
 }

@@ -9,8 +9,8 @@
 // (TS_MIN + TS_KEYS over the f32 graph), the f32 payload and output.
 //
 // The AMP form, the JAX package's default: its _edge_conv1_kernel at
-// select_dtype bf16 (pallas_knn.py:830-907), on the tiled route only (k <=
-// 64, Co <= 256; the wrapper raises above).
+// select_dtype bf16 (pallas_knn.py:830-907), at any k <= N (the JAX kernel
+// has no k cap).
 // The stage input is f32 (the cloud) or bf16 (an AMP stage's output), and
 // the output bf16.
 //   scores    _scores(exact=False): bf16 inputs give one product of bf16
@@ -48,9 +48,16 @@
 //             that class again, which max and min ignore).
 //   epilogue  the f32 affine and LeakyReLU of the exact route, rounded to
 //             bf16 (to nearest even) on the store.
+// Routes, from k before the launch: at k <= TS_LIST (every model's k) the
+// tiled selection (edge_conv_amp_kernel, above: v2 a TS_MIN pass, then
+// TS_KEYS); above it, or asked for (the oracle of the tiled route), the
+// row-warp selection in the same modes (edge_conv_amp_rowwarp_kernel:
+// knn_select.cuh's row_keys and pop_class on a warp's row of scores, one
+// scoring pass, no tied-class rescan), the same neighbours and the same
+// bits.
 // Bound: as the exact stage at CUDA-core rates (the products are f32
-// FMAs; bf16 mma would change the sums' order); the v2 stages score the
-// cloud twice.
+// FMAs; bf16 mma would change the sums' order); the tiled v2 stages score
+// the cloud twice.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -234,6 +241,105 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   }
 }
 
+// The row-warp route of the same forms (k > TS_LIST, or asked for: the
+// oracle of the tiled route at k <= TS_LIST): a warp a query row i, its W
+// candidates' scores in registers (row_scores over gc, the query row's
+// operands from gq: the tiled route's bits), then V3 the class walk
+// (pop_class: a singleton's row, a tied class's mean summed in ascending
+// column order from zero and divided by the count) or v2's keys (row_keys,
+// the row's least score taken from the registers) and k rounds of
+// pop_nearest; the fold and the epilogue of edge_conv_amp_kernel.  Co <=
+// 32 * CPL (Bucket: 256 up to W = 2048, 128 above).
+template <int NPL, bool V3, bool ROUND, typename OUT>
+__global__ void __launch_bounds__(dg::RowBlock<NPL>::QB * 32, 1)
+    edge_conv_amp_rowwarp_kernel(const float* __restrict__ gc,
+                                 const float* __restrict__ gq, int Cs,
+                                 const float* __restrict__ sq, float lim,
+                                 const float* __restrict__ ac, int Co,
+                                 const float* __restrict__ scale,
+                                 const float* __restrict__ bias, float slope,
+                                 int N, int k, const int* __restrict__ starts,
+                                 int tile, int W, OUT* __restrict__ out) {
+  extern __shared__ float sg[];  // W rows x CS: CC channels of the window
+  constexpr int CPL = dg::Bucket<NPL>::CPL;
+  constexpr int QB = dg::RowBlock<NPL>::QB;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * QB + warp;
+  const int start = starts ? starts[blockIdx.x * QB / tile] : 0;
+  float s[NPL];
+  dg::row_scores<NPL>(gc + ((size_t)b * N + start) * Cs, Cs,
+                      sq + (size_t)b * N + start, W, i - start, lane, sg, s,
+                      gq + ((size_t)b * N + i) * Cs);
+
+  const int row = 2 * Co;
+  const float* A = ac + ((size_t)b * N + start) * row;
+  auto payload = [&](const float* arow, int c) {
+    return ROUND ? round_bf16(arow[c]) : arow[c];
+  };
+  float mx[CPL], mn[CPL];
+#pragma unroll
+  for (int u = 0; u < CPL; ++u) {
+    mx[u] = -INFINITY;
+    mn[u] = INFINITY;
+  }
+  auto fold = [&](const float (&sel)[CPL]) {
+#pragma unroll
+    for (int u = 0; u < CPL; ++u) {
+      mx[u] = fmaxf(mx[u], sel[u]);
+      mn[u] = fminf(mn[u], sel[u]);
+    }
+  };
+  if constexpr (V3) {
+    for (int r = 0; r < k; ++r) {
+      dg::RowMask<NPL> mk;
+      int cnt;
+      if (dg::pop_class<NPL>(s, lane, mk, cnt) == -INFINITY) break;
+      float sel[CPL];
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) sel[u] = 0.f;
+      dg::class_members<NPL>(mk, [&](int j) {
+        const float* arow = A + (size_t)j * row;
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) {
+          const int c = lane + 32 * u;
+          if (c < Co)
+            sel[u] = cnt == 1 ? payload(arow, c)
+                              : __fadd_rn(sel[u], payload(arow, c));
+        }
+      });
+      if (cnt > 1)
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) sel[u] = __fdiv_rn(sel[u], (float)cnt);
+      fold(sel);
+    }
+  } else {
+    dg::row_keys<NPL>(s, lim);
+    for (int r = 0; r < k; ++r) {
+      const float* arow = A + (size_t)dg::pop_nearest<NPL>(s, lane) * row;
+      float sel[CPL];
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) {
+        const int c = lane + 32 * u;
+        sel[u] = c < Co ? payload(arow, c) : 0.f;
+      }
+      fold(sel);
+    }
+  }
+  const float* crow = ac + ((size_t)b * N + i) * row + Co;
+  OUT* orow = out + ((size_t)b * N + i) * Co;
+#pragma unroll
+  for (int u = 0; u < CPL; ++u) {
+    const int c = lane + 32 * u;
+    if (c < Co) {
+      const float sc = scale[c];
+      const float sel = __fadd_rn(sc > 0.f ? mx[u] : mn[u], crow[c]);
+      const float y = __fadd_rn(__fmul_rn(sel, sc), bias[c]);
+      dg::store_out(orow + c, y >= 0.f ? y : __fmul_rn(slope, y));
+    }
+  }
+}
+
 struct VarArgs {
   const float *gc, *gq, *sq, *ac, *scale, *bias;
   float* rmin;
@@ -274,6 +380,24 @@ cudaError_t launch_var_shape(const VarArgs& a, cudaStream_t st) {
   };
   if (a.k <= 32) return by_co(std::integral_constant<int, 1>{});
   return by_co(std::integral_constant<int, 2>{});
+}
+
+// The row-warp instance of the form, its bucket picked from W.
+template <bool V3, bool ROUND, typename OUT>
+cudaError_t launch_var_rowwarp(const VarArgs& a, cudaStream_t st) {
+  return dg::with_npl(a.W, [&](auto npl) {
+    constexpr int NPL = decltype(npl)::value;
+    constexpr int QB = dg::RowBlock<NPL>::QB;
+    auto kern = edge_conv_amp_rowwarp_kernel<NPL, V3, ROUND, OUT>;
+    const size_t smem = dg::select_smem_bytes<NPL>(a.W);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(a.N / QB, a.B), QB * 32, smem, st>>>(
+        a.gc, a.gq, a.Cs, a.sq, a.lim, a.ac, a.Co, a.scale, a.bias, a.slope,
+        a.N, a.k, a.starts, a.tile, a.W, reinterpret_cast<OUT*>(a.out));
+    return cudaGetLastError();
+  });
 }
 
 template <bool BANDED>
@@ -325,13 +449,15 @@ cudaError_t launch_rowmin(const float* gc, const float* gq, int Cs,
 // bf16), f32 in the exact form (bit 4); wcat (Cin, 2 Co) f32 = [W_nbr |
 // W_ctr] as the stage projects with them (rounded to bf16 where the plan
 // says); scale/bias (Co,) f32; bit 2: select-x (AMP v2, whole cloud), bit
-// 3: v3 (AMP).  Scratch (AMP only): gq and gc (B * N * Cs f32, Cs = Cg for
+// 3: v3 (AMP).  Scratch: gq and gc (AMP only: B * N * Cs f32, Cs = Cg for
 // a bf16 graph, when gq is unread, 3 Cg for an f32 one), xf (B * N * Cin
 // f32, a bf16 x only); sq and rmin (B * N f32), ac (B * N * 2 Co f32);
 // out (B, N, Co), bf16 (AMP) or f32 (exact).  starts null: the candidates
 // are the cloud (tile and W = N); else kernel 12's windows: the W rows
 // from starts[r / tile] of a sorted cloud, Co <= 64.  N a multiple of 128,
-// N <= 4096, Co <= 256, k <= 64.  Returns the first CUDA error.
+// N <= 4096, k <= W.  The tiled route at k <= TS_LIST (Co <= 256), the
+// row-warp route above or with bit 5 (Co <= max_co(W)).  Returns the first
+// CUDA error.
 extern "C" int dg_edge_conv_eval_variant(
     const void* graph, const void* x, const float* wcat, const float* scale,
     const float* bias, float* gq, float* gc, float* xf, float* sq,
@@ -340,9 +466,10 @@ extern "C" int dg_edge_conv_eval_variant(
     void* stream) {
   const bool gbf = flags & 1, xbf = flags & 2, sx = flags & 4, v3 = flags & 8;
   const bool exact = flags & 16, banded = starts != nullptr;
+  const bool rowwarp = (flags & 32) || k > dg::TS_LIST;
   if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
-      Co > (banded ? 64 : 256) || Cg < 1 || Cin < 1 || k < 1 || k > W ||
-      k > dg::TS_LIST || W % 128 != 0 || W < 128 || W > N ||
+      Co > (banded ? 64 : rowwarp ? dg::max_co(W) : 256) || Cg < 1 ||
+      Cin < 1 || k < 1 || k > W || W % 128 != 0 || W < 128 || W > N ||
       (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0
               : W != N) ||
       (sx && (v3 || banded)) || (exact && (gbf || xbf || sx || v3)))
@@ -375,6 +502,12 @@ extern "C" int dg_edge_conv_eval_variant(
                   starts, B, N,  Cs, Co, k,  tile, W,
                   dg::keys_lim(W), slope};
   using bf16 = __nv_bfloat16;
+  if (rowwarp) {  // one launch: the row's grid comes from its registers
+    if (v3) return (int)launch_var_rowwarp<true, true, bf16>(a, st);
+    if (exact) return (int)launch_var_rowwarp<false, false, float>(a, st);
+    if (sx) return (int)launch_var_rowwarp<false, false, bf16>(a, st);
+    return (int)launch_var_rowwarp<false, true, bf16>(a, st);
+  }
   if (v3)
     return (int)(banded ? launch_var_shape<true, true, true, bf16>(a, st)
                         : launch_var_shape<true, true, false, bf16>(a, st));

@@ -81,14 +81,6 @@ namespace {
 using dg::E2_CPL;
 using dg::E2_MAXC;
 
-// Query rows (warps) per block: from 64 scores a lane up, 8 warps, so that
-// a thread may keep the scores and the per-edge state in up to 255
-// registers without spilling.
-template <int NPL>
-struct E2Block {
-  static constexpr int QB = NPL >= 64 ? 8 : dg::Bucket<NPL>::QB;
-};
-
 // The candidates of query row i are the W rows [start, start + W) of its
 // cloud: start = 0 and W = N for the exact block; for the banded block the
 // cloud is in its PC1-sorted order, start is the window start of i's query
@@ -96,7 +88,7 @@ struct E2Block {
 // holds every row of its tile, so the query row is one of the staged rows,
 // and a window-local winner j is row start + j of a1.
 template <int NPL>
-__global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
+__global__ void __launch_bounds__(dg::RowBlock<NPL>::QB * 32)
     knn_edge2_kernel(const float* __restrict__ graph, int Cg,
                      const float* __restrict__ sq,
                      const float* __restrict__ a1,
@@ -108,7 +100,7 @@ __global__ void __launch_bounds__(E2Block<NPL>::QB * 32)
                      const float* __restrict__ t2, float slope, int N, int k,
                      const int* __restrict__ starts, int tile, int W,
                      float* __restrict__ out) {
-  constexpr int QB = E2Block<NPL>::QB;
+  constexpr int QB = dg::RowBlock<NPL>::QB;
   extern __shared__ float smem[];
   float* sg = smem;                                          // graph stage
   float* ws = sg + dg::select_smem_bytes<NPL>(W) / sizeof(float);  // w2
@@ -245,7 +237,7 @@ cudaError_t launch_block(const float* graph, const float* a1,
   if (e != cudaSuccess) return e;
   return dg::with_npl(W, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = E2Block<NPL>::QB;
+    constexpr int QB = dg::RowBlock<NPL>::QB;
     const size_t smem =
         dg::select_smem_bytes<NPL>(W) +
         sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)QB * C1);

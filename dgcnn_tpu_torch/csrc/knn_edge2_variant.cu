@@ -30,9 +30,14 @@
 // Tied classes (duplicate points) need their members: a row that has one
 // scores its candidates once more with the tiled product's chain (the
 // selection's bits) and adds each member's a1 row to its class's slot of
-// the consumer's h1 tile.  Only the tiled route (k <= 64, C1 <= 64, C2 <=
-// 128; the wrapper raises otherwise); the class walk at k > 32 runs one
-// block an SM (VARIANT_BLOCKS), the other instances two.
+// the consumer's h1 tile.  The tiled route at k <= 64, C1 <= 64 and C2 <=
+// 128 (every model); the class walk at k > 32 runs one block an SM
+// (VARIANT_BLOCKS), the other instances two.  Other shapes (k > 64, as the
+// JAX kernel takes any k), or the oracle's call, take the row-warp route
+// (knn_edge2_variant_rowwarp_kernel): knn_select.cuh's row_keys and
+// pop_class on a warp's row of scores, whose class members come from the
+// ballots of the scores in registers, with no second scoring; the same
+// neighbours, classes and bits.
 //
 // Bound on an H100 SXM: operations.  The scores' products run on the CUDA
 // cores in f32 FMAs on bf16 values (bf16 mma would change the sums'
@@ -97,6 +102,143 @@ __global__ void __launch_bounds__(dg::TS_THREADS, VARIANT_BLOCKS<KL, V3>)
                                     Cs, tile, end - start});
 }
 
+// The row-warp route's query rows a block: RowBlock's, but 8 warps from
+// 48 scores a lane up too (at 16 warps its 128 registers spilled 8 bytes a
+// thread there).
+template <int NPL>
+constexpr int VARIANT_QB = NPL >= 48 ? 8 : dg::RowBlock<NPL>::QB;
+
+// The row-warp route of the same forms (k > TS_LIST, C1 > 64 or C2 > 128,
+// or asked for: the oracle of the tiled route), knn_edge2.cu's row-warp
+// block in the modes of knn_select.cuh: a warp a query row, its W
+// candidates' scores in registers (row_scores over gc, the query row's
+// operands from gq), then V3 the class walk (pop_class; a tied class's a1
+// rows summed in ascending row order from zero and divided by the count,
+// e2t_class_means's operations, through both convs as one edge) or v2's
+// keys (row_keys) and k rounds of pop_nearest; each edge's h1 row in the
+// warp's row of shared memory, its second conv and the max as knn_edge2.cu
+// takes them.  C1, C2 <= E2_MAXC (128).
+template <int NPL, bool V3, typename OUT>
+__global__ void __launch_bounds__(VARIANT_QB<NPL> * 32, 1)
+    knn_edge2_variant_rowwarp_kernel(
+        const float* __restrict__ gc, const float* __restrict__ gq, int Cs,
+        const float* __restrict__ sq, float lim,
+        const float* __restrict__ a1, const float* __restrict__ b1, int C1,
+        const float* __restrict__ w2, int C2, const float* __restrict__ s1,
+        const float* __restrict__ t1, const float* __restrict__ s2,
+        const float* __restrict__ t2, float slope, int N, int k,
+        const int* __restrict__ starts, int tile, int W,
+        OUT* __restrict__ out) {
+  constexpr int QB = VARIANT_QB<NPL>;
+  constexpr int CPL = dg::E2_CPL;
+  extern __shared__ float smem[];
+  float* sg = smem;                                          // graph stage
+  float* ws = sg + dg::select_smem_bytes<NPL>(W) / sizeof(float);  // w2
+  float* hb = ws + C1 * dg::e2_ldw(C2);                      // QB h1 rows
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int i = blockIdx.x * QB + warp;
+  const int start = starts ? starts[blockIdx.x * QB / tile] : 0;
+  // row_scores synchronises the block before its first read of shared
+  // memory and after its first write, which covers w2 too
+  dg::e2_stage_w2(w2, C1, C2, ws);
+  float s[NPL];
+  dg::row_scores<NPL>(gc + ((size_t)b * N + start) * Cs, Cs,
+                      sq + (size_t)b * N + start, W, i - start, lane, sg, s,
+                      gq + ((size_t)b * N + i) * Cs);
+
+  const size_t row = (size_t)b * N + i;
+  const dg::E2Centre ctr = dg::e2_centre(b1 + row * C1, s1, t1, C1, lane);
+  float sc2[CPL], tc2[CPL], mx[CPL];
+#pragma unroll
+  for (int v = 0; v < CPL; ++v) {
+    const int c = lane + 32 * v;
+    sc2[v] = c < C2 ? s2[c] : 0.f;
+    tc2[v] = c < C2 ? t2[c] : 0.f;
+    mx[v] = -INFINITY;
+  }
+  const float* A = a1 + ((size_t)b * N + start) * C1;
+  float* hrow = hb + warp * C1;
+  const int ldw = dg::e2_ldw(C2);
+  auto consume = [&]() {  // the edge whose h1 row is in hrow
+    __syncwarp();
+#pragma unroll
+    for (int v = 0; v < CPL; ++v) {
+      const int c = lane + 32 * v;
+      if (c < C2) {
+        const float z = dg::e2_z2(hrow, ws, C1, ldw, c);
+        mx[v] = fmaxf(mx[v],
+                      dg::e2_lrelu(__fadd_rn(__fmul_rn(z, sc2[v]), tc2[v]),
+                                   slope));
+      }
+    }
+    __syncwarp();  // before the next edge overwrites hrow
+  };
+  if constexpr (V3) {
+    for (int r = 0; r < k; ++r) {
+      dg::RowMask<NPL> mk;
+      int cnt;
+      if (dg::pop_class<NPL>(s, lane, mk, cnt) == -INFINITY) break;
+      float am[CPL];
+#pragma unroll
+      for (int u = 0; u < CPL; ++u) am[u] = 0.f;
+      dg::class_members<NPL>(mk, [&](int j) {
+        const float* arow = A + (size_t)j * C1;
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) {
+          const int c = lane + 32 * u;
+          if (c < C1) am[u] = cnt == 1 ? arow[c] : __fadd_rn(am[u], arow[c]);
+        }
+      });
+      if (cnt > 1)
+#pragma unroll
+        for (int u = 0; u < CPL; ++u) am[u] = __fdiv_rn(am[u], (float)cnt);
+      dg::e2_h1_vals(am, ctr, slope, C1, lane, hrow);
+      consume();
+    }
+  } else {
+    dg::row_keys<NPL>(s, lim);
+    for (int r = 0; r < k; ++r) {
+      const int j = dg::pop_nearest<NPL>(s, lane);
+      dg::e2_h1_row(A + (size_t)j * C1, ctr, slope, C1, lane, hrow);
+      consume();
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < CPL; ++v) {
+    const int c = lane + 32 * v;
+    if (c < C2) dg::store_out(out + row * C2 + c, mx[v]);
+  }
+}
+
+// The row-warp instance of the form, its bucket picked from W.
+template <bool V3, typename OUT>
+cudaError_t launch_variant_rowwarp(const float* gc, const float* gq, int Cs,
+                                   const float* sq, float lim,
+                                   const float* a1, const float* b1,
+                                   const float* w2, const float* s1,
+                                   const float* t1, const float* s2,
+                                   const float* t2, void* out, int B, int N,
+                                   int C1, int C2, int k, float slope,
+                                   const int* starts, int tile, int W,
+                                   cudaStream_t st) {
+  return dg::with_npl(W, [&](auto npl) {
+    constexpr int NPL = decltype(npl)::value;
+    constexpr int QB = VARIANT_QB<NPL>;
+    auto kern = knn_edge2_variant_rowwarp_kernel<NPL, V3, OUT>;
+    const size_t smem =
+        dg::select_smem_bytes<NPL>(W) +
+        sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)QB * C1);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(N / QB, B), QB * 32, smem, st>>>(
+        gc, gq, Cs, sq, lim, a1, b1, C1, w2, C2, s1, t1, s2, t2, slope, N, k,
+        starts, tile, W, reinterpret_cast<OUT*>(out));
+    return cudaGetLastError();
+  });
+}
+
 template <int KL, bool V3, bool BANDED, typename OUT>
 cudaError_t launch_variant_kernel(const float* gc, const float* gq, int Cs,
                                   const float* sq, float* rmin, float lim,
@@ -120,15 +262,16 @@ cudaError_t launch_variant_kernel(const float* gc, const float* gq, int Cs,
 }  // namespace
 
 // Kernel 6's forms other than the exact v1 (and kernel 13's, with starts):
-// the AMP v3 and v2 forms and the exact v2 form, on the tiled route (k <=
-// 64, C1 <= 64, C2 <= 128).  graph (B, N, Cg) f32, or bf16 in AMP (flags
-// bit 0); bit 1: v3 (AMP); bit 2: the exact form (f32 scores and output).
-// a1/b1 (B, N, C1), w2 (C1, C2), s1/t1 (C1,), s2/t2 (C2,) f32.  Scratch
-// (AMP only): gq and gc (B * N * Cs f32, Cs = Cg for a bf16 graph, when
-// gq is unread, 3 Cg for an f32 one); sq and rmin (B * N f32); out (B, N,
-// C2), bf16 (AMP) or f32 (exact).  starts null: the candidates are the
-// cloud (tile and W = N); else kernel 13's windows: the W rows from
-// starts[r / tile] of a sorted cloud.  Returns the first CUDA error.
+// the AMP v3 and v2 forms and the exact v2 form.  graph (B, N, Cg) f32, or
+// bf16 in AMP (flags bit 0); bit 1: v3 (AMP); bit 2: the exact form (f32
+// scores and output); bit 3: the row-warp route at any shape.  a1/b1 (B, N,
+// C1), w2 (C1, C2), s1/t1 (C1,), s2/t2 (C2,) f32.  Scratch: gq and gc (AMP
+// only: B * N * Cs f32, Cs = Cg for a bf16 graph, when gq is unread, 3 Cg
+// for an f32 one); sq and rmin (B * N f32); out (B, N, C2), bf16 (AMP) or
+// f32 (exact).  starts null: the candidates are the cloud (tile and W = N);
+// else kernel 13's windows: the W rows from starts[r / tile] of a sorted
+// cloud.  The tiled route at k <= 64, C1 <= 64 and C2 <= 128, the row-warp
+// route otherwise (C1, C2 <= 128).  Returns the first CUDA error.
 extern "C" int dg_knn_edge2_variant(
     const void* graph, const float* a1, const float* b1, const float* w2,
     const float* s1, const float* t1, const float* s2, const float* t2,
@@ -136,10 +279,11 @@ extern "C" int dg_knn_edge2_variant(
     void* out, int B, int N, int Cg, int C1, int C2, int k, int tile, int W,
     float slope, int flags, void* stream) {
   const bool gbf = flags & 1, v3 = flags & 2, exact = flags & 4;
+  const bool rowwarp = (flags & 8) || !dg::e2c::tiled_route(C1, C2, k);
   const bool banded = starts != nullptr;
   if (B < 1 || N % 128 != 0 || N > dg::MAX_N || Cg < 1 || C1 < 1 ||
-      C1 > XC1 || C2 < 1 || C2 > XC2 || k < 1 || k > W ||
-      k > dg::TS_LIST || W % 128 != 0 || W < 128 || W > N ||
+      C1 > dg::E2_MAXC || C2 < 1 || C2 > dg::E2_MAXC || k < 1 || k > W ||
+      W % 128 != 0 || W < 128 || W > N ||
       (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0
               : W != N) ||
       (exact && (gbf || v3)))
@@ -159,14 +303,23 @@ extern "C" int dg_knn_edge2_variant(
   }
   e = dg::launch_sqnorm(gbf ? gc : gf, rows, Cg, sq, st);
   if (e != cudaSuccess) return (int)e;
+  const float lim = dg::keys_lim(W);
+  using bf16 = __nv_bfloat16;
+  if (rowwarp) {  // one launch: the row's grid comes from its registers
+#define DG_E2R(V3, OUT)                                                       \
+  launch_variant_rowwarp<V3, OUT>(gcp, gqp, Cs, sq, lim, a1, b1, w2, s1, t1,  \
+                                  s2, t2, out, B, N, C1, C2, k, slope,        \
+                                  starts, tile, W, st)
+    if (exact) return (int)DG_E2R(false, float);
+    return (int)(v3 ? DG_E2R(true, bf16) : DG_E2R(false, bf16));
+#undef DG_E2R
+  }
   if (!v3) {
     e = dg::launch_rowmin(gcp, gqp, Cs, sq, B, N, starts, tile, W, rmin, st);
     if (e != cudaSuccess) return (int)e;
   }
-  const float lim = dg::keys_lim(W);
   auto go = [&](auto kl) {
     constexpr int KL = decltype(kl)::value;
-    using bf16 = __nv_bfloat16;
 #define DG_E2V(V3, BANDED, OUT)                                              \
   launch_variant_kernel<KL, V3, BANDED, OUT>(gcp, gqp, Cs, sq, rmin, lim,    \
                                              a1, b1, w2, s1, t1, s2, t2, out, \

@@ -34,8 +34,9 @@
 // _knn_only_kernel at pallas_knn.py:1554) lists the k largest packed keys
 // of the same f32 scores (_pack_keys, :87): a TS_MIN pass of the tiled
 // selection writes each row's least score, the TS_KEYS pass lists the keys
-// (knn_select.cuh), lowest index first among equal ones; tiled route only
-// (k <= TS_LIST).
+// (knn_select.cuh), lowest index first among equal ones; above TS_LIST
+// (or dg_knn_idx_v2_rowwarp) the row-warp route on the same keys
+// (row_keys), the row's least score taken from its registers.
 // Both routes give each score the same bits (one fmaf chain over the
 // channels, 0 ascending, then the same _rn operations) and the same
 // neighbours in torch.topk's order, ties included: idx is identical on both
@@ -46,18 +47,20 @@
 
 namespace {
 
-template <int NPL>
-__global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
+// The row-warp route; KEYS: v2, the row's keys (row_keys).
+template <int NPL, bool KEYS>
+__global__ void __launch_bounds__(dg::ROW_QB<NPL, KEYS> * 32, 1)
     knn_idx_kernel(const float* __restrict__ x, int C,
                    const float* __restrict__ sq, int N, int k,
-                   int* __restrict__ idx) {
+                   int* __restrict__ idx, float lim) {
   extern __shared__ float sg[];  // N rows x CS: CC channels of the cloud
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * dg::Bucket<NPL>::QB + warp;
+  const int i = blockIdx.x * dg::ROW_QB<NPL, KEYS> + warp;
   float s[NPL];
   dg::row_scores<NPL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, N, i,
                       lane, sg, s);
+  if constexpr (KEYS) dg::row_keys<NPL>(s, lim);
   int* irow = idx + ((size_t)b * N + i) * k;
   for (int r = 0; r < k; ++r) {
     const int j = dg::pop_nearest<NPL>(s, lane);
@@ -107,18 +110,19 @@ cudaError_t launch_tiled(const float* x, const float* sq, int* idx, int B,
   return cudaGetLastError();
 }
 
+template <bool KEYS>
 cudaError_t launch_rowwarp(const float* x, const float* sq, int* idx, int B,
                            int N, int C, int k, cudaStream_t st) {
   return dg::with_npl(N, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = dg::Bucket<NPL>::QB;
+    constexpr int QB = dg::ROW_QB<NPL, KEYS>;
     const size_t smem = dg::select_smem_bytes<NPL>(N);
+    auto kern = knn_idx_kernel<NPL, KEYS>;
     cudaError_t err = cudaFuncSetAttribute(
-        knn_idx_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    knn_idx_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(x, C, sq, N,
-                                                               k, idx);
+    kern<<<dim3(N / QB, B), QB * 32, smem, st>>>(x, C, sq, N, k, idx,
+                                                  dg::keys_lim(N));
     return cudaGetLastError();
   });
 }
@@ -126,11 +130,13 @@ cudaError_t launch_rowwarp(const float* x, const float* sq, int* idx, int B,
 // rmin (B * N scratch) asks for the v2 form.
 int knn_idx(const float* x, float* sq, float* rmin, int* idx, int B, int N,
             int C, int k, bool rowwarp, cudaStream_t st) {
-  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || k < 1 || k > N ||
-      (rmin != nullptr && (rowwarp || k > dg::TS_LIST)))
+  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || k < 1 || k > N)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = dg::launch_sqnorm(x, B * N, C, sq, st);
   if (e != cudaSuccess) return (int)e;
+  rowwarp = rowwarp || k > dg::TS_LIST;
+  if (rmin != nullptr && rowwarp)
+    return (int)launch_rowwarp<true>(x, sq, idx, B, N, C, k, st);
   if (rmin != nullptr) {
     e = dg::launch_rowmin(x, x, C, sq, B, N, nullptr, N, N, rmin, st);
     if (e != cudaSuccess) return (int)e;
@@ -140,11 +146,9 @@ int knn_idx(const float* x, float* sq, float* rmin, int* idx, int B, int N,
     return (int)launch_tiled<2, dg::TS_KEYS>(x, sq, idx, B, N, C, k, st,
                                              rmin);
   }
-  if (!rowwarp && k <= 32) return (int)launch_tiled<1>(x, sq, idx, B, N, C, k,
-                                                       st);
-  if (!rowwarp && k <= dg::TS_LIST)
-    return (int)launch_tiled<2>(x, sq, idx, B, N, C, k, st);
-  return (int)launch_rowwarp(x, sq, idx, B, N, C, k, st);
+  if (rowwarp) return (int)launch_rowwarp<false>(x, sq, idx, B, N, C, k, st);
+  if (k <= 32) return (int)launch_tiled<1>(x, sq, idx, B, N, C, k, st);
+  return (int)launch_tiled<2>(x, sq, idx, B, N, C, k, st);
 }
 
 }  // namespace
@@ -158,12 +162,20 @@ extern "C" int dg_knn_idx(const float* x, float* sq, int* idx, int B, int N,
 }
 
 // The v2 form of dg_knn_idx: rmin (B * N f32) is scratch for the rows'
-// grids; k <= 64.
+// grids (the tiled route's).
 extern "C" int dg_knn_idx_v2(const float* x, float* sq, float* rmin,
                              int* idx, int B, int N, int C, int k,
                              void* stream) {
   if (rmin == nullptr) return (int)cudaErrorInvalidValue;
   return knn_idx(x, sq, rmin, idx, B, N, C, k, false, (cudaStream_t)stream);
+}
+
+// As dg_knn_idx_v2 on the row-warp route at any k.
+extern "C" int dg_knn_idx_v2_rowwarp(const float* x, float* sq, float* rmin,
+                                     int* idx, int B, int N, int C, int k,
+                                     void* stream) {
+  if (rmin == nullptr) return (int)cudaErrorInvalidValue;
+  return knn_idx(x, sq, rmin, idx, B, N, C, k, true, (cudaStream_t)stream);
 }
 
 // As dg_knn_idx on the row-warp route at any k.

@@ -22,8 +22,9 @@
 // -lim) with scale = -lim / min_j s(i, j), the k largest q, lowest index
 // first among equal ones.  A TS_MIN pass of the tiled selection writes
 // each row's least score, and the TS_KEYS pass lists the k largest keys
-// (knn_select.cuh); the reductions over the list are the v1 form's.  Tiled
-// route only: k <= TS_LIST, else the entry returns cudaErrorInvalidValue.
+// (knn_select.cuh); the reductions over the list are the v1 form's.  On
+// the row-warp route (below) the same keys come from row_keys, the row's
+// least score taken from its registers, in one scoring pass.
 //
 // Bound on an H100 SXM: operations.  At the DGCNNCls training shapes
 // (B=32, N=1024, k=20, Cg = 3 / 64 / 64 / 128) the scores are 2*B*N^2*Cg
@@ -55,7 +56,7 @@
 //             to bf16 as above.  Its backward recomputes the product with
 //             the same launch (dg_project on the rounded x) and so finds
 //             the bits the forward reduced.
-// Tiled route only (k <= TS_LIST), f32 inputs and outputs.
+// f32 inputs and outputs, at any k <= N (the JAX kernels have no k cap).
 //
 // Design, two routes decided from k before the launch:
 //   k <= TS_LIST (64; every model: k = 20, 32, 40)  knn_reduce_tiled_kernel:
@@ -68,9 +69,11 @@
 //     by sorting the first tile.  No
 //     score stays in registers across tiles: no spills at N = 4096, two
 //     blocks an SM.
-//   k > TS_LIST  knn_reduce_kernel: the row-warp selection (sqnorm, one warp
-//     per query row with its N scores in registers, k rounds of warp
-//     arg-max).
+//   k > TS_LIST, or rowwarp (the oracle of the tiled route)
+//     knn_reduce_kernel: the row-warp selection (sqnorm, one warp per query
+//     row with its N scores in registers, k rounds of warp arg-max; v2 on
+//     the keys of row_keys, the AMP form's scores through its query
+//     operands and a's values rounded).
 // Both give the same scores bit for bit (one fmaf chain over the channels,
 // 0 ascending, then the same _rn operations) and the same neighbours in
 // torch.topk's order.  Each winner's index goes to idx and its row of a is
@@ -96,23 +99,33 @@ namespace {
 
 using dg::MAX_N;
 
-// The row-warp route (k > TS_LIST): a warp a query row.
-template <int NPL>
-__global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
-    knn_reduce_kernel(const float* __restrict__ graph, int Cg,
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The row-warp route (k > TS_LIST, or asked for): a warp a query row.
+// KEYS: v2, the row's keys (knn_select.cuh's row_keys) of the scores whose
+// query operands are gq's row (the AMP scores; gq is graph in the exact v2
+// form); AMP: a's values rounded to bf16 as they are read.
+template <int NPL, bool KEYS, bool AMP>
+__global__ void __launch_bounds__(dg::ROW_QB<NPL, KEYS> * 32, 1)
+    knn_reduce_kernel(const float* __restrict__ graph,
+                      const float* __restrict__ gq, int Cg,
                       const float* __restrict__ sq,
                       const float* __restrict__ a, int Co, int N, int k,
                       int* __restrict__ idx, float* __restrict__ amax,
                       float* __restrict__ amin, float* __restrict__ asum,
-                      float* __restrict__ asumsq) {
+                      float* __restrict__ asumsq, float lim) {
   extern __shared__ float sg[];  // N rows x CS: CC channels of the cloud
   constexpr int CPL = dg::Bucket<NPL>::CPL;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * dg::Bucket<NPL>::QB + warp;
+  const int i = blockIdx.x * dg::ROW_QB<NPL, KEYS> + warp;
   float s[NPL];
   dg::row_scores<NPL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
-                      i, lane, sg, s);
+                      i, lane, sg, s,
+                      KEYS ? gq + ((size_t)b * N + i) * Cg : nullptr);
+  if constexpr (KEYS) dg::row_keys<NPL>(s, lim);
 
   const float* A = a + (size_t)b * N * Co;
   const size_t row = (size_t)b * N + i;
@@ -133,7 +146,7 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
     for (int u = 0; u < CPL; ++u) {
       const int c = lane + 32 * u;
       if (c < Co) {
-        const float v = arow[c];
+        const float v = AMP ? round_bf16(arow[c]) : arow[c];
         mx[u] = fmaxf(mx[u], v);
         mn[u] = fminf(mn[u], v);
         sm[u] = __fadd_rn(sm[u], v);
@@ -152,10 +165,6 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
       asumsq[o] = s2[u];
     }
   }
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // The tiled route: the block's 64 rows' lists, then the reductions, a
@@ -265,40 +274,53 @@ cudaError_t launch_tiled_co(const TiledArgs& t, cudaStream_t st) {
   return launch_tiled<KL, 8, MODE, AMP>(t, st);
 }
 
-// sqnorm of the graph, then the selection over a: the tiled route at
-// k <= TS_LIST, the row-warp route above.  rmin (B * N scratch) asks for
-// the v2 form: the rows' grids first, then the keyed tiled route (k <=
-// TS_LIST only).
+// The row-warp instance: v1 (TS_TOPK), or MODE TS_KEYS over the query
+// operands t.gq, a's values rounded to bf16 with AMP.
+template <int MODE, bool AMP = false>
+cudaError_t launch_rowwarp(const TiledArgs& t, cudaStream_t st) {
+  return dg::with_npl(t.N, [&](auto npl) {
+    constexpr int NPL = decltype(npl)::value;
+    constexpr int QB = dg::ROW_QB<NPL, MODE == dg::TS_KEYS>;
+    auto kern = knn_reduce_kernel<NPL, MODE == dg::TS_KEYS, AMP>;
+    const size_t smem = dg::select_smem_bytes<NPL>(t.N);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<dim3(t.N / QB, t.B), QB * 32, smem, st>>>(
+        t.graph, t.gq, t.Cg, t.sq, t.a, t.Co, t.N, t.k, t.idx, t.amax,
+        t.amin, t.asum, t.asumsq, dg::keys_lim(t.N));
+    return cudaGetLastError();
+  });
+}
+
+// The selection and reductions of t: the tiled route at k <= TS_LIST, the
+// row-warp route above it or with rowwarp.  MODE TS_KEYS: v2, the rows'
+// grids first on the tiled route (launch_rowmin into t.rmin).
+template <int MODE, bool AMP = false>
+cudaError_t select_reduce(const TiledArgs& t, bool rowwarp, cudaStream_t st) {
+  if (rowwarp || t.k > dg::TS_LIST) return launch_rowwarp<MODE, AMP>(t, st);
+  if constexpr (MODE == dg::TS_KEYS) {
+    const cudaError_t e = dg::launch_rowmin(t.graph, t.gq, t.Cg, t.sq, t.B,
+                                            t.N, nullptr, t.N, t.N, t.rmin,
+                                            st);
+    if (e != cudaSuccess) return e;
+  }
+  if (t.k <= 32) return launch_tiled_co<1, MODE, AMP>(t, st);
+  return launch_tiled_co<2, MODE, AMP>(t, st);
+}
+
+// sqnorm of the graph, then the selection over a.  rmin (B * N scratch)
+// asks for the v2 form.
 cudaError_t reduce(const float* graph, const float* a, float* sq, int* idx,
                    float* amax, float* amin, float* asum, float* asumsq,
                    float* rmin, int B, int N, int Cg, int Co, int k,
-                   cudaStream_t st) {
+                   bool rowwarp, cudaStream_t st) {
   cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
   if (e != cudaSuccess) return e;
   const TiledArgs t{graph, graph, a,  sq, idx, amax, amin, asum, asumsq,
                     rmin,  B,     N, Cg, Co,  k};
-  if (rmin != nullptr) {
-    if (k > dg::TS_LIST) return cudaErrorInvalidValue;
-    e = dg::launch_rowmin(graph, graph, Cg, sq, B, N, nullptr, N, N, rmin,
-                          st);
-    if (e != cudaSuccess) return e;
-    if (k <= 32) return launch_tiled_co<1, dg::TS_KEYS>(t, st);
-    return launch_tiled_co<2, dg::TS_KEYS>(t, st);
-  }
-  if (k <= 32) return launch_tiled_co<1, dg::TS_TOPK>(t, st);
-  if (k <= dg::TS_LIST) return launch_tiled_co<2, dg::TS_TOPK>(t, st);
-  return dg::with_npl(N, [&](auto npl) {
-    constexpr int NPL = decltype(npl)::value;
-    const size_t smem = dg::select_smem_bytes<NPL>(N);
-    constexpr int QB = dg::Bucket<NPL>::QB;
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_reduce_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    knn_reduce_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
-        graph, Cg, sq, a, Co, N, k, idx, amax, amin, asum, asumsq);
-    return cudaGetLastError();
-  });
+  if (rmin != nullptr) return select_reduce<dg::TS_KEYS>(t, rowwarp, st);
+  return select_reduce<dg::TS_TOPK>(t, rowwarp, st);
 }
 
 bool bad_shape(int B, int N, int Cg, int Co, int k) {
@@ -307,26 +329,21 @@ bool bad_shape(int B, int N, int Cg, int Co, int k) {
 }
 
 // The AMP form: the score operands (gq, gc: B * N * 3 Cg floats each) and
-// the squared norms of the f32 graph, the rows' grids, then the keyed
-// tiled route with a's values rounded to bf16.
+// the squared norms of the f32 graph, then the keyed selection (the rows'
+// grids first on the tiled route) with a's values rounded to bf16.
 cudaError_t reduce_amp(const float* graph, const float* a, float* gq,
                        float* gc, float* sq, float* rmin, int* idx,
                        float* amax, float* amin, float* asum, float* asumsq,
-                       int B, int N, int Cg, int Co, int k,
+                       int B, int N, int Cg, int Co, int k, bool rowwarp,
                        cudaStream_t st) {
-  if (bad_shape(B, N, Cg, Co, k) || k > dg::TS_LIST)
-    return cudaErrorInvalidValue;
+  if (bad_shape(B, N, Cg, Co, k)) return cudaErrorInvalidValue;
   cudaError_t e = dg::launch_amp_graph(graph, false, B * N, Cg, gq, gc, st);
   if (e != cudaSuccess) return e;
   e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
   if (e != cudaSuccess) return e;
-  const int Cs = 3 * Cg;
-  e = dg::launch_rowmin(gc, gq, Cs, sq, B, N, nullptr, N, N, rmin, st);
-  if (e != cudaSuccess) return e;
-  const TiledArgs t{gc,   gq,   a, sq, idx, amax, amin, asum, asumsq,
-                    rmin, B,    N, Cs, Co,  k};
-  if (k <= 32) return launch_tiled_co<1, dg::TS_KEYS, true>(t, st);
-  return launch_tiled_co<2, dg::TS_KEYS, true>(t, st);
+  const TiledArgs t{gc,   gq,   a, sq, idx,    amax, amin, asum, asumsq,
+                    rmin, B,    N, 3 * Cg, Co, k};
+  return select_reduce<dg::TS_KEYS, true>(t, rowwarp, st);
 }
 
 // x rounded to bf16 (to nearest even), as f32: the AMP select-x form's
@@ -341,27 +358,29 @@ __global__ void xw_round_kernel(const float* __restrict__ x, size_t n,
 
 // graph (B, N, Cg), a (B, N, Co), scratch sq (B*N,); out idx (B, N, k)
 // int32 and amax/amin/asum/asumsq (B, N, Co); f32 otherwise, contiguous,
-// on the device.  Returns the first CUDA error.
+// on the device.  The tiled route at k <= TS_LIST, the row-warp route
+// above.  Returns the first CUDA error.
 extern "C" int dg_knn_reduce(const float* graph, const float* a, float* sq,
                              int* idx, float* amax, float* amin, float* asum,
                              float* asumsq, int B, int N, int Cg, int Co,
                              int k, void* stream) {
   if (bad_shape(B, N, Cg, Co, k)) return (int)cudaErrorInvalidValue;
   return (int)reduce(graph, a, sq, idx, amax, amin, asum, asumsq, nullptr, B,
-                     N, Cg, Co, k, (cudaStream_t)stream);
+                     N, Cg, Co, k, false, (cudaStream_t)stream);
 }
 
 // The v2 form of dg_knn_reduce: rmin (B * N f32) is scratch for the rows'
-// grids; k <= 64.
+// grids; rowwarp: the row-warp route at any k (the oracle of the tiled
+// one; each form's entry below takes it likewise).
 extern "C" int dg_knn_reduce_v2(const float* graph, const float* a,
                                 float* sq, float* rmin, int* idx, float* amax,
                                 float* amin, float* asum, float* asumsq,
                                 int B, int N, int Cg, int Co, int k,
-                                void* stream) {
+                                int rowwarp, void* stream) {
   if (bad_shape(B, N, Cg, Co, k) || rmin == nullptr)
     return (int)cudaErrorInvalidValue;
   return (int)reduce(graph, a, sq, idx, amax, amin, asum, asumsq, rmin, B, N,
-                     Cg, Co, k, (cudaStream_t)stream);
+                     Cg, Co, k, rowwarp, (cudaStream_t)stream);
 }
 
 // As dg_knn_reduce over a = xf (B, N, Cin) @ w (Cin, Co), projected into
@@ -370,13 +389,14 @@ extern "C" int dg_knn_reduce_v2(const float* graph, const float* a,
 static int reduce_xw(const float* graph, const float* xf, const float* w,
                      float* a, float* sq, float* rmin, int* idx, float* amax,
                      float* amin, float* asum, float* asumsq, int B, int N,
-                     int Cg, int Cin, int Co, int k, cudaStream_t st) {
+                     int Cg, int Cin, int Co, int k, bool rowwarp,
+                     cudaStream_t st) {
   if (bad_shape(B, N, Cg, Co, k) || Cin < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = dg::launch_project(xf, B * N, Cin, w, Co, a, st);
   if (e != cudaSuccess) return (int)e;
   return (int)reduce(graph, a, sq, idx, amax, amin, asum, asumsq, rmin, B, N,
-                     Cg, Co, k, st);
+                     Cg, Co, k, rowwarp, st);
 }
 
 extern "C" int dg_knn_reduce_xw(const float* graph, const float* xf,
@@ -385,7 +405,8 @@ extern "C" int dg_knn_reduce_xw(const float* graph, const float* xf,
                                 float* asumsq, int B, int N, int Cg, int Cin,
                                 int Co, int k, void* stream) {
   return reduce_xw(graph, xf, w, a, sq, nullptr, idx, amax, amin, asum,
-                   asumsq, B, N, Cg, Cin, Co, k, (cudaStream_t)stream);
+                   asumsq, B, N, Cg, Cin, Co, k, false,
+                   (cudaStream_t)stream);
 }
 
 extern "C" int dg_knn_reduce_xw_v2(const float* graph, const float* xf,
@@ -393,22 +414,23 @@ extern "C" int dg_knn_reduce_xw_v2(const float* graph, const float* xf,
                                    float* rmin, int* idx, float* amax,
                                    float* amin, float* asum, float* asumsq,
                                    int B, int N, int Cg, int Cin, int Co,
-                                   int k, void* stream) {
+                                   int k, int rowwarp, void* stream) {
   if (rmin == nullptr) return (int)cudaErrorInvalidValue;
   return reduce_xw(graph, xf, w, a, sq, rmin, idx, amax, amin, asum, asumsq,
-                   B, N, Cg, Cin, Co, k, (cudaStream_t)stream);
+                   B, N, Cg, Cin, Co, k, rowwarp, (cudaStream_t)stream);
 }
 
-// The AMP form of dg_knn_reduce (k <= 64): scratch gq and gc (B * N * 3
-// Cg f32 each: the score operands), sq and rmin (B * N f32).
+// The AMP form of dg_knn_reduce: scratch gq and gc (B * N * 3 Cg f32 each:
+// the score operands), sq and rmin (B * N f32).
 extern "C" int dg_knn_reduce_amp(const float* graph, const float* a,
                                  float* gq, float* gc, float* sq,
                                  float* rmin, int* idx, float* amax,
                                  float* amin, float* asum, float* asumsq,
                                  int B, int N, int Cg, int Co, int k,
-                                 void* stream) {
+                                 int rowwarp, void* stream) {
   return (int)reduce_amp(graph, a, gq, gc, sq, rmin, idx, amax, amin, asum,
-                         asumsq, B, N, Cg, Co, k, (cudaStream_t)stream);
+                         asumsq, B, N, Cg, Co, k, rowwarp,
+                         (cudaStream_t)stream);
 }
 
 // The AMP form of dg_knn_reduce_xw: xr (B * N * Cin f32) takes x rounded
@@ -421,8 +443,8 @@ extern "C" int dg_knn_reduce_xw_amp(const float* graph, const float* xf,
                                     float* rmin, int* idx, float* amax,
                                     float* amin, float* asum, float* asumsq,
                                     int B, int N, int Cg, int Cin, int Co,
-                                    int k, void* stream) {
-  if (bad_shape(B, N, Cg, Co, k) || Cin < 1 || k > dg::TS_LIST)
+                                    int k, int rowwarp, void* stream) {
+  if (bad_shape(B, N, Cg, Co, k) || Cin < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const size_t xn = (size_t)B * N * Cin;
@@ -432,7 +454,7 @@ extern "C" int dg_knn_reduce_xw_amp(const float* graph, const float* xf,
   e = dg::launch_project(xr, B * N, Cin, w, Co, a, st);
   if (e != cudaSuccess) return (int)e;
   return (int)reduce_amp(graph, a, gq, gc, sq, rmin, idx, amax, amin, asum,
-                         asumsq, B, N, Cg, Co, k, st);
+                         asumsq, B, N, Cg, Co, k, rowwarp, st);
 }
 
 // out (M, ncols) = x (M, K) @ w (K, ncols): the projection of

@@ -1,10 +1,13 @@
 // The kNN selections of the port's neighbour-picking kernels.  Two
 // components: the row-warp selection below (row_scores, pop_nearest) of
-// knn_idx.cu, knn_sum.cu, edge_conv_eval.cu, knn_edge2.cu and
-// knn_reduce.cu at k > TS_LIST (kernel 6 and the banded kernel 13 also at
-// C1 > 64 or C2 > 128); and the tiled selection further down (tiled_topk)
-// of those five (kernels 11, 10, 1 and 12, 6 and 13, 3) at k <= TS_LIST.
-// Both give the same neighbours in the same order.  The banded kernels 12 and
+// knn_idx.cu, knn_sum.cu, edge_conv_eval.cu, edge_conv_amp.cu,
+// knn_edge2.cu, knn_edge2_variant.cu and knn_reduce.cu at k > TS_LIST
+// (kernel 6 and the banded kernel 13 also at C1 > 64 or C2 > 128), in each
+// mode (the exact v1 arg-max, the keyed v2 of row_keys, the class walk v3
+// of pop_class, on exact or AMP scores); and the tiled selection further
+// down (tiled_topk) of those kernels (11, 10, 1 and 12, 6 and 13, 3 and 4)
+// at k <= TS_LIST.  Both give the same neighbours in the same order, in
+// every mode.  The banded kernels 12 and
 // 13 hand either selection a window of their sorted cloud as the
 // candidates: row_scores takes it as the cloud, tiled_topk as its column
 // range.
@@ -53,6 +56,22 @@ struct Bucket {
 // The widest Co that the bucket of N takes.
 inline int max_co(int N) { return N / 32 <= 64 ? 256 : 128; }
 
+// Query rows (warps) a block of the row-warp kernels that hold more than
+// the scores through their rounds: kernel 6's per-edge state (knn_edge2.cu,
+// knn_edge2_variant.cu) and the keyed and class modes below.  From 64
+// scores a lane up, 8 warps, so that __launch_bounds__ leaves a thread up
+// to 255 registers: at Bucket's 16 warps (128 registers) the keyed forms of
+// kernels 3, 10 and 11 spilled 64-460 bytes a thread at N = 2048.
+template <int NPL>
+struct RowBlock {
+  static constexpr int QB = NPL >= 64 ? 8 : Bucket<NPL>::QB;
+};
+
+// The query rows a block of kernels 3, 10 and 11's row-warp route: Bucket's
+// for the exact v1 arg-max, RowBlock's for the keyed (v2) mode.
+template <int NPL, bool KEYED>
+constexpr int ROW_QB = KEYED ? RowBlock<NPL>::QB : Bucket<NPL>::QB;
+
 // Dynamic shared memory of the graph stage of a select block for a cloud
 // of N points.
 template <int NPL>
@@ -71,6 +90,16 @@ __device__ __forceinline__ void async_copy4(float* dst, const float* src,
                : "memory");
 }
 
+// Channel c0 + c of query row i for the score chain: its staged value (row
+// i of sg), or qrow's (zero past Cg, as the staged rows are padded).
+template <int NPL>
+__device__ __forceinline__ float query_channel(const float* sg, int i,
+                                               const float* __restrict__ qrow,
+                                               int Cg, int c0, int c) {
+  if (qrow == nullptr) return sg[i * Bucket<NPL>::CS + c];
+  return c0 + c < Cg ? qrow[c0 + c] : 0.f;
+}
+
 // row_scores for the buckets above 64 scores a lane (one block an SM).
 // The graph stage is copied with cp.async: a staging loop of plain loads
 // keeps one load in flight a thread, and at one block an SM that took most
@@ -83,7 +112,8 @@ __device__ __forceinline__ void async_copy4(float* dst, const float* src,
 template <int NPL>
 __device__ __forceinline__ void row_scores_async(
     const float* __restrict__ G, int Cg, const float* __restrict__ SQ, int N,
-    int i, int lane, float* sg, float (&s)[NPL]) {
+    int i, int lane, float* sg, float (&s)[NPL],
+    const float* __restrict__ qrow) {
   constexpr int CC = Bucket<NPL>::CC, CS = Bucket<NPL>::CS;
   const int passes = (Cg + CC - 1) / CC;
 #pragma unroll
@@ -104,7 +134,8 @@ __device__ __forceinline__ void row_scores_async(
     __syncthreads();
     float q[CC];
 #pragma unroll
-    for (int c = 0; c < CC; ++c) q[c] = sg[i * CS + c];
+    for (int c = 0; c < CC; ++c)
+      q[c] = query_channel<NPL>(sg, i, qrow, Cg, c0, c);
     if (last) {
       const float qq = sg[i * CS + CC];
 #pragma unroll
@@ -136,14 +167,20 @@ __device__ __forceinline__ void row_scores_async(
 // Scores of query row i against the N points of its cloud: G is the
 // cloud's (N, Cg) graph features, SQ its (N,) squared norms, sg the
 // block's dynamic shared memory.  Every thread of the block calls it
-// (it synchronises the block).  Columns past N score -inf.
+// (it synchronises the block).  Columns past N score -inf.  qrow, when
+// given, holds the query row's own Cg operands in place of G's row i: the
+// AMP scores of f32 inputs, [hi | hi | lo] against the cloud's [hi | lo |
+// hi] (tiled_topk's GQ, below), so that each score has the tiled route's
+// bits.
 template <int NPL>
 __device__ __forceinline__ void row_scores(const float* __restrict__ G, int Cg,
                                            const float* __restrict__ SQ, int N,
                                            int i, int lane, float* sg,
-                                           float (&s)[NPL]) {
+                                           float (&s)[NPL],
+                                           const float* __restrict__ qrow =
+                                               nullptr) {
   if constexpr (NPL > 64) {
-    row_scores_async<NPL>(G, Cg, SQ, N, i, lane, sg, s);
+    row_scores_async<NPL>(G, Cg, SQ, N, i, lane, sg, s, qrow);
     return;
   }
   constexpr int CC = Bucket<NPL>::CC, CS = Bucket<NPL>::CS;
@@ -158,7 +195,8 @@ __device__ __forceinline__ void row_scores(const float* __restrict__ G, int Cg,
     __syncthreads();
     float q[CC];
 #pragma unroll
-    for (int c = 0; c < CC; ++c) q[c] = sg[i * CS + c];
+    for (int c = 0; c < CC; ++c)
+      q[c] = query_channel<NPL>(sg, i, qrow, Cg, c0, c);
 #pragma unroll
     for (int t = 0; t < NPL; ++t) {
       const int j = t * 32 + lane;
@@ -207,6 +245,93 @@ __device__ __forceinline__ int pop_nearest(float (&s)[NPL], int lane) {
   for (int t = 0; t < NPL; ++t)
     if (t * 32 + lane == bj) s[t] = -INFINITY;
   return bj;
+}
+
+// The row-warp forms of the keyed (v2) and class (v3) selections, the
+// tiled route's TS_MIN + TS_KEYS and TS_CLASSES (below) on a warp's row of
+// scores in registers.  Both take the scores of row_scores (the exact f32
+// scores, or the AMP ones through qrow), so each form gives the tiled
+// route's neighbours, in its order, at any k <= N.
+
+// v2: each score of the row becomes its key's quantized part in its own
+// register, q = max(rint(s * scale), -lim), with scale = -lim / m where the
+// row's least score m (a warp min over its candidates; the -inf past them
+// is skipped) is negative, 0 otherwise: TS_MIN's grid and TS_KEYS's
+// operations.  q is an integer below 2^24 in magnitude, exact in f32, so
+// pop_nearest's order on the keys, (q desc, index asc), is the packed
+// keys' order (_pack_keys: q * 2^b + n - 1 - j).
+template <int NPL>
+__device__ __forceinline__ void row_keys(float (&s)[NPL], float lim) {
+  float m = INFINITY;
+#pragma unroll
+  for (int t = 0; t < NPL; ++t)
+    if (s[t] > -INFINITY) m = fminf(m, s[t]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fminf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const float scale = m < 0.f ? __fdiv_rn(-lim, m) : 0.f;
+#pragma unroll
+  for (int t = 0; t < NPL; ++t)
+    if (s[t] > -INFINITY) s[t] = fmaxf(rintf(__fmul_rn(s[t], scale)), -lim);
+}
+
+// The ballots of a row's columns, one word a register slot t: lane t % 32
+// of word t / 32 holds the lanes (columns 32 t + lane) that a test took.
+template <int NPL>
+struct RowMask {
+  static constexpr int W = (NPL + 31) / 32;
+  unsigned w[W];
+};
+
+// v3: one round of the class walk (_extract_loop_v3).  The row's largest
+// remaining score v (a warp max: the next class), its members (the columns
+// that score v) retired to -inf and their ballots left in mk, the count of
+// members in cnt (on every lane).  v is -inf once the row has no class
+// left: fewer than k distinct scores, where the walk consumes its last
+// class again, which the max and min it feeds ignore.
+template <int NPL>
+__device__ __forceinline__ float pop_class(float (&s)[NPL], int lane,
+                                           RowMask<NPL>& mk, int& cnt) {
+  float v = s[0];
+#pragma unroll
+  for (int t = 1; t < NPL; ++t) v = fmaxf(v, s[t]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  cnt = 0;
+#pragma unroll
+  for (int q = 0; q < RowMask<NPL>::W; ++q) mk.w[q] = 0u;
+#pragma unroll
+  for (int t = 0; t < NPL; ++t) {
+    const bool in = s[t] == v && v > -INFINITY;
+    const unsigned b = __ballot_sync(0xffffffffu, in);
+    if (lane == (t & 31)) mk.w[t >> 5] = b;
+    cnt += __popc(b);
+    if (in) s[t] = -INFINITY;
+  }
+  return v;
+}
+
+// Calls f(j) for each column j of the ballots mk in ascending order, every
+// lane with the same j (the sum order of a class's mean: members ascending
+// from zero, as the tiled route's e2t_class_means and the v3 fold sum).
+template <int NPL, typename F>
+__device__ __forceinline__ void class_members(const RowMask<NPL>& mk,
+                                              F&& f) {
+#pragma unroll
+  for (int q = 0; q < RowMask<NPL>::W; ++q) {
+    unsigned slots = __ballot_sync(0xffffffffu, mk.w[q] != 0u);
+    while (slots) {
+      const int l = __ffs(slots) - 1;  // register slot t = 32 q + l
+      slots &= slots - 1;
+      unsigned m = __shfl_sync(0xffffffffu, mk.w[q], l);
+      while (m) {
+        const int src = __ffs(m) - 1;
+        m &= m - 1;
+        f(32 * (32 * q + l) + src);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------

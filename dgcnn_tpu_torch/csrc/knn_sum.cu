@@ -52,8 +52,8 @@
 // score, the TS_KEYS pass lists the keys (knn_select.cuh), lowest index
 // first among equal ones; then the v1 form's list-order store and fold.
 // Its sums stay the exact f32 sums in list order t = 0..k-1 (the TPU's v2
-// sums the multi-hot rows of the same set).  Tiled route only (k <=
-// TS_LIST).
+// sums the multi-hot rows of the same set).  Above TS_LIST (or
+// dg_knn_sum_v2_rowwarp) the row-warp route on the same keys (row_keys).
 // Both routes pick the same neighbours in the same order (kernel 11's
 // routes give the same idx, ties included) and sum them in that order from
 // the t = 0 term: idx and asum are the same bits on both routes.  Neither
@@ -64,19 +64,22 @@
 
 namespace {
 
-template <int NPL>
-__global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
+// The row-warp route; KEYS: v2, the row's keys (row_keys).
+template <int NPL, bool KEYS>
+__global__ void __launch_bounds__(dg::ROW_QB<NPL, KEYS> * 32, 1)
     knn_sum_kernel(const float* __restrict__ x, int C,
                    const float* __restrict__ sq, int N, int k,
                    const float* __restrict__ a, int Ca,
-                   int* __restrict__ idx, float* __restrict__ asum) {
+                   int* __restrict__ idx, float* __restrict__ asum,
+                   float lim) {
   extern __shared__ float sg[];  // N rows x CS: CC channels of the cloud
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * dg::Bucket<NPL>::QB + warp;
+  const int i = blockIdx.x * dg::ROW_QB<NPL, KEYS> + warp;
   float s[NPL];
   dg::row_scores<NPL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, N, i,
                       lane, sg, s);
+  if constexpr (KEYS) dg::row_keys<NPL>(s, lim);
   const float* ab = a + (size_t)b * N * Ca;
   int* irow = idx + ((size_t)b * N + i) * k;
   float acc = 0.f;  // lane c < Ca: the running sum of channel c
@@ -160,19 +163,20 @@ cudaError_t launch_tiled(const float* x, const float* a, const float* sq,
   return cudaGetLastError();
 }
 
+template <bool KEYS>
 cudaError_t launch_rowwarp(const float* x, const float* a, const float* sq,
                            int* idx, float* asum, int B, int N, int C,
                            int Ca, int k, cudaStream_t st) {
   return dg::with_npl(N, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = dg::Bucket<NPL>::QB;
+    constexpr int QB = dg::ROW_QB<NPL, KEYS>;
     const size_t smem = dg::select_smem_bytes<NPL>(N);
+    auto kern = knn_sum_kernel<NPL, KEYS>;
     cudaError_t err = cudaFuncSetAttribute(
-        knn_sum_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    knn_sum_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
-        x, C, sq, N, k, a, Ca, idx, asum);
+    kern<<<dim3(N / QB, B), QB * 32, smem, st>>>(x, C, sq, N, k, a, Ca, idx,
+                                                  asum, dg::keys_lim(N));
     return cudaGetLastError();
   });
 }
@@ -182,11 +186,13 @@ int knn_sum(const float* x, const float* a, float* sq, float* rmin, int* idx,
             float* asum, int B, int N, int C, int Ca, int k, bool rowwarp,
             cudaStream_t st) {
   if (B < 1 || N % 128 != 0 || N > dg::MAX_N || C < 1 || Ca < 1 ||
-      Ca > 32 || k < 1 || k > N ||
-      (rmin != nullptr && (rowwarp || k > dg::TS_LIST)))
+      Ca > 32 || k < 1 || k > N)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = dg::launch_sqnorm(x, B * N, C, sq, st);
   if (e != cudaSuccess) return (int)e;
+  rowwarp = rowwarp || k > dg::TS_LIST;
+  if (rmin != nullptr && rowwarp)
+    return (int)launch_rowwarp<true>(x, a, sq, idx, asum, B, N, C, Ca, k, st);
   if (rmin != nullptr) {
     e = dg::launch_rowmin(x, x, C, sq, B, N, nullptr, N, N, rmin, st);
     if (e != cudaSuccess) return (int)e;
@@ -196,11 +202,12 @@ int knn_sum(const float* x, const float* a, float* sq, float* rmin, int* idx,
     return (int)launch_tiled<2, dg::TS_KEYS>(x, a, sq, idx, asum, B, N, C, Ca,
                                              k, st, rmin);
   }
-  if (!rowwarp && k <= 32)
+  if (rowwarp)
+    return (int)launch_rowwarp<false>(x, a, sq, idx, asum, B, N, C, Ca, k,
+                                      st);
+  if (k <= 32)
     return (int)launch_tiled<1>(x, a, sq, idx, asum, B, N, C, Ca, k, st);
-  if (!rowwarp && k <= dg::TS_LIST)
-    return (int)launch_tiled<2>(x, a, sq, idx, asum, B, N, C, Ca, k, st);
-  return (int)launch_rowwarp(x, a, sq, idx, asum, B, N, C, Ca, k, st);
+  return (int)launch_tiled<2>(x, a, sq, idx, asum, B, N, C, Ca, k, st);
 }
 
 }  // namespace
@@ -216,12 +223,22 @@ extern "C" int dg_knn_sum(const float* x, const float* a, float* sq,
 }
 
 // The v2 form of dg_knn_sum: rmin (B * N f32) is scratch for the rows'
-// grids; k <= 64.
+// grids (the tiled route's).
 extern "C" int dg_knn_sum_v2(const float* x, const float* a, float* sq,
                              float* rmin, int* idx, float* asum, int B, int N,
                              int C, int Ca, int k, void* stream) {
   if (rmin == nullptr) return (int)cudaErrorInvalidValue;
   return knn_sum(x, a, sq, rmin, idx, asum, B, N, C, Ca, k, false,
+                 (cudaStream_t)stream);
+}
+
+// As dg_knn_sum_v2 on the row-warp route at any k.
+extern "C" int dg_knn_sum_v2_rowwarp(const float* x, const float* a,
+                                     float* sq, float* rmin, int* idx,
+                                     float* asum, int B, int N, int C, int Ca,
+                                     int k, void* stream) {
+  if (rmin == nullptr) return (int)cudaErrorInvalidValue;
+  return knn_sum(x, a, sq, rmin, idx, asum, B, N, C, Ca, k, true,
                  (cudaStream_t)stream);
 }
 

@@ -28,7 +28,8 @@ and their training steps have the JAX package's two numerics modes,
 exact f32 and AMP (its default): ``forward``'s ``amp`` None takes AMP on
 the card unless ``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU;
 True or False asks for one (``ops.amp_select.use_amp_eval`` and
-``use_amp_train``: clouds the kernels do not take and k > 64 stay exact).
+``use_amp_train``: clouds the kernels do not take stay exact; any k runs
+the mode asked for, as in the JAX package).
 A forward, and a training step with its backward, runs every kernel in
 the one mode.  In training the AMP mode is the kernels' AMP forms (3, 4,
 5, 7 and 8: bf16 selected values, f32 sums); every product outside them
@@ -351,7 +352,7 @@ class DGCNNCls(nn.Module):
     on the pooled f32 rows).  ``forward``'s ``amp`` None takes AMP on the
     card unless ``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU;
     True or False asks for one (``ops.amp_select.use_amp_eval``: clouds
-    the kernels do not take and k > 64 stay exact).  Training has the same
+    the kernels do not take stay exact, at any k).  Training has the same
     two modes (``ops.amp_select.use_amp_train``): in AMP the stages run
     kernels 3, 4 (the 128 -> 256 stage) and 5 in their AMP forms, and
     every product outside them stays f32."""

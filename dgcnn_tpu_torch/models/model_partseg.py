@@ -138,8 +138,8 @@ class Net(nn.Module):
     Eval and training have two numerics modes (module docstring):
     ``forward``'s ``amp`` None takes AMP on the card unless
     ``DGCNN_TPU_PALLAS_EXACT`` is set and exact on the CPU; True or False
-    asks for one (clouds the kNN kernels do not take, and k > 64, stay
-    exact)."""
+    asks for one (clouds the kNN kernels do not take stay exact, at any
+    k)."""
 
     def __init__(self, emb_dim: int = 512, k: int = 32, n_heads: int = 4,
                  n_blocks: int = 2, ff_dims: int = 512, nclasses: int = 50,

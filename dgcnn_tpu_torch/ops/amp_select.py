@@ -45,8 +45,9 @@ is set:
 
 The CUDA kernels of the AMP mode (the AMP instances of
 ``csrc/edge_conv_eval.cu``, ``edge_conv_amp.cu``, ``knn_edge2_variant.cu``
-and, for training, ``knn_reduce.cu``) compute the same selections; these
-are their plain versions.
+and, for training, ``knn_reduce.cu``) compute the same selections at any
+k <= N (the tiled selection of ``csrc/knn_select.cuh`` up to k = 64, its
+row-warp selection above); these are their plain versions.
 """
 from __future__ import annotations
 
@@ -61,8 +62,6 @@ VARIANTS = ("v1", "v2", "v3")
 # forms take: the exact v1 and v2 (the semseg CLI's pin) and the AMP v2
 # (the pin, and the default at widths that are multiples of 128) and v3
 PORTED = ((False, "v1"), (False, "v2"), (True, "v2"), (True, "v3"))
-# the AMP kernel's longest list (its tiled route alone)
-AMP_MAX_K = 64
 
 
 def exact_mode() -> bool:
@@ -121,12 +120,16 @@ def use_amp_eval(amp: bool | None, device: torch.device, n: int,
     the AMP mode.  ``amp`` None takes the default, the JAX package's: AMP
     on the card unless ``DGCNN_TPU_PALLAS_EXACT`` is set, exact on the CPU
     (the JAX package's XLA path there); True or False asks for one.  Clouds
-    the kNN kernels do not take (``use_kernel``), and k above the AMP
-    kernel's lists, stay exact either way, as the JAX package's XLA path
-    does."""
+    the kNN kernels do not take (``use_kernel``) stay exact either way.
+    The JAX package runs its Pallas kernels, AMP by default, on every cloud
+    whose N is a multiple of 128 (``dgcnn_tpu/ops/knn.py::use_pallas``) at
+    any k; the port's AMP forms take any k <= N too, so ``k`` does not
+    gate the mode; the port's clouds above ``MAX_N`` points stay exact,
+    where the JAX package still runs AMP (ROADMAP C.1)."""
     from dgcnn_tpu_torch.ops.knn import use_kernel
 
-    if not (use_kernel(n) and k <= AMP_MAX_K):
+    del k
+    if not use_kernel(n):
         return False
     if amp is None:
         return device.type == "cuda" and not exact_mode()
@@ -139,8 +142,8 @@ def use_amp_train(amp: bool | None, device: torch.device, n: int,
     the AMP mode (``use_amp_eval``'s twin): ``amp`` None takes the JAX
     package's default, AMP on the card unless ``DGCNN_TPU_PALLAS_EXACT``
     is set and exact on the CPU; True or False asks for one.  Clouds the
-    kNN kernels do not take, and k above the AMP kernels' lists, train
-    exact either way."""
+    kNN kernels do not take train exact either way; any k trains in the
+    mode asked for, as in the JAX package."""
     return use_amp_eval(amp, device, n, k)
 
 

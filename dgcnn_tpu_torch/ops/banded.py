@@ -37,7 +37,8 @@ banded kernels run the bodies of kernels 1 and 6, ``pallas_banded.py:
 109-223``), and the extraction variant is the exact kernels'
 (``amp_select.stage_variant``): the CUDA forms take the exact v1 and v2
 and the AMP v2 and v3 (``launch_variant`` of ``edge_conv_kernel.py`` and
-``edge2_kernel.py`` with the window starts).  Over a window, a row's keys
+``edge2_kernel.py`` with the window starts), on the exact v1's two routes
+(``rowwarp=True`` forces the row-warp one).  Over a window, a row's keys
 (v2) are packed for N = band, on its least score over the window, and
 its classes (v3) are the window's.  ``*_amp_plain`` and the ``variant`` of
 the ``*_plain`` versions select over the same windows.
@@ -73,7 +74,7 @@ from dgcnn_tpu_torch.ops.edge2_kernel import (
 from dgcnn_tpu_torch.ops.edge_conv import _project, edge_conv_fused
 from dgcnn_tpu_torch.ops.edge_conv_kernel import _amp_weights, stage_epilogue
 from dgcnn_tpu_torch.ops.knn import MAX_N, pairwise_neg_sqdist
-from dgcnn_tpu_torch.ops.knn_reduce_kernel import max_co
+from dgcnn_tpu_torch.ops.knn_reduce_kernel import TILED_MAX_K, max_co
 
 TILE_N = 128
 
@@ -296,7 +297,7 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
     form (f32 or bf16 graph and x, bf16 output; plain:
     ``banded_edge_conv_eval_amp_plain``); the variant is
     ``stage_variant``'s, and the forms other than the exact v1 take Co <=
-    64 and k <= 64."""
+    64 and any k <= band, on the same two routes."""
     name = "banded_edge_conv_eval"
     variant = stage_variant(amp, select_x_plan(*w_nbr.shape)[1])
     if graph.device.type == "cpu":
@@ -306,14 +307,16 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
                   order, variant=variant)
     require_ported(name, amp, variant)
     if amp or variant != "v1":
-        _require(name, not rowwarp, "the row-warp route is exact v1's")
+        rowwarp = rowwarp or k > TILED_MAX_K
         order, inv, tile, starts = _launch_setup(graph, order, band)
         out = edge_conv_kernel.launch_variant(
             sort_rows(graph, order), sort_rows(x, order), w_nbr, w_ctr,
-            scale, bias, k, slope, amp, variant, starts, tile, band)
+            scale, bias, k, slope, amp, variant, starts, tile, band,
+            rowwarp=rowwarp)
         banded_edge_conv_eval.launches += 1
         banded_edge_conv_eval.amp_launches += amp
         banded_edge_conv_eval.v2_launches += not amp
+        banded_edge_conv_eval.rowwarp_launches += rowwarp
         return sort_rows(out, inv)
     b, n, cg = graph.shape
     cin, co = w_nbr.shape
@@ -403,7 +406,7 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     bits).  ``amp`` runs the AMP form (f32 or bf16 graph, bf16 output;
     plain: ``banded_knn_edge2_amp_plain``); the variant is
     ``stage_variant``'s, and the forms other than the exact v1 take the
-    tiled route's shapes."""
+    same shapes on the same two routes."""
     name = "banded_knn_edge2"
     variant = stage_variant(amp, edge2_variant(w2.shape[0]))
     if graph.device.type == "cpu":
@@ -412,15 +415,16 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
                   variant=variant)
     require_ported(name, amp, variant)
     if amp or variant != "v1":
-        _require(name, not rowwarp, "the row-warp route is exact v1's")
+        rowwarp = rowwarp or not edge2_kernel.tiled_route(*w2.shape, k)
         order, inv, tile, starts = _launch_setup(graph, order, band)
         gs, a1s, b1s = (sort_rows(t, order) for t in (graph, a1, b1))
         out = edge2_kernel.launch_variant(gs, a1s, b1s, s1, t1, w2, s2, t2,
                                           k, slope, amp, variant, starts,
-                                          tile, band)
+                                          tile, band, rowwarp=rowwarp)
         banded_knn_edge2.launches += 1
         banded_knn_edge2.amp_launches += amp
         banded_knn_edge2.v2_launches += not amp
+        banded_knn_edge2.rowwarp_launches += rowwarp
         return sort_rows(out, inv)
     b, n, cg = graph.shape
     c1, c2 = w2.shape
@@ -448,6 +452,8 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
 
 
 # launches of the kernels since the counts were last set to 0 (amp_launches:
-# those of their AMP forms; v2_launches: those of their exact v2 forms)
+# those of their AMP forms; v2_launches: those of their exact v2 forms;
+# rowwarp_launches: those of either on the row-warp route)
 for _fn in (banded_edge_conv_eval, banded_knn_edge2):
     _fn.launches = _fn.amp_launches = _fn.v2_launches = 0
+    _fn.rowwarp_launches = 0

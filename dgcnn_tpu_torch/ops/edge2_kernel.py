@@ -22,9 +22,12 @@ convs, then the max) and v2 otherwise, and a bf16 output.
 ``knn_edge2_amp_plain`` is its plain version.  The extraction variant is
 ``amp_select.stage_variant``'s, as for kernel 1: the CUDA forms take the
 exact v1 and v2 (the semseg CLI's pin: f32 payload and output) and the AMP
-v2 and v3, on the tiled route (k <= 64, C1 <= 64, C2 <= 128) for all but
-the exact v1; ``launch_variant`` launches them, for the whole cloud or
-(kernel 13) each query tile's window.
+v2 and v3, each on both routes of the exact v1 (the tiled one at k <= 64,
+C1 <= 64 and C2 <= 128, the row-warp one otherwise:
+``csrc/knn_edge2_variant.cu``); ``launch_variant`` launches the forms but
+the exact v1, for the whole cloud or (kernel 13) each query tile's window,
+and ``rowwarp=True`` forces their row-warp route (the oracle of the tiled
+one).
 """
 from __future__ import annotations
 
@@ -34,18 +37,29 @@ import torch
 
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.amp_select import (
-    AMP_MAX_K,
     amp_scores,
     require_ported,
     select_rows,
     stage_variant,
 )
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain, pairwise_neg_sqdist
+from dgcnn_tpu_torch.ops.knn import (
+    MAX_N,
+    TILED_MAX_K,
+    knn_plain,
+    pairwise_neg_sqdist,
+)
 
 MAX_C = 128
-# the widths of the tiled route, the only one of the forms but exact v1
+# the widths of the tiled route
 TILED_C1, TILED_C2 = 64, 128
+
+
+def tiled_route(c1: int, c2: int, k: int) -> bool:
+    """Whether kernels 6 and 13 take their tiled route at these widths and
+    k (``csrc/edge2_consume.cuh``, ``tiled_route``); else the row-warp
+    route."""
+    return k <= TILED_MAX_K and c1 <= TILED_C1 and c2 <= TILED_C2
 
 
 def edge2_variant(c1: int) -> str:
@@ -106,7 +120,8 @@ def _require(cond: bool, msg: str) -> None:
 def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
               s1: torch.Tensor, t1: torch.Tensor, w2: torch.Tensor,
               s2: torch.Tensor, t2: torch.Tensor, k: int,
-              slope: float = 0.2, *, amp: bool = False) -> torch.Tensor:
+              slope: float = 0.2, *, amp: bool = False,
+              rowwarp: bool = False) -> torch.Tensor:
     """kNN over ``graph`` (B, N, Cg), then for each of the k neighbours j
     of point i ``LReLU((LReLU((a1[j] + b1[i]) * s1 + t1) @ w2) * s2 + t2)``
     and its max over the neighbours -> (B, N, C2).  ``a1``/``b1`` (B, N,
@@ -119,8 +134,9 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     of 128, N <= 4096 and C1, C2 <= 128, and raises on anything else.
     ``amp`` runs the AMP form (plain: ``knn_edge2_amp_plain``): an f32 or
     bf16 graph, a bf16 output.  The extraction variant is
-    ``stage_variant``'s; the forms other than the exact v1 take k <= 64,
-    C1 <= 64 and C2 <= 128."""
+    ``stage_variant``'s; every form takes the exact v1's shapes.
+    ``rowwarp`` launches the row-warp route of the forms but the exact v1
+    at any shape (the exact v1's is the banded entry's at band = N)."""
     variant = stage_variant(amp, edge2_variant(w2.shape[0]))
     if graph.device.type == "cpu":
         fn = knn_edge2_amp_plain if amp else knn_edge2_plain
@@ -128,12 +144,16 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
                   variant=variant)
     require_ported("knn_edge2", amp, variant)
     if amp or variant != "v1":
+        rowwarp = rowwarp or not tiled_route(*w2.shape, k)
         out = launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
-                             amp, variant)
+                             amp, variant, rowwarp=rowwarp)
         knn_edge2.launches += 1
         knn_edge2.amp_launches += amp
         knn_edge2.v2_launches += not amp
+        knn_edge2.rowwarp_launches += rowwarp
         return out
+    _require(not rowwarp, "the exact v1's row-warp route is the banded "
+             "entry's at band = N")
     _require(graph.is_cuda, f"no kernel for device {graph.device}")
     tensors = (graph, a1, b1, s1, t1, w2, s2, t2)
     _require(all(t.device == graph.device for t in tensors),
@@ -177,12 +197,13 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
 
 def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
                    amp: bool, variant: str, starts=None, tile: int = 0,
-                   band: int = 0) -> torch.Tensor:
+                   band: int = 0, rowwarp: bool = False) -> torch.Tensor:
     """Launches the AMP v2 / v3 form or the exact v2 form of the block on
     CUDA tensors: over the whole cloud, or with ``starts`` (the window
     starts of each query tile of ``tile`` rows) over windows of ``band``
-    rows of a sorted cloud (kernel 13).  Checks the tensors and raises on
-    what the kernel does not take."""
+    rows of a sorted cloud (kernel 13).  The kernel takes its row-warp
+    route off ``tiled_route``'s shapes or with ``rowwarp``.  Checks the
+    tensors and raises on what the kernel does not take."""
     name = "banded_knn_edge2" if starts is not None else "knn_edge2"
 
     def need(cond, msg):
@@ -212,10 +233,8 @@ def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
          "s1/t1 must be (C1,) and s2/t2 (C2,)")
     need(n % 128 == 0 and n <= MAX_N,
          f"N={n} must be a multiple of 128 and <= {MAX_N}")
-    need(c1 <= TILED_C1 and c2 <= TILED_C2,
-         f"the {variant} form takes C1 <= {TILED_C1} and C2 <= {TILED_C2}")
-    need(1 <= k <= min(AMP_MAX_K, w),
-         f"the {variant} form takes 1 <= k <= {min(AMP_MAX_K, w)} (k={k})")
+    need(c1 <= MAX_C and c2 <= MAX_C, f"C1, C2 must be <= {MAX_C}")
+    need(1 <= k <= w, f"the {variant} form takes 1 <= k <= {w} (k={k})")
     fn = _build.load_library().dg_knn_edge2_variant
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -237,7 +256,7 @@ def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
     small = [t.contiguous() for t in (w2, s1, t1, s2, t2)]
     out = torch.empty((b, n, c2), device=dev,
                       dtype=torch.bfloat16 if amp else torch.float32)
-    flags = gbf | (variant == "v3") << 1 | (not amp) << 2
+    flags = gbf | (variant == "v3") << 1 | (not amp) << 2 | rowwarp << 3
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(p(graph), p(a1), p(b1), *map(p, small), p(starts), p(gq),
@@ -248,7 +267,9 @@ def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
 
 
 # launches of the kernel since the count was last set to 0 (amp_launches:
-# those of its AMP form; v2_launches: those of its exact v2 form)
+# those of its AMP form; v2_launches: those of its exact v2 form;
+# rowwarp_launches: those of either on the row-warp route)
 knn_edge2.launches = 0
 knn_edge2.amp_launches = 0
 knn_edge2.v2_launches = 0
+knn_edge2.rowwarp_launches = 0

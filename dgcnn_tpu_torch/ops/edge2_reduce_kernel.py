@@ -25,10 +25,11 @@ the kernels for CUDA tensors.
 
 ``amp=True`` is the AMP form of either kernel, the JAX package's default
 in training (``exact=False``, ``pallas_knn.py:1120-1161, 1200-1285``), on
-the tiled route only (the wrappers raise at other shapes): a1's selected
-rows rounded to bf16, z1, h1, z2 and the reductions f32; in the backward
-each edge's dsel rounded to bf16 before the da1 sum over a point's
-in-edges (the pull form), db1, dW2, ds1 and dt1 f32.
+the exact form's two routes (the row-warp one at k > 128 among the shapes
+off the tiled one): a1's selected rows rounded to bf16, z1, h1, z2 and the
+reductions f32; in the backward each edge's dsel rounded to bf16 before
+the da1 sum over a point's in-edges (the pull form), db1, dW2, ds1 and dt1
+f32.
 ``edge2_fwd_amp_plain`` and ``edge2_bwd_amp_plain`` are their plain
 versions.
 """
@@ -47,9 +48,15 @@ from dgcnn_tpu_torch.ops.edge_reduce_bwd_kernel import (
 )
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
 
-# the shapes of the tiled route (csrc/edge2_tile.cuh, e2t_train_route), the
-# AMP forms' only one
+# the shapes of the tiled route (csrc/edge2_tile.cuh, e2t_train_route)
 TILED_C, TILED_K = 64, 128
+
+
+def tiled_route(c1: int, c2: int, k: int) -> bool:
+    """Whether kernels 7 and 8 take their tiled route at these shapes
+    (``e2t_train_route``); else the row-warp route."""
+    return (c1 <= TILED_C and c2 <= TILED_C and c1 % 4 == 0 and c2 % 4 == 0
+            and k <= TILED_K)
 
 
 def edge2_fwd_plain(a1, b1, s1, t1, w2, idx, slope: float = 0.2):
@@ -115,10 +122,8 @@ def _require(name: str, cond: bool, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-def _check(name: str, a1, b1, s1, t1, w2, idx, feats=(),
-           amp: bool = False) -> tuple:
-    """The checks both kernels share (the AMP forms: the tiled route's
-    shapes); returns (B, N, C1, C2, k)."""
+def _check(name: str, a1, b1, s1, t1, w2, idx, feats=()) -> tuple:
+    """The checks both kernels share; returns (B, N, C1, C2, k)."""
     _require(name, a1.is_cuda, f"no kernel for device {a1.device}")
     tensors = (a1, b1, s1, t1, w2, *feats)
     _require(name, all(t.device == a1.device for t in (*tensors, idx)),
@@ -144,11 +149,6 @@ def _check(name: str, a1, b1, s1, t1, w2, idx, feats=(),
     _require(name, c1 <= MAX_C and c2 <= MAX_C, f"C1, C2 must be <= {MAX_C}")
     k = idx.shape[2]
     _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
-    _require(name, not amp or (c1 <= TILED_C and c2 <= TILED_C
-                               and c1 % 4 == 0 and c2 % 4 == 0
-                               and k <= TILED_K),
-             f"the AMP form takes C1, C2 <= {TILED_C} (multiples of 4) and "
-             f"k <= {TILED_K}: C1={c1}, C2={c2}, k={k}")
     return b, n, c1, c2, k
 
 
@@ -178,15 +178,15 @@ def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     of 4 up to 64 and k <= 128 (every model's shapes) take the tiled
     route, other shapes the row-warp route; ``rowwarp`` launches the
     row-warp route at any shape (the checks hold the tiled route bit-equal
-    to it).  ``amp`` runs the AMP form (module docstring)."""
+    to it).  ``amp`` runs the AMP form (module docstring) on the same
+    routes."""
     if a1.device.type == "cpu":
         plain = edge2_fwd_amp_plain if amp else edge2_fwd_plain
         return plain(a1, b1, s1, t1, w2, idx, slope)
-    b, n, c1, c2, k = _check("edge2_fwd", a1, b1, s1, t1, w2, idx, amp=amp)
-    _require("edge2_fwd", not (amp and rowwarp),
-             "the AMP form has the tiled route only")
-    fn = _fn("dg_edge2_fwd_amp" if amp else
-             "dg_edge2_fwd_rowwarp" if rowwarp else "dg_edge2_fwd",
+    b, n, c1, c2, k = _check("edge2_fwd", a1, b1, s1, t1, w2, idx)
+    rowwarp = rowwarp or not tiled_route(c1, c2, k)
+    fn = _fn(("dg_edge2_fwd_amp" if amp else "dg_edge2_fwd")
+             + ("_rowwarp" if rowwarp else ""),
              [_P] * 10 + [_I] * 5 + [_F, _P])
     small = [t.contiguous() for t in (s1, t1, w2)]
     red = [torch.empty((b, n, c2), device=a1.device, dtype=torch.float32)
@@ -198,6 +198,7 @@ def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     _build.check(rc, "edge2_fwd")
     edge2_fwd.launches += 1
     edge2_fwd.amp_launches += amp
+    edge2_fwd.rowwarp_launches += amp and rowwarp
     return tuple(red)
 
 
@@ -228,8 +229,7 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
         return plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max, ct_min,
                      ct_sum, ct_sumsq, slope)
     feats = (amax, amin, ct_max, ct_min, ct_sum, ct_sumsq)
-    b, n, c1, c2, k = _check("edge2_bwd", a1, b1, s1, t1, w2, idx, feats,
-                             amp)
+    b, n, c1, c2, k = _check("edge2_bwd", a1, b1, s1, t1, w2, idx, feats)
     _require("edge2_bwd", not (amp and atomic),
              "the AMP form has the pull form only")
     fn = (_fn("dg_edge2_bwd", [_P] * 16 + [_I] * 6 + [_F, _P]) if atomic
@@ -264,11 +264,13 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     _build.check(rc, "edge2_bwd")
     edge2_bwd.launches += 1
     edge2_bwd.amp_launches += amp
+    edge2_bwd.rowwarp_launches += amp and not tiled_route(c1, c2, k)
     dw2 = dflat[:c1 * c2].view(c1, c2)
     return da1, db1, dflat[c1 * c2:c1 * c2 + c1], dflat[c1 * c2 + c1:], dw2
 
 
 # launches of each kernel since its count was last set to 0 (amp_launches:
-# those of its AMP form)
-edge2_fwd.launches = edge2_fwd.amp_launches = 0
-edge2_bwd.launches = edge2_bwd.amp_launches = 0
+# those of its AMP form; rowwarp_launches: those of its AMP form on the
+# row-warp route)
+edge2_fwd.launches = edge2_fwd.amp_launches = edge2_fwd.rowwarp_launches = 0
+edge2_bwd.launches = edge2_bwd.amp_launches = edge2_bwd.rowwarp_launches = 0

@@ -24,7 +24,11 @@ CUDA forms take the exact v1 and v2 (the semseg CLI's pin: the packed keys
 of the exact scores, f32 payload and output) and the AMP v2 and v3, and
 raise on the others; the plain versions take every variant.
 ``launch_variant`` launches the forms other than the exact v1, for the
-whole cloud or (kernel 12, ``ops/banded.py``) each query tile's window.
+whole cloud or (kernel 12, ``ops/banded.py``) each query tile's window, at
+any k <= N as the JAX kernel takes it: the tiled selection at k <= 64, the
+row-warp selection in the same mode above (``csrc/edge_conv_amp.cu``;
+``rowwarp=True`` forces it at any k, the oracle that holds the tiled route
+to its bits).
 """
 from __future__ import annotations
 
@@ -34,7 +38,6 @@ import torch
 
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.amp_select import (
-    AMP_MAX_K,
     amp_scores,
     max_min,
     require_ported,
@@ -49,7 +52,7 @@ from dgcnn_tpu_torch.ops.amp_select import (
 from dgcnn_tpu_torch.ops.edge_conv import _project, edge_conv_fused
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
 from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain, pairwise_neg_sqdist
-from dgcnn_tpu_torch.ops.knn_reduce_kernel import max_co
+from dgcnn_tpu_torch.ops.knn_reduce_kernel import TILED_MAX_K, max_co
 
 
 def edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
@@ -130,7 +133,7 @@ def _require(cond: bool, msg: str) -> None:
 def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
                    w_ctr: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, k: int, slope: float = 0.2, *,
-                   amp: bool = False) -> torch.Tensor:
+                   amp: bool = False, rowwarp: bool = False) -> torch.Tensor:
     """kNN over ``graph`` (B, N, Cg), factorized conv of ``x`` (B, N, Cin)
     with ``w_nbr``/``w_ctr`` (Cin, Co), max/min over the k neighbours,
     folded-BN affine ``scale``/``bias`` (Co,) and LeakyReLU -> (B, N, Co).
@@ -139,10 +142,12 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     which takes f32 contiguous tensors with N a multiple of 128, N <= 4096
     and Co <= 256 (Co <= 128 above N=2048), and raises on anything
     else.  ``amp`` runs the AMP form (plain: ``edge_conv_eval_amp_plain``),
-    whose kernel takes f32 or bf16 ``graph`` and ``x``, the same N, Co <=
-    256 and k <= 64 (its tiled route alone), and returns bf16.  The
-    extraction variant is ``stage_variant``'s; the exact v2 form takes the
-    AMP form's shapes and returns f32."""
+    whose kernel takes f32 or bf16 ``graph`` and ``x``, the same N and any
+    k <= N (Co <= 256 at k <= 64, above as the exact kernel's), and
+    returns bf16.  The extraction variant is ``stage_variant``'s; the
+    exact v2 form takes the AMP form's shapes and returns f32.
+    ``rowwarp`` launches those forms' row-warp route at any k (the exact
+    v1's is the banded entry's at band = N)."""
     variant = stage_variant(amp, select_x_plan(*w_nbr.shape)[1])
     if graph.device.type == "cpu":
         fn = edge_conv_eval_amp_plain if amp else edge_conv_eval_plain
@@ -150,12 +155,16 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
                   variant=variant)
     require_ported("edge_conv_eval", amp, variant)
     if amp or variant != "v1":
+        rowwarp = rowwarp or k > TILED_MAX_K
         out = launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k, slope,
-                             amp, variant)
+                             amp, variant, rowwarp=rowwarp)
         edge_conv_eval.launches += 1
         edge_conv_eval.amp_launches += amp
         edge_conv_eval.v2_launches += not amp
+        edge_conv_eval.rowwarp_launches += rowwarp
         return out
+    _require(not rowwarp, "the exact v1's row-warp route is the banded "
+             "entry's at band = N")
     _require(graph.is_cuda, f"no kernel for device {graph.device}")
     tensors = (graph, x, w_nbr, w_ctr, scale, bias)
     _require(all(t.device == graph.device for t in tensors),
@@ -197,12 +206,14 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
 
 def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
                    slope: float, amp: bool, variant: str, starts=None,
-                   tile: int = 0, band: int = 0) -> torch.Tensor:
+                   tile: int = 0, band: int = 0,
+                   rowwarp: bool = False) -> torch.Tensor:
     """Launches the AMP v2 / v3 form or the exact v2 form of the stage on
     CUDA tensors: over the whole cloud, or with ``starts`` (the window
     starts of each query tile of ``tile`` rows) over windows of ``band``
-    rows of a sorted cloud (kernel 12).  Checks the tensors and raises on
-    what the kernel does not take."""
+    rows of a sorted cloud (kernel 12).  The kernel takes its row-warp
+    route at k > 64 or with ``rowwarp``, its tiled route otherwise.  Checks
+    the tensors and raises on what the kernel does not take."""
     name = "banded_edge_conv_eval" if starts is not None else "edge_conv_eval"
 
     def need(cond, msg):
@@ -230,11 +241,11 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
          "scale/bias must be (Co,)")
     need(n % 128 == 0 and n <= MAX_N,
          f"N={n} must be a multiple of 128 and <= {MAX_N}")
-    need(co <= (64 if starts is not None else AMP_MAX_CO),
-         f"the {variant} form takes Co <= "
-         f"{64 if starts is not None else AMP_MAX_CO}")
-    need(1 <= k <= min(AMP_MAX_K, w),
-         f"the {variant} form takes 1 <= k <= {min(AMP_MAX_K, w)} (k={k})")
+    rowwarp = rowwarp or k > TILED_MAX_K
+    co_max = (64 if starts is not None else max_co(w) if rowwarp
+              else AMP_MAX_CO)
+    need(co <= co_max, f"the {variant} form takes Co <= {co_max}")
+    need(1 <= k <= w, f"the {variant} form takes 1 <= k <= {w} (k={k})")
     select_x = amp and select_x_plan(cin, co)[0]
     need(not (select_x and (variant == "v3" or starts is not None)),
          "the kernel takes select-x with v2 on the whole cloud only")
@@ -265,7 +276,7 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     out = torch.empty((b, n, co), device=dev,
                       dtype=torch.bfloat16 if amp else torch.float32)
     flags = (gbf | xbf << 1 | select_x << 2 | (variant == "v3") << 3
-             | (not amp) << 4)
+             | (not amp) << 4 | rowwarp << 5)
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(p(graph), p(x), p(wcat), p(scale.contiguous()),
@@ -276,11 +287,14 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     return out
 
 
-# the AMP form's widest stage (its tiled route alone; k: AMP_MAX_K)
+# the widest stage of the forms but the exact v1 on their tiled route (k <=
+# 64; the row-warp route's is max_co's)
 AMP_MAX_CO = 256
 
 # launches of the kernel since the count was last set to 0 (amp_launches:
-# those of its AMP form; v2_launches: those of its exact v2 form)
+# those of its AMP form; v2_launches: those of its exact v2 form;
+# rowwarp_launches: those of either on the row-warp route)
 edge_conv_eval.launches = 0
 edge_conv_eval.amp_launches = 0
 edge_conv_eval.v2_launches = 0
+edge_conv_eval.rowwarp_launches = 0

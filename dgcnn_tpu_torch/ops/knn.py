@@ -25,8 +25,8 @@ indices, ties included, and the same from call to call.
 The variant is the JAX kernel's (``_knn_only_kernel``, read at each call):
 v1 as above, or v2 under ``DGCNN_TPU_EXTRACT=v2``
 (``amp_select.training_variant``): the k largest packed keys of the same
-f32 scores (``amp_select.v2_indices``), the tiled route's keyed mode on
-the card (k <= 64; above, it raises).
+f32 scores (``amp_select.v2_indices``), the selection's keyed mode on the
+card, on the same two routes as v1.
 """
 from __future__ import annotations
 
@@ -39,6 +39,10 @@ from dgcnn_tpu_torch.ops import _build
 # the most points a cloud of the selection kernels may hold
 # (csrc/knn_select.cuh: N / 32 <= 128 scores a lane)
 MAX_N = 4096
+# the longest neighbour list of the tiled selection (csrc/knn_select.cuh,
+# TS_LIST): the kNN kernels take the tiled route up to this k and the
+# row-warp route above it
+TILED_MAX_K = 64
 
 
 def use_kernel(n: int) -> bool:
@@ -94,8 +98,7 @@ def knn(x: torch.Tensor, k: int, *, rowwarp: bool = False) -> torch.Tensor:
     gathers, so that both devices return the same type.  ``rowwarp``
     launches the kernel's row-warp route at any k (k <= 64 takes the tiled
     route otherwise).  The variant is ``amp_select.training_variant``'s
-    where the kernel takes the cloud (module docstring); the v2 form has
-    the tiled route only."""
+    where the kernel takes the cloud (module docstring)."""
     from dgcnn_tpu_torch.ops.amp_select import training_variant
 
     x = x.detach()
@@ -111,13 +114,10 @@ def knn(x: torch.Tensor, k: int, *, rowwarp: bool = False) -> torch.Tensor:
     b, n, c = x.shape
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
     v2 = variant == "v2"
-    _require(not v2 or (k <= 64 and not rowwarp),
-             f"the v2 form (DGCNN_TPU_EXTRACT=v2) has the tiled route only "
-             f"(k <= 64): k={k}, rowwarp={rowwarp}")
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = getattr(_build.load_library(),
-                 "dg_knn_idx_v2" if v2 else
-                 "dg_knn_idx_rowwarp" if rowwarp else "dg_knn_idx")
+                 ("dg_knn_idx_v2" if v2 else "dg_knn_idx")
+                 + ("_rowwarp" if rowwarp else ""))
     if fn.argtypes is None:
         fn.argtypes = [p] * (4 if v2 else 3) + [i] * 4 + [p]
         fn.restype = i
@@ -134,9 +134,11 @@ def knn(x: torch.Tensor, k: int, *, rowwarp: bool = False) -> torch.Tensor:
     _build.check(rc, "knn")
     knn.launches += 1
     knn.v2_launches += v2
+    knn.rowwarp_launches += v2 and (rowwarp or k > TILED_MAX_K)
     return idx.long()
 
 
 # launches of the kernel since the count was last set to 0 (v2_launches:
-# those of its v2 form)
-knn.launches = knn.v2_launches = 0
+# those of its v2 form; rowwarp_launches: those of its v2 form on the
+# row-warp route)
+knn.launches = knn.v2_launches = knn.rowwarp_launches = 0

@@ -13,9 +13,8 @@ tensors and launch the kernels for CUDA tensors.
 The variant is the JAX kernels' (read at each call): v1, or v2 under
 ``DGCNN_TPU_EXTRACT=v2`` (``amp_select.training_variant``; the semseg CLI
 pins it), which picks the k largest packed keys of the same f32 scores
-(``amp_select.v2_indices``; on the card the tiled route's keyed mode, k <=
-64, the kernels' ``v2`` entries); the reductions over the list are the
-same.
+(``amp_select.v2_indices``; on the card the selection's keyed mode, the
+kernels' ``v2`` entries); the reductions over the list are the same.
 
 ``amp=True`` is the AMP form, the JAX package's default in training
 (``select_dtype=bf16``, ``pallas_knn.py:371-467``): the AMP scores
@@ -23,7 +22,7 @@ same.
 of those scores) unless ``DGCNN_TPU_EXTRACT`` says v1, and the rows of
 ``a`` rounded to bf16 before max, min, sum and sum of squares, which are
 f32.  ``knn_reduce_amp_plain`` and ``knn_reduce_xw_amp_plain`` are its
-plain versions; the CUDA form takes v2 and k <= 64 and raises on the rest.
+plain versions; the CUDA form takes v2 at any k and raises on v1.
 Its select-x form (kernel 4) rounds x to bf16, projects the cloud and
 rounds each selected row of the product to bf16: the TPU kernel's
 ``bf16(bf16(x)[idx] @ w)``, a selection commuting with the projection.
@@ -49,13 +48,7 @@ from dgcnn_tpu_torch.ops.amp_select import (
     v2_indices,
 )
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
-
-
-# the longest neighbour list of the tiled selection (csrc/knn_select.cuh,
-# TS_LIST): knn_reduce and knn_reduce_xw take the tiled route up to this k
-# and the row-warp route above it
-TILED_MAX_K = 64
+from dgcnn_tpu_torch.ops.knn import MAX_N, TILED_MAX_K, knn_plain
 
 
 def max_co(n: int) -> int:
@@ -122,8 +115,7 @@ def _require(name: str, cond: bool, msg: str) -> None:
 def _check_select(name, graph, feats, co: int, k: int, variant: str,
                   amp: bool = False) -> None:
     """The checks both select kernels share: device, f32, contiguity and
-    the shapes the kernels take (the v2 and AMP forms: k <= 64; the AMP
-    form: v2)."""
+    the shapes the kernels take (the AMP form: v2)."""
     _require(name, not amp or variant == "v2",
              f"the AMP mode's {variant} (DGCNN_TPU_EXTRACT={variant}) has "
              f"no CUDA form; ported: v2")
@@ -141,9 +133,6 @@ def _check_select(name, graph, feats, co: int, k: int, variant: str,
     _require(name, 1 <= co <= max_co(n),
              f"Co={co} out of 1..{max_co(n)} for N={n}")
     _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
-    form = "AMP form" if amp else "v2 form (DGCNN_TPU_EXTRACT=v2)"
-    _require(name, not (amp or variant == "v2") or k <= TILED_MAX_K,
-             f"the {form} takes k <= {TILED_MAX_K}, not {k}")
 
 
 def _outputs(graph: torch.Tensor, co: int, k: int, v2: bool,
@@ -164,7 +153,7 @@ def _outputs(graph: torch.Tensor, co: int, k: int, v2: bool,
 
 
 def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
-               amp: bool = False):
+               amp: bool = False, rowwarp: bool = False):
     """kNN over ``graph`` (B, N, Cg), then the max, min, sum and sum of
     squares over the k neighbours of ``a`` (B, N, Co).
 
@@ -178,10 +167,11 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     The kernel's route is decided from k before the launch: up to
     ``TILED_MAX_K`` (every model's k) the tiled selection (blocks of 64
     query rows, register-blocked score tiles, a running top-k a row), above
-    it the row-warp selection (a warp a row, its N scores in registers).
-    Both give the same bits.  The v2 form has the tiled route only.
+    it, or with ``rowwarp`` (the oracle of the tiled one; the v2 and AMP
+    forms), the row-warp selection (a warp a row, its N scores in
+    registers), in every form.  Both give the same bits.
 
-    ``amp`` runs the AMP form (module docstring), tiled route only."""
+    ``amp`` runs the AMP form (module docstring)."""
     variant = training_variant(amp)
     if graph.device.type == "cpu":
         if amp:
@@ -196,23 +186,31 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     name = ("dg_knn_reduce_amp" if amp else
             "dg_knn_reduce_v2" if v2 else "dg_knn_reduce")
     idx, red, scratch = _outputs(graph, co, k, v2, amp)
-    fn = _fn(name, [_P] * (7 + len(scratch)) + [_I] * 5 + [_P])
+    # the v1 entry picks its route from k alone; the others take rowwarp
+    forced = [rowwarp] if v2 or amp else []
+    _require("knn_reduce", not rowwarp or forced,
+             "the v1 form's row-warp route is its k > 64 route")
+    fn = _fn(name, [_P] * (7 + len(scratch)) + [_I] * (5 + len(forced))
+             + [_P])
+    rowwarp = rowwarp or k > TILED_MAX_K
     p = _build.ptr
     with torch.cuda.device(graph.device):
         rc = fn(p(graph), p(a), *map(p, scratch), p(idx), *map(p, red), b, n,
-                cg, co, k, _build.stream_of(graph))
+                cg, co, k, *forced, _build.stream_of(graph))
     _build.check(rc, "knn_reduce")
     knn_reduce.launches += 1
     knn_reduce.v2_launches += v2
     knn_reduce.amp_launches += amp
+    knn_reduce.rowwarp_launches += rowwarp and (v2 or amp)
     return (idx, *red)
 
 
 def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                  k: int, *, amp: bool = False):
+                  k: int, *, amp: bool = False, rowwarp: bool = False):
     """``knn_reduce(graph, x @ w, k)`` with the projection inside the
     kernel's launch: ``x`` (B, N, Cin), ``w`` (Cin, Co).  Same outputs and
-    the same rules for CPU and CUDA tensors as ``knn_reduce``; ``amp``:
+    the same rules (routes too) for CPU and CUDA tensors as
+    ``knn_reduce``; ``amp``:
     ``knn_reduce(graph, round_bf16(x) @ w, k, amp=True)``, whose rows of
     the product are rounded to bf16 before the reductions."""
     variant = training_variant(amp)
@@ -234,19 +232,25 @@ def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     proj = [torch.empty((b * n * cin,), device=graph.device,
                         dtype=torch.float32)] * amp + [
         torch.empty((b, n, co), device=graph.device, dtype=torch.float32)]
-    fn = _fn(name, [_P] * (8 + len(proj) + len(scratch)) + [_I] * 6 + [_P])
+    forced = [rowwarp] if v2 or amp else []
+    _require("knn_reduce_xw", not rowwarp or forced,
+             "the v1 form's row-warp route is its k > 64 route")
+    fn = _fn(name, [_P] * (8 + len(proj) + len(scratch))
+             + [_I] * (6 + len(forced)) + [_P])
+    rowwarp = rowwarp or k > TILED_MAX_K
     p = _build.ptr
     # the launch is asynchronous on torch's current stream: scratch made
     # here and freed on return is reused by the caching allocator only for
     # work queued after it on that stream
     with torch.cuda.device(graph.device):
         rc = fn(p(graph), p(x), p(w), *map(p, proj), *map(p, scratch),
-                p(idx), *map(p, red), b, n, cg, cin, co, k,
+                p(idx), *map(p, red), b, n, cg, cin, co, k, *forced,
                 _build.stream_of(graph))
     _build.check(rc, "knn_reduce_xw")
     knn_reduce_xw.launches += 1
     knn_reduce_xw.v2_launches += v2
     knn_reduce_xw.amp_launches += amp
+    knn_reduce_xw.rowwarp_launches += rowwarp and (v2 or amp)
     return (idx, *red)
 
 
@@ -280,8 +284,10 @@ def xw_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 # launches of each kernel since its count was last set to 0 (v2_launches:
-# those of its exact v2 form, amp_launches: those of its AMP form)
+# those of its exact v2 form, amp_launches: those of its AMP form,
+# rowwarp_launches: those of either on the row-warp route)
 knn_reduce.launches = knn_reduce.v2_launches = knn_reduce.amp_launches = 0
 knn_reduce_xw.launches = knn_reduce_xw.v2_launches = 0
 knn_reduce_xw.amp_launches = 0
+knn_reduce.rowwarp_launches = knn_reduce_xw.rowwarp_launches = 0
 xw_project.launches = 0

@@ -23,8 +23,8 @@ The v2 form (``amp=True``, the AMP Net's HOG; the JAX kernel's variant is
 ``_extract_version("v2", ...)``, pallas_knn.py:1518: ``amp_select.
 knn_sum_variant``, ``DGCNN_TPU_EXTRACT`` overriding either mode) picks the
 k largest packed keys of the same exact f32 scores (``amp_select.
-v2_indices``; on the card the tiled route's keyed mode, k <= 64) and sums
-over them in list order, f32, as the v1 form does.
+v2_indices``; on the card the selection's keyed mode, on the v1 form's two
+routes) and sums over them in list order, f32, as the v1 form does.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ import torch
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.amp_select import knn_sum_variant
 from dgcnn_tpu_torch.ops.edge_sum_kernel import ordered_neighbour_sum
-from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain
+from dgcnn_tpu_torch.ops.knn import MAX_N, TILED_MAX_K, knn_plain
 
 
 def knn_sum_plain(x: torch.Tensor, a: torch.Tensor, k: int,
@@ -55,8 +55,8 @@ def _require(cond: bool, msg: str) -> None:
 
 def _lib(rowwarp: bool, v2: bool):
     fn = getattr(_build.load_library(),
-                 "dg_knn_sum_v2" if v2 else
-                 "dg_knn_sum_rowwarp" if rowwarp else "dg_knn_sum")
+                 ("dg_knn_sum_v2" if v2 else "dg_knn_sum")
+                 + ("_rowwarp" if rowwarp else ""))
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * (6 if v2 else 5) + [i] * 5 + [p]
@@ -75,8 +75,8 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
     and Ca <= 32, and raises on anything else.  ``rowwarp`` launches the
     kernel's row-warp route at any k (k <= 64 takes the tiled route
     otherwise).  ``amp`` is the caller's mode, from which
-    ``amp_select.knn_sum_variant`` takes the variant (module docstring);
-    the v2 form has the tiled route only."""
+    ``amp_select.knn_sum_variant`` takes the variant (module
+    docstring)."""
     x, a = x.detach(), a.detach()
     variant = knn_sum_variant(amp)
     if x.device.type == "cpu":
@@ -95,9 +95,6 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
     _require(n % 128 == 0 and n <= MAX_N,
              f"N={n} must be a multiple of 128 and <= {MAX_N}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
-    _require(not v2 or (k <= 64 and not rowwarp),
-             f"the v2 form has the tiled route only (k <= 64): k={k}, "
-             f"rowwarp={rowwarp}")
     ca = a.shape[2]
     fn = _lib(rowwarp, v2)
     # the launch is asynchronous on torch's current stream: tensors made here
@@ -114,9 +111,11 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
     _build.check(rc, "knn_sum")
     knn_sum.launches += 1
     knn_sum.v2_launches += v2
+    knn_sum.rowwarp_launches += v2 and (rowwarp or k > TILED_MAX_K)
     return idx, asum
 
 
 # launches of the kernel since the count was last set to 0 (v2_launches:
-# those of its v2 form)
-knn_sum.launches = knn_sum.v2_launches = 0
+# those of its v2 form; rowwarp_launches: those of its v2 form on the
+# row-warp route)
+knn_sum.launches = knn_sum.v2_launches = knn_sum.rowwarp_launches = 0

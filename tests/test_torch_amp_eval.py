@@ -263,7 +263,8 @@ def test_dgcnn_cls_amp_matches_jax_amp(n, seed, amp_env, monkeypatch):
 def test_exact_pin_gives_the_exact_path(monkeypatch):
     """DGCNN_TPU_PALLAS_EXACT: the default forward is the exact path, bit
     for bit; the mode switch's rules (AMP by default on the card only,
-    the shapes the kernels refuse and k > 64 exact either way)."""
+    the shapes the kernels refuse exact either way, any k in the mode
+    asked for, as the JAX package's kernels take any k)."""
     model = DGCNNCls(emb_dims=64, k=20, device="cpu",
                      generator=torch.Generator().manual_seed(3))
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
@@ -283,12 +284,12 @@ def test_exact_pin_gives_the_exact_path(monkeypatch):
     assert use_amp_eval(True, cpu, 1024, 20)
     assert not use_amp_eval(False, cuda, 1024, 20)
     assert not use_amp_eval(None, cuda, 1000, 20)
-    assert not use_amp_eval(True, cuda, 1024, 65)
+    assert use_amp_eval(True, cuda, 1024, 65)
     # training takes the twin switch (tests/test_torch_amp_train.py holds
     # its AMP step; the fusion Net's refusal is held in
     # tests/test_torch_amp_net.py)
     assert use_amp_train(True, cpu, 1024, 20)
-    assert not use_amp_train(True, cuda, 1024, 65)
+    assert use_amp_train(True, cuda, 1024, 65)
 
 
 def test_reverse_lists_match_numpy():

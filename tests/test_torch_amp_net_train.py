@@ -303,10 +303,14 @@ def _fused_on_the_cpu(monkeypatch):
         qs[2] % 128 == 0 and ks[2] % 128 == 0 and qs[3] % 128 == 0))
 
 
-def _jax_step(fmodel, variables, inputs, labels):
-    """Loss, logits, gradients and running statistics of the JAX Net's
-    training step (one jit: eager dispatch of the whole Net takes
-    minutes)."""
+def _jax_steps(fmodel, variables, inputs, labels):
+    """Loss, logits, gradients and running statistics of the JAX Net's AMP
+    training step (its fused Pallas path) and of its exact step
+    (``DGCNN_TPU_PALLAS_EXACT=1`` on the XLA path that it takes on the
+    CPU), as one jit (eager dispatch of the whole Net takes minutes, and
+    each step's trace is most of the cost): the package reads both
+    variables when it traces, so the traced function sets them around the
+    exact step."""
     from dgcnn_tpu.train.loss import cross_entropy as jax_ce
 
     def loss_fn(params, x, oh, seg):
@@ -316,13 +320,21 @@ def _jax_step(fmodel, variables, inputs, labels):
             mutable=["batch_stats"])
         return jax_ce(logits, seg), (upd["batch_stats"], logits)
 
+    step = jax.value_and_grad(loss_fn, has_aux=True)
+
+    def both(*args):
+        amp = step(*args)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv(EXACT_ENV, "1")
+            mp.setenv("DGCNN_TPU_PALLAS", "0")
+            return amp, step(*args)
+
     with jax.default_matmul_precision(F32):
-        (loss, (stats, logits)), grads = jax.jit(jax.value_and_grad(
-            loss_fn, has_aux=True))(variables["params"],
-                                    *map(jnp.asarray, inputs),
-                                    jnp.asarray(labels))
-    return (float(loss), np.asarray(logits),
-            state_dict_from_flax({"params": grads, "batch_stats": stats}))
+        runs = jax.jit(both)(variables["params"], *map(jnp.asarray, inputs),
+                             jnp.asarray(labels))
+    return [(float(loss), np.asarray(logits),
+             state_dict_from_flax({"params": grads, "batch_stats": stats}))
+            for (loss, (stats, logits)), grads in runs]
 
 
 def _port_step(model, variables, inputs, labels, amp):
@@ -361,7 +373,8 @@ def test_net_amp_train_step_matches_jax(amp_env):
     - each running statistic within rel 1e-4 of its norm or three times
       its nudged move;
     - the port's AMP-vs-exact gradient cosine no more than 0.005 below the
-      JAX package's own (its exact step: ``DGCNN_TPU_PALLAS_EXACT=1``)."""
+      JAX package's own (its exact step: ``DGCNN_TPU_PALLAS_EXACT=1``, on
+      its CPU path, in the AMP step's jit)."""
     from dgcnn_tpu.convert.torch_import import convert_net
     from dgcnn_tpu.models import Net as FlaxNet
 
@@ -377,13 +390,8 @@ def test_net_amp_train_step_matches_jax(amp_env):
     seg = rng.integers(0, 50, (4, 256)).astype(np.int64)
     with pytest.MonkeyPatch.context() as mp:
         _contract_xw(mp)
-        want_loss, want_logits, want = _jax_step(fmodel, variables, (x, oh),
-                                                 seg)
-    jax.clear_caches()
-    amp_env.setenv(EXACT_ENV, "1")
-    _, _, want_exact = _jax_step(fmodel, variables, (x, oh), seg)
-    amp_env.delenv(EXACT_ENV)
-    jax.clear_caches()
+        (want_loss, want_logits, want), (_, _, want_exact) = _jax_steps(
+            fmodel, variables, (x, oh), seg)
 
     loss, logits, grads, stats = _port_step(model, variables, (x, oh), seg,
                                             True)
@@ -420,11 +428,11 @@ def test_net_amp_train_step_matches_jax(amp_env):
 
 def test_net_amp_training_resolves_through_use_amp_train(monkeypatch):
     """``Net(..., train=True)`` takes its mode from ``use_amp_train``: a k
-    above the AMP kernels' lists trains exact even with amp=True (every
-    stage and attention exact, the same bits as amp=False); amp=True at k
-    <= 64 trains every stage and the attention in AMP; without a generator
-    a dropout rate > 0 refuses, with one the AMP step is a function of its
-    state."""
+    above the tiled selection's lists (k = 65, the row-warp route on the
+    card) trains AMP with amp=True as the JAX package does at any k (every
+    stage and the attention in AMP, not amp=False's bits), and so does
+    amp=True at k <= 64; without a generator a dropout rate > 0 refuses,
+    with one the AMP step is a function of its state."""
     from dgcnn_tpu_torch.models import torch_transformer
 
     monkeypatch.delenv(EXACT_ENV, raising=False)
@@ -449,8 +457,8 @@ def test_net_amp_training_resolves_through_use_amp_train(monkeypatch):
                nclasses=5, dropout=0.0, device="cpu",
                generator=torch.Generator().manual_seed(9))
     a = wide(pts, oh, train=True, amp=True)
-    assert modes == [False] * 4 and set(dtypes) == {torch.float32}
-    assert torch.equal(a, wide(pts, oh, train=True, amp=False))
+    assert modes == [True] * 4 and set(dtypes) == {BF16}
+    assert not torch.equal(a, wide(pts, oh, train=True, amp=False))
     modes.clear()
     dtypes.clear()
     net = Net(emb_dim=256, k=8, n_heads=2, n_blocks=1, ff_dims=32,

@@ -153,8 +153,8 @@ def test_training_variant_matches_jax(extract, exact, monkeypatch):
 
 def test_use_amp_train_rules(monkeypatch):
     """AMP on the card by default, exact on the CPU and under the exact
-    pin; an explicit mode wins; clouds the kernels do not take and k > 64
-    train exact either way."""
+    pin; an explicit mode wins; clouds the kernels do not take train
+    exact either way, and k > 64 in the mode asked for."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     monkeypatch.delenv(EXACT_ENV, raising=False)
     assert use_amp_train(None, cuda, 1024, 20)
@@ -162,7 +162,7 @@ def test_use_amp_train_rules(monkeypatch):
     assert use_amp_train(True, cpu, 1024, 20)
     assert not use_amp_train(False, cuda, 1024, 20)
     assert not use_amp_train(None, cuda, 1000, 20)
-    assert not use_amp_train(True, cuda, 1024, 65)
+    assert use_amp_train(True, cuda, 1024, 65)
     monkeypatch.setenv(EXACT_ENV, "1")
     assert not use_amp_train(None, cuda, 1024, 20)
     assert use_amp_train(True, cuda, 1024, 20)
@@ -171,8 +171,7 @@ def test_use_amp_train_rules(monkeypatch):
 def test_amp_v1_has_no_cuda_form(monkeypatch):
     """The AMP form with DGCNN_TPU_EXTRACT=v1 raises before any launch
     (meta tensors stand for the card's); its plain version runs v1 on the
-    AMP scores; the AMP forms of kernels 5, 7 and 8 raise on the routes
-    they do not have."""
+    AMP scores."""
     monkeypatch.delenv(EXACT_ENV, raising=False)
     monkeypatch.setenv(EXTRACT_ENV, "v1")
     g = torch.empty((1, 128, 3), device="meta")
