@@ -243,13 +243,15 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
 
 // The row-warp route of the same forms (k > TS_LIST, or asked for: the
 // oracle of the tiled route at k <= TS_LIST): a warp a query row i, its W
-// candidates' scores in registers (row_scores over gc, the query row's
+// candidates' scores in registers or, above REG_MAX_N candidates or Co =
+// 128 at W > 2048, in the shared row (row_scores over gc, the query row's
 // operands from gq: the tiled route's bits), then V3 the class walk
 // (pop_class: a singleton's row, a tied class's mean summed in ascending
 // column order from zero and divided by the count) or v2's keys (row_keys,
-// the row's least score taken from the registers) and k rounds of
+// the row's least score taken from its scores) and k rounds of
 // pop_nearest; the fold and the epilogue of edge_conv_amp_kernel.  Co <=
-// 32 * CPL (Bucket: 256 up to W = 2048, 128 above).
+// 32 * CPL (Bucket: 256, 128 for the buckets above W = 2048, where Co
+// above takes the shared row).
 template <int NPL, bool V3, bool ROUND, typename OUT>
 __global__ void __launch_bounds__(dg::RowBlock<NPL>::QB * 32, 1)
     edge_conv_amp_rowwarp_kernel(const float* __restrict__ gc,
@@ -262,12 +264,12 @@ __global__ void __launch_bounds__(dg::RowBlock<NPL>::QB * 32, 1)
                                  int tile, int W, OUT* __restrict__ out) {
   extern __shared__ float sg[];  // W rows x CS: CC channels of the window
   constexpr int CPL = dg::Bucket<NPL>::CPL;
-  constexpr int QB = dg::RowBlock<NPL>::QB;
+  const int QB = dg::block_rows<NPL>(dg::RowBlock<NPL>::QB);
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * QB + warp;
   const int start = starts ? starts[blockIdx.x * QB / tile] : 0;
-  float s[NPL];
+  dg::RowScores<NPL> s;
   dg::row_scores<NPL>(gc + ((size_t)b * N + start) * Cs, Cs,
                       sq + (size_t)b * N + start, W, i - start, lane, sg, s,
                       gq + ((size_t)b * N + i) * Cs);
@@ -385,11 +387,11 @@ cudaError_t launch_var_shape(const VarArgs& a, cudaStream_t st) {
 // The row-warp instance of the form, its bucket picked from W.
 template <bool V3, bool ROUND, typename OUT>
 cudaError_t launch_var_rowwarp(const VarArgs& a, cudaStream_t st) {
-  return dg::with_npl(a.W, [&](auto npl) {
+  return dg::with_npl(a.W, a.Co, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = dg::RowBlock<NPL>::QB;
+    const int QB = dg::launch_rows<NPL>(dg::RowBlock<NPL>::QB, a.W);
     auto kern = edge_conv_amp_rowwarp_kernel<NPL, V3, ROUND, OUT>;
-    const size_t smem = dg::select_smem_bytes<NPL>(a.W);
+    const size_t smem = dg::select_smem_bytes<NPL>(a.W, QB);
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -455,9 +457,10 @@ cudaError_t launch_rowmin(const float* gc, const float* gq, int Cs,
 // out (B, N, Co), bf16 (AMP) or f32 (exact).  starts null: the candidates
 // are the cloud (tile and W = N); else kernel 12's windows: the W rows
 // from starts[r / tile] of a sorted cloud, Co <= 64.  N a multiple of 128,
-// N <= 4096, k <= W.  The tiled route at k <= TS_LIST (Co <= 256), the
-// row-warp route above or with bit 5 (Co <= max_co(W)).  Returns the first
-// CUDA error.
+// N <= MAX_N (16384), k <= W, Co <= 256.  The tiled route at k <=
+// TS_LIST, the row-warp route above or with bit 5 (its register buckets,
+// or the shared row: knn_select.cuh's with_npl).  Returns the first CUDA
+// error.
 extern "C" int dg_edge_conv_eval_variant(
     const void* graph, const void* x, const float* wcat, const float* scale,
     const float* bias, float* gq, float* gc, float* xf, float* sq,
@@ -468,7 +471,7 @@ extern "C" int dg_edge_conv_eval_variant(
   const bool exact = flags & 16, banded = starts != nullptr;
   const bool rowwarp = (flags & 32) || k > dg::TS_LIST;
   if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
-      Co > (banded ? 64 : rowwarp ? dg::max_co(W) : 256) || Cg < 1 ||
+      Co > (banded ? 64 : dg::MAX_CO) || Cg < 1 ||
       Cin < 1 || k < 1 || k > W || W % 128 != 0 || W < 128 || W > N ||
       (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0
               : W != N) ||
@@ -502,7 +505,7 @@ extern "C" int dg_edge_conv_eval_variant(
                   starts, B, N,  Cs, Co, k,  tile, W,
                   dg::keys_lim(W), slope};
   using bf16 = __nv_bfloat16;
-  if (rowwarp) {  // one launch: the row's grid comes from its registers
+  if (rowwarp) {  // one launch: the row's grid comes from its scores
     if (v3) return (int)launch_var_rowwarp<true, true, bf16>(a, st);
     if (exact) return (int)launch_var_rowwarp<false, false, float>(a, st);
     if (sx) return (int)launch_var_rowwarp<false, false, bf16>(a, st);

@@ -35,8 +35,10 @@
 //        folds the members' rows of a (coalesced) into a running
 //        max/min over the Co channels.
 //      any other shape  select_kernel: the row-warp selection, one warp
-//        per query row with its N scores in registers and k rounds of a
-//        warp arg-max on (score, -index).
+//        per query row with its N scores in registers (up to 4096
+//        points; above, or at Co > 128 above 2048 points, in
+//        knn_select.cuh's shared row) and k rounds of a warp arg-max on
+//        (score, -index).
 //   Both routes pick the neighbours in torch.topk's order and fold them
 //   in that order; max and min are exact, and the epilogue applies the
 //   same _rn affine and LeakyReLU, so their outputs are the same bits.
@@ -100,12 +102,12 @@ __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
                   float* __restrict__ out) {
   extern __shared__ float sg[];  // W rows x CS: CC channels of the window
   constexpr int CPL = dg::Bucket<NPL>::CPL;
-  constexpr int QB = dg::Bucket<NPL>::QB;
+  const int QB = dg::block_rows<NPL>(dg::Bucket<NPL>::QB);
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int i = blockIdx.x * QB + warp;
   const int start = starts ? starts[blockIdx.x * QB / tile] : 0;
-  float s[NPL];
+  dg::RowScores<NPL> s;
   dg::row_scores<NPL>(graph + ((size_t)b * N + start) * Cg, Cg,
                       sq + (size_t)b * N + start, W, i - start, lane, sg, s);
 
@@ -273,10 +275,10 @@ cudaError_t launch_stage(const float* graph, const float* x,
   if (e != cudaSuccess) return e;
   e = dg::launch_project(x, rows, Cin, wcat, 2 * Co, ac, st);
   if (e != cudaSuccess) return e;
-  return dg::with_npl(W, [&](auto npl) {
+  return dg::with_npl(W, Co, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    const size_t smem = dg::select_smem_bytes<NPL>(W);
-    constexpr int QB = dg::Bucket<NPL>::QB;
+    const int QB = dg::launch_rows<NPL>(dg::Bucket<NPL>::QB, W);
+    const size_t smem = dg::select_smem_bytes<NPL>(W, QB);
     cudaError_t err = cudaFuncSetAttribute(
         select_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
@@ -292,6 +294,16 @@ cudaError_t launch_stage(const float* graph, const float* x,
 
 namespace dg {
 
+bool& force_srow() {
+  static bool on = false;
+  return on;
+}
+
+unsigned long long& srow_launches() {
+  static unsigned long long n = 0;
+  return n;
+}
+
 cudaError_t launch_sqnorm(const float* g, int rows, int C, float* out,
                           cudaStream_t st) {
   sqnorm_kernel<<<(rows + 255) / 256, 256, 0, st>>>(g, rows, C, out);
@@ -304,6 +316,18 @@ extern "C" const char* dg_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// on != 0: every row route of the kNN kernels takes the shared row
+// (knn_select.cuh), whatever N and Co are; 0: the register buckets where
+// they hold the row.  For the check of the shared row's bits against the
+// buckets'; it applies to the launches after it, in every thread.
+extern "C" void dg_force_shared_rows(int on) { dg::force_srow() = on != 0; }
+
+// The launches that with_npl (knn_select.cuh) has sent to the shared row
+// since the library was loaded; the wrappers count theirs from it.
+extern "C" unsigned long long dg_srow_launches() {
+  return dg::srow_launches();
+}
+
 // graph (B, N, Cg), x (B, N, Cin), wcat (Cin, 2*Co) = [W_nbr | W_ctr],
 // scale/bias (Co,), scratch ac (B*N, 2*Co) and sq (B*N,), out (B, N, Co);
 // all f32, contiguous, on the device.  The tiled route at k <= TS_LIST,
@@ -313,8 +337,8 @@ extern "C" int dg_edge_conv_eval(const float* graph, const float* x,
                                  const float* bias, float* ac, float* sq,
                                  float* out, int B, int N, int Cg, int Cin,
                                  int Co, int k, float slope, void* stream) {
-  if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
-      Co > dg::max_co(N) || Cg < 1 || Cin < 1 || k < 1 || k > N)
+  if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 || Co > dg::MAX_CO ||
+      Cg < 1 || Cin < 1 || k < 1 || k > N)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (!tiled_route(Co, k))
@@ -334,7 +358,7 @@ int banded_stage(const float* graph, const float* x, const float* wcat,
                  bool rowwarp, cudaStream_t st) {
   if (B < 1 || N % 128 != 0 || N > MAX_N || band % 128 != 0 || band < 128 ||
       band > N || tile % 128 != 0 || tile < 128 || tile > band ||
-      N % tile != 0 || Co < 1 || Co > dg::max_co(band) || Cg < 1 ||
+      N % tile != 0 || Co < 1 || Co > dg::MAX_CO || Cg < 1 ||
       Cin < 1 || k < 1 || k > band)
     return (int)cudaErrorInvalidValue;
   if (rowwarp || !tiled_route(Co, k))

@@ -42,9 +42,10 @@
 //   the folded affines and the tile's neighbour rows, 100,864 B: two
 //   blocks still fit an SM.
 //   Any other shape  knn_edge2_kernel: the row-warp selection (a warp per
-//   query row with its N scores in registers and k rounds of warp
-//   arg-max), with each winner consumed at once: the lanes write the
-//   edge's h1 row into the warp's row of shared memory (edge2.cuh), then
+//   query row with its N scores in registers, or above 4096 points in
+//   knn_select.cuh's shared row, and k rounds of warp arg-max), with each
+//   winner consumed at once: the lanes write the edge's h1 row into the
+//   warp's row of shared memory (edge2.cuh), then
 //   each lane forms its second-conv channels as f32 dot products against
 //   w2 in shared memory and folds them into a running max.  Each w2 value
 //   read from shared memory feeds one FMA.
@@ -100,10 +101,10 @@ __global__ void __launch_bounds__(dg::RowBlock<NPL>::QB * 32)
                      const float* __restrict__ t2, float slope, int N, int k,
                      const int* __restrict__ starts, int tile, int W,
                      float* __restrict__ out) {
-  constexpr int QB = dg::RowBlock<NPL>::QB;
+  const int QB = dg::block_rows<NPL>(dg::RowBlock<NPL>::QB);
   extern __shared__ float smem[];
-  float* sg = smem;                                          // graph stage
-  float* ws = sg + dg::select_smem_bytes<NPL>(W) / sizeof(float);  // w2
+  float* sg = smem;                          // graph stage (or shared rows)
+  float* ws = sg + dg::select_smem_bytes<NPL>(W, QB) / sizeof(float);  // w2
   float* hb = ws + C1 * dg::e2_ldw(C2);                      // QB h1 rows
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -112,7 +113,7 @@ __global__ void __launch_bounds__(dg::RowBlock<NPL>::QB * 32)
   // row_scores synchronises the block before its first read of shared
   // memory and after its first write, which covers w2 too
   dg::e2_stage_w2(w2, C1, C2, ws);
-  float s[NPL];
+  dg::RowScores<NPL> s;
   dg::row_scores<NPL>(graph + ((size_t)b * N + start) * Cg, Cg,
                       sq + (size_t)b * N + start, W, i - start, lane, sg, s);
 
@@ -235,12 +236,14 @@ cudaError_t launch_block(const float* graph, const float* a1,
                          int tile, int W, cudaStream_t st) {
   cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
   if (e != cudaSuccess) return e;
-  return dg::with_npl(W, [&](auto npl) {
+  return dg::with_npl(W, 0, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = dg::RowBlock<NPL>::QB;
-    const size_t smem =
-        dg::select_smem_bytes<NPL>(W) +
-        sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)QB * C1);
+    const size_t fixed = sizeof(float) * C1 * dg::e2_ldw(C2);
+    const int QB = dg::launch_rows<NPL>(dg::RowBlock<NPL>::QB, W, fixed,
+                                        sizeof(float) * C1);
+    if (QB == 0) return cudaErrorInvalidValue;
+    const size_t smem = dg::select_smem_bytes<NPL>(W, QB) + fixed +
+                        sizeof(float) * QB * C1;
     cudaError_t err = cudaFuncSetAttribute(
         knn_edge2_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

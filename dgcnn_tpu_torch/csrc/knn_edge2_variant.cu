@@ -36,8 +36,8 @@
 // JAX kernel takes any k), or the oracle's call, take the row-warp route
 // (knn_edge2_variant_rowwarp_kernel): knn_select.cuh's row_keys and
 // pop_class on a warp's row of scores, whose class members come from the
-// ballots of the scores in registers, with no second scoring; the same
-// neighbours, classes and bits.
+// ballots of the row's scores (registers, or the shared row above 4096
+// points), with no second scoring; the same neighbours, classes and bits.
 //
 // Bound on an H100 SXM: operations.  The scores' products run on the CUDA
 // cores in f32 FMAs on bf16 values (bf16 mma would change the sums'
@@ -111,13 +111,13 @@ constexpr int VARIANT_QB = NPL >= 48 ? 8 : dg::RowBlock<NPL>::QB;
 // The row-warp route of the same forms (k > TS_LIST, C1 > 64 or C2 > 128,
 // or asked for: the oracle of the tiled route), knn_edge2.cu's row-warp
 // block in the modes of knn_select.cuh: a warp a query row, its W
-// candidates' scores in registers (row_scores over gc, the query row's
-// operands from gq), then V3 the class walk (pop_class; a tied class's a1
-// rows summed in ascending row order from zero and divided by the count,
-// e2t_class_means's operations, through both convs as one edge) or v2's
-// keys (row_keys) and k rounds of pop_nearest; each edge's h1 row in the
-// warp's row of shared memory, its second conv and the max as knn_edge2.cu
-// takes them.  C1, C2 <= E2_MAXC (128).
+// candidates' scores in registers or the shared row (row_scores over gc,
+// the query row's operands from gq), then V3 the class walk (pop_class; a
+// tied class's a1 rows summed in ascending row order from zero and divided
+// by the count, e2t_class_means's operations, through both convs as one
+// edge) or v2's keys (row_keys) and k rounds of pop_nearest; each edge's
+// h1 row in the warp's row of shared memory, its second conv and the max
+// as knn_edge2.cu takes them.  C1, C2 <= E2_MAXC (128).
 template <int NPL, bool V3, typename OUT>
 __global__ void __launch_bounds__(VARIANT_QB<NPL> * 32, 1)
     knn_edge2_variant_rowwarp_kernel(
@@ -129,11 +129,11 @@ __global__ void __launch_bounds__(VARIANT_QB<NPL> * 32, 1)
         const float* __restrict__ t2, float slope, int N, int k,
         const int* __restrict__ starts, int tile, int W,
         OUT* __restrict__ out) {
-  constexpr int QB = VARIANT_QB<NPL>;
+  const int QB = dg::block_rows<NPL>(VARIANT_QB<NPL>);
   constexpr int CPL = dg::E2_CPL;
   extern __shared__ float smem[];
-  float* sg = smem;                                          // graph stage
-  float* ws = sg + dg::select_smem_bytes<NPL>(W) / sizeof(float);  // w2
+  float* sg = smem;                          // graph stage (or shared rows)
+  float* ws = sg + dg::select_smem_bytes<NPL>(W, QB) / sizeof(float);  // w2
   float* hb = ws + C1 * dg::e2_ldw(C2);                      // QB h1 rows
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -142,7 +142,7 @@ __global__ void __launch_bounds__(VARIANT_QB<NPL> * 32, 1)
   // row_scores synchronises the block before its first read of shared
   // memory and after its first write, which covers w2 too
   dg::e2_stage_w2(w2, C1, C2, ws);
-  float s[NPL];
+  dg::RowScores<NPL> s;
   dg::row_scores<NPL>(gc + ((size_t)b * N + start) * Cs, Cs,
                       sq + (size_t)b * N + start, W, i - start, lane, sg, s,
                       gq + ((size_t)b * N + i) * Cs);
@@ -222,13 +222,15 @@ cudaError_t launch_variant_rowwarp(const float* gc, const float* gq, int Cs,
                                    int C1, int C2, int k, float slope,
                                    const int* starts, int tile, int W,
                                    cudaStream_t st) {
-  return dg::with_npl(W, [&](auto npl) {
+  return dg::with_npl(W, 0, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = VARIANT_QB<NPL>;
+    const size_t fixed = sizeof(float) * C1 * dg::e2_ldw(C2);
+    const int QB = dg::launch_rows<NPL>(VARIANT_QB<NPL>, W, fixed,
+                                        sizeof(float) * C1);
+    if (QB == 0) return cudaErrorInvalidValue;
     auto kern = knn_edge2_variant_rowwarp_kernel<NPL, V3, OUT>;
-    const size_t smem =
-        dg::select_smem_bytes<NPL>(W) +
-        sizeof(float) * ((size_t)C1 * dg::e2_ldw(C2) + (size_t)QB * C1);
+    const size_t smem = dg::select_smem_bytes<NPL>(W, QB) + fixed +
+                        sizeof(float) * QB * C1;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -305,7 +307,7 @@ extern "C" int dg_knn_edge2_variant(
   if (e != cudaSuccess) return (int)e;
   const float lim = dg::keys_lim(W);
   using bf16 = __nv_bfloat16;
-  if (rowwarp) {  // one launch: the row's grid comes from its registers
+  if (rowwarp) {  // one launch: the row's grid comes from its scores
 #define DG_E2R(V3, OUT)                                                       \
   launch_variant_rowwarp<V3, OUT>(gcp, gqp, Cs, sq, lim, a1, b1, w2, s1, t1,  \
                                   s2, t2, out, B, N, C1, C2, k, slope,        \

@@ -28,8 +28,9 @@
 //   k > TS_LIST  knn_idx_kernel (also dg_knn_idx_rowwarp at any k, the
 //     earlier side of the A/B and of chip_smoke.py's checks): the row-warp
 //     selection, one warp a query row with its N scores in registers (N /
-//     32 a lane), the cloud staged through shared memory, and k rounds of
-//     warp arg-max on (score, -index), k * N comparisons a row.
+//     32 a lane; above 4096 points in knn_select.cuh's shared row), the
+//     cloud staged through shared memory, and k rounds of warp arg-max on
+//     (score, -index), k * N comparisons a row.
 // The v2 form (dg_knn_idx_v2: DGCNN_TPU_EXTRACT=v2, read by
 // _knn_only_kernel at pallas_knn.py:1554) lists the k largest packed keys
 // of the same f32 scores (_pack_keys, :87): a TS_MIN pass of the tiled
@@ -56,8 +57,9 @@ __global__ void __launch_bounds__(dg::ROW_QB<NPL, KEYS> * 32, 1)
   extern __shared__ float sg[];  // N rows x CS: CC channels of the cloud
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * dg::ROW_QB<NPL, KEYS> + warp;
-  float s[NPL];
+  const int i =
+      blockIdx.x * dg::block_rows<NPL>(dg::ROW_QB<NPL, KEYS>) + warp;
+  dg::RowScores<NPL> s;
   dg::row_scores<NPL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, N, i,
                       lane, sg, s);
   if constexpr (KEYS) dg::row_keys<NPL>(s, lim);
@@ -113,10 +115,10 @@ cudaError_t launch_tiled(const float* x, const float* sq, int* idx, int B,
 template <bool KEYS>
 cudaError_t launch_rowwarp(const float* x, const float* sq, int* idx, int B,
                            int N, int C, int k, cudaStream_t st) {
-  return dg::with_npl(N, [&](auto npl) {
+  return dg::with_npl(N, 0, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = dg::ROW_QB<NPL, KEYS>;
-    const size_t smem = dg::select_smem_bytes<NPL>(N);
+    const int QB = dg::launch_rows<NPL>(dg::ROW_QB<NPL, KEYS>, N);
+    const size_t smem = dg::select_smem_bytes<NPL>(N, QB);
     auto kern = knn_idx_kernel<NPL, KEYS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -71,9 +71,10 @@
 //     blocks an SM.
 //   k > TS_LIST, or rowwarp (the oracle of the tiled route)
 //     knn_reduce_kernel: the row-warp selection (sqnorm, one warp per query
-//     row with its N scores in registers, k rounds of warp arg-max; v2 on
-//     the keys of row_keys, the AMP form's scores through its query
-//     operands and a's values rounded).
+//     row with its N scores in registers, or in knn_select.cuh's shared
+//     row above 4096 points or at Co > 128 above 2048, k rounds of warp
+//     arg-max; v2 on the keys of row_keys, the AMP form's scores through
+//     its query operands and a's values rounded).
 // Both give the same scores bit for bit (one fmaf chain over the channels,
 // 0 ascending, then the same _rn operations) and the same neighbours in
 // torch.topk's order.  Each winner's index goes to idx and its row of a is
@@ -120,8 +121,9 @@ __global__ void __launch_bounds__(dg::ROW_QB<NPL, KEYS> * 32, 1)
   constexpr int CPL = dg::Bucket<NPL>::CPL;
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * dg::ROW_QB<NPL, KEYS> + warp;
-  float s[NPL];
+  const int i =
+      blockIdx.x * dg::block_rows<NPL>(dg::ROW_QB<NPL, KEYS>) + warp;
+  dg::RowScores<NPL> s;
   dg::row_scores<NPL>(graph + (size_t)b * N * Cg, Cg, sq + (size_t)b * N, N,
                       i, lane, sg, s,
                       KEYS ? gq + ((size_t)b * N + i) * Cg : nullptr);
@@ -278,11 +280,12 @@ cudaError_t launch_tiled_co(const TiledArgs& t, cudaStream_t st) {
 // operands t.gq, a's values rounded to bf16 with AMP.
 template <int MODE, bool AMP = false>
 cudaError_t launch_rowwarp(const TiledArgs& t, cudaStream_t st) {
-  return dg::with_npl(t.N, [&](auto npl) {
+  return dg::with_npl(t.N, t.Co, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = dg::ROW_QB<NPL, MODE == dg::TS_KEYS>;
+    const int QB =
+        dg::launch_rows<NPL>(dg::ROW_QB<NPL, MODE == dg::TS_KEYS>, t.N);
     auto kern = knn_reduce_kernel<NPL, MODE == dg::TS_KEYS, AMP>;
-    const size_t smem = dg::select_smem_bytes<NPL>(t.N);
+    const size_t smem = dg::select_smem_bytes<NPL>(t.N, QB);
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -324,8 +327,8 @@ cudaError_t reduce(const float* graph, const float* a, float* sq, int* idx,
 }
 
 bool bad_shape(int B, int N, int Cg, int Co, int k) {
-  return B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
-         Co > dg::max_co(N) || Cg < 1 || k < 1 || k > N;
+  return B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 || Co > dg::MAX_CO ||
+         Cg < 1 || k < 1 || k > N;
 }
 
 // The AMP form: the score operands (gq, gc: B * N * 3 Cg floats each) and

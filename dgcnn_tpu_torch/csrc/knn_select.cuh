@@ -1,26 +1,36 @@
-// The kNN selections of the port's neighbour-picking kernels.  Two
+// The kNN selections of the port's neighbour-picking kernels.  Three
 // components: the row-warp selection below (row_scores, pop_nearest) of
 // knn_idx.cu, knn_sum.cu, edge_conv_eval.cu, edge_conv_amp.cu,
 // knn_edge2.cu, knn_edge2_variant.cu and knn_reduce.cu at k > TS_LIST
 // (kernel 6 and the banded kernel 13 also at C1 > 64 or C2 > 128), in each
 // mode (the exact v1 arg-max, the keyed v2 of row_keys, the class walk v3
-// of pop_class, on exact or AMP scores); and the tiled selection further
-// down (tiled_topk) of those kernels (11, 10, 1 and 12, 6 and 13, 3 and 4)
-// at k <= TS_LIST.  Both give the same neighbours in the same order, in
-// every mode.  The banded kernels 12 and
+// of pop_class, on exact or AMP scores), with a row's scores in registers
+// (a register bucket) or in shared memory (the shared row); and the tiled
+// selection further down (tiled_topk) of those kernels (11, 10, 1 and 12,
+// 6 and 13, 3 and 4) at k <= TS_LIST.  All give the same neighbours in
+// the same order, in every mode.  The banded kernels 12 and
 // 13 hand either selection a window of their sorted cloud as the
 // candidates: row_scores takes it as the cloud, tiled_topk as its column
 // range.
 //
-// A warp owns one query row i of a cloud and keeps the scores of its N
-// columns in registers, NPL = N / 32 a lane (column j = 32 * t + lane in
-// s[t]), so the N x N score matrix never leaves the SM.  A block holds
-// QB query rows of one cloud and stages the cloud's graph features
-// through shared memory CC channels at a time (Bucket below).  The scores
-// follow the reference's operation order, (2 * <g_i, g_j> - |g_i|^2) -
-// |g_j|^2, with the _rn intrinsics so that nvcc cannot contract them into
-// an FMA; the k neighbours then come out one per round of a warp arg-max
-// on (score, -index): torch.topk's order, lowest index first among ties.
+// A warp owns one query row i of a cloud and scores its N columns.  In a
+// register bucket it keeps them in registers, NPL = N / 32 a lane (column
+// j = 32 * t + lane in s[t]), so the N x N score matrix never leaves the
+// SM; a block holds QB query rows of one cloud and stages the cloud's
+// graph features through shared memory CC channels at a time (Bucket
+// below).  The buckets end at REG_MAX_N points (128 scores a lane).  The
+// shared row (NPL = SROW) keeps the same slots in shared memory, slot t of
+// lane l at word 32 t + l of the warp's row, and stages the cloud in tiles
+// of SR_TJ columns, so that no register and no staged buffer grows with
+// N: it takes the clouds above REG_MAX_N, up to MAX_N, the rows whose Co
+// the bucket's lanes cannot hold (max_co), and, asked for
+// (force_srow), any row route as the check of its bits.  The scores follow
+// the reference's operation order, (2 * <g_i, g_j> - |g_i|^2) - |g_j|^2,
+// with the _rn intrinsics so that nvcc cannot contract them into an FMA,
+// each the same fmaf chain over the channels, 0 ascending, in every
+// component; the k neighbours then come out one per round of a warp
+// arg-max on (score, -index): torch.topk's order, lowest index first among
+// ties.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,7 +41,12 @@
 
 namespace dg {
 
-constexpr int MAX_N = 4096;  // scores per lane: N / 32 <= 128 registers
+constexpr int MAX_N = 16384;     // the most points a kNN kernel's cloud holds
+constexpr int REG_MAX_N = 4096;  // register buckets: N / 32 <= 128 a lane
+constexpr int MAX_CO = 256;      // the widest Co of the kNN kernels
+constexpr int SROW = 0;          // the NPL of the shared row
+// the dynamic shared memory a block may take on sm_90
+constexpr size_t SMEM_MAX = 227 * 1024;
 
 // The block shape of a register bucket of NPL scores a lane.  Up to 64
 // (N <= 2048) a block runs QB = 16 warps, stages CC = 8 graph channels a
@@ -53,7 +68,14 @@ struct Bucket {
   static constexpr int CPL = NPL <= 64 ? 8 : 4;   // output channels a lane
 };
 
-// The widest Co that the bucket of N takes.
+// The shared row: up to 8 query rows a block (its launch picks them,
+// srow_qb), 8 output channels a lane (Co <= 256).
+template <>
+struct Bucket<SROW> {
+  static constexpr int QB = 8, CC = 8, CS = 9, CPL = 8;
+};
+
+// The widest Co that the register bucket of N takes.
 inline int max_co(int N) { return N / 32 <= 64 ? 256 : 128; }
 
 // Query rows (warps) a block of the row-warp kernels that hold more than
@@ -72,12 +94,62 @@ struct RowBlock {
 template <int NPL, bool KEYED>
 constexpr int ROW_QB = KEYED ? RowBlock<NPL>::QB : Bucket<NPL>::QB;
 
-// Dynamic shared memory of the graph stage of a select block for a cloud
-// of N points.
+// A warp's row of scores: NPL registers a lane, or the shared row's slots.
+struct SRow {
+  float* p;      // this lane's slot 0; slot t (column 32 t + lane) is p[32 t]
+  unsigned* mk;  // the row's ballots (pop_class), a word a slot
+  int n;         // slots a lane, W / 32
+};
 template <int NPL>
-__host__ __device__ inline size_t select_smem_bytes(int N) {
+using RowScores =
+    std::conditional_t<NPL == SROW, SRow, float[NPL == SROW ? 1 : NPL]>;
+
+// The shared row's staging: tiles of SR_TJ columns, SR_CC channels a pass
+// (row stride SR_CS: no bank conflicts).
+constexpr int SR_TJ = 256, SR_CC = 8, SR_CS = SR_CC + 1;
+
+// Shared memory of a shared-row block of qb rows over W candidates: the
+// rows, their ballots and the staged tile.
+__host__ __device__ inline size_t srow_smem_bytes(int W, int qb) {
+  return sizeof(float) * ((size_t)qb * (W + W / 32) + SR_TJ * SR_CS);
+}
+
+// The rows (warps) a block of the shared row over W candidates takes: the
+// most, up to 8 and a power of two (so that it divides N), whose shared
+// memory, with the kernel's own `fixed` bytes and `per_row` bytes a row,
+// fits SMEM_MAX; 0 if one row does not (W > MAX_N).
+inline int srow_qb(int W, size_t fixed = 0, size_t per_row = 0) {
+  for (int qb = 8; qb >= 1; qb >>= 1)
+    if (srow_smem_bytes(W, qb) + fixed + qb * per_row <= SMEM_MAX) return qb;
+  return 0;
+}
+
+// The rows a block of a row route: qb, the kernel's rule, for a register
+// bucket; the launch's (srow_qb) for the shared row.
+template <int NPL>
+__device__ __forceinline__ int block_rows(int qb) {
+  return NPL == SROW ? (int)(blockDim.x >> 5) : qb;
+}
+template <int NPL>
+inline int launch_rows(int qb, int W, size_t fixed = 0, size_t per_row = 0) {
+  return NPL == SROW ? srow_qb(W, fixed, per_row) : qb;
+}
+
+// Dynamic shared memory of the selection of a row-route block for a cloud
+// (window) of N points: a register bucket's graph stage, or the shared
+// row's srow_smem_bytes at qb rows.
+template <int NPL>
+__host__ __device__ inline size_t select_smem_bytes(int N, int qb = 0) {
+  if constexpr (NPL == SROW) return srow_smem_bytes(N, qb);
   return (size_t)N * Bucket<NPL>::CS * sizeof(float);
 }
+
+// Set by dg_force_shared_rows (edge_conv_eval.cu): every row route then
+// takes the shared row, the check that it gives the register buckets'
+// bits.
+bool& force_srow();
+// The launches with_npl sent to the shared row (dg_srow_launches).
+unsigned long long& srow_launches();
 
 // One 4-byte asynchronous copy from global to shared memory (cp.async,
 // sm_80 and later): *dst = *src, or 0 when `in` is false.  Nothing waits
@@ -164,6 +236,61 @@ __device__ __forceinline__ void row_scores_async(
   }
 }
 
+// row_scores for the shared row: the block's sm holds its rows (row w at
+// word w * N), their ballots and one staged tile.  The cloud comes in
+// tiles of SR_TJ columns and SR_CC channels a pass, each lane's SR_TJ / 32
+// scores of the tile in registers across the passes, so a score is the
+// same fmaf chain over the channels, 0 ascending (padded channels add
+// exact zeros), finished by the same _rn operations: row_scores' bits.
+// The query row's operands come from qrow or G's row i.
+__device__ __forceinline__ void srow_scores(const float* __restrict__ G,
+                                            int Cg,
+                                            const float* __restrict__ SQ,
+                                            int N, int i, int lane, float* sm,
+                                            SRow& s,
+                                            const float* __restrict__ qrow) {
+  constexpr int U = SR_TJ / 32;
+  const int qb = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  s.n = N / 32;
+  s.p = sm + (size_t)warp * N + lane;
+  s.mk = reinterpret_cast<unsigned*>(sm + (size_t)qb * N) + warp * s.n;
+  float* stage = sm + (size_t)qb * (N + s.n);
+  const float* q = qrow != nullptr ? qrow : G + (size_t)i * Cg;
+  const float qq = SQ[i];
+  for (int j0 = 0; j0 < N; j0 += SR_TJ) {
+    float acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = 0.f;
+    for (int c0 = 0; c0 < Cg; c0 += SR_CC) {
+      __syncthreads();  // every warp is done with the previous pass
+      for (int e = threadIdx.x; e < SR_TJ * SR_CC; e += blockDim.x) {
+        const int j = e / SR_CC, c = e - j * SR_CC;
+        const bool in = j0 + j < N && c0 + c < Cg;
+        async_copy4(stage + j * SR_CS + c,
+                    in ? G + (size_t)(j0 + j) * Cg + c0 + c : G, in);
+      }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      float qc[SR_CC];
+#pragma unroll
+      for (int c = 0; c < SR_CC; ++c) qc[c] = c0 + c < Cg ? q[c0 + c] : 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float* r = stage + (32 * u + lane) * SR_CS;
+#pragma unroll
+        for (int c = 0; c < SR_CC; ++c) acc[u] = fmaf(qc[c], r[c], acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + 32 * u + lane;
+      if (j < N)
+        s.p[j - lane] =
+            __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc[u]), qq), SQ[j]);
+    }
+  }
+}
+
 // Scores of query row i against the N points of its cloud: G is the
 // cloud's (N, Cg) graph features, SQ its (N,) squared norms, sg the
 // block's dynamic shared memory.  Every thread of the block calls it
@@ -171,48 +298,50 @@ __device__ __forceinline__ void row_scores_async(
 // given, holds the query row's own Cg operands in place of G's row i: the
 // AMP scores of f32 inputs, [hi | hi | lo] against the cloud's [hi | lo |
 // hi] (tiled_topk's GQ, below), so that each score has the tiled route's
-// bits.
+// bits.  The shared row (SROW) sets up s on sg (srow_scores).
 template <int NPL>
 __device__ __forceinline__ void row_scores(const float* __restrict__ G, int Cg,
                                            const float* __restrict__ SQ, int N,
                                            int i, int lane, float* sg,
-                                           float (&s)[NPL],
+                                           RowScores<NPL>& s,
                                            const float* __restrict__ qrow =
                                                nullptr) {
-  if constexpr (NPL > 64) {
+  if constexpr (NPL == SROW) {
+    srow_scores(G, Cg, SQ, N, i, lane, sg, s, qrow);
+  } else if constexpr (NPL > 64) {
     row_scores_async<NPL>(G, Cg, SQ, N, i, lane, sg, s, qrow);
-    return;
-  }
-  constexpr int CC = Bucket<NPL>::CC, CS = Bucket<NPL>::CS;
+  } else {
+    constexpr int CC = Bucket<NPL>::CC, CS = Bucket<NPL>::CS;
 #pragma unroll
-  for (int t = 0; t < NPL; ++t) s[t] = 0.f;
-  for (int c0 = 0; c0 < Cg; c0 += CC) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < N * CC; e += blockDim.x) {
-      const int j = e / CC, c = e - j * CC;
-      sg[j * CS + c] = (c0 + c < Cg) ? G[(size_t)j * Cg + c0 + c] : 0.f;
+    for (int t = 0; t < NPL; ++t) s[t] = 0.f;
+    for (int c0 = 0; c0 < Cg; c0 += CC) {
+      __syncthreads();
+      for (int e = threadIdx.x; e < N * CC; e += blockDim.x) {
+        const int j = e / CC, c = e - j * CC;
+        sg[j * CS + c] = (c0 + c < Cg) ? G[(size_t)j * Cg + c0 + c] : 0.f;
+      }
+      __syncthreads();
+      float q[CC];
+#pragma unroll
+      for (int c = 0; c < CC; ++c)
+        q[c] = query_channel<NPL>(sg, i, qrow, Cg, c0, c);
+#pragma unroll
+      for (int t = 0; t < NPL; ++t) {
+        const int j = t * 32 + lane;
+        if (j < N) {
+          const float* r = sg + j * CS;
+#pragma unroll
+          for (int c = 0; c < CC; ++c) s[t] = fmaf(q[c], r[c], s[t]);
+        }
+      }
     }
-    __syncthreads();
-    float q[CC];
-#pragma unroll
-    for (int c = 0; c < CC; ++c)
-      q[c] = query_channel<NPL>(sg, i, qrow, Cg, c0, c);
+    const float qq = SQ[i];
 #pragma unroll
     for (int t = 0; t < NPL; ++t) {
       const int j = t * 32 + lane;
-      if (j < N) {
-        const float* r = sg + j * CS;
-#pragma unroll
-        for (int c = 0; c < CC; ++c) s[t] = fmaf(q[c], r[c], s[t]);
-      }
+      s[t] = (j < N) ? __fsub_rn(__fsub_rn(__fmul_rn(2.f, s[t]), qq), SQ[j])
+                     : -INFINITY;
     }
-  }
-  const float qq = SQ[i];
-#pragma unroll
-  for (int t = 0; t < NPL; ++t) {
-    const int j = t * 32 + lane;
-    s[t] = (j < N) ? __fsub_rn(__fsub_rn(__fmul_rn(2.f, s[t]), qq), SQ[j])
-                   : -INFINITY;
   }
 }
 
@@ -220,15 +349,27 @@ __device__ __forceinline__ void row_scores(const float* __restrict__ G, int Cg,
 // index first among equal scores.  Every lane returns it; its score
 // becomes -inf.
 template <int NPL>
-__device__ __forceinline__ int pop_nearest(float (&s)[NPL], int lane) {
+__device__ __forceinline__ int pop_nearest(RowScores<NPL>& s, int lane) {
   // lane-local best; t ascending, so the first maximum has the lowest index
-  float best = s[0];
+  float best;
   int bj = lane;
+  if constexpr (NPL == SROW) {
+    best = s.p[0];
+    for (int t = 1; t < s.n; ++t) {
+      const float v = s.p[32 * t];
+      if (v > best) {
+        best = v;
+        bj = t * 32 + lane;
+      }
+    }
+  } else {
+    best = s[0];
 #pragma unroll
-  for (int t = 1; t < NPL; ++t) {
-    if (s[t] > best) {
-      best = s[t];
-      bj = t * 32 + lane;
+    for (int t = 1; t < NPL; ++t) {
+      if (s[t] > best) {
+        best = s[t];
+        bj = t * 32 + lane;
+      }
     }
   }
   // warp arg-max on (score, -index)
@@ -241,38 +382,54 @@ __device__ __forceinline__ int pop_nearest(float (&s)[NPL], int lane) {
       bj = oj;
     }
   }
+  if constexpr (NPL == SROW) {
+    if ((bj & 31) == lane) s.p[bj - lane] = -INFINITY;
+  } else {
 #pragma unroll
-  for (int t = 0; t < NPL; ++t)
-    if (t * 32 + lane == bj) s[t] = -INFINITY;
+    for (int t = 0; t < NPL; ++t)
+      if (t * 32 + lane == bj) s[t] = -INFINITY;
+  }
   return bj;
 }
 
 // The row-warp forms of the keyed (v2) and class (v3) selections, the
 // tiled route's TS_MIN + TS_KEYS and TS_CLASSES (below) on a warp's row of
-// scores in registers.  Both take the scores of row_scores (the exact f32
-// scores, or the AMP ones through qrow), so each form gives the tiled
-// route's neighbours, in its order, at any k <= N.
+// scores (registers or the shared row).  Both take the scores of
+// row_scores (the exact f32 scores, or the AMP ones through qrow), so each
+// form gives the tiled route's neighbours, in its order, at any k <= N.
+
+// Calls f(v) on each of this lane's slots of a row in ascending order; f
+// may assign to v.
+template <int NPL, typename F>
+__device__ __forceinline__ void row_slots(RowScores<NPL>& s, F&& f) {
+  if constexpr (NPL == SROW) {
+    for (int t = 0; t < s.n; ++t) f(s.p[32 * t]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < NPL; ++t) f(s[t]);
+  }
+}
 
 // v2: each score of the row becomes its key's quantized part in its own
-// register, q = max(rint(s * scale), -lim), with scale = -lim / m where the
+// slot, q = max(rint(s * scale), -lim), with scale = -lim / m where the
 // row's least score m (a warp min over its candidates; the -inf past them
 // is skipped) is negative, 0 otherwise: TS_MIN's grid and TS_KEYS's
 // operations.  q is an integer below 2^24 in magnitude, exact in f32, so
 // pop_nearest's order on the keys, (q desc, index asc), is the packed
 // keys' order (_pack_keys: q * 2^b + n - 1 - j).
 template <int NPL>
-__device__ __forceinline__ void row_keys(float (&s)[NPL], float lim) {
+__device__ __forceinline__ void row_keys(RowScores<NPL>& s, float lim) {
   float m = INFINITY;
-#pragma unroll
-  for (int t = 0; t < NPL; ++t)
-    if (s[t] > -INFINITY) m = fminf(m, s[t]);
+  row_slots<NPL>(s, [&](float& v) {
+    if (v > -INFINITY) m = fminf(m, v);
+  });
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     m = fminf(m, __shfl_xor_sync(0xffffffffu, m, o));
   const float scale = m < 0.f ? __fdiv_rn(-lim, m) : 0.f;
-#pragma unroll
-  for (int t = 0; t < NPL; ++t)
-    if (s[t] > -INFINITY) s[t] = fmaxf(rintf(__fmul_rn(s[t], scale)), -lim);
+  row_slots<NPL>(s, [&](float& v) {
+    if (v > -INFINITY) v = fmaxf(rintf(__fmul_rn(v, scale)), -lim);
+  });
 }
 
 // The ballots of a row's columns, one word a register slot t: lane t % 32
@@ -282,6 +439,12 @@ struct RowMask {
   static constexpr int W = (NPL + 31) / 32;
   unsigned w[W];
 };
+// The shared row's: its ballots in shared memory, a word a slot.
+template <>
+struct RowMask<SROW> {
+  const unsigned* w;
+  int n;
+};
 
 // v3: one round of the class walk (_extract_loop_v3).  The row's largest
 // remaining score v (a warp max: the next class), its members (the columns
@@ -290,24 +453,44 @@ struct RowMask {
 // left: fewer than k distinct scores, where the walk consumes its last
 // class again, which the max and min it feeds ignore.
 template <int NPL>
-__device__ __forceinline__ float pop_class(float (&s)[NPL], int lane,
+__device__ __forceinline__ float pop_class(RowScores<NPL>& s, int lane,
                                            RowMask<NPL>& mk, int& cnt) {
-  float v = s[0];
+  float v;
+  if constexpr (NPL == SROW) {
+    v = s.p[0];
+    for (int t = 1; t < s.n; ++t) v = fmaxf(v, s.p[32 * t]);
+  } else {
+    v = s[0];
 #pragma unroll
-  for (int t = 1; t < NPL; ++t) v = fmaxf(v, s[t]);
+    for (int t = 1; t < NPL; ++t) v = fmaxf(v, s[t]);
+  }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   cnt = 0;
+  if constexpr (NPL == SROW) {
+    __syncwarp();  // every lane is done with the last class's ballots
+    for (int t = 0; t < s.n; ++t) {
+      const bool in = s.p[32 * t] == v && v > -INFINITY;
+      const unsigned b = __ballot_sync(0xffffffffu, in);
+      if (lane == 0) s.mk[t] = b;
+      cnt += __popc(b);
+      if (in) s.p[32 * t] = -INFINITY;
+    }
+    __syncwarp();
+    mk.w = s.mk;
+    mk.n = s.n;
+  } else {
 #pragma unroll
-  for (int q = 0; q < RowMask<NPL>::W; ++q) mk.w[q] = 0u;
+    for (int q = 0; q < RowMask<NPL>::W; ++q) mk.w[q] = 0u;
 #pragma unroll
-  for (int t = 0; t < NPL; ++t) {
-    const bool in = s[t] == v && v > -INFINITY;
-    const unsigned b = __ballot_sync(0xffffffffu, in);
-    if (lane == (t & 31)) mk.w[t >> 5] = b;
-    cnt += __popc(b);
-    if (in) s[t] = -INFINITY;
+    for (int t = 0; t < NPL; ++t) {
+      const bool in = s[t] == v && v > -INFINITY;
+      const unsigned b = __ballot_sync(0xffffffffu, in);
+      if (lane == (t & 31)) mk.w[t >> 5] = b;
+      cnt += __popc(b);
+      if (in) s[t] = -INFINITY;
+    }
   }
   return v;
 }
@@ -318,17 +501,28 @@ __device__ __forceinline__ float pop_class(float (&s)[NPL], int lane,
 template <int NPL, typename F>
 __device__ __forceinline__ void class_members(const RowMask<NPL>& mk,
                                               F&& f) {
-#pragma unroll
-  for (int q = 0; q < RowMask<NPL>::W; ++q) {
-    unsigned slots = __ballot_sync(0xffffffffu, mk.w[q] != 0u);
-    while (slots) {
-      const int l = __ffs(slots) - 1;  // register slot t = 32 q + l
-      slots &= slots - 1;
-      unsigned m = __shfl_sync(0xffffffffu, mk.w[q], l);
+  if constexpr (NPL == SROW) {
+    for (int t = 0; t < mk.n; ++t) {
+      unsigned m = mk.w[t];
       while (m) {
         const int src = __ffs(m) - 1;
         m &= m - 1;
-        f(32 * (32 * q + l) + src);
+        f(32 * t + src);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < RowMask<NPL>::W; ++q) {
+      unsigned slots = __ballot_sync(0xffffffffu, mk.w[q] != 0u);
+      while (slots) {
+        const int l = __ffs(slots) - 1;  // register slot t = 32 q + l
+        slots &= slots - 1;
+        unsigned m = __shfl_sync(0xffffffffu, mk.w[q], l);
+        while (m) {
+          const int src = __ffs(m) - 1;
+          m &= m - 1;
+          f(32 * (32 * q + l) + src);
+        }
       }
     }
   }
@@ -558,6 +752,9 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 //               list, so its first member enters and none is dropped.
 // Over a window the v2 grid is the row's least score over the window, and
 // the keys' index bits those of the band (the caller's lim).
+// No buffer or register grows with W, and the v3 list's words hold a count
+// below 2^15 and a row below 2^16: the route takes any W <= MAX_N (at
+// 16384 the v2 keys hold 14 index bits and q stays below 2^17).
 constexpr int TS_TOPK = 0, TS_KEYS = 1, TS_MIN = 2, TS_CLASSES = 3;
 
 template <int KL, bool ANY = false, int MODE = TS_TOPK>
@@ -805,11 +1002,19 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// Calls f(std::integral_constant<int, NPL>{}) for the smallest register
-// bucket NPL (4, 8, 16, 32, 48, 64, 96 or 128) that holds N / 32 scores a
-// lane.
+// Calls f(std::integral_constant<int, NPL>{}) for the row route over N
+// candidates: the smallest register bucket NPL (4, 8, 16, 32, 48, 64, 96
+// or 128) that holds N / 32 scores a lane, or the shared row (SROW) where
+// N > REG_MAX_N, where the bucket's lanes hold fewer output channels than
+// co needs (max_co; co = 0 where a kernel's channels a lane do not follow
+// the bucket) or where force_srow() asks for it.  N > MAX_N: no route.
 template <typename F>
-cudaError_t with_npl(int N, F&& f) {
+cudaError_t with_npl(int N, int co, F&& f) {
+  if (N > MAX_N) return cudaErrorInvalidValue;
+  if (N > REG_MAX_N || co > max_co(N) || force_srow()) {
+    ++srow_launches();
+    return f(std::integral_constant<int, SROW>{});
+  }
   const int npl = N / 32;
   if (npl <= 4) return f(std::integral_constant<int, 4>{});
   if (npl <= 8) return f(std::integral_constant<int, 8>{});

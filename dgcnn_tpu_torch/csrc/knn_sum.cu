@@ -41,9 +41,10 @@
 //     gathers of `a` (73 KB a cloud at Ca = 9) hit L1 and L2.
 //   k > TS_LIST  knn_sum_kernel (also dg_knn_sum_rowwarp at any k, the
 //     earlier side of the A/B and of chip_smoke.py's checks): the row-warp
-//     selection, one warp a query row with its N scores in registers, k
-//     rounds of warp arg-max, with the sum folded into the rounds: every
-//     lane learns each round's winner j and lane c < Ca adds a[j, c].
+//     selection, one warp a query row with its N scores in registers (in
+//     knn_select.cuh's shared row above 4096 points), k rounds of warp
+//     arg-max, with the sum folded into the rounds: every lane learns each
+//     round's winner j and lane c < Ca adds a[j, c].
 // The v2 form (dg_knn_sum_v2), the JAX package's default: _knn_sum_kernel's
 // variant is _extract_version("v2", ...) (pallas_knn.py:1518), so the AMP
 // Net runs it and DGCNN_TPU_EXTRACT=v2 asks for it in the exact mode.  It
@@ -75,8 +76,9 @@ __global__ void __launch_bounds__(dg::ROW_QB<NPL, KEYS> * 32, 1)
   extern __shared__ float sg[];  // N rows x CS: CC channels of the cloud
   const int b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * dg::ROW_QB<NPL, KEYS> + warp;
-  float s[NPL];
+  const int i =
+      blockIdx.x * dg::block_rows<NPL>(dg::ROW_QB<NPL, KEYS>) + warp;
+  dg::RowScores<NPL> s;
   dg::row_scores<NPL>(x + (size_t)b * N * C, C, sq + (size_t)b * N, N, i,
                       lane, sg, s);
   if constexpr (KEYS) dg::row_keys<NPL>(s, lim);
@@ -167,10 +169,10 @@ template <bool KEYS>
 cudaError_t launch_rowwarp(const float* x, const float* a, const float* sq,
                            int* idx, float* asum, int B, int N, int C,
                            int Ca, int k, cudaStream_t st) {
-  return dg::with_npl(N, [&](auto npl) {
+  return dg::with_npl(N, 0, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    constexpr int QB = dg::ROW_QB<NPL, KEYS>;
-    const size_t smem = dg::select_smem_bytes<NPL>(N);
+    const int QB = dg::launch_rows<NPL>(dg::ROW_QB<NPL, KEYS>, N);
+    const size_t smem = dg::select_smem_bytes<NPL>(N, QB);
     auto kern = knn_sum_kernel<NPL, KEYS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -123,9 +123,9 @@ def use_amp_eval(amp: bool | None, device: torch.device, n: int,
     the kNN kernels do not take (``use_kernel``) stay exact either way.
     The JAX package runs its Pallas kernels, AMP by default, on every cloud
     whose N is a multiple of 128 (``dgcnn_tpu/ops/knn.py::use_pallas``) at
-    any k; the port's AMP forms take any k <= N too, so ``k`` does not
-    gate the mode; the port's clouds above ``MAX_N`` points stay exact,
-    where the JAX package still runs AMP (ROADMAP C.1)."""
+    any k; the port's AMP forms take any k <= N and any such N up to
+    ``knn.MAX_N`` (16384), so ``k`` does not gate the mode.  Above it the
+    port stays exact where the JAX package still runs AMP (ROADMAP C)."""
     from dgcnn_tpu_torch.ops.knn import use_kernel
 
     del k

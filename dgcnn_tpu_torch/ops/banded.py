@@ -73,8 +73,13 @@ from dgcnn_tpu_torch.ops.edge2_kernel import (
 )
 from dgcnn_tpu_torch.ops.edge_conv import _project, edge_conv_fused
 from dgcnn_tpu_torch.ops.edge_conv_kernel import _amp_weights, stage_epilogue
-from dgcnn_tpu_torch.ops.knn import MAX_N, pairwise_neg_sqdist
-from dgcnn_tpu_torch.ops.knn_reduce_kernel import TILED_MAX_K, max_co
+from dgcnn_tpu_torch.ops.knn import (
+    MAX_CO,
+    MAX_N,
+    TILED_MAX_K,
+    pairwise_neg_sqdist,
+    srow_count,
+)
 
 TILE_N = 128
 
@@ -290,8 +295,9 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
     ``sorted_order(graph)``) -> (B, N, Co) in the input order.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes f32 tensors with N a multiple of 128 up to 4096, a band
-    that is a multiple of 128 up to N, k <= band and Co <= 256, and raises
+    which takes f32 tensors with N a multiple of 128 up to ``MAX_N``
+    (16384), a band that is a multiple of 128 up to N, k <= band and Co
+    <= 256, and raises
     on anything else: its tiled route at k <= 64, its row-warp route
     otherwise or with ``rowwarp`` (the same bits).  ``amp`` runs the AMP
     form (f32 or bf16 graph and x, bf16 output; plain:
@@ -309,6 +315,7 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
     if amp or variant != "v1":
         rowwarp = rowwarp or k > TILED_MAX_K
         order, inv, tile, starts = _launch_setup(graph, order, band)
+        srow = srow_count()
         out = edge_conv_kernel.launch_variant(
             sort_rows(graph, order), sort_rows(x, order), w_nbr, w_ctr,
             scale, bias, k, slope, amp, variant, starts, tile, band,
@@ -317,6 +324,7 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
         banded_edge_conv_eval.amp_launches += amp
         banded_edge_conv_eval.v2_launches += not amp
         banded_edge_conv_eval.rowwarp_launches += rowwarp
+        banded_edge_conv_eval.srow_launches += srow_count() - srow
         return sort_rows(out, inv)
     b, n, cg = graph.shape
     cin, co = w_nbr.shape
@@ -326,7 +334,7 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
              f"x {tuple(x.shape)}, w {tuple(w_nbr.shape)}/"
              f"{tuple(w_ctr.shape)}, scale/bias (Co,) vs graph "
              f"{tuple(graph.shape)}")
-    _require(name, co <= max_co(band), f"Co={co} > {max_co(band)}")
+    _require(name, co <= MAX_CO, f"Co={co} > {MAX_CO}")
     order, inv, tile, starts = _launch_setup(graph, order, band)
     fn = _entry(name, rowwarp, 9)
     # the launch is asynchronous on torch's current stream: tensors made here
@@ -340,12 +348,14 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
     sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)
     out = torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
     p = _build.ptr
+    srow = srow_count()
     with torch.cuda.device(graph.device):
         rc = fn(p(gs), p(xs), p(wcat), p(scale), p(bias), p(starts), p(ac),
                 p(sq), p(out), b, n, cg, cin, co, k, tile, band, float(slope),
                 _build.stream_of(graph))
     _build.check(rc, name)
     banded_edge_conv_eval.launches += 1
+    banded_edge_conv_eval.srow_launches += srow_count() - srow
     return sort_rows(out, inv)
 
 
@@ -399,8 +409,9 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     (B, N, C2) in the input order.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes f32 tensors with N a multiple of 128 up to 4096, a band
-    that is a multiple of 128 up to N, k <= band and C1, C2 <= 128, and
+    which takes f32 tensors with N a multiple of 128 up to ``MAX_N``
+    (16384), a band that is a multiple of 128 up to N, k <= band and C1,
+    C2 <= 128, and
     raises on anything else: its tiled route at k <= 64, C1 <= 64 and C2
     <= 128, its row-warp route otherwise or with ``rowwarp`` (the same
     bits).  ``amp`` runs the AMP form (f32 or bf16 graph, bf16 output;
@@ -418,6 +429,7 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
         rowwarp = rowwarp or not edge2_kernel.tiled_route(*w2.shape, k)
         order, inv, tile, starts = _launch_setup(graph, order, band)
         gs, a1s, b1s = (sort_rows(t, order) for t in (graph, a1, b1))
+        srow = srow_count()
         out = edge2_kernel.launch_variant(gs, a1s, b1s, s1, t1, w2, s2, t2,
                                           k, slope, amp, variant, starts,
                                           tile, band, rowwarp=rowwarp)
@@ -425,6 +437,7 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
         banded_knn_edge2.amp_launches += amp
         banded_knn_edge2.v2_launches += not amp
         banded_knn_edge2.rowwarp_launches += rowwarp
+        banded_knn_edge2.srow_launches += srow_count() - srow
         return sort_rows(out, inv)
     b, n, cg = graph.shape
     c1, c2 = w2.shape
@@ -442,18 +455,21 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)
     out = torch.empty((b, n, c2), device=graph.device, dtype=torch.float32)
     p = _build.ptr
+    srow = srow_count()
     with torch.cuda.device(graph.device):
         rc = fn(p(gs), p(a1s), p(b1s), *map(p, small), p(starts), p(sq),
                 p(out), b, n, cg, c1, c2, k, tile, band, float(slope),
                 _build.stream_of(graph))
     _build.check(rc, name)
     banded_knn_edge2.launches += 1
+    banded_knn_edge2.srow_launches += srow_count() - srow
     return sort_rows(out, inv)
 
 
 # launches of the kernels since the counts were last set to 0 (amp_launches:
 # those of their AMP forms; v2_launches: those of their exact v2 forms;
-# rowwarp_launches: those of either on the row-warp route)
+# rowwarp_launches: those of either on the row-warp route; srow_launches:
+# those of any form on the row-warp route's shared row)
 for _fn in (banded_edge_conv_eval, banded_knn_edge2):
     _fn.launches = _fn.amp_launches = _fn.v2_launches = 0
-    _fn.rowwarp_launches = 0
+    _fn.rowwarp_launches = _fn.srow_launches = 0

@@ -48,6 +48,7 @@ from dgcnn_tpu_torch.ops.knn import (
     TILED_MAX_K,
     knn_plain,
     pairwise_neg_sqdist,
+    srow_count,
 )
 
 MAX_C = 128
@@ -131,7 +132,8 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes f32 tensors (graph, a1 and b1 contiguous) with N a multiple
-    of 128, N <= 4096 and C1, C2 <= 128, and raises on anything else.
+    of 128, N <= ``MAX_N`` (16384) and C1, C2 <= 128, and raises on
+    anything else.
     ``amp`` runs the AMP form (plain: ``knn_edge2_amp_plain``): an f32 or
     bf16 graph, a bf16 output.  The extraction variant is
     ``stage_variant``'s; every form takes the exact v1's shapes.
@@ -145,12 +147,14 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     require_ported("knn_edge2", amp, variant)
     if amp or variant != "v1":
         rowwarp = rowwarp or not tiled_route(*w2.shape, k)
+        srow = srow_count()
         out = launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
                              amp, variant, rowwarp=rowwarp)
         knn_edge2.launches += 1
         knn_edge2.amp_launches += amp
         knn_edge2.v2_launches += not amp
         knn_edge2.rowwarp_launches += rowwarp
+        knn_edge2.srow_launches += srow_count() - srow
         return out
     _require(not rowwarp, "the exact v1's row-warp route is the banded "
              "entry's at band = N")
@@ -187,11 +191,13 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)
     out = torch.empty((b, n, c2), device=graph.device, dtype=torch.float32)
     p = _build.ptr
+    srow = srow_count()
     with torch.cuda.device(graph.device):
         rc = fn(p(graph), p(a1), p(b1), *map(p, small), p(sq), p(out), b, n,
                 cg, c1, c2, k, float(slope), _build.stream_of(graph))
     _build.check(rc, "knn_edge2")
     knn_edge2.launches += 1
+    knn_edge2.srow_launches += srow_count() - srow
     return out
 
 
@@ -268,8 +274,10 @@ def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
 
 # launches of the kernel since the count was last set to 0 (amp_launches:
 # those of its AMP form; v2_launches: those of its exact v2 form;
-# rowwarp_launches: those of either on the row-warp route)
+# rowwarp_launches: those of either on the row-warp route; srow_launches:
+# those of any form on the row-warp route's shared row)
 knn_edge2.launches = 0
 knn_edge2.amp_launches = 0
 knn_edge2.v2_launches = 0
 knn_edge2.rowwarp_launches = 0
+knn_edge2.srow_launches = 0

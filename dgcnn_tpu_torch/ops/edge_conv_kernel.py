@@ -51,8 +51,14 @@ from dgcnn_tpu_torch.ops.amp_select import (
 )
 from dgcnn_tpu_torch.ops.edge_conv import _project, edge_conv_fused
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import MAX_N, knn_plain, pairwise_neg_sqdist
-from dgcnn_tpu_torch.ops.knn_reduce_kernel import TILED_MAX_K, max_co
+from dgcnn_tpu_torch.ops.knn import (
+    MAX_CO,
+    MAX_N,
+    TILED_MAX_K,
+    knn_plain,
+    pairwise_neg_sqdist,
+    srow_count,
+)
 
 
 def edge_conv_eval_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
@@ -139,12 +145,11 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     folded-BN affine ``scale``/``bias`` (Co,) and LeakyReLU -> (B, N, Co).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes f32 contiguous tensors with N a multiple of 128, N <= 4096
-    and Co <= 256 (Co <= 128 above N=2048), and raises on anything
-    else.  ``amp`` runs the AMP form (plain: ``edge_conv_eval_amp_plain``),
-    whose kernel takes f32 or bf16 ``graph`` and ``x``, the same N and any
-    k <= N (Co <= 256 at k <= 64, above as the exact kernel's), and
-    returns bf16.  The extraction variant is ``stage_variant``'s; the
+    which takes f32 contiguous tensors with N a multiple of 128, N <=
+    ``MAX_N`` (16384) and Co <= 256, and raises on anything else.  ``amp``
+    runs the AMP form (plain: ``edge_conv_eval_amp_plain``), whose kernel
+    takes f32 or bf16 ``graph`` and ``x``, the same N and Co and any k <=
+    N, and returns bf16.  The extraction variant is ``stage_variant``'s; the
     exact v2 form takes the AMP form's shapes and returns f32.
     ``rowwarp`` launches those forms' row-warp route at any k (the exact
     v1's is the banded entry's at band = N)."""
@@ -156,12 +161,14 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     require_ported("edge_conv_eval", amp, variant)
     if amp or variant != "v1":
         rowwarp = rowwarp or k > TILED_MAX_K
+        srow = srow_count()
         out = launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k, slope,
                              amp, variant, rowwarp=rowwarp)
         edge_conv_eval.launches += 1
         edge_conv_eval.amp_launches += amp
         edge_conv_eval.v2_launches += not amp
         edge_conv_eval.rowwarp_launches += rowwarp
+        edge_conv_eval.srow_launches += srow_count() - srow
         return out
     _require(not rowwarp, "the exact v1's row-warp route is the banded "
              "entry's at band = N")
@@ -182,7 +189,7 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
              "scale/bias must be (Co,)")
     _require(n % 128 == 0 and n <= MAX_N,
              f"N={n} must be a multiple of 128 and <= {MAX_N}")
-    _require(co <= max_co(n), f"Co={co} > {max_co(n)} for N={n}")
+    _require(co <= MAX_CO, f"Co={co} > {MAX_CO}")
     _require(1 <= k <= n, f"k={k} out of range for N={n}")
     fn = _lib()
     # the launch is asynchronous on torch's current stream: tensors made here
@@ -195,12 +202,14 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     sq = torch.empty((b * n,), device=graph.device, dtype=torch.float32)
     out = torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
     p = _build.ptr
+    srow = srow_count()
     with torch.cuda.device(graph.device):
         rc = fn(p(graph), p(x), p(wcat), p(scale), p(bias), p(ac), p(sq),
                 p(out), b, n, cg, cin, co, k, float(slope),
                 _build.stream_of(graph))
     _build.check(rc, "edge_conv_eval")
     edge_conv_eval.launches += 1
+    edge_conv_eval.srow_launches += srow_count() - srow
     return out
 
 
@@ -242,8 +251,7 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     need(n % 128 == 0 and n <= MAX_N,
          f"N={n} must be a multiple of 128 and <= {MAX_N}")
     rowwarp = rowwarp or k > TILED_MAX_K
-    co_max = (64 if starts is not None else max_co(w) if rowwarp
-              else AMP_MAX_CO)
+    co_max = 64 if starts is not None else MAX_CO
     need(co <= co_max, f"the {variant} form takes Co <= {co_max}")
     need(1 <= k <= w, f"the {variant} form takes 1 <= k <= {w} (k={k})")
     select_x = amp and select_x_plan(cin, co)[0]
@@ -287,14 +295,12 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     return out
 
 
-# the widest stage of the forms but the exact v1 on their tiled route (k <=
-# 64; the row-warp route's is max_co's)
-AMP_MAX_CO = 256
-
 # launches of the kernel since the count was last set to 0 (amp_launches:
 # those of its AMP form; v2_launches: those of its exact v2 form;
-# rowwarp_launches: those of either on the row-warp route)
+# rowwarp_launches: those of either on the row-warp route; srow_launches:
+# those of any form on the row-warp route's shared row)
 edge_conv_eval.launches = 0
 edge_conv_eval.amp_launches = 0
 edge_conv_eval.v2_launches = 0
 edge_conv_eval.rowwarp_launches = 0
+edge_conv_eval.srow_launches = 0

@@ -18,8 +18,9 @@ at the partseg TransformNet's graph); what it pays beyond that is the
 selection.  At k <= 64 (every model) it runs the tiled selection of
 ``csrc/knn_select.cuh`` (64 query rows a block, the cloud streamed in
 128-column tiles past a running top-k a row, each list written in order);
-above, the row-warp selection (a warp a row, k rounds of arg-max), which
-``rowwarp=True`` forces at any k for the checks.  Both give the same
+above, the row-warp selection (a warp a row, k rounds of arg-max; a row's
+scores in registers up to 4096 points, in shared memory above),
+which ``rowwarp=True`` forces at any k for the checks.  All give the same
 indices, ties included, and the same from call to call.
 
 The variant is the JAX kernel's (``_knn_only_kernel``, read at each call):
@@ -30,15 +31,20 @@ card, on the same two routes as v1.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from dgcnn_tpu_torch.ops import _build
 
-# the most points a cloud of the selection kernels may hold
-# (csrc/knn_select.cuh: N / 32 <= 128 scores a lane)
-MAX_N = 4096
+# the most points a cloud of the kNN kernels may hold (csrc/knn_select.cuh,
+# MAX_N): the tiled selection takes any N, the row route's register
+# buckets up to its REG_MAX_N, 4096 (N / 32 <= 128 scores a lane), and its
+# shared row (a row's scores in shared memory) the rest
+MAX_N = 16384
+# the widest Co of the kNN kernels' reductions (kernels 1, 3, 4 and 12)
+MAX_CO = 256
 # the longest neighbour list of the tiled selection (csrc/knn_select.cuh,
 # TS_LIST): the kNN kernels take the tiled route up to this k and the
 # row-warp route above it
@@ -48,11 +54,36 @@ TILED_MAX_K = 64
 def use_kernel(n: int) -> bool:
     """Whether the kNN kernels take a cloud of ``n`` points (the port of
     ``dgcnn_tpu/ops/knn.py::use_pallas``, with the selection's own limit):
-    N a multiple of 128 and at most ``MAX_N``.  The models route the other
-    sizes to the port of the JAX package's XLA path, decided from the
-    shape before any launch; the device of the caller's tensors decides
+    N a multiple of 128 and at most ``MAX_N`` (16384; above it the JAX
+    package still runs its Pallas kernels, ROADMAP C).  The models route
+    the other sizes to the port of the JAX package's XLA path, decided from
+    the shape before any launch; the device of the caller's tensors decides
     the rest (CPU tensors take the plain versions anyway)."""
     return n % 128 == 0 and n <= MAX_N
+
+
+def srow_count() -> int:
+    """Launches on the row route's shared row since the kernels' library
+    was loaded: ``with_npl`` (``csrc/knn_select.cuh``) counts each launch
+    that it sends there.  A wrapper adds the difference across its launch
+    to its ``srow_launches``."""
+    fn = _build.load_library().dg_srow_launches
+    fn.restype = ctypes.c_ulonglong
+    return fn()
+
+
+@contextlib.contextmanager
+def force_shared_rows():
+    """Inside, every launch on a kNN kernel's row route takes the shared
+    row whatever N and Co are: the check of its bits against the register
+    buckets' (and, through ``rowwarp=True``, the tiled route's)."""
+    lib = _build.load_library()
+    lib.dg_force_shared_rows.argtypes = [ctypes.c_int]
+    lib.dg_force_shared_rows(1)
+    try:
+        yield
+    finally:
+        lib.dg_force_shared_rows(0)
 
 
 def pairwise_neg_sqdist(x: torch.Tensor,
@@ -128,17 +159,21 @@ def knn(x: torch.Tensor, k: int, *, rowwarp: bool = False) -> torch.Tensor:
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
     scratch = [torch.empty((b * n,), device=x.device,
                            dtype=torch.float32)] if v2 else []
+    srow = srow_count()
     with torch.cuda.device(x.device):
         rc = fn(_build.ptr(x), _build.ptr(sq), *map(_build.ptr, scratch),
                 _build.ptr(idx), b, n, c, k, _build.stream_of(x))
     _build.check(rc, "knn")
+    row = rowwarp or k > TILED_MAX_K
     knn.launches += 1
     knn.v2_launches += v2
-    knn.rowwarp_launches += v2 and (rowwarp or k > TILED_MAX_K)
+    knn.rowwarp_launches += v2 and row
+    knn.srow_launches += srow_count() - srow
     return idx.long()
 
 
 # launches of the kernel since the count was last set to 0 (v2_launches:
 # those of its v2 form; rowwarp_launches: those of its v2 form on the
-# row-warp route)
+# row-warp route; srow_launches: those on the row-warp route's shared row)
 knn.launches = knn.v2_launches = knn.rowwarp_launches = 0
+knn.srow_launches = 0

@@ -48,13 +48,13 @@ from dgcnn_tpu_torch.ops.amp_select import (
     v2_indices,
 )
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
-from dgcnn_tpu_torch.ops.knn import MAX_N, TILED_MAX_K, knn_plain
-
-
-def max_co(n: int) -> int:
-    """The widest Co the selection kernels take at N points: 256 up to
-    N=2048, 128 above (csrc/knn_select.cuh, Bucket)."""
-    return 256 if n <= 2048 else 128
+from dgcnn_tpu_torch.ops.knn import (
+    MAX_CO,
+    MAX_N,
+    TILED_MAX_K,
+    knn_plain,
+    srow_count,
+)
 
 
 def knn_reduce_plain(graph: torch.Tensor, a: torch.Tensor, k: int,
@@ -130,8 +130,7 @@ def _check_select(name, graph, feats, co: int, k: int, variant: str,
     n = graph.shape[1]
     _require(name, n % 128 == 0 and n <= MAX_N,
              f"N={n} must be a multiple of 128 and <= {MAX_N}")
-    _require(name, 1 <= co <= max_co(n),
-             f"Co={co} out of 1..{max_co(n)} for N={n}")
+    _require(name, 1 <= co <= MAX_CO, f"Co={co} out of 1..{MAX_CO}")
     _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
 
 
@@ -160,8 +159,8 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     Returns (idx (B, N, k) int32, self first, lowest index first among
     equal scores; amax, amin, asum, asumsq (B, N, Co) f32).  CPU tensors
     take the plain version; CUDA tensors launch the kernel, which takes f32
-    contiguous tensors with N a multiple of 128, N <= 4096 and Co <= 256
-    (Co <= 128 above N=2048), and raises on anything else.  The variant is
+    contiguous tensors with N a multiple of 128, N <= ``MAX_N`` (16384)
+    and Co <= 256, and raises on anything else.  The variant is
     ``amp_select.training_variant``'s (module docstring).
 
     The kernel's route is decided from k before the launch: up to
@@ -169,7 +168,9 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     query rows, register-blocked score tiles, a running top-k a row), above
     it, or with ``rowwarp`` (the oracle of the tiled one; the v2 and AMP
     forms), the row-warp selection (a warp a row, its N scores in
-    registers), in every form.  Both give the same bits.
+    registers, or in shared memory above N = 4096 or Co > 128 at N >
+    2048: ``csrc/knn_select.cuh``'s ``with_npl``), in every form.  All
+    give the same bits.
 
     ``amp`` runs the AMP form (module docstring)."""
     variant = training_variant(amp)
@@ -194,6 +195,7 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
              + [_P])
     rowwarp = rowwarp or k > TILED_MAX_K
     p = _build.ptr
+    srow = srow_count()
     with torch.cuda.device(graph.device):
         rc = fn(p(graph), p(a), *map(p, scratch), p(idx), *map(p, red), b, n,
                 cg, co, k, *forced, _build.stream_of(graph))
@@ -202,6 +204,7 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     knn_reduce.v2_launches += v2
     knn_reduce.amp_launches += amp
     knn_reduce.rowwarp_launches += rowwarp and (v2 or amp)
+    knn_reduce.srow_launches += srow_count() - srow
     return (idx, *red)
 
 
@@ -242,6 +245,7 @@ def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     # the launch is asynchronous on torch's current stream: scratch made
     # here and freed on return is reused by the caching allocator only for
     # work queued after it on that stream
+    srow = srow_count()
     with torch.cuda.device(graph.device):
         rc = fn(p(graph), p(x), p(w), *map(p, proj), *map(p, scratch),
                 p(idx), *map(p, red), b, n, cg, cin, co, k, *forced,
@@ -251,6 +255,7 @@ def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     knn_reduce_xw.v2_launches += v2
     knn_reduce_xw.amp_launches += amp
     knn_reduce_xw.rowwarp_launches += rowwarp and (v2 or amp)
+    knn_reduce_xw.srow_launches += srow_count() - srow
     return (idx, *red)
 
 
@@ -285,9 +290,11 @@ def xw_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 # launches of each kernel since its count was last set to 0 (v2_launches:
 # those of its exact v2 form, amp_launches: those of its AMP form,
-# rowwarp_launches: those of either on the row-warp route)
+# rowwarp_launches: those of either on the row-warp route; srow_launches:
+# those of any form on the row-warp route's shared row)
 knn_reduce.launches = knn_reduce.v2_launches = knn_reduce.amp_launches = 0
 knn_reduce_xw.launches = knn_reduce_xw.v2_launches = 0
 knn_reduce_xw.amp_launches = 0
 knn_reduce.rowwarp_launches = knn_reduce_xw.rowwarp_launches = 0
+knn_reduce.srow_launches = knn_reduce_xw.srow_launches = 0
 xw_project.launches = 0

@@ -35,7 +35,12 @@ import torch
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.amp_select import knn_sum_variant
 from dgcnn_tpu_torch.ops.edge_sum_kernel import ordered_neighbour_sum
-from dgcnn_tpu_torch.ops.knn import MAX_N, TILED_MAX_K, knn_plain
+from dgcnn_tpu_torch.ops.knn import (
+    MAX_N,
+    TILED_MAX_K,
+    knn_plain,
+    srow_count,
+)
 
 
 def knn_sum_plain(x: torch.Tensor, a: torch.Tensor, k: int,
@@ -71,8 +76,9 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
     point's k neighbours -> (idx (B, N, k) int32, asum (B, N, Ca) f32).
 
     CPU tensors take ``knn_sum_plain``; CUDA tensors launch the kernel,
-    which takes f32 contiguous tensors with N a multiple of 128, N <= 4096
-    and Ca <= 32, and raises on anything else.  ``rowwarp`` launches the
+    which takes f32 contiguous tensors with N a multiple of 128, N <=
+    ``MAX_N`` (16384) and Ca <= 32, and raises on anything else.
+    ``rowwarp`` launches the
     kernel's row-warp route at any k (k <= 64 takes the tiled route
     otherwise).  ``amp`` is the caller's mode, from which
     ``amp_select.knn_sum_variant`` takes the variant (module
@@ -105,17 +111,21 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
     idx = torch.empty((b, n, k), device=x.device, dtype=torch.int32)
     asum = torch.empty((b, n, ca), device=x.device, dtype=torch.float32)
     q = _build.ptr
+    srow = srow_count()
     with torch.cuda.device(x.device):
         rc = fn(q(x), q(a), *map(q, scratch), q(idx), q(asum), b, n, c, ca,
                 k, _build.stream_of(x))
     _build.check(rc, "knn_sum")
     knn_sum.launches += 1
     knn_sum.v2_launches += v2
-    knn_sum.rowwarp_launches += v2 and (rowwarp or k > TILED_MAX_K)
+    row = rowwarp or k > TILED_MAX_K
+    knn_sum.rowwarp_launches += v2 and row
+    knn_sum.srow_launches += srow_count() - srow
     return idx, asum
 
 
 # launches of the kernel since the count was last set to 0 (v2_launches:
 # those of its v2 form; rowwarp_launches: those of its v2 form on the
-# row-warp route)
+# row-warp route; srow_launches: those on the row-warp route's shared row)
 knn_sum.launches = knn_sum.v2_launches = knn_sum.rowwarp_launches = 0
+knn_sum.srow_launches = 0

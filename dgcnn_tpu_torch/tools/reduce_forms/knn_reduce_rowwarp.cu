@@ -47,7 +47,6 @@
 
 namespace {
 
-using dg::MAX_N;
 
 template <int NPL>
 __global__ void __launch_bounds__(dg::Bucket<NPL>::QB * 32)
@@ -112,22 +111,26 @@ cudaError_t reduce(const float* graph, const float* a, float* sq, int* idx,
                    int B, int N, int Cg, int Co, int k, cudaStream_t st) {
   cudaError_t e = dg::launch_sqnorm(graph, B * N, Cg, sq, st);
   if (e != cudaSuccess) return e;
-  return dg::with_npl(N, [&](auto npl) {
+  return dg::with_npl(N, Co, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
-    const size_t smem = dg::select_smem_bytes<NPL>(N);
-    constexpr int QB = dg::Bucket<NPL>::QB;
-    cudaError_t err = cudaFuncSetAttribute(
-        knn_reduce_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    knn_reduce_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
-        graph, Cg, sq, a, Co, N, k, idx, amax, amin, asum, asumsq);
-    return cudaGetLastError();
+    if constexpr (NPL == dg::SROW) {  // this form has register buckets only
+      return cudaErrorInvalidValue;
+    } else {
+      const size_t smem = dg::select_smem_bytes<NPL>(N);
+      constexpr int QB = dg::Bucket<NPL>::QB;
+      cudaError_t err = cudaFuncSetAttribute(
+          knn_reduce_kernel<NPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return err;
+      knn_reduce_kernel<NPL><<<dim3(N / QB, B), QB * 32, smem, st>>>(
+          graph, Cg, sq, a, Co, N, k, idx, amax, amin, asum, asumsq);
+      return cudaGetLastError();
+    }
   });
 }
 
 bool bad_shape(int B, int N, int Cg, int Co, int k) {
-  return B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
+  return B < 1 || N % 128 != 0 || N > dg::REG_MAX_N || Co < 1 ||
          Co > dg::max_co(N) || Cg < 1 || k < 1 || k > N;
 }
 
