@@ -2,7 +2,10 @@
 training and evaluation of the canonical DGCNN (``--model dgcnn``) and of
 the fork's fusion Net (``--model transformer``, the parser's default:
 DGCNN + HOG + ``torch.nn.Transformer``, dropout ``--dropout`` on its
-attention probabilities, feed-forward, residual branches and head).
+attention probabilities, feed-forward, residual branches and head; with
+``--use_custom_attention`` the fork's vector-attention transformer,
+``--n_blocks`` blocks of ``--d_qkv`` wide attention over each point's
+``--k`` nearest neighbours, in its place).
 Both models' evals and training take the JAX package's mode as the
 models resolve it (``amp`` None): AMP (bf16) on the card unless
 ``DGCNN_TPU_PALLAS_EXACT`` is set, exact f32 on the CPU.  No flag, as the
@@ -10,8 +13,7 @@ JAX CLI has none.
 
 The JAX CLI's parser and defaults, apart from its runtime flags; the
 options the port does not have yet are refused by the parser with a
-message: ``--use_custom_attention``, a ``--fast_extract`` band with the
-fusion Net, ``--device_pipeline``, ``--export_model`` and ``--visu``.  The
+message: ``--device_pipeline``, ``--export_model`` and ``--visu``.  The
 same ``Train %d, ...``, ``Test %d, ...`` and ``Test: ...`` lines.
 Training keeps a resumable checkpoint at
 ``outputs/<exp>/checkpoints/ckpt.checkpoint`` and the best test IoU's at
@@ -19,8 +21,9 @@ Training keeps a resumable checkpoint at
 naming), in torch's format; evaluation loads ``--model_path`` from under
 ``outputs/<exp>/`` first (the reference's quirk), else as given: a
 reference ``.t7`` / ``transformer.pt`` (``module.`` prefixes and all) or
-such a checkpoint.  ``--fast_extract BAND`` runs the DGCNN's eval forwards
-(a training run's test passes too) through the banded kernels.
+such a checkpoint.  ``--fast_extract BAND`` runs either model's eval
+forwards (a training run's test passes too) through the banded kernels:
+the DGCNN's EdgeConv stages, and the fusion Net's backbone stages.
 
     python -m dgcnn_tpu_torch.cli.partseg --model dgcnn --k 40 \
         --emb_dim 1024 --exp_name=part
@@ -31,6 +34,8 @@ such a checkpoint.  ``--fast_extract BAND`` runs the DGCNN's eval forwards
         --n_heads 2 --n_blocks 2 --exp_name=net
     python -m dgcnn_tpu_torch.cli.partseg --model transformer --eval=True \
         --k 32 --n_heads 2 --n_blocks 2 --model_path=transformer.pt
+    python -m dgcnn_tpu_torch.cli.partseg --model transformer \
+        --use_custom_attention --exp_name=vec [--fast_extract 512]
 """
 from __future__ import annotations
 
@@ -73,15 +78,15 @@ FIELDS = ["points", "label", "seg"]
 
 
 def build_model(args, device):
+    band = resolve_band(args.fast_extract, args.num_points)
     if args.model == "transformer":
         return Net(emb_dim=args.emb_dim, k=args.k, n_heads=args.n_heads,
                    n_blocks=args.n_blocks, ff_dims=args.ff_dims,
                    nclasses=args.nclasses, dropout=args.dropout,
-                   device=device)
+                   use_custom_attention=args.use_custom_attention,
+                   d_qkv=args.d_qkv, band=band, device=device)
     return DGCNNPartSeg(emb_dims=args.emb_dim, k=args.k, dropout=args.dropout,
-                        seg_num_all=args.nclasses,
-                        band=resolve_band(args.fast_extract, args.num_points),
-                        device=device)
+                        seg_num_all=args.nclasses, band=band, device=device)
 
 
 def one_hot_categories(label: np.ndarray) -> np.ndarray:
@@ -234,13 +239,6 @@ class _Parser(argparse.ArgumentParser):
 
     def parse_args(self, args=None, namespace=None):
         ns = super().parse_args(args, namespace)
-        if ns.model == "transformer":
-            if resolve_band(ns.fast_extract):
-                self.error("--fast_extract (or DGCNN_TPU_FAST_EXTRACT) with "
-                           "--model transformer is not ported yet: the "
-                           "fusion Net runs exactly")
-        if ns.use_custom_attention:
-            self.error("--use_custom_attention is not ported yet")
         for flag in ("device_pipeline", "export_model", "visu"):
             if getattr(ns, flag):
                 self.error(f"--{flag} is not ported yet")

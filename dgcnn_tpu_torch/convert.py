@@ -9,7 +9,12 @@
   running stats; attention ``in_proj_*`` as they are, LayerNorm
   scale/bias -> weight/bias).  The TransformNet's ``bn1``-``bn3`` aliases
   of ``export_transform_net`` are left out: the port's model registers
-  each BatchNorm once.
+  each BatchNorm once.  A ``Net`` with the custom vector-attention
+  transformer (``use_custom_attention``; ``export_net`` has no branch for
+  it, and no reference checkpoint holds one) maps its
+  ``transformer/model/{encoder,decoder}_layer_{i}/...`` tree under the
+  flax names: ``transformer.model.encoder_layer_0.self_attn.w_q.weight``,
+  ``transformer.model.encoder_layer_0.sub0.norm.*``, ...
 * ``load_checkpoint``: a reference ``.t7`` state dict (or a checkpoint
   holding one) into a model.
 
@@ -83,9 +88,39 @@ def _put_ln(sd, prefix: str, p: dict) -> None:
     sd[prefix + ".bias"] = _t(p["bias"])
 
 
+def _put_tree(sd, prefix: str, params: dict, stats: dict) -> None:
+    """A flax subtree under its own names: each Dense (``kernel``) as a
+    Linear weight (Co, Ci) and bias, each BatchNorm (``scale``) with its
+    statistics, every other level a module of that name (a raw parameter,
+    as the grouped MLP's, as it is)."""
+    if not isinstance(params, dict):
+        sd[prefix] = _t(params)
+    elif "kernel" in params:
+        _put_dense(sd, prefix, params)
+    elif "scale" in params and stats:
+        _put_bn(sd, prefix, params, stats)
+    elif "scale" in params:                          # gradients: no stats
+        _put_ln(sd, prefix, params)
+    else:
+        for name, p in params.items():
+            _put_tree(sd, f"{prefix}.{name}" if prefix else name, p,
+                      stats.get(name, {}))
+
+
+def module_state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
+    """The variables of one flax module of the custom transformer
+    (``Transformer``, ``VectorAttention``, ``MultiHeadVectorAttention``,
+    ``MultiHeadedAttention``, ...) -> the state dict of the port's module
+    of the same name (``_put_tree``)."""
+    sd: dict[str, torch.Tensor] = {}
+    _put_tree(sd, "", variables["params"], variables.get("batch_stats", {}))
+    return sd
+
+
 def _put_net(sd, params: dict, stats: dict) -> None:
     """The fusion Net's tree -> ``export_net``'s keys (the
-    PositionEmbedding's ``bnI`` aliases left out)."""
+    PositionEmbedding's ``bnI`` aliases left out); the custom transformer
+    under its flax names."""
     for name in ["conv1", "conv2", "conv3", "conv4"]:
         _put_edgeconv(sd, f"emb_nn.{name}", params["emb_nn"][name],
                       stats["emb_nn"][name])
@@ -99,8 +134,11 @@ def _put_net(sd, params: dict, stats: dict) -> None:
     _put_convbn(sd, "pos_mlp.1", params["pos_conv"], stats["pos_conv"], 1,
                 "pos_mlp.2")
     xf = params["transformer"]
-    layers = {"encoder": ["self_attn"],
-              "decoder": ["self_attn", "multihead_attn"]}
+    if "model" in xf:                                 # use_custom_attention
+        _put_tree(sd, "transformer.model", xf["model"],
+                  stats["transformer"]["model"])
+    layers = {} if "model" in xf else {
+        "encoder": ["self_attn"], "decoder": ["self_attn", "multihead_attn"]}
     for stack, attns in layers.items():
         for i in range(sum(key.startswith(stack) for key in xf) - 1):
             p, lp = xf[f"{stack}_layer_{i}"], f"transformer.{stack}.layers.{i}"
@@ -124,8 +162,8 @@ def _put_net(sd, params: dict, stats: dict) -> None:
 def state_dict_from_flax(variables: dict) -> dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` of a flax ``DGCNNCls``,
     ``PointNet``, ``DGCNNPartSeg``, ``DGCNNSemSeg`` or fusion ``Net`` (with
-    the torch-style transformer) -> the reference state dict of the port's
-    model."""
+    the torch-style transformer, or the custom one) -> the reference state
+    dict of the port's model."""
     params, stats = variables["params"], variables["batch_stats"]
     sd: dict[str, torch.Tensor] = {}
     if "emb_nn" in params:                                        # Net

@@ -180,7 +180,8 @@ __device__ __forceinline__ void e2t_consume(
           if (t < k) {
             if constexpr (V3) {
               // a singleton: its row; a tied class: -2 - its lowest member
-              const int cnt = li[rr][q] >> 16, low = li[rr][q] & 0xffff;
+              const int cnt = dg::class_count(li[rr][q]);
+              const int low = dg::class_low(li[rr][q]);
               jrow[r * k + t] = cnt == 1 ? low : (cnt > 1 ? -2 - low : -1);
               ecnt[r * k + t] = cnt;
             } else {

@@ -58,19 +58,11 @@
 // Bound: as the exact stage at CUDA-core rates (the products are f32
 // FMAs; bf16 mma would change the sums' order); the tiled v2 stages score
 // the cloud twice.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
-#include "knn_select.cuh"
+#include "edge_conv_amp.cuh"
 
 namespace {
 
 using dg::MAX_N;
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // The score operands of the AMP stage: a bf16 graph as f32 into gc (gq is
 // gc), or an f32 graph's [hi | hi | lo] into gq and [hi | lo | hi] into gc
@@ -122,123 +114,6 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
       gc + (size_t)b * N * Cs, Cs, sq + (size_t)b * N,
       BANDED ? starts[r0 / tile] : 0, BANDED ? W : N, r0, 1, tsm, ls, li,
       gq + (size_t)b * N * Cs, rmin + (size_t)b * N);
-}
-
-// The keyed (v2) and class (v3) selections and the fold of a block's 64
-// rows: V3 the class walk, else v2 (the rows' grids in rmin); ROUND: the
-// payload (project-first) rounded to bf16, else f32 (select-x, and the
-// exact v2 form).  ac holds [a | c] as in the exact route; the candidates
-// are the cloud or (BANDED, kernel 12) the query tile's window of W rows
-// from starts[r0 / tile]; OUT is bf16 (AMP) or float (exact v2).
-template <int KL, int CPL, bool V3, bool ROUND, bool BANDED, typename OUT>
-__global__ void __launch_bounds__(dg::TS_THREADS, 2)
-    edge_conv_amp_kernel(const float* __restrict__ gc,
-                         const float* __restrict__ gq, int Cs,
-                         const float* __restrict__ sq, float* rmin,
-                         float lim, const float* __restrict__ ac, int Co,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ bias, float slope, int N,
-                         int k, const int* __restrict__ starts, int tile,
-                         int W, OUT* __restrict__ out) {
-  extern __shared__ __align__(16) float tsm[];
-  const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* G = gc + (size_t)b * N * Cs;
-  const float* GQ = gq + (size_t)b * N * Cs;
-  const float* SQ = sq + (size_t)b * N;
-  const int start = BANDED ? starts[r0 / tile] : 0;
-  const int end = start + (BANDED ? W : N);
-  float ls[dg::TS_WR][KL];
-  int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL, BANDED, V3 ? dg::TS_CLASSES : dg::TS_KEYS>(
-      G, Cs, SQ, start, end - start, r0, k, tsm, ls, li, GQ,
-      rmin + (size_t)b * N, lim);
-
-  const int row = 2 * Co;
-  const float* A = ac + (size_t)b * N * row;
-  auto payload = [&](const float* arow, int c) {
-    return ROUND ? round_bf16(arow[c]) : arow[c];
-  };
-#pragma unroll
-  for (int rr = 0; rr < dg::TS_WR; ++rr) {
-    const int i = r0 + dg::TS_WR * warp + rr;
-    float mx[CPL], mn[CPL];
-#pragma unroll
-    for (int u = 0; u < CPL; ++u) {
-      mx[u] = -INFINITY;
-      mn[u] = INFINITY;
-    }
-#pragma unroll 1
-    for (int t = 0; t < k; ++t) {
-      float val = __shfl_sync(0xffffffffu, ls[rr][0], t & 31);
-      int pk = __shfl_sync(0xffffffffu, li[rr][0], t & 31);
-#pragma unroll
-      for (int q = 1; q < KL; ++q) {
-        const float vq = __shfl_sync(0xffffffffu, ls[rr][q], t & 31);
-        const int pq = __shfl_sync(0xffffffffu, li[rr][q], t & 31);
-        if (t >> 5 == q) {
-          val = vq;
-          pk = pq;
-        }
-      }
-      float sel[CPL];
-      if (!V3 || pk >> 16 == 1) {  // one row: v2's member, a v3 singleton
-        const float* arow = A + (size_t)(V3 ? pk & 0xffff : pk) * row;
-#pragma unroll
-        for (int u = 0; u < CPL; ++u) {
-          const int c = lane + 32 * u;
-          sel[u] = c < Co ? payload(arow, c) : 0.f;
-        }
-      } else {
-        if (val == -INFINITY) continue;  // past the row's last class
-        // a tied class: its members are the candidates scoring val
-        float sum[CPL];
-#pragma unroll
-        for (int u = 0; u < CPL; ++u) sum[u] = 0.f;
-        int cnt = 0;
-        const float* qrow = GQ + (size_t)i * Cs;
-        const float qq = SQ[i];
-        for (int j0 = start; j0 < end; j0 += 32) {
-          const float* grow = G + (size_t)(j0 + lane) * Cs;
-          float acc = 0.f;
-          for (int c = 0; c < Cs; ++c) acc = fmaf(qrow[c], grow[c], acc);
-          const float sc = __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc), qq),
-                                     SQ[j0 + lane]);
-          unsigned m = __ballot_sync(0xffffffffu, sc == val);
-          while (m) {
-            const int j = j0 + __ffs(m) - 1;
-            m &= m - 1;
-            ++cnt;
-            const float* arow = A + (size_t)j * row;
-#pragma unroll
-            for (int u = 0; u < CPL; ++u) {
-              const int c = lane + 32 * u;
-              if (c < Co) sum[u] = __fadd_rn(sum[u], payload(arow, c));
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < CPL; ++u) sel[u] = __fdiv_rn(sum[u], (float)cnt);
-      }
-#pragma unroll
-      for (int u = 0; u < CPL; ++u) {
-        mx[u] = fmaxf(mx[u], sel[u]);
-        mn[u] = fminf(mn[u], sel[u]);
-      }
-    }
-    const float* crow = A + (size_t)i * row + Co;
-    OUT* orow = out + ((size_t)b * N + i) * Co;
-#pragma unroll
-    for (int u = 0; u < CPL; ++u) {
-      const int c = lane + 32 * u;
-      if (c < Co) {
-        const float sc = scale[c];
-        const float sel = __fadd_rn(sc > 0.f ? mx[u] : mn[u], crow[c]);
-        const float y = __fadd_rn(__fmul_rn(sel, sc), bias[c]);
-        dg::store_out(orow + c, y >= 0.f ? y : __fmul_rn(slope, y));
-      }
-    }
-  }
 }
 
 // The row-warp route of the same forms (k > TS_LIST, or asked for: the
@@ -342,51 +217,9 @@ __global__ void __launch_bounds__(dg::RowBlock<NPL>::QB * 32, 1)
   }
 }
 
-struct VarArgs {
-  const float *gc, *gq, *sq, *ac, *scale, *bias;
-  float* rmin;
-  void* out;
-  const int* starts;
-  int B, N, Cs, Co, k, tile, W;
-  float lim, slope;
-};
-
-template <int KL, int CPL, bool V3, bool ROUND, bool BANDED, typename OUT>
-cudaError_t launch_var(const VarArgs& a, cudaStream_t st) {
-  auto kern = edge_conv_amp_kernel<KL, CPL, V3, ROUND, BANDED, OUT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dg::TS_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  kern<<<dim3(a.N / dg::TS_R, a.B), dg::TS_THREADS, dg::TS_SMEM_BYTES,
-         st>>>(a.gc, a.gq, a.Cs, a.sq, a.rmin, a.lim, a.ac, a.Co, a.scale,
-               a.bias, a.slope, a.N, a.k, a.starts, a.tile, a.W,
-               reinterpret_cast<OUT*>(a.out));
-  return cudaGetLastError();
-}
-
-// The list size from k, the output channels a lane from Co (the banded
-// instances: Co <= 64, kernel 12's conv5).
-template <bool V3, bool ROUND, bool BANDED, typename OUT>
-cudaError_t launch_var_shape(const VarArgs& a, cudaStream_t st) {
-  auto by_co = [&](auto kl) {
-    constexpr int KL = decltype(kl)::value;
-    if constexpr (BANDED) {
-      return launch_var<KL, 2, V3, ROUND, true, OUT>(a, st);
-    } else {
-      if (a.Co <= 64) return launch_var<KL, 2, V3, ROUND, false, OUT>(a, st);
-      if (a.Co <= 128)
-        return launch_var<KL, 4, V3, ROUND, false, OUT>(a, st);
-      return launch_var<KL, 8, V3, ROUND, false, OUT>(a, st);
-    }
-  };
-  if (a.k <= 32) return by_co(std::integral_constant<int, 1>{});
-  return by_co(std::integral_constant<int, 2>{});
-}
-
 // The row-warp instance of the form, its bucket picked from W.
 template <bool V3, bool ROUND, typename OUT>
-cudaError_t launch_var_rowwarp(const VarArgs& a, cudaStream_t st) {
+cudaError_t launch_var_rowwarp(const dg::AmpVarArgs& a, cudaStream_t st) {
   return dg::with_npl(a.W, a.Co, [&](auto npl) {
     constexpr int NPL = decltype(npl)::value;
     const int QB = dg::launch_rows<NPL>(dg::RowBlock<NPL>::QB, a.W);
@@ -450,14 +283,14 @@ cudaError_t launch_rowmin(const float* gc, const float* gq, int Cs,
 // (B, N, Cin), each f32 or bf16 in AMP (flags bit 0: graph bf16, bit 1: x
 // bf16), f32 in the exact form (bit 4); wcat (Cin, 2 Co) f32 = [W_nbr |
 // W_ctr] as the stage projects with them (rounded to bf16 where the plan
-// says); scale/bias (Co,) f32; bit 2: select-x (AMP v2, whole cloud), bit
-// 3: v3 (AMP).  Scratch: gq and gc (AMP only: B * N * Cs f32, Cs = Cg for
+// says); scale/bias (Co,) f32; bit 2: select-x (AMP v2), bit 3: v3
+// (AMP).  Scratch: gq and gc (AMP only: B * N * Cs f32, Cs = Cg for
 // a bf16 graph, when gq is unread, 3 Cg for an f32 one), xf (B * N * Cin
 // f32, a bf16 x only); sq and rmin (B * N f32), ac (B * N * 2 Co f32);
 // out (B, N, Co), bf16 (AMP) or f32 (exact).  starts null: the candidates
 // are the cloud (tile and W = N); else kernel 12's windows: the W rows
-// from starts[r / tile] of a sorted cloud, Co <= 64.  N a multiple of 128,
-// N <= MAX_N (16384), k <= W, Co <= 256.  The tiled route at k <=
+// from starts[r / tile] of a sorted cloud.  N a multiple of 128, N <=
+// MAX_N (32768), k <= W, Co <= 256.  The tiled route at k <=
 // TS_LIST, the row-warp route above or with bit 5 (its register buckets,
 // or the shared row: knn_select.cuh's with_npl).  Returns the first CUDA
 // error.
@@ -470,12 +303,12 @@ extern "C" int dg_edge_conv_eval_variant(
   const bool gbf = flags & 1, xbf = flags & 2, sx = flags & 4, v3 = flags & 8;
   const bool exact = flags & 16, banded = starts != nullptr;
   const bool rowwarp = (flags & 32) || k > dg::TS_LIST;
-  if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 ||
-      Co > (banded ? 64 : dg::MAX_CO) || Cg < 1 ||
-      Cin < 1 || k < 1 || k > W || W % 128 != 0 || W < 128 || W > N ||
+  if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 || Co > dg::MAX_CO ||
+      Cg < 1 || Cin < 1 || k < 1 || k > W || W % 128 != 0 || W < 128 ||
+      W > N ||
       (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0
               : W != N) ||
-      (sx && (v3 || banded)) || (exact && (gbf || xbf || sx || v3)))
+      (sx && v3) || (exact && (gbf || xbf || sx || v3)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * N;
@@ -501,9 +334,9 @@ extern "C" int dg_edge_conv_eval_variant(
   }
   e = dg::launch_project(xp, rows, Cin, wcat, 2 * Co, ac, st);
   if (e != cudaSuccess) return (int)e;
-  const VarArgs a{gcp,  gqp, sq, ac,  scale, bias, rmin, out,
-                  starts, B, N,  Cs, Co, k,  tile, W,
-                  dg::keys_lim(W), slope};
+  const dg::AmpVarArgs a{gcp,    gqp, sq, ac, scale, bias, rmin,
+                         out,    starts, B, N, Cs, Co, k,
+                         tile,   W,   dg::keys_lim(W), slope};
   using bf16 = __nv_bfloat16;
   if (rowwarp) {  // one launch: the row's grid comes from its scores
     if (v3) return (int)launch_var_rowwarp<true, true, bf16>(a, st);
@@ -512,14 +345,13 @@ extern "C" int dg_edge_conv_eval_variant(
     return (int)launch_var_rowwarp<false, true, bf16>(a, st);
   }
   if (v3)
-    return (int)(banded ? launch_var_shape<true, true, true, bf16>(a, st)
+    return (int)(banded ? dg::launch_amp_banded(a, true, true, false, st)
                         : launch_var_shape<true, true, false, bf16>(a, st));
   e = dg::launch_rowmin(gcp, gqp, Cs, sq, B, N, starts, tile, W, rmin, st);
   if (e != cudaSuccess) return (int)e;
-  if (exact)
-    return (int)(banded ? launch_var_shape<false, false, true, float>(a, st)
-                        : launch_var_shape<false, false, false, float>(a, st));
+  if (banded) return (int)dg::launch_amp_banded(a, false, !sx && !exact,
+                                                 exact, st);
+  if (exact) return (int)launch_var_shape<false, false, false, float>(a, st);
   if (sx) return (int)launch_var_shape<false, false, false, bf16>(a, st);
-  return (int)(banded ? launch_var_shape<false, true, true, bf16>(a, st)
-                      : launch_var_shape<false, true, false, bf16>(a, st));
+  return (int)launch_var_shape<false, true, false, bf16>(a, st);
 }

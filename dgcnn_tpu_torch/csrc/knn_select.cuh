@@ -41,7 +41,7 @@
 
 namespace dg {
 
-constexpr int MAX_N = 16384;     // the most points a kNN kernel's cloud holds
+constexpr int MAX_N = 32768;     // the most points a kNN kernel's cloud holds
 constexpr int REG_MAX_N = 4096;  // register buckets: N / 32 <= 128 a lane
 constexpr int MAX_CO = 256;      // the widest Co of the kNN kernels
 constexpr int SROW = 0;          // the NPL of the shared row
@@ -741,7 +741,9 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 //               (q * 2^b + n - 1 - j, b the index bits).
 //   TS_CLASSES  v3: the list holds the k largest DISTINCT scores of the
 //               row, -inf in the slots past them, li[.] = (the count of
-//               columns with that score) << 16 | (the lowest of them).
+//               columns with that score) << 16 | (the lowest of them),
+//               the count read unsigned (class_count: 32768 members of
+//               one class set the sign bit).
 //               Every tile inserts: a column whose score is in the list
 //               adds one to its count (ANY: and lowers its lowest member
 //               if it is lower, since tiles come out of order); one that
@@ -753,9 +755,16 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 // Over a window the v2 grid is the row's least score over the window, and
 // the keys' index bits those of the band (the caller's lim).
 // No buffer or register grows with W, and the v3 list's words hold a count
-// below 2^15 and a row below 2^16: the route takes any W <= MAX_N (at
-// 16384 the v2 keys hold 14 index bits and q stays below 2^17).
+// up to 2^15 (unsigned) and a row below 2^15: the route takes any W <=
+// MAX_N (at 32768 the v2 keys hold 15 index bits and |q| <= lim = 2^16 -
+// 1, exact in f32).
 constexpr int TS_TOPK = 0, TS_KEYS = 1, TS_MIN = 2, TS_CLASSES = 3;
+
+// A TS_CLASSES list word's member count and lowest member.
+__device__ __forceinline__ int class_count(int w) {
+  return (int)((unsigned)w >> 16);
+}
+__device__ __forceinline__ int class_low(int w) { return w & 0xffff; }
 
 template <int KL, bool ANY = false, int MODE = TS_TOPK>
 __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
@@ -915,7 +924,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
               const bool here = lane + 32 * q < k && ls[rr][q] == v;
               found |= __any_sync(0xffffffffu, here);
               if (here) {
-                li[rr][q] += 1 << 16;
+                li[rr][q] = (int)((unsigned)li[rr][q] + (1u << 16));
                 if (ANY && (li[rr][q] & 0xffff) > j + src)
                   li[rr][q] = (li[rr][q] & ~0xffff) | (j + src);
               }

@@ -312,7 +312,9 @@ class DGCNN(nn.Module):
     1's AMP form (at the Net's N = 2048, k = 32: v3, v3, v2 and select-x
     v2, as ``select_x_plan`` gives), whose bf16 outputs conv5 takes
     promoted to f32, as the JAX package's f32 conv5 does
-    (dgcnn_tpu/models/dgcnn.py:147-155)."""
+    (dgcnn_tpu/models/dgcnn.py:147-155).  A ``band`` that prunes the N
+    points runs the eval stages through kernel 12 instead
+    (``banded_edge_conv_eval``; the AMP form at every stage width)."""
 
     def __init__(self, emb_dims: int = 512, k: int = 32):
         super().__init__()
@@ -324,12 +326,12 @@ class DGCNN(nn.Module):
         self.conv5 = ConvBN(512, emb_dims, dims=2)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                amp: bool = False) -> torch.Tensor:
+                amp: bool = False, band: int = 0) -> torch.Tensor:
         kk = self.k
-        x1 = self.conv1(x, train=train, graph=x, k=kk, amp=amp)
-        x2 = self.conv2(x1, train=train, graph=x1, k=kk, amp=amp)
-        x3 = self.conv3(x2, train=train, graph=x2, k=kk, amp=amp)
-        x4 = self.conv4(x3, train=train, graph=x3, k=kk, amp=amp)
+        x1 = self.conv1(x, train=train, graph=x, k=kk, band=band, amp=amp)
+        x2 = self.conv2(x1, train=train, graph=x1, k=kk, band=band, amp=amp)
+        x3 = self.conv3(x2, train=train, graph=x2, k=kk, band=band, amp=amp)
+        x4 = self.conv4(x3, train=train, graph=x3, k=kk, band=band, amp=amp)
         return self.conv5(torch.cat([x1, x2, x3, x4], dim=-1).float(), train)
 
 

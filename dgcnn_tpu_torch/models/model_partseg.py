@@ -15,7 +15,9 @@ features fused through a transformer.
                   with src_e = src_embedding + canonical, tgt_e =
                   tgt_embedding + canonical, as ONE pass over the
                   batch-stacked pair: kernel 14 x 6 (in training also
-                  15 x 6)
+                  15 x 6); with ``use_custom_attention`` the custom
+                  vector-attention Transformer applied twice in turn:
+                  kernel 11 x 6 at n_blocks 1 (one a VectorAttention)
   scores        = attention(query=tgt', key=src', value=src'): kernel 14
                   (in training also 15)
   logits        = MLPHead(category one-hot, scores)
@@ -30,9 +32,20 @@ state-dict keys are ``export_net``'s (``emb_nn.*``, ``grads_emb.{0,1,3,4,
 6,7,9,10}``, ``pos_mlp.0.*`` as the TransformNet's, ``pos_mlp.1`` /
 ``pos_mlp.2``, ``transformer.*`` as torch's, ``attention.*``,
 ``head.nn.{0,1,4,5,8,9,12}`` and ``head.label_conv.*``), so a reference
-``transformer.pt`` loads with ``convert.load_checkpoint``.  The custom
-vector-attention transformer (``use_custom_attention``) is not ported
-yet.
+``transformer.pt`` loads with ``convert.load_checkpoint``.  With
+``use_custom_attention`` the transformer is ``models/transformer.py``'s
+(keys ``transformer.model.*``, as ``convert.state_dict_from_flax`` maps
+the flax tree; the reference hardwires ``nn.Transformer``, so no
+reference checkpoint holds one).
+
+The eval forward takes a ``band`` (the attribute; ``--fast_extract``): one
+that prunes the N points (``banded_applicable``) runs the backbone's four
+EdgeConv stages through kernel 12 (``banded_edge_conv_eval``, its AMP form
+at every stage width), as the JAX ``Net`` does under the band pin
+(dgcnn_tpu/models/nn_layers.py:262-273); the PositionEmbedding's
+TransformNet keeps kernel 6, as the JAX one calls ``fused_knn_edge2``
+whatever the band (dgcnn_tpu/models/dgcnn.py:183-199).  Training ignores
+the band, as in JAX.
 
 Eval and training have the JAX package's two numerics modes
 (``Net.forward``'s ``amp``, resolved by ``ops.amp_select.use_amp_eval``
@@ -46,7 +59,9 @@ kernel 15's bf16 form backward) and the head's fc1-fc3 computing in bf16
 LayerNorm statistics and the softmax in f32), conv5, the
 PositionEmbedding (in eval the AMP forms of kernels 6 and 2; in training
 kernel 11, exact in both modes, and f32 convs), its conv and the label
-conv in f32, the logits f32.  The whole forward or step switches at once:
+conv in f32, the logits f32.  The custom transformer computes in f32 in
+both modes: the JAX one has no compute dtype and takes the f32 sums
+src_e and tgt_e.  The whole forward or step switches at once:
 none mixes AMP and exact kernels.  The head's dropout acts on the f32
 outputs of its BatchNorm and LeakyReLU, as flax's does.
 """
@@ -72,6 +87,7 @@ from dgcnn_tpu_torch.models.torch_transformer import (
     TorchMultiheadAttention,
     TorchTransformer,
 )
+from dgcnn_tpu_torch.models.transformer import Transformer
 from dgcnn_tpu_torch.ops.amp_select import use_amp_eval, use_amp_train
 from dgcnn_tpu_torch.ops.hog import compute_hog
 
@@ -133,7 +149,11 @@ class Net(nn.Module):
     LeakyReLU(0.2) in the encoder and relu in the decoder (the reference's
     effective activations), and ``dropout`` in training.  HOG takes the
     reference's gather of same-axis triples with ``hog_bug_compat``, as a
-    reference-trained ``transformer.pt`` needs.
+    reference-trained ``transformer.pt`` needs.  ``use_custom_attention``
+    takes the custom vector-attention ``Transformer`` (``n_blocks``
+    blocks, ``d_qkv`` wide, over the points' k nearest neighbours)
+    instead; ``band`` prunes the backbone's kNN candidates in eval
+    (module docstring).
 
     Eval and training have two numerics modes (module docstring):
     ``forward``'s ``amp`` None takes AMP on the card unless
@@ -144,10 +164,14 @@ class Net(nn.Module):
     def __init__(self, emb_dim: int = 512, k: int = 32, n_heads: int = 4,
                  n_blocks: int = 2, ff_dims: int = 512, nclasses: int = 50,
                  dropout: float = 0.5, hog_bug_compat: bool = False,
-                 device="cuda", generator: torch.Generator | None = None):
+                 use_custom_attention: bool = False, d_qkv: int = 64,
+                 band: int = 0, device="cuda",
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.k = k
         self.hog_bug_compat = hog_bug_compat
+        self.use_custom_attention = use_custom_attention
+        self.band = band
         self.emb_nn = DGCNN(emb_dim, k)
         widths = [_HOG_CHANNELS, emb_dim // 8, emb_dim // 4, emb_dim // 2,
                   emb_dim]
@@ -158,11 +182,15 @@ class Net(nn.Module):
         self.pos_mlp = nn.ModuleList([PositionEmbedding(),
                                       Weight((emb_dim, 3, 1)),
                                       BatchNorm(emb_dim)])
-        self.transformer = TorchTransformer(
-            d_model=emb_dim, nhead=n_heads, num_encoder_layers=n_blocks,
-            num_decoder_layers=n_blocks, dim_feedforward=ff_dims,
-            encoder_activation="leaky_relu", decoder_activation="relu",
-            dropout=dropout)
+        if use_custom_attention:
+            self.transformer = Transformer(emb_dim, n_blocks, d_qkv, k,
+                                           ff_dims, dropout)
+        else:
+            self.transformer = TorchTransformer(
+                d_model=emb_dim, nhead=n_heads, num_encoder_layers=n_blocks,
+                num_decoder_layers=n_blocks, dim_feedforward=ff_dims,
+                encoder_activation="leaky_relu", decoder_activation="relu",
+                dropout=dropout)
         self.attention = TorchMultiheadAttention(emb_dim, n_heads, dropout)
         self.head = MLPHead(emb_dim, nclasses, dropout)
         init_random_(self, _seeded(generator))
@@ -176,7 +204,8 @@ class Net(nn.Module):
         amp = (use_amp_train if train else use_amp_eval)(
             amp, src.device, src.shape[1], self.k)
         dt = torch.bfloat16 if amp else torch.float32
-        src_embedding = self.emb_nn(src, train, amp)           # (B, N, emb)
+        src_embedding = self.emb_nn(src, train, amp,
+                                    self.band)                 # (B, N, emb)
         h = compute_hog(src, self.k, bug_compat=self.hog_bug_compat, amp=amp)
         for ci in range(0, len(self.grads_emb), 3):
             h = _conv_bn(self.grads_emb[ci], self.grads_emb[ci + 1], h,
@@ -186,15 +215,21 @@ class Net(nn.Module):
                              train)                            # (B, N, emb)
         src_e = src_embedding + canonical
         tgt_e = h + canonical
-        # the reference calls the one transformer twice with (src, tgt)
-        # swapped; its weights are shared and every layer of it acts per
-        # cloud (LayerNorms, no BatchNorm), so the two passes stack on the
-        # batch axis and run as one; the dropout bits are keyed by the
-        # stacked batch index, so each half draws its own masks, as torch's
-        # two calls do
-        both = self.transformer(torch.cat([src_e, tgt_e], dim=0),
-                                torch.cat([tgt_e, src_e], dim=0), train,
-                                generator, dt)
-        src_p, tgt_p = both.chunk(2, dim=0)
+        if self.use_custom_attention:
+            # f32 in both modes; applied twice in turn, never batch-stacked:
+            # its BatchNorms normalize each application with its own batch
+            src_p, tgt_p = self.transformer(src_e, tgt_e, src, train,
+                                            generator)
+        else:
+            # the reference calls the one transformer twice with (src, tgt)
+            # swapped; its weights are shared and every layer of it acts
+            # per cloud (LayerNorms, no BatchNorm), so the two passes stack
+            # on the batch axis and run as one; the dropout bits are keyed
+            # by the stacked batch index, so each half draws its own masks,
+            # as torch's two calls do
+            both = self.transformer(torch.cat([src_e, tgt_e], dim=0),
+                                    torch.cat([tgt_e, src_e], dim=0), train,
+                                    generator, dt)
+            src_p, tgt_p = both.chunk(2, dim=0)
         scores = self.attention(tgt_p, src_p, src_p, train, generator, dt)
         return self.head(label_one_hot, scores, train, generator, dt)

@@ -124,8 +124,8 @@ def use_amp_eval(amp: bool | None, device: torch.device, n: int,
     The JAX package runs its Pallas kernels, AMP by default, on every cloud
     whose N is a multiple of 128 (``dgcnn_tpu/ops/knn.py::use_pallas``) at
     any k; the port's AMP forms take any k <= N and any such N up to
-    ``knn.MAX_N`` (16384), so ``k`` does not gate the mode.  Above it the
-    port stays exact where the JAX package still runs AMP (ROADMAP C)."""
+    ``knn.MAX_N`` (32768), so ``k`` does not gate the mode.  No whole-cloud
+    TPU kernel fits its VMEM at that size (ROADMAP C.1)."""
     from dgcnn_tpu_torch.ops.knn import use_kernel
 
     del k

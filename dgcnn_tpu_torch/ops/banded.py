@@ -296,14 +296,16 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes f32 tensors with N a multiple of 128 up to ``MAX_N``
-    (16384), a band that is a multiple of 128 up to N, k <= band and Co
+    (32768), a band that is a multiple of 128 up to N, k <= band and Co
     <= 256, and raises
     on anything else: its tiled route at k <= 64, its row-warp route
     otherwise or with ``rowwarp`` (the same bits).  ``amp`` runs the AMP
     form (f32 or bf16 graph and x, bf16 output; plain:
     ``banded_edge_conv_eval_amp_plain``); the variant is
-    ``stage_variant``'s, and the forms other than the exact v1 take Co <=
-    64 and any k <= band, on the same two routes."""
+    ``stage_variant``'s, and the forms other than the exact v1 take the
+    same Co and any k <= band, on the same two routes (the AMP form at
+    128 -> 256 selects the window's raw bf16 rows, select-x, as kernel 1's
+    AMP form does over the cloud)."""
     name = "banded_edge_conv_eval"
     variant = stage_variant(amp, select_x_plan(*w_nbr.shape)[1])
     if graph.device.type == "cpu":
@@ -410,7 +412,7 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes f32 tensors with N a multiple of 128 up to ``MAX_N``
-    (16384), a band that is a multiple of 128 up to N, k <= band and C1,
+    (32768), a band that is a multiple of 128 up to N, k <= band and C1,
     C2 <= 128, and
     raises on anything else: its tiled route at k <= 64, C1 <= 64 and C2
     <= 128, its row-warp route otherwise or with ``rowwarp`` (the same

@@ -132,7 +132,7 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes f32 tensors (graph, a1 and b1 contiguous) with N a multiple
-    of 128, N <= ``MAX_N`` (16384) and C1, C2 <= 128, and raises on
+    of 128, N <= ``MAX_N`` (32768) and C1, C2 <= 128, and raises on
     anything else.
     ``amp`` runs the AMP form (plain: ``knn_edge2_amp_plain``): an f32 or
     bf16 graph, a bf16 output.  The extraction variant is

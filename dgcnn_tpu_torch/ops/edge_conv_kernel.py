@@ -146,7 +146,7 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes f32 contiguous tensors with N a multiple of 128, N <=
-    ``MAX_N`` (16384) and Co <= 256, and raises on anything else.  ``amp``
+    ``MAX_N`` (32768) and Co <= 256, and raises on anything else.  ``amp``
     runs the AMP form (plain: ``edge_conv_eval_amp_plain``), whose kernel
     takes f32 or bf16 ``graph`` and ``x``, the same N and Co and any k <=
     N, and returns bf16.  The extraction variant is ``stage_variant``'s; the
@@ -251,12 +251,11 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     need(n % 128 == 0 and n <= MAX_N,
          f"N={n} must be a multiple of 128 and <= {MAX_N}")
     rowwarp = rowwarp or k > TILED_MAX_K
-    co_max = 64 if starts is not None else MAX_CO
-    need(co <= co_max, f"the {variant} form takes Co <= {co_max}")
+    need(co <= MAX_CO, f"the {variant} form takes Co <= {MAX_CO}")
     need(1 <= k <= w, f"the {variant} form takes 1 <= k <= {w} (k={k})")
     select_x = amp and select_x_plan(cin, co)[0]
-    need(not (select_x and (variant == "v3" or starts is not None)),
-         "the kernel takes select-x with v2 on the whole cloud only")
+    need(not (select_x and variant == "v3"),
+         "the kernel takes select-x with v2 only")
     fn = getattr(_build.load_library(), "dg_edge_conv_eval_variant")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int

@@ -41,8 +41,9 @@ from dgcnn_tpu_torch.ops import _build
 # the most points a cloud of the kNN kernels may hold (csrc/knn_select.cuh,
 # MAX_N): the tiled selection takes any N, the row route's register
 # buckets up to its REG_MAX_N, 4096 (N / 32 <= 128 scores a lane), and its
-# shared row (a row's scores in shared memory) the rest
-MAX_N = 16384
+# shared row (a row's scores in shared memory; one row a block at 32768)
+# the rest
+MAX_N = 32768
 # the widest Co of the kNN kernels' reductions (kernels 1, 3, 4 and 12)
 MAX_CO = 256
 # the longest neighbour list of the tiled selection (csrc/knn_select.cuh,
@@ -54,8 +55,9 @@ TILED_MAX_K = 64
 def use_kernel(n: int) -> bool:
     """Whether the kNN kernels take a cloud of ``n`` points (the port of
     ``dgcnn_tpu/ops/knn.py::use_pallas``, with the selection's own limit):
-    N a multiple of 128 and at most ``MAX_N`` (16384; above it the JAX
-    package still runs its Pallas kernels, ROADMAP C).  The models route
+    N a multiple of 128 and at most ``MAX_N`` (32768: from there up the
+    whole-cloud TPU kernels' two double-buffered (N, 128-lane) slabs alone
+    fill their 64 MiB of VMEM, ROADMAP C.1).  The models route
     the other sizes to the port of the JAX package's XLA path, decided from
     the shape before any launch; the device of the caller's tensors decides
     the rest (CPU tensors take the plain versions anyway)."""

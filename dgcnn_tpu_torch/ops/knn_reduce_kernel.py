@@ -159,7 +159,7 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     Returns (idx (B, N, k) int32, self first, lowest index first among
     equal scores; amax, amin, asum, asumsq (B, N, Co) f32).  CPU tensors
     take the plain version; CUDA tensors launch the kernel, which takes f32
-    contiguous tensors with N a multiple of 128, N <= ``MAX_N`` (16384)
+    contiguous tensors with N a multiple of 128, N <= ``MAX_N`` (32768)
     and Co <= 256, and raises on anything else.  The variant is
     ``amp_select.training_variant``'s (module docstring).
 

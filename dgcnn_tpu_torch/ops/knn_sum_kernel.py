@@ -77,7 +77,7 @@ def knn_sum(x: torch.Tensor, a: torch.Tensor, k: int, *,
 
     CPU tensors take ``knn_sum_plain``; CUDA tensors launch the kernel,
     which takes f32 contiguous tensors with N a multiple of 128, N <=
-    ``MAX_N`` (16384) and Ca <= 32, and raises on anything else.
+    ``MAX_N`` (32768) and Ca <= 32, and raises on anything else.
     ``rowwarp`` launches the
     kernel's row-warp route at any k (k <= 64 takes the tiled route
     otherwise).  ``amp`` is the caller's mode, from which

@@ -335,7 +335,7 @@ def test_amp_modes_take_any_k(k, monkeypatch):
     """``use_amp_eval`` and ``use_amp_train`` do not test k: AMP on a CUDA
     device by default and wherever amp=True is asked, exact on the CPU by
     default and where ``use_kernel`` refuses N (not a multiple of 128, or
-    above its 16384), as the JAX package runs its kernels' AMP default at
+    above its 32768), as the JAX package runs its kernels' AMP default at
     any k; 8192 points run AMP like 1024."""
     monkeypatch.delenv(EXACT_ENV, raising=False)
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -345,7 +345,7 @@ def test_amp_modes_take_any_k(k, monkeypatch):
         assert not mode(False, cuda, 1024, k)
         assert not mode(True, cuda, 1000, k)
         assert mode(True, cuda, 8192, k) and mode(None, cuda, 8192, k)
-        assert not mode(True, cuda, 16512, k)
+        assert not mode(True, cuda, 32896, k)
 
 
 def test_dgcnn_cls_amp_at_large_k_matches_jax_amp(monkeypatch):

@@ -1,14 +1,15 @@
 """The port's kNN kernels on clouds above 4096 points, where the register
 buckets of the row-warp selection end and the shared row of
 ``csrc/knn_select.cuh`` (a row's scores in shared memory) and the tiled
-selection take them, up to ``knn.MAX_N`` = 16384 points.
+selection take them, up to ``knn.MAX_N`` = 32768 points.
 
 On the CPU, against the JAX package, which runs its Pallas kernels, AMP by
 default, on every cloud whose N is a multiple of 128 (``use_pallas``):
 
 - the packed keys of the v2 selection bit-equal to ``_pack_keys`` at N =
-  4224 (the first multiple of 128 above 4096), 8192 and 16384, where the
-  index field widens to 13 and 14 bits, and the v2 lists their order;
+  4224 (the first multiple of 128 above 4096), 8192, 16384 and 32768,
+  where the index field widens to 13, 14 and 15 bits, and the v2 lists
+  their order;
 - a DGCNNSemSeg AMP eval (kernels 6 twice, 1 and 2) at N = 4224 on flax
   weights carried across by ``convert.state_dict_from_flax``, unpinned and
   under the semseg CLI's v2 pin, and a kernel 3 AMP stage, against the
@@ -103,10 +104,11 @@ def fresh_traces():
 
 # ------------------------------------------------------------ the keys
 @needs_jax
-@pytest.mark.parametrize("n", [4224, 8192, 16384])
+@pytest.mark.parametrize("n", [4224, 8192, 16384, 32768])
 def test_packed_keys_bit_equal_at_large_n(n):
     """The packed keys of 64 rows of AMP scores against an n-point cloud:
-    bit-equal to ``_pack_keys`` (13 index bits up to 8192, 14 at 16384),
+    bit-equal to ``_pack_keys`` (13 index bits up to 8192, 14 at 16384,
+    15 at 32768),
     unique within a row, and ``v2_indices`` lists the largest first, in
     the JAX keys' order."""
     from dgcnn_tpu.ops.pallas_knn import _pack_keys, _scores
@@ -118,7 +120,7 @@ def test_packed_keys_bit_equal_at_large_n(n):
     want = np.asarray(_pack_keys(jnp.asarray(scores), n))
     got = pack_keys(torch.from_numpy(scores)).numpy()
     np.testing.assert_array_equal(got, want)
-    assert index_bits(n) == (14 if n > 8192 else 13)
+    assert index_bits(n) == (15 if n > 16384 else 14 if n > 8192 else 13)
     assert all(len(np.unique(r)) == n for r in got)
     order = np.argsort(-want.astype(np.int64), axis=-1)[:, :20]
     np.testing.assert_array_equal(
@@ -127,14 +129,14 @@ def test_packed_keys_bit_equal_at_large_n(n):
 
 # ------------------------------------------------------------ the modes
 def test_modes_and_routes_at_large_n(monkeypatch):
-    """``use_kernel`` takes N up to 16384, so the AMP default (and the
-    AMP training step) runs at 8192 points on the card, exact on the CPU
-    and under the exact pin."""
+    """``use_kernel`` takes N up to 32768, so the AMP default (and the
+    AMP training step) runs at 8192 to 32768 points on the card, exact on
+    the CPU and under the exact pin."""
     monkeypatch.delenv(EXACT_ENV, raising=False)
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert MAX_N == 16384 and use_kernel(16384) and not use_kernel(16512)
+    assert MAX_N == 32768 and use_kernel(32768) and not use_kernel(32896)
     for mode in (use_amp_eval, use_amp_train):
-        for n in (4224, 8192, 16384):
+        for n in (4224, 8192, 16384, 16512, 32768):
             assert mode(None, cuda, n, 20) and mode(True, cpu, n, 20)
             assert not mode(None, cpu, n, 20)
         monkeypatch.setenv(EXACT_ENV, "1")

@@ -386,24 +386,47 @@ def test_partseg_cli_evaluates_the_net_as_jax_cli(shapenet_dir, monkeypatch):
     # training the Net parses; --device_pipeline with it is refused
     pytest.param("--eval=False", "--device_pipeline is not ported yet",
                  id="--eval=False-training the fusion Net"),
-    ("--use_custom_attention", "--use_custom_attention is not ported yet"),
-    ("--fast_extract=128", "with --model transformer is not ported yet"),
+    # the custom attention and a band with the Net parse and run (they
+    # were refused before they were ported; the ids are kept)
+    pytest.param("--use_custom_attention", None,
+                 id="--use_custom_attention---use_custom_attention is not "
+                    "ported yet"),
+    pytest.param("--fast_extract=128", None,
+                 id="--fast_extract=128-with --model transformer is not "
+                    "ported yet"),
 ])
 def test_partseg_cli_refuses_what_of_the_net_is_not_ported(capsys, flag,
                                                            message):
-    """The parser refuses the custom attention and a --fast_extract band
-    with the Net, with a message, and lets the Net train (--eval=False),
-    but not with --device_pipeline; --fast_extract=0 (exact) passes."""
+    """The parser lets the Net train (--eval=False), but not with
+    --device_pipeline, which it refuses with a message; the custom
+    attention and a --fast_extract band with the Net parse and reach the
+    model the CLI builds (the custom Transformer; the band), whose eval
+    forward runs on the CPU at a small size (N = 256, band 128: the banded
+    plain versions); --fast_extract=0 (exact) passes."""
     from dgcnn_tpu_torch.cli import partseg
+    from dgcnn_tpu_torch.models.transformer import Transformer
 
     parse = partseg.build_parser().parse_args
     if flag == "--eval=False":
         ns = parse(["--model=transformer", flag])
         assert ns.model == "transformer" and not ns.eval
-        flag = "--device_pipeline=True"
-    with pytest.raises(SystemExit):
-        parse(["--model=transformer", "--eval=True", flag])
-    assert message in capsys.readouterr().err
+        with pytest.raises(SystemExit):
+            parse(["--model=transformer", "--eval=True",
+                   "--device_pipeline=True"])
+        assert message in capsys.readouterr().err
+    else:
+        ns = parse(["--model=transformer", "--eval=True", "--emb_dim=32",
+                    "--ff_dims=16", "--d_qkv=8", "--k=10",
+                    "--num_points=256", flag])
+        model = partseg.build_model(ns, "cpu")
+        custom = flag == "--use_custom_attention"
+        assert isinstance(model.transformer, Transformer) == custom
+        assert model.band == (0 if custom else 128)
+        x = torch.from_numpy(_cloud(17, b=2, n=256))
+        oh = torch.eye(16)[[2, 7]]
+        with torch.no_grad():
+            out = model(x, oh)
+        assert out.shape == (2, 256, 50) and torch.isfinite(out).all()
     assert parse(["--eval=True", "--fast_extract=0"]).model == "transformer"
 
 

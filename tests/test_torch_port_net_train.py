@@ -399,11 +399,11 @@ def test_net_hog_bug_compat_matches_jax(pallas_exact):
 
 
 @pytest.mark.parametrize("n", [1000, 1024, 2048, 2000, 4096, 4224, 8192,
-                               16384])
+                               16384, 16512, 32768])
 def test_use_kernel_matches_use_pallas(monkeypatch, n):
     """use_kernel is the JAX package's use_pallas (under
     DGCNN_TPU_PALLAS=1) at the cloud sizes of the CLIs and around them,
-    the semseg CLI's larger --num_points blocks up to 16384 included."""
+    the semseg CLI's larger --num_points blocks up to 32768 included."""
     from dgcnn_tpu.ops.knn import use_pallas
 
     monkeypatch.setenv("DGCNN_TPU_PALLAS", "1")
