@@ -58,9 +58,11 @@
 // 8 x 8 partial into a second 8 x 8 block of registers, so the instance
 // takes one block of 256 threads an SM.  Its bound is bf16 tensor-core
 // operations (~0.07 ms at 989 TFLOP/s at the DGCNNCls head); the CUDA
-// cores run it at their f32 rate, a route that a later tensor-core form
-// would replace (the products of bf16 values are exact in f32 either way,
-// the sums' order is not).
+// cores run it at their f32 rate.  Every model's shapes now take the
+// tensor-core form, conv_pool_wgmma.cu; this one takes the other shapes
+// (widths multiples of 4 but not of 64) and is the earlier side of the
+// checks and the A/B (dg_conv_pool_amp; the products of bf16 values are
+// exact in f32 either way, the sums' order is not).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,6 +71,25 @@
 
 #include "gemm128.cuh"
 #include "tile_gemm.cuh"
+
+namespace dg {
+
+// The row groups of a grid of about `blocks` blocks of 128 x 128 output
+// tiles: `per` consecutive row tiles of a cloud a group (balanced: the
+// groups as even as the row tiles allow; else the register-blocked
+// route's partition, which its mean's bits follow).
+void pool_groups_for(int B, int N, int E, int blocks, bool balanced,
+                     int* per, int* groups) {
+  const int row_tiles = (N + G128_M - 1) / G128_M;
+  const int ctiles = (E + G128_N - 1) / G128_N;
+  const int want = std::min(row_tiles,
+                            (blocks + B * ctiles - 1) / (B * ctiles));
+  *per = balanced ? (row_tiles + want - 1) / want
+                  : std::max(1, row_tiles / want);
+  *groups = (row_tiles + *per - 1) / *per;
+}
+
+}  // namespace dg
 
 namespace {
 
@@ -366,12 +387,7 @@ __global__ void __launch_bounds__(256)
 
 // The row tiles a group takes (`per`) and the groups a cloud has.
 void pool_groups(int B, int N, int E, int* per, int* groups) {
-  const int row_tiles = (N + dg::G128_M - 1) / dg::G128_M;
-  const int ctiles = (E + dg::G128_N - 1) / dg::G128_N;
-  const int want = std::min(row_tiles,
-                            (POOL_BLOCKS + B * ctiles - 1) / (B * ctiles));
-  *per = std::max(1, row_tiles / want);
-  *groups = (row_tiles + *per - 1) / *per;
+  dg::pool_groups_for(B, N, E, POOL_BLOCKS, false, per, groups);
 }
 
 bool aligned16(const void* p) { return (size_t)p % 16 == 0; }
@@ -434,6 +450,19 @@ int launch_tile64(const Inputs& xs, const float* w, const float* scale,
 }
 
 }  // namespace
+
+namespace dg {
+
+// conv_pool_combine_kernel's launch (conv_pool_wgmma.cu's groups).
+cudaError_t launch_pool_combine(const float* part, int B, int groups, int N,
+                                int E, int with_mean, float* out,
+                                cudaStream_t st) {
+  conv_pool_combine_kernel<<<(B * E + 255) / 256, 256, 0, st>>>(
+      part, B, groups, N, E, with_mean, out);
+  return cudaGetLastError();
+}
+
+}  // namespace dg
 
 // Floats of the scratch `part` that dg_conv_pool needs at this shape (0
 // when one group a cloud writes the output itself).

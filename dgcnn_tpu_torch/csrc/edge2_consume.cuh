@@ -159,6 +159,8 @@ __device__ __forceinline__ void e2t_consume(
     s2s[tid] = tid < C2 ? s2[tid] : 0.f;
     t2s[tid] = tid < C2 ? t2[tid] : 0.f;
   }
+  // the candidates' first row (the v3 words hold window positions)
+  const int wstart = V3 && so.starts ? so.starts[r0 / so.tile] : 0;
   const int R = dg::e2t_rows(k);
   // the products give thread (tx, ty) edges ty + 16 m and channels 4 tx + i
   const int tx = tid & 15, ty = tid >> 4;
@@ -181,7 +183,7 @@ __device__ __forceinline__ void e2t_consume(
             if constexpr (V3) {
               // a singleton: its row; a tied class: -2 - its lowest member
               const int cnt = dg::class_count(li[rr][q]);
-              const int low = dg::class_low(li[rr][q]);
+              const int low = wstart + dg::class_low(li[rr][q]);
               jrow[r * k + t] = cnt == 1 ? low : (cnt > 1 ? -2 - low : -1);
               ecnt[r * k + t] = cnt;
             } else {

@@ -289,8 +289,9 @@ cudaError_t launch_rowmin(const float* gc, const float* gq, int Cs,
 // f32, a bf16 x only); sq and rmin (B * N f32), ac (B * N * 2 Co f32);
 // out (B, N, Co), bf16 (AMP) or f32 (exact).  starts null: the candidates
 // are the cloud (tile and W = N); else kernel 12's windows: the W rows
-// from starts[r / tile] of a sorted cloud.  N a multiple of 128, N <=
-// MAX_N (32768), k <= W, Co <= 256.  The tiled route at k <=
+// from starts[r / tile] of a sorted cloud.  N a multiple of 128, N (the
+// cloud; banded: W, the window, over any N) <= MAX_N (32768), k <= W,
+// Co <= 256.  The tiled route at k <=
 // TS_LIST, the row-warp route above or with bit 5 (its register buckets,
 // or the shared row: knn_select.cuh's with_npl).  Returns the first CUDA
 // error.
@@ -303,9 +304,9 @@ extern "C" int dg_edge_conv_eval_variant(
   const bool gbf = flags & 1, xbf = flags & 2, sx = flags & 4, v3 = flags & 8;
   const bool exact = flags & 16, banded = starts != nullptr;
   const bool rowwarp = (flags & 32) || k > dg::TS_LIST;
-  if (B < 1 || N % 128 != 0 || N > MAX_N || Co < 1 || Co > dg::MAX_CO ||
-      Cg < 1 || Cin < 1 || k < 1 || k > W || W % 128 != 0 || W < 128 ||
-      W > N ||
+  if (B < 1 || N % 128 != 0 || (banded ? W : N) > MAX_N || Co < 1 ||
+      Co > dg::MAX_CO || Cg < 1 || Cin < 1 || k < 1 || k > W ||
+      W % 128 != 0 || W < 128 || W > N ||
       (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0
               : W != N) ||
       (sx && v3) || (exact && (gbf || xbf || sx || v3)))

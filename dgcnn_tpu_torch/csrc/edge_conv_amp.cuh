@@ -99,7 +99,8 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
       }
       float sel[CPL];
       if (!V3 || dg::class_count(pk) == 1) {  // v2's member, a singleton
-        const float* arow = A + (size_t)(V3 ? dg::class_low(pk) : pk) * row;
+        const float* arow =
+            A + (size_t)(V3 ? start + dg::class_low(pk) : pk) * row;
 #pragma unroll
         for (int u = 0; u < CPL; ++u) {
           const int c = lane + 32 * u;

@@ -356,9 +356,9 @@ int banded_stage(const float* graph, const float* x, const float* wcat,
                  float* ac, float* sq, float* out, int B, int N, int Cg,
                  int Cin, int Co, int k, int tile, int band, float slope,
                  bool rowwarp, cudaStream_t st) {
-  if (B < 1 || N % 128 != 0 || N > MAX_N || band % 128 != 0 || band < 128 ||
-      band > N || tile % 128 != 0 || tile < 128 || tile > band ||
-      N % tile != 0 || Co < 1 || Co > dg::MAX_CO || Cg < 1 ||
+  if (B < 1 || N % 128 != 0 || band > MAX_N || band % 128 != 0 ||
+      band < 128 || band > N || tile % 128 != 0 || tile < 128 ||
+      tile > band || N % tile != 0 || Co < 1 || Co > dg::MAX_CO || Cg < 1 ||
       Cin < 1 || k < 1 || k > band)
     return (int)cudaErrorInvalidValue;
   if (rowwarp || !tiled_route(Co, k))

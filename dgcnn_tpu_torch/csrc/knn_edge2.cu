@@ -287,7 +287,7 @@ int banded_block(const float* graph, const float* a1, const float* b1,
                  float* sq, float* out, int B, int N, int Cg, int C1, int C2,
                  int k, int tile, int band, float slope, bool rowwarp,
                  cudaStream_t st) {
-  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || band % 128 != 0 ||
+  if (B < 1 || N % 128 != 0 || band > dg::MAX_N || band % 128 != 0 ||
       band < 128 || band > N || tile % 128 != 0 || tile < 128 ||
       tile > band || N % tile != 0 || Cg < 1 || C1 < 1 || C1 > E2_MAXC ||
       C2 < 1 || C2 > E2_MAXC || k < 1 || k > band)

@@ -283,7 +283,8 @@ extern "C" int dg_knn_edge2_variant(
   const bool gbf = flags & 1, v3 = flags & 2, exact = flags & 4;
   const bool rowwarp = (flags & 8) || !dg::e2c::tiled_route(C1, C2, k);
   const bool banded = starts != nullptr;
-  if (B < 1 || N % 128 != 0 || N > dg::MAX_N || Cg < 1 || C1 < 1 ||
+  if (B < 1 || N % 128 != 0 || (banded ? W : N) > dg::MAX_N || Cg < 1 ||
+      C1 < 1 ||
       C1 > dg::E2_MAXC || C2 < 1 || C2 > dg::E2_MAXC || k < 1 || k > W ||
       W % 128 != 0 || W < 128 || W > N ||
       (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0

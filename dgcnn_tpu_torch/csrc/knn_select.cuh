@@ -41,7 +41,9 @@
 
 namespace dg {
 
-constexpr int MAX_N = 32768;     // the most points a kNN kernel's cloud holds
+// the most points a whole-cloud kNN kernel's cloud, or a banded kernel's
+// window, holds (the banded kernels 12 and 13 take any N)
+constexpr int MAX_N = 32768;
 constexpr int REG_MAX_N = 4096;  // register buckets: N / 32 <= 128 a lane
 constexpr int MAX_CO = 256;      // the widest Co of the kNN kernels
 constexpr int SROW = 0;          // the NPL of the shared row
@@ -741,9 +743,12 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 //               (q * 2^b + n - 1 - j, b the index bits).
 //   TS_CLASSES  v3: the list holds the k largest DISTINCT scores of the
 //               row, -inf in the slots past them, li[.] = (the count of
-//               columns with that score) << 16 | (the lowest of them),
-//               the count read unsigned (class_count: 32768 members of
-//               one class set the sign bit).
+//               columns with that score) << 16 | (the lowest of them,
+//               less `start`: its position in the window, so that a
+//               window of a cloud above 65536 points fits the field;
+//               class_low, and the consumers add start back), the count
+//               read unsigned (class_count: 32768 members of one class
+//               set the sign bit).
 //               Every tile inserts: a column whose score is in the list
 //               adds one to its count (ANY: and lowers its lowest member
 //               if it is lower, since tiles come out of order); one that
@@ -755,12 +760,15 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 // Over a window the v2 grid is the row's least score over the window, and
 // the keys' index bits those of the band (the caller's lim).
 // No buffer or register grows with W, and the v3 list's words hold a count
-// up to 2^15 (unsigned) and a row below 2^15: the route takes any W <=
-// MAX_N (at 32768 the v2 keys hold 15 index bits and |q| <= lim = 2^16 -
-// 1, exact in f32).
+// up to 2^15 (unsigned) and a window position below 2^15: the route takes
+// any W <= MAX_N (at 32768 the v2 keys hold 15 index bits and |q| <= lim =
+// 2^16 - 1, exact in f32), over a cloud of any size (ANY: the banded
+// kernels 12 and 13 take any N, their window W <= MAX_N; li's rows and
+// ts_before's comparisons are ints of the cloud).
 constexpr int TS_TOPK = 0, TS_KEYS = 1, TS_MIN = 2, TS_CLASSES = 3;
 
-// A TS_CLASSES list word's member count and lowest member.
+// A TS_CLASSES list word's member count and lowest member (its position
+// in the candidates: add their first row, tiled_topk's `start`).
 __device__ __forceinline__ int class_count(int w) {
   return (int)((unsigned)w >> 16);
 }
@@ -925,13 +933,13 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
               found |= __any_sync(0xffffffffu, here);
               if (here) {
                 li[rr][q] = (int)((unsigned)li[rr][q] + (1u << 16));
-                if (ANY && (li[rr][q] & 0xffff) > j + src)
-                  li[rr][q] = (li[rr][q] & ~0xffff) | (j + src);
+                if (ANY && (li[rr][q] & 0xffff) > j + src - start)
+                  li[rr][q] = (li[rr][q] & ~0xffff) | (j + src - start);
               }
             }
             if (!found && v > thr) {
-              ts_insert<KL>(ls[rr], li[rr], k, v, (1 << 16) | (j + src),
-                            lane);
+              ts_insert<KL>(ls[rr], li[rr], k, v,
+                            (1 << 16) | (j + src - start), lane);
               thr = ts_kth<KL>(ls[rr], k);
             }
           }

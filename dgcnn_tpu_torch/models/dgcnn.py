@@ -166,7 +166,8 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
     ``edge2_reduce`` for the second's and the max/min the output selects
     from.  CUDA tensors launch the kernels, CPU tensors take their plain
     versions.  A graph of a size the kernels do not take (``use_kernel``)
-    takes the JAX package's XLA path: ``knn``, the per-edge tensor of the
+    and no band that prunes it (the banded kernel takes any N) takes the
+    JAX package's XLA path: ``knn``, the per-edge tensor of the
     first conv, BatchNorm over B*N*k, the second conv and the max over
     k in torch.  ``amp`` runs the eval kernel's AMP form (a bf16 output;
     ``a1``/``b1`` f32, of W rounded to bf16 where ``x`` is bf16), and in
@@ -175,7 +176,10 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
     BatchNorm's statistics come from kernel 3's AMP sums (the JAX
     package's ``_edge_block2``, dgcnn_tpu/models/dgcnn.py:66-89)."""
     w_nbr, w_ctr = ec.split_weights()
-    if not use_kernel(graph.shape[1]):
+    # the band before the shape gate: the banded kernel takes any N (its
+    # window bounds it), as the JAX package's does
+    banded = not train and banded_applicable(graph.shape[1], band)
+    if not banded and not use_kernel(graph.shape[1]):
         idx = knn(graph, k)
         if train:
             s1, t1 = ec[1].push_stats(
@@ -192,7 +196,7 @@ def edge_block2(ec: EdgeConv, cb: ConvBN, x: torch.Tensor,
     if not train:
         s1, t1 = ec[1].folded()
         s2, t2 = cb[1].folded()
-        if banded_applicable(graph.shape[1], band):
+        if banded:
             return banded_knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k,
                                     band, slope, amp=amp)
         return knn_edge2(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
@@ -576,8 +580,8 @@ class DGCNNSemSeg(nn.Module):
                 generator: torch.Generator | None = None, *,
                 amp: bool | None = None) -> torch.Tensor:
         kk, band = self.k, self.band
-        amp = (use_amp_train if train else use_amp_eval)(
-            amp, x.device, x.shape[1], kk)
+        amp = (use_amp_train(amp, x.device, x.shape[1], kk) if train else
+               use_amp_eval(amp, x.device, x.shape[1], kk, band=band))
         # first graph: neighbours by the normalized room coordinates
         x1 = edge_block2(self.conv1, self.conv2, x,
                          x[..., 6:9].contiguous(), kk, train, band=band,

@@ -296,7 +296,8 @@ class EdgeConv(nn.Sequential):
         the graph in the layer.  With ``graph`` of a size the kernels take
         (``use_kernel``), eval runs the whole stage as one kernel
         (ops/edge_conv_kernel.py; with a ``band`` that prunes N points,
-        ``banded_applicable``, the banded kernel of ops/banded.py) and
+        ``banded_applicable``, the banded kernel of ops/banded.py, at any
+        N) and
         training runs the differentiable kNN reductions
         (ops/knn_edge_reduce.py): kernels for CUDA tensors and their plain
         versions for CPU tensors.  Other sizes take ``knn`` and the ``idx``
@@ -309,15 +310,18 @@ class EdgeConv(nn.Sequential):
         if idx is None:
             if graph is None or k is None:
                 raise ValueError("EdgeConv needs either idx or (graph, k)")
+            # the band before the shape gate: the banded kernel takes any
+            # N (its window bounds it), as the JAX package's does
+            if not train and banded_applicable(graph.shape[1], band):
+                s, t = bn.folded()
+                return banded_edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
+                                             band, self.negative_slope,
+                                             amp=amp)
             if not use_kernel(graph.shape[1]):
                 return self(x, knn(graph, k), train)
             if train:
                 return self._train_fused(x, graph, k, w_nbr, w_ctr, amp)
             s, t = bn.folded()
-            if banded_applicable(graph.shape[1], band):
-                return banded_edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
-                                             band, self.negative_slope,
-                                             amp=amp)
             return edge_conv_eval(graph, x, w_nbr, w_ctr, s, t, k,
                                   self.negative_slope, amp=amp)
         if train:

@@ -115,7 +115,7 @@ def require_ported(name: str, amp: bool, variant: str) -> None:
 
 
 def use_amp_eval(amp: bool | None, device: torch.device, n: int,
-                 k: int) -> bool:
+                 k: int, *, band: int = 0) -> bool:
     """Whether an eval forward of ``n`` points and ``k`` neighbours runs in
     the AMP mode.  ``amp`` None takes the default, the JAX package's: AMP
     on the card unless ``DGCNN_TPU_PALLAS_EXACT`` is set, exact on the CPU
@@ -125,11 +125,14 @@ def use_amp_eval(amp: bool | None, device: torch.device, n: int,
     whose N is a multiple of 128 (``dgcnn_tpu/ops/knn.py::use_pallas``) at
     any k; the port's AMP forms take any k <= N and any such N up to
     ``knn.MAX_N`` (32768), so ``k`` does not gate the mode.  No whole-cloud
-    TPU kernel fits its VMEM at that size (ROADMAP C.1)."""
+    TPU kernel fits its VMEM at that size, but the banded ones do: a
+    ``band`` that prunes the cloud (``banded_applicable``; DGCNNSemSeg's
+    eval, whose every kNN stage it bands) runs AMP at any such N."""
+    from dgcnn_tpu_torch.ops.banded import banded_applicable
     from dgcnn_tpu_torch.ops.knn import use_kernel
 
     del k
-    if not use_kernel(n):
+    if not (use_kernel(n) or banded_applicable(n, band)):
         return False
     if amp is None:
         return device.type == "cuda" and not exact_mode()

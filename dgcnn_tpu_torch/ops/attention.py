@@ -47,7 +47,14 @@ mirrors ``_attn_bwd_kernel`` on bf16 inputs: p rebuilt from (m, l) with
 the forward's instructions, Delta = sum_j dp_ij p_ij in f32 (the TPU
 kernel's, not rowsum(dO o) of the bf16 output), bf16 operands, f32 sums,
 bf16 gradients.  ``fused_attention`` picks the form by the inputs' dtype;
-``FusedAttentionAMP`` joins the two in training.
+``FusedAttentionAMP`` joins the two in training.  At d = 128 and 256
+(``amp_route``) kernel 14's AMP forms run on Hopper's warpgroup products
+(``csrc/attention_fwd_wgmma.cu``: wgmma on tiles that TMA streams into a
+ring of shared-memory stages, P in registers as the A operand of P V), the
+earlier form's score sequence, tiles and sums kept, so that o, m and l are
+its bits; at d = 512 the earlier form (``csrc/attention_fwd_bf16.cu``:
+bf16 ``mma.sync``), which ``earlier=True`` forces at any d for the checks
+and the A/B.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels,
 which raise on what they do not take.
@@ -378,10 +385,20 @@ def attention_fwd(q, k, v, sm_scale: float, rate: float = 0.0,
     return out, lse
 
 
+def amp_route(d: int) -> str:
+    """Kernel 14's AMP route at head dim ``d``: "wgmma" at 128 and 256
+    (``csrc/attention_fwd_wgmma.cu``), "mma" at 512 (the earlier form,
+    whose o at d = 512 alone holds 256 f32 a row of 64 per thread), "none"
+    elsewhere (raises)."""
+    if d in (128, 256):
+        return "wgmma"
+    return "mma" if d in HEAD_DIMS else "none"
+
+
 def attention_fwd_amp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       sm_scale: float, rate: float = 0.0,
                       seed: torch.Tensor | None = None,
-                      with_stats: bool = False):
+                      with_stats: bool = False, *, earlier: bool = False):
     """Kernel 14's AMP form: (o (B, h, Nq, d) bf16, each row's max m and
     sum l (B, h, Nq) f32, or None twice) of bf16 q, k and v (module
     docstring).  ``with_stats`` or dropout (rate > 0, the mask of ``seed``)
@@ -389,7 +406,9 @@ def attention_fwd_amp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     form.  At rate 0 the two give the same o, bit for bit.  CPU tensors
     take ``attention_amp_train_plain``.  On CUDA tensors, q, k and v with
     rows that are not 16-byte aligned are copied first; the output is a
-    (B, h, Nq, d) view of a (B, Nq, h, d) tensor."""
+    (B, h, Nq, d) view of a (B, Nq, h, d) tensor.  The route is
+    ``amp_route(d)``'s; ``earlier`` launches the earlier form (mma.sync)
+    at any d."""
     train = with_stats or rate > 0.0
     if q.device.type == "cpu":
         if train:
@@ -404,8 +423,10 @@ def attention_fwd_amp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m, l = (torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
                 for _ in range(2))
     p = _build.ptr
+    wgmma = amp_route(d) == "wgmma" and not earlier
+    name = "dg_attention_fwd_bf16_wgmma" if wgmma else "dg_attention_fwd_bf16"
     with torch.cuda.device(q.device):
-        rc = _fn("dg_attention_fwd_bf16",
+        rc = _fn(name,
                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F, _P, _U, _F, _P,
                   _P, _P])(
             p(q), p(k), p(v), p(out), b, h, nq, nk, d,
@@ -416,6 +437,7 @@ def attention_fwd_amp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(rc, "fused_attention (bf16)")
     fused_attention.launches += 1
     fused_attention.amp_launches += 1
+    fused_attention.wgmma_launches += wgmma
     if train:
         fused_attention.amp_train_launches += 1
     return out, m, l
@@ -613,6 +635,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # amp_train_launches: its AMP training form; attention_bwd_amp: kernel
 # 15's bf16 form)
 fused_attention.launches = fused_attention.amp_launches = 0
-fused_attention.amp_train_launches = 0
+fused_attention.amp_train_launches = fused_attention.wgmma_launches = 0
 attention_bwd.launches = attention_bwd_amp.launches = 0
 dropout_mask.launches = 0

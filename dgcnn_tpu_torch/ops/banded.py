@@ -208,10 +208,10 @@ def _check(name: str, tensors, n: int, k: int, band: int) -> None:
     _require(name, all(t.dtype == torch.float32 for t in tensors),
              "tensors must be float32")
     _require(name, graph.dim() == 3, "graph must be (B, N, Cg)")
-    _require(name, n % TILE_N == 0 and n <= MAX_N,
-             f"N={n} must be a multiple of {TILE_N} and <= {MAX_N}")
-    _require(name, band % TILE_N == 0 and TILE_N <= band <= n,
-             f"band={band} must be a multiple of {TILE_N} in 128..N={n}")
+    _require(name, n % TILE_N == 0, f"N={n} must be a multiple of {TILE_N}")
+    _require(name, band % TILE_N == 0 and TILE_N <= band <= min(n, MAX_N),
+             f"band={band} must be a multiple of {TILE_N} in "
+             f"128..min(N={n}, {MAX_N})")
     _require(name, 1 <= k <= band, f"k={k} out of range for band={band}")
 
 
@@ -295,9 +295,9 @@ def banded_edge_conv_eval(graph: torch.Tensor, x: torch.Tensor,
     ``sorted_order(graph)``) -> (B, N, Co) in the input order.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes f32 tensors with N a multiple of 128 up to ``MAX_N``
-    (32768), a band that is a multiple of 128 up to N, k <= band and Co
-    <= 256, and raises
+    which takes f32 tensors with N a multiple of 128 (any N: the window,
+    not the cloud, bounds the selection), a band that is a multiple of
+    128 up to N and ``MAX_N`` (32768), k <= band and Co <= 256, and raises
     on anything else: its tiled route at k <= 64, its row-warp route
     otherwise or with ``rowwarp`` (the same bits).  ``amp`` runs the AMP
     form (f32 or bf16 graph and x, bf16 output; plain:
@@ -411,9 +411,9 @@ def banded_knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     (B, N, C2) in the input order.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    which takes f32 tensors with N a multiple of 128 up to ``MAX_N``
-    (32768), a band that is a multiple of 128 up to N, k <= band and C1,
-    C2 <= 128, and
+    which takes f32 tensors with N a multiple of 128 (any N), a band
+    that is a multiple of 128 up to N and ``MAX_N`` (32768), k <= band
+    and C1, C2 <= 128, and
     raises on anything else: its tiled route at k <= 64, C1 <= 64 and C2
     <= 128, its row-warp route otherwise or with ``rowwarp`` (the same
     bits).  ``amp`` runs the AMP form (f32 or bf16 graph, bf16 output;

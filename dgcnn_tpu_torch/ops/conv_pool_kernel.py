@@ -22,7 +22,16 @@ the kernel for CUDA tensors.
 (``pallas_pool.py:31-48``), the JAX package's default: bf16 inputs (the
 AMP stages' outputs) and W rounded to bf16, f32 products and sums, each
 input's product its own sum, added input by input; the epilogue and the
-pooled rows f32.  ``conv_pool_amp_plain`` is its plain version.
+pooled rows f32.  ``conv_pool_amp_plain`` is its plain version.  Every
+model's shapes (``amp_route``: widths multiples of 64, E of 8) take its
+tensor-core form, ``csrc/conv_pool_wgmma.cu``: wgmma on bf16 tiles that
+TMA streams into a ring of shared-memory stages beside the block's
+resident slice of W, one f32 chain over the inputs' channels (within rel
+1e-5 of the input-by-input sums), the epilogue and the pooled rows in
+registers and shuffles.  Other shapes take the earlier form (``csrc/conv_pool.cu``,
+``dg_conv_pool_amp``: the inputs upcast to f32 for the CUDA cores'
+register-blocked route), which ``simt=True`` forces for the checks and
+the A/B.
 """
 from __future__ import annotations
 
@@ -34,6 +43,9 @@ from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.amp_select import round_bf16
 
 MAX_INPUTS = 4
+# the most input channels the tensor-core route takes (csrc/
+# conv_pool_wgmma.cu, MAX_C: a column tile's rows of W in shared memory)
+WGMMA_MAX_C = 640
 
 
 def conv_pool_plain(xs, w, scale, bias, slope: float = 0.2,
@@ -80,6 +92,24 @@ def _scratch_floats(b: int, n: int, e: int) -> int:
     return fn(b, n, e)
 
 
+def amp_route(widths, e: int, aligned: bool = True) -> str:
+    """The AMP form's route at input widths ``widths`` and E = ``e``:
+    "wgmma" (``csrc/conv_pool_wgmma.cu``: every width a multiple of its
+    64-channel chunk and at most ``WGMMA_MAX_C`` channels in all, which its
+    shared memory holds of W, E a multiple of 8, the inputs 16-byte
+    ``aligned``), else "simt" (the earlier form; widths and E multiples of
+    4), else "none" (raises).  Every model's shapes take "wgmma"."""
+    widths = tuple(widths)
+    if not 1 <= len(widths) <= MAX_INPUTS or e < 1:
+        return "none"
+    if (aligned and e % 8 == 0 and sum(widths) <= WGMMA_MAX_C
+            and all(c >= 64 and c % 64 == 0 for c in widths)):
+        return "wgmma"
+    if e % 4 == 0 and all(c >= 4 and c % 4 == 0 for c in widths):
+        return "simt"
+    return "none"
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"conv_pool: {msg}")
@@ -87,7 +117,8 @@ def _require(cond: bool, msg: str) -> None:
 
 def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               slope: float = 0.2, with_mean: bool = True, *,
-              tile64: bool = False, amp: bool = False) -> torch.Tensor:
+              tile64: bool = False, amp: bool = False,
+              simt: bool = False) -> torch.Tensor:
     """LeakyReLU((concat(xs) @ w) * scale + bias) pooled over N.
 
     ``xs``: up to four (B, N, Ci) tensors whose channel concat is the conv
@@ -98,14 +129,15 @@ def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     on anything else.  The kernel's route is decided from the shape before
     the launch (the module's note); ``tile64`` launches the first form at
     any shape.  ``amp`` runs the AMP form (plain: ``conv_pool_amp_plain``),
-    whose kernel takes bf16 inputs of widths, and an E, that are multiples
-    of 4."""
+    whose kernel takes bf16 inputs on the route ``amp_route`` picks:
+    wgmma at widths multiples of 64, else the earlier form (widths and E
+    multiples of 4), which ``simt`` forces."""
     xs = tuple(xs)
     if xs[0].device.type == "cpu":
         fn = conv_pool_amp_plain if amp else conv_pool_plain
         return fn(xs, w, scale, bias, slope, with_mean)
     if amp:
-        return _conv_pool_amp(xs, w, scale, bias, slope, with_mean)
+        return _conv_pool_amp(xs, w, scale, bias, slope, with_mean, simt)
     dev = xs[0].device
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _require(1 <= len(xs) <= MAX_INPUTS, f"1..{MAX_INPUTS} inputs")
@@ -151,7 +183,8 @@ def conv_pool(xs, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def _conv_pool_amp(xs, w, scale, bias, slope, with_mean) -> torch.Tensor:
+def _conv_pool_amp(xs, w, scale, bias, slope, with_mean,
+                   simt: bool) -> torch.Tensor:
     dev = xs[0].device
     _require(dev.type == "cuda", f"no kernel for device {dev}")
     _require(1 <= len(xs) <= MAX_INPUTS, f"1..{MAX_INPUTS} inputs")
@@ -171,8 +204,12 @@ def _conv_pool_amp(xs, w, scale, bias, slope, with_mean) -> torch.Tensor:
     _require(w.shape == (c, e), f"w {tuple(w.shape)} vs {c} input channels")
     _require(scale.shape == (e,) and bias.shape == (e,),
              "scale/bias must be (E,)")
-    _require(e % 4 == 0 and all(ci % 4 == 0 for ci in widths),
+    route = amp_route(widths, e, all(x.data_ptr() % 16 == 0 for x in xs))
+    _require(route != "none",
              "the AMP form takes widths and E multiples of 4")
+    if route == "wgmma" and not simt:
+        return _conv_pool_amp_wgmma(xs, widths, w, scale, bias, slope,
+                                    with_mean)
     fn = getattr(_build.load_library(), "dg_conv_pool_amp")
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -203,7 +240,46 @@ def _conv_pool_amp(xs, w, scale, bias, slope, with_mean) -> torch.Tensor:
     return out
 
 
+def _conv_pool_amp_wgmma(xs, widths, w, scale, bias, slope,
+                         with_mean) -> torch.Tensor:
+    lib = _build.load_library()
+    fn = lib.dg_conv_pool_amp_wgmma
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p] * 4 + [i] * 5 + [p] * 6 + [i] * 3
+                       + [ctypes.c_float, i, p])
+        fn.restype = i
+        lib.dg_conv_pool_wgmma_scratch_floats.argtypes = [i] * 3
+        lib.dg_conv_pool_wgmma_scratch_floats.restype = i
+    dev = xs[0].device
+    b, n, _ = xs[0].shape
+    c, e = w.shape
+    # the launch is asynchronous on torch's current stream: tensors made here
+    # and freed on return are reused by the caching allocator only for work
+    # queued after it on that stream
+    w, scale, bias = (t.contiguous() for t in (w, scale, bias))
+    wt = torch.empty((e, c), device=dev, dtype=torch.bfloat16)
+    floats = lib.dg_conv_pool_wgmma_scratch_floats(b, n, e)
+    part = (torch.empty((floats,), device=dev, dtype=torch.float32)
+            if floats else None)
+    out = torch.empty((b, 2 if with_mean else 1, e), device=dev,
+                      dtype=torch.float32)
+    p = _build.ptr
+    ptrs = [p(x) for x in xs] + [None] * (MAX_INPUTS - len(xs))
+    widths = list(widths) + [0] * (MAX_INPUTS - len(xs))
+    with torch.cuda.device(dev):
+        rc = fn(*ptrs, *widths, len(xs), p(w), p(scale), p(bias), p(wt),
+                None if part is None else p(part), p(out), b, n, e,
+                float(slope), int(with_mean), _build.stream_of(w))
+    _build.check(rc, "conv_pool")
+    conv_pool.launches += 1
+    conv_pool.amp_launches += 1
+    conv_pool.wgmma_launches += 1
+    return out
+
+
 # launches of the kernel since the count was last set to 0 (amp_launches:
-# those of its AMP form)
+# those of its AMP form; wgmma_launches: those on its tensor-core route)
 conv_pool.launches = 0
 conv_pool.amp_launches = 0
+conv_pool.wgmma_launches = 0

@@ -237,8 +237,10 @@ def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
     need(s1.shape == (c1,) and t1.shape == (c1,)
          and s2.shape == (c2,) and t2.shape == (c2,),
          "s1/t1 must be (C1,) and s2/t2 (C2,)")
-    need(n % 128 == 0 and n <= MAX_N,
-         f"N={n} must be a multiple of 128 and <= {MAX_N}")
+    # the banded forms (starts) take any N: their window bounds them
+    need(n % 128 == 0 and w <= MAX_N,
+         f"N={n} must be a multiple of 128 and {'the band' if band else 'N'}"
+         f" <= {MAX_N}")
     need(c1 <= MAX_C and c2 <= MAX_C, f"C1, C2 must be <= {MAX_C}")
     need(1 <= k <= w, f"the {variant} form takes 1 <= k <= {w} (k={k})")
     fn = _build.load_library().dg_knn_edge2_variant

@@ -248,8 +248,10 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     need(w_ctr.shape == (cin, co), "w_ctr must match w_nbr")
     need(scale.shape == (co,) and bias.shape == (co,),
          "scale/bias must be (Co,)")
-    need(n % 128 == 0 and n <= MAX_N,
-         f"N={n} must be a multiple of 128 and <= {MAX_N}")
+    # the banded forms (starts) take any N: their window bounds them
+    need(n % 128 == 0 and w <= MAX_N,
+         f"N={n} must be a multiple of 128 and {'the band' if band else 'N'}"
+         f" <= {MAX_N}")
     rowwarp = rowwarp or k > TILED_MAX_K
     need(co <= MAX_CO, f"the {variant} form takes Co <= {MAX_CO}")
     need(1 <= k <= w, f"the {variant} form takes 1 <= k <= {w} (k={k})")

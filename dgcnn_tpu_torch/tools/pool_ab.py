@@ -24,10 +24,18 @@ two calls.  Prints the card's name and power limit, one line a shape, and
 last one JSON object with every reading.  Exits non-zero without a CUDA
 card or when a check fails.
 
-    python -m dgcnn_tpu_torch.tools.pool_ab
+With ``--amp`` it times the AMP form instead (bf16 inputs): its
+tensor-core route (``csrc/conv_pool_wgmma.cu``) against its earlier form
+(``conv_pool(..., amp=True, simt=True)``: the inputs upcast for the CUDA
+cores' register-blocked route), beside bf16 ``torch.matmul`` of the
+product; both forms held within rel 1e-5 of ``conv_pool_amp_plain`` and to
+the same bits over two calls.
+
+    python -m dgcnn_tpu_torch.tools.pool_ab [--amp]
 """
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -78,7 +86,77 @@ def check(xs, w, scale, bias, with_mean: bool) -> dict:
     return out
 
 
+def check_amp(xs, w, scale, bias, with_mean: bool) -> dict:
+    """The AMP form's two routes against its plain version."""
+    from dgcnn_tpu_torch.ops.conv_pool_kernel import (
+        conv_pool,
+        conv_pool_amp_plain,
+    )
+
+    got = conv_pool(xs, w, scale, bias, with_mean=with_mean, amp=True)
+    again = conv_pool(xs, w, scale, bias, with_mean=with_mean, amp=True)
+    earlier = conv_pool(xs, w, scale, bias, with_mean=with_mean, amp=True,
+                        simt=True)
+    plain = conv_pool_amp_plain(xs, w, scale, bias, with_mean=with_mean)
+    torch.cuda.synchronize()
+    rms = plain.pow(2).mean().sqrt()
+
+    def within(out):
+        return bool(((out - plain).abs() <= 1e-5 * (plain.abs() + rms)).all())
+
+    return {"plain_rows_within_1e-5": within(got) and within(earlier),
+            "same_bits_over_calls": torch.equal(got, again)}
+
+
+def main_amp(card: str) -> None:
+    """The ``--amp`` A/B (module docstring)."""
+    from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    rows, bad = [], []
+    for cell, b, n, widths, with_mean in SHAPES:
+        xs, w, scale, bias = _inputs(g, b, n, widths, dev)
+        xs = tuple(x.to(torch.bfloat16) for x in xs)
+        forms = {
+            "kernel": lambda: conv_pool(xs, w, scale, bias,
+                                        with_mean=with_mean, amp=True),
+            "earlier": lambda: conv_pool(xs, w, scale, bias,
+                                         with_mean=with_mean, amp=True,
+                                         simt=True)}
+        ms = {name: [] for name in forms}
+        for name in list(forms) + list(reversed(list(forms))):
+            ms[name].append(device_ms(forms[name], reps=5, rounds=5))
+        x_cat, wb = torch.cat(xs, dim=-1), w.to(torch.bfloat16)
+        row = {"cell": cell, "B": b, "N": n, "widths": list(widths), "E": E,
+               "with_mean": with_mean, "ms": ms,
+               "matmul_bf16_ms": device_ms(lambda: torch.matmul(x_cat, wb),
+                                           reps=5, rounds=5),
+               **check_amp(xs, w, scale, bias, with_mean)}
+        rows.append(row)
+        print(f"{cell} B={b} N={n} widths {widths} (AMP): kernel "
+              f"{' / '.join(f'{v:.4f}' for v in ms['kernel'])} ms, earlier "
+              f"{' / '.join(f'{v:.4f}' for v in ms['earlier'])} ms, bf16 "
+              f"torch.matmul {row['matmul_bf16_ms']:.4f} ms; plain rows "
+              f"{row['plain_rows_within_1e-5']}, same bits "
+              f"{row['same_bits_over_calls']}", flush=True)
+        if not (row["plain_rows_within_1e-5"]
+                and row["same_bits_over_calls"]):
+            bad.append(cell)
+        del xs, w, x_cat, wb
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "amp": True, "shapes": rows}),
+          flush=True)
+    if bad:
+        sys.exit(f"pool_ab --amp: {bad} failed their checks")
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--amp", action="store_true",
+                    help="time the AMP form's tensor-core route against "
+                         "its earlier form")
+    amp = ap.parse_args().amp
     if not torch.cuda.is_available():
         sys.exit("pool_ab: needs a CUDA card")
     from dgcnn_tpu_torch.ops.conv_pool_kernel import conv_pool
@@ -90,6 +168,9 @@ def main() -> None:
                          text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout else "?"
     print(card, flush=True)
+    if amp:
+        main_amp(card)
+        return
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     rows, bad = [], []
