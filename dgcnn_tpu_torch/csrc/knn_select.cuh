@@ -39,6 +39,8 @@
 
 #include <type_traits>
 
+#include "mma_bf16.cuh"
+
 namespace dg {
 
 // the most points a whole-cloud kNN kernel's cloud, or a banded kernel's
@@ -610,6 +612,47 @@ __device__ __forceinline__ void ts_load_chunk(const float* __restrict__ G,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// The tensor-core score tile (tiled_topk's OP = __nv_bfloat16: kernels 3
+// and 4 in the AMP mode).  The operands are bf16, Cg channels a row with
+// Cg a multiple of 16 (zeros past the function's own): for the AMP
+// scores of f32 inputs [hi | hi | lo | 0..] against [hi | lo | hi | 0..],
+// so that one product gives hi.hi + hi.lo + lo.hi.  Each tile's 64 x 128
+// scores are bf16 mma.sync m16n8k16 with f32 accumulators: warp w takes
+// rows 16 (w % 4) .. + 15 and columns 64 (w / 4) .. + 63, eight n-tiles;
+// the channels come TC_KC at a time through shared memory by cp.async (16
+// bytes a copy) in two buffers, read by ldmatrix.  A bf16 x bf16 product
+// is exact in f32; only the order of the f32 sums and the tensor core's
+// truncating adds differ from the f32 chain, as on the TPU's MXU.  The
+// finished tile's rows are TC_LST floats apart (no bank conflicts on the
+// accumulators' stores); the walks over it are the f32 route's.
+constexpr int TC_KC = 64;             // bf16 channels a staged chunk
+constexpr int TC_LD = TC_KC + 8;      // row stride (bf16) of the chunks
+constexpr int TC_LST = TS_J + 4;      // row stride (floats) of the tile
+constexpr size_t TC_SMEM_BYTES =
+    sizeof(float) * TS_R * TC_LST +
+    sizeof(__nv_bfloat16) * 2 * (TS_R + TS_J) * TC_LD;
+
+// Starts the copies of channels [c0, c0 + nch) (nch = min(TC_KC, Cg -
+// c0), a multiple of 8) of the query rows r0.. of Q into qb and of the
+// tile's columns, rows j0.. of G, into gb (rows TC_LD apart); columns at
+// or past row `end` are zero-filled.
+__device__ __forceinline__ void tc_load_chunk(
+    const __nv_bfloat16* __restrict__ G, const __nv_bfloat16* __restrict__ Q,
+    int Cg, int end, int r0, int j0, int c0, __nv_bfloat16* qb,
+    __nv_bfloat16* gb) {
+  const int per = min(TC_KC, Cg - c0) / 8;  // 16-byte copies a row
+  for (int e = threadIdx.x; e < (TS_R + TS_J) * per; e += TS_THREADS) {
+    const int r = e / per, c = 8 * (e - r * per);
+    const bool qrow = r < TS_R;
+    const int row = qrow ? r0 + r : j0 + r - TS_R;
+    const bool in = qrow || row < end;
+    const __nv_bfloat16* src = qrow ? Q : G;
+    dg_bf16::copy16((qrow ? qb + r * TC_LD : gb + (r - TS_R) * TC_LD) + c,
+                    in ? src + (size_t)row * Cg + c0 + c : src, in);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 // (a, ai) comes before (b, bi) in a list: a higher score, or the same
 // score and a lower index.
 __device__ __forceinline__ bool ts_before(float a, int ai, float b, int bi) {
@@ -774,24 +817,30 @@ __device__ __forceinline__ int class_count(int w) {
 }
 __device__ __forceinline__ int class_low(int w) { return w & 0xffff; }
 
-template <int KL, bool ANY = false, int MODE = TS_TOPK>
-__device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
+// OP: the operands' type; __nv_bfloat16 takes each tile's scores from the
+// tensor cores (TC_KC above; Cg a multiple of 16, sm TC_SMEM_BYTES).
+template <int KL, bool ANY = false, int MODE = TS_TOPK, typename OP = float>
+__device__ __forceinline__ void tiled_topk(const OP* __restrict__ G,
                                            int Cg,
                                            const float* __restrict__ SQ,
                                            int start, int W, int r0, int k,
                                            float* sm,
                                            float (&ls)[TS_WR][KL],
                                            int (&li)[TS_WR][KL],
-                                           const float* __restrict__ GQ =
+                                           const OP* __restrict__ GQ =
                                                nullptr,
                                            float* __restrict__ rrow = nullptr,
                                            float lim = 0.f) {
+  constexpr bool TC = std::is_same_v<OP, __nv_bfloat16>;
+  constexpr int LST = TC ? TC_LST : TS_J;  // the finished tile's row stride
   float* st = sm;                        // finished tile (TS_R, TS_J)
   float* qbuf = st + TS_R * TS_J;        // two query chunks
   float* gbuf = qbuf + 2 * TS_C * TS_LDQ;  // two column chunks
+  __nv_bfloat16* tq = reinterpret_cast<__nv_bfloat16*>(st + TS_R * LST);
+  __nv_bfloat16* tg = tq + 2 * TS_R * TC_LD;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int chunks = (Cg + TS_C - 1) / TS_C;
+  const int chunks = (Cg + (TC ? TC_KC : TS_C) - 1) / (TC ? TC_KC : TS_C);
   const int tiles = (W + TS_J - 1) / TS_J;
   const int end = start + W;
   // the column tile of the t-th step: ANY, the query rows' tile, then the
@@ -801,13 +850,17 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     return ANY ? (t == 0 ? first : t - (t <= first)) : t;
   };
   const int steps = tiles * chunks;
-  const float* Q = MODE == TS_TOPK ? G : GQ;
+  const OP* Q = MODE == TS_TOPK ? G : GQ;
+  // the thread's rows: 4 ty + i (f32), or (TC) 16 (warp % 4) + g + 8 i
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mrow = 16 * (warp & 3) + g, ncol = 64 * (warp >> 2) + 2 * t4;
   float qq[4], rs[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    qq[i] = SQ[r0 + 4 * ty + i];
+    const int r = TC ? mrow + 8 * (i & 1) : 4 * ty + i;
+    qq[i] = SQ[r0 + r];
     if constexpr (MODE == TS_KEYS) {  // the row's scale
-      const float m = rrow[r0 + 4 * ty + i];
+      const float m = rrow[r0 + r];
       rs[i] = m < 0.f ? __fdiv_rn(-lim, m) : 0.f;
     }
   }
@@ -826,32 +879,101 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
       }
   }
   float acc[4][8], sqj[8];
+  float tacc[8][4], tsq[16];  // TC: the warp's 16 x 64 accumulators
 
-  ts_load_chunk(G, Q, Cg, end, r0, start + tile_at(0) * TS_J, 0, qbuf, gbuf);
+  auto load_step = [&](int step, int buf) {
+    const int tn = step / chunks, cn = step - tn * chunks;
+    if constexpr (TC)
+      tc_load_chunk(G, Q, Cg, end, r0, start + tile_at(tn) * TS_J,
+                    cn * TC_KC, tq + buf * TS_R * TC_LD,
+                    tg + buf * TS_J * TC_LD);
+    else
+      ts_load_chunk(G, Q, Cg, end, r0, start + tile_at(tn) * TS_J,
+                    cn * TS_C, qbuf + buf * TS_C * TS_LDQ,
+                    gbuf + buf * TS_C * TS_LDG);
+  };
+  load_step(0, 0);
   for (int s = 0; s < steps; ++s) {
     const int t = s / chunks, c = s - t * chunks;
     const int j0 = tile_at(t) * TS_J;
     if (c == 0) {
+      if constexpr (TC) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+          for (int e = 0; e < 4; ++e) tacc[j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = j0 + 4 * tx + (j & 3) + 64 * (j >> 2);
-        sqj[j] = col < W ? SQ[start + col] : 0.f;
+        for (int j = 0; j < 16; ++j) {
+          const int col = j0 + ncol + 8 * (j >> 1) + (j & 1);
+          tsq[j] = col < W ? SQ[start + col] : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = j0 + 4 * tx + (j & 3) + 64 * (j >> 2);
+          sqj[j] = col < W ? SQ[start + col] : 0.f;
+        }
       }
     }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     // step s has landed for every thread, and every thread is done with
     // step s - 1, whose buffers the next copy fills
     __syncthreads();
-    if (s + 1 < steps) {
-      const int tn = (s + 1) / chunks, cn = s + 1 - tn * chunks;
-      ts_load_chunk(G, Q, Cg, end, r0, start + tile_at(tn) * TS_J, cn * TS_C,
-                    qbuf + ((s + 1) & 1) * TS_C * TS_LDQ,
-                    gbuf + ((s + 1) & 1) * TS_C * TS_LDG);
-    }
+    if (s + 1 < steps) load_step(s + 1, (s + 1) & 1);
+    if constexpr (TC) {
+      // the chunk's k16 steps: A the warp's 16 query rows, B its 64
+      // columns (ldmatrix as attention_bf16.cuh's tile_scores)
+      const __nv_bfloat16* qa = tq + (s & 1) * TS_R * TC_LD +
+                                (16 * (warp & 3) + (lane & 7) +
+                                 8 * ((lane >> 3) & 1)) * TC_LD +
+                                8 * (lane >> 4);
+      const __nv_bfloat16* gb = tg + (s & 1) * TS_J * TC_LD +
+                                (64 * (warp >> 2) + (lane & 7) +
+                                 8 * (lane >> 4)) * TC_LD +
+                                8 * ((lane >> 3) & 1);
+      const int nk = min(TC_KC, Cg - c * TC_KC) / 16;
+#pragma unroll
+      for (int kk = 0; kk < TC_KC / 16; ++kk) {
+        if (kk < nk) {
+          unsigned a[4];
+          dg_bf16::ldsm_x4(a, qa + 16 * kk);
+#pragma unroll
+          for (int j = 0; j < 8; j += 2) {
+            unsigned b[4];
+            dg_bf16::ldsm_x4(b, gb + 8 * j * TC_LD + 16 * kk);
+            dg_bf16::mma(tacc[j], a, b[0], b[1]);
+            dg_bf16::mma(tacc[j + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      if (c + 1 < chunks) continue;
+      // the tile is done: finish its scores into st (rows mrow, mrow + 8;
+      // columns ncol + 8 j, + 1)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v[2];
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int col = j0 + ncol + 8 * j + cc;
+            v[cc] = col < W
+                        ? __fsub_rn(__fsub_rn(__fmul_rn(2.f,
+                                                        tacc[j][2 * h + cc]),
+                                              qq[h]),
+                                    tsq[2 * j + cc])
+                        : (MODE == TS_MIN ? INFINITY : -INFINITY);
+            if constexpr (MODE == TS_KEYS)
+              if (col < W) v[cc] = fmaxf(rintf(__fmul_rn(v[cc], rs[h])), -lim);
+          }
+          *reinterpret_cast<float2*>(st + (mrow + 8 * h) * LST + ncol +
+                                     8 * j) = make_float2(v[0], v[1]);
+        }
+    } else {
     const float* qs = qbuf + (s & 1) * TS_C * TS_LDQ + 4 * ty;
     const float* gs = gbuf + (s & 1) * TS_C * TS_LDG + 4 * tx;
     const int nc = min(TS_C, Cg - c * TS_C);
@@ -890,18 +1012,19 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
           if constexpr (MODE == TS_KEYS)
             if (col < W) v[jj] = fmaxf(rintf(__fmul_rn(v[jj], rs[i])), -lim);
         }
-        *reinterpret_cast<float4*>(st + (4 * ty + i) * TS_J + 4 * tx +
+        *reinterpret_cast<float4*>(st + (4 * ty + i) * LST + 4 * tx +
                                    64 * h) = make_float4(v[0], v[1], v[2],
                                                          v[3]);
       }
     }
+    }  // the f32 product
     __syncthreads();
     // each warp walks its rows' scores in ascending column order; the next
     // step's barrier keeps st until every warp is done
     if constexpr (MODE == TS_MIN) {  // the rows' running minima
 #pragma unroll
       for (int rr = 0; rr < TS_WR; ++rr) {
-        const float* srow = st + (TS_WR * warp + rr) * TS_J;
+        const float* srow = st + (TS_WR * warp + rr) * LST;
         float m = fminf(fminf(srow[lane], srow[32 + lane]),
                         fminf(srow[64 + lane], srow[96 + lane]));
 #pragma unroll
@@ -914,7 +1037,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     if constexpr (MODE == TS_CLASSES) {  // every tile inserts
 #pragma unroll
       for (int rr = 0; rr < TS_WR; ++rr) {
-        const float* srow = st + (TS_WR * warp + rr) * TS_J;
+        const float* srow = st + (TS_WR * warp + rr) * LST;
         float thr = ts_kth<KL>(ls[rr], k);
 #pragma unroll 1
         for (int u = 0; u < TS_J / 32; ++u) {
@@ -952,7 +1075,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
       // best 64 go back to its row of st, scores then index bits
 #pragma unroll 1
       for (int rr = 0; rr < TS_WR; ++rr) {
-        float* srow = st + (TS_WR * warp + rr) * TS_J;
+        float* srow = st + (TS_WR * warp + rr) * LST;
         float v[4];
         int ix[4];
 #pragma unroll
@@ -971,7 +1094,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
       __syncwarp();
 #pragma unroll
       for (int rr = 0; rr < TS_WR; ++rr) {
-        const float* srow = st + (TS_WR * warp + rr) * TS_J;
+        const float* srow = st + (TS_WR * warp + rr) * LST;
 #pragma unroll
         for (int q = 0; q < KL; ++q) {
           ls[rr][q] = srow[32 * q + lane];
@@ -982,7 +1105,7 @@ __device__ __forceinline__ void tiled_topk(const float* __restrict__ G,
     }
 #pragma unroll
     for (int rr = 0; rr < TS_WR; ++rr) {
-      const float* srow = st + (TS_WR * warp + rr) * TS_J;
+      const float* srow = st + (TS_WR * warp + rr) * LST;
       float thr = ts_kth<KL>(ls[rr], k);
       int thi = ANY ? ts_kth<KL>(li[rr], k) : 0;  // the k-th entry's row
 #pragma unroll

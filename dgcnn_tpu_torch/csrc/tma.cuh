@@ -1,7 +1,7 @@
 // The Tensor Memory Accelerator (TMA) and shared-memory barriers
 // (mbarrier) on Hopper (sm_90a), as hand PTX: for conv_pool_wgmma.cu
-// (kernel 2's AMP form) and attention_fwd_wgmma.cu (kernel 14's AMP
-// forms).
+// (kernel 2's AMP form), attention_fwd_wgmma.cu (kernel 14's AMP forms)
+// and attention_bwd_wgmma.cu (kernel 15's AMP form).
 //
 // A tensor map (CUtensorMap, 128 bytes) describes a bf16 tensor in device
 // memory and the box one copy moves; the host encodes it with
@@ -165,6 +165,17 @@ __device__ __forceinline__ void load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Copies `bytes` (a multiple of 16) of contiguous device memory at src
+// into shared memory at dst (both 16-byte aligned), counted on `bar`.
+__device__ __forceinline__ void load_bulk(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -54,7 +54,13 @@ ring of shared-memory stages, P in registers as the A operand of P V), the
 earlier form's score sequence, tiles and sums kept, so that o, m and l are
 its bits; at d = 512 the earlier form (``csrc/attention_fwd_bf16.cu``:
 bf16 ``mma.sync``), which ``earlier=True`` forces at any d for the checks
-and the A/B.
+and the A/B.  Kernel 15's bf16 form likewise (``amp_bwd_route``): at d =
+128 and 256 ``csrc/attention_bwd_wgmma.cu`` (wgmma and TMA, two element
+passes: a Delta launch stationary on the queries, a main launch
+stationary on the keys that adds dk and dv and writes bf16 dS^T, and dq =
+dS K in a third launch; seven products where the earlier form ran nine),
+at d = 512 the earlier form (``csrc/attention_bwd_bf16.cu``), which
+``earlier=True`` forces at any d.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels,
 which raise on what they do not take.
@@ -235,12 +241,20 @@ def attention_amp_bwd_plain(q, k, v, m, l, seed, do, sm_scale: float,
     every product of bf16 values summed in f32 and rounded to bf16 once (dk
     and dv over all query rows: the tile-free function).  Queries run in
     the forward's chunks."""
+    return _attention_amp_bwd_plain(q, k, v, m, l, seed, do, sm_scale,
+                                    rate)[:3]
+
+
+def _attention_amp_bwd_plain(q, k, v, m, l, seed, do, sm_scale: float,
+                             rate: float = 0.0):
+    """``attention_amp_bwd_plain``'s (dq, dk, dv) and its Delta (B, h, Nq)
+    f32, for the checks."""
     b, h, nq, _ = q.shape
     nk = k.shape[2]
     rows = max(1, _CHUNK_BYTES // ((4 if rate == 0.0 else 16) * b * h * nk))
     kf, vf = k.float(), v.float()
     inv = 1.0 / (1.0 - rate)
-    dqs, dk, dv = [], 0.0, 0.0
+    dqs, dk, dv, deltas = [], 0.0, 0.0, []
     for r0 in range(0, nq, rows):
         r1 = min(r0 + rows, nq)
         qc, doc = q[:, :, r0:r1].float(), do[:, :, r0:r1].float()
@@ -255,11 +269,13 @@ def attention_amp_bwd_plain(q, k, v, m, l, seed, do, sm_scale: float,
         dv = dv + torch.matmul(
             pt.to(torch.bfloat16).float().transpose(2, 3), doc)
         delta = (dp * p).sum(dim=-1, keepdim=True)
+        deltas.append(delta[..., 0])
         ds = (p * (dp - delta) * sm_scale).to(torch.bfloat16).float()
         dqs.append(torch.matmul(ds, kf).to(torch.bfloat16))
         dk = dk + torch.matmul(ds.transpose(2, 3), qc)
     dq = dqs[0] if len(dqs) == 1 else torch.cat(dqs, dim=2)
-    return dq, dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+    return (dq, dk.to(torch.bfloat16), dv.to(torch.bfloat16),
+            torch.cat(deltas, dim=2))
 
 
 def attention_bwd_plain(q, k, v, seed, do, sm_scale: float,
@@ -443,19 +459,47 @@ def attention_fwd_amp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, m, l
 
 
+def amp_bwd_route(d: int) -> str:
+    """Kernel 15's bf16 route at head dim ``d``: "wgmma" at 128 and 256
+    (``csrc/attention_bwd_wgmma.cu``), "mma" at 512 (the earlier form:
+    dk and dv alone would take 512 registers a thread on wgmma), "none"
+    elsewhere (raises)."""
+    if d in (128, 256):
+        return "wgmma"
+    return "mma" if d in HEAD_DIMS else "none"
+
+
+def _bwd_wgmma_scratch_bytes(b: int, h: int, nq: int, nk: int) -> int:
+    """The scratch of kernel 15's wgmma form (``dg_attention_bwd_bf16_wgmma``):
+    over Nq rounded up to 128 rows, each row's record (16 bytes), its keep
+    bits over Nk rounded up to 64 keys (a bit a key) and its bf16 dS^T
+    column."""
+    nqa, nkp = -(-nq // 128) * 128, -(-nk // 64) * 64
+    return b * h * nqa * (16 + nkp // 8 + 2 * nkp)
+
+
 def attention_bwd_amp(q, k, v, m, l, seed, do, sm_scale: float,
-                      rate: float = 0.0):
+                      rate: float = 0.0, *, earlier: bool = False):
     """Kernel 15's bf16 form: (dq, dk, dv) bf16 of ``fused_attention`` on
     bf16 q, k and v, from the forward's row max ``m`` and sum ``l`` (B, h,
     Nq) f32, the ``seed`` of its mask and the output's bf16 cotangent
     ``do``, the mask regenerated.  CPU tensors take
-    ``attention_amp_bwd_plain``; CUDA tensors launch the kernel (two
-    launches, one count): q, k, v and do with rows that are not 16-byte
-    aligned are copied first.  The gradients are (B, h, N, d) views of (B,
-    N, h, d) tensors."""
+    ``attention_amp_bwd_plain``; CUDA tensors launch the kernel (one count
+    a call): the route is ``amp_bwd_route(d)``'s (wgmma: three launches;
+    the earlier form: two), ``earlier`` launches the earlier form at any
+    d; q, k, v and do with rows that are not 16-byte aligned are copied
+    first.  The gradients are (B, h, N, d) views of (B, N, h, d) tensors."""
+    return _attention_bwd_amp(q, k, v, m, l, seed, do, sm_scale, rate,
+                              earlier)[:3]
+
+
+def _attention_bwd_amp(q, k, v, m, l, seed, do, sm_scale: float,
+                       rate: float = 0.0, earlier: bool = False):
+    """``attention_bwd_amp``'s (dq, dk, dv) and the Delta (B, h, Nq) f32
+    the kernel summed, for the checks."""
     if q.device.type == "cpu":
-        return attention_amp_bwd_plain(q, k, v, m, l, seed, do, sm_scale,
-                                       rate)
+        return _attention_amp_bwd_plain(q, k, v, m, l, seed, do, sm_scale,
+                                        rate)
     b, h, nq, nk, d = _check_qkv(q, k, v, torch.bfloat16)
     _check_seed(seed, rate, q.device)
     _require(do.shape == q.shape and do.dtype == torch.bfloat16
@@ -469,17 +513,26 @@ def attention_bwd_amp(q, k, v, m, l, seed, do, sm_scale: float,
     dk, dv = (_heads(b, nk, h, d, q.device, torch.bfloat16)
               for _ in range(2))
     delta = torch.empty((b, h, nq), device=q.device, dtype=torch.float32)
+    wgmma = amp_bwd_route(d) == "wgmma" and not earlier
+    # the wgmma form's scratch: the rows' records, the keep bits, bf16 dS^T
+    scratch = [torch.empty(_bwd_wgmma_scratch_bytes(b, h, nq, nk),
+                           device=q.device, dtype=torch.uint8)
+               for _ in range(wgmma)]
+    name = ("dg_attention_bwd_bf16_wgmma" if wgmma
+            else "dg_attention_bwd_bf16")
     p = _build.ptr
     with torch.cuda.device(q.device):
-        rc = _fn("dg_attention_bwd_bf16",
-                 [_P] * 10 + [_I] * 5 + [_P, _F, _P, _U, _F, _P])(
+        rc = _fn(name, [_P] * 10 + [_I] * 5 + [_P, _F, _P, _U, _F]
+                 + [_P] * (1 + wgmma))(
             p(q), p(k), p(v), p(do), p(m), p(l), p(delta), p(dq), p(dk),
             p(dv), b, h, nq, nk, d, _strides(q, k, v, do, dq, dk, dv),
             float(sm_scale), p(seed) if rate > 0.0 else None,
-            keep_threshold(rate), 1.0 / (1.0 - rate), _build.stream_of(q))
+            keep_threshold(rate), 1.0 / (1.0 - rate),
+            *(p(t) for t in scratch), _build.stream_of(q))
     _build.check(rc, "attention_bwd (bf16)")
     attention_bwd_amp.launches += 1
-    return dq, dk, dv
+    attention_bwd_amp.wgmma_launches += wgmma
+    return dq, dk, dv, delta
 
 
 def attention_bwd(q, k, v, o, lse, seed, do, sm_scale: float,
@@ -633,8 +686,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # launches of each kernel since its count was last set to 0 (kernel 15's
 # CUDA launches count once a call; amp_launches: kernel 14's AMP forms,
 # amp_train_launches: its AMP training form; attention_bwd_amp: kernel
-# 15's bf16 form)
+# 15's bf16 form, wgmma_launches those on wgmma)
 fused_attention.launches = fused_attention.amp_launches = 0
 fused_attention.amp_train_launches = fused_attention.wgmma_launches = 0
 attention_bwd.launches = attention_bwd_amp.launches = 0
+attention_bwd_amp.wgmma_launches = 0
 dropout_mask.launches = 0

@@ -23,6 +23,11 @@ of those scores) unless ``DGCNN_TPU_EXTRACT`` says v1, and the rows of
 ``a`` rounded to bf16 before max, min, sum and sum of squares, which are
 f32.  ``knn_reduce_amp_plain`` and ``knn_reduce_xw_amp_plain`` are its
 plain versions; the CUDA form takes v2 at any k and raises on v1.
+On the tiled route (``amp_route``: k <= 64, Cg <= 128) its scores come
+from the tensor cores in both its passes: bf16 hi and lo operands padded
+to a multiple of 16 channels, bf16 ``mma.sync`` products with f32 sums;
+``simt=True`` keeps the earlier form, the f32 fmaf chain on the CUDA
+cores, callable (the oracle and the A/B's other side).
 Its select-x form (kernel 4) rounds x to bf16, projects the cloud and
 rounds each selected row of the product to bf16: the TPU kernel's
 ``bf16(bf16(x)[idx] @ w)``, a selection commuting with the projection.
@@ -134,17 +139,48 @@ def _check_select(name, graph, feats, co: int, k: int, variant: str,
     _require(name, 1 <= k <= n, f"k={k} out of range for N={n}")
 
 
+# the widest graph whose AMP scores take the tensor cores: its bf16
+# operands, 3 Cg channels padded to 16, rest in shared memory for the v2
+# grid's 128 query rows (csrc/knn_reduce.cu, RM_MAX_KP = 384)
+TC_MAX_CG = 128
+
+
+def amp_route(k: int, n: int, co: int, cg: int) -> str:
+    """The route of kernels 3 and 4's AMP forms on the card at (k, N, Co,
+    Cg): "tensor" (the tiled selection, its scores on the tensor cores) at
+    k <= ``TILED_MAX_K`` and Cg <= ``TC_MAX_CG`` (every model's), "simt"
+    (the tiled selection, f32 scores on the CUDA cores: the earlier form)
+    at a wider graph, "rowwarp" (the row-warp selection, f32 scores on the
+    CUDA cores) above k = 64, "none" where the kernels raise.
+    ``simt=True`` sends the tiled route to its earlier form,
+    ``rowwarp=True`` to the row-warp route."""
+    if (n % 128 or n > MAX_N or not 1 <= k <= n or not 1 <= co <= MAX_CO
+            or cg < 1):
+        return "none"
+    if k > TILED_MAX_K:
+        return "rowwarp"
+    return "tensor" if cg <= TC_MAX_CG else "simt"
+
+
+def amp_operand_floats(cg: int) -> int:
+    """The floats of each AMP score operand a point takes: 3 Cg f32 (the
+    row-warp route and the earlier form) or the tensor-core route's bf16
+    channels, 3 Cg padded to a multiple of 16, whichever is more."""
+    return max(3 * cg, (3 * cg + 15) // 16 * 8)
+
+
 def _outputs(graph: torch.Tensor, co: int, k: int, v2: bool,
              amp: bool = False):
     """idx, the four reductions and the scratch: sq, for the v2 form the
     rows' grids, and for the AMP form before them the two score operands
-    (B * N * 3 Cg floats each)."""
+    (``amp_operand_floats(Cg)`` floats a point each)."""
     b, n, cg = graph.shape
     idx = torch.empty((b, n, k), device=graph.device, dtype=torch.int32)
     red = [torch.empty((b, n, co), device=graph.device, dtype=torch.float32)
            for _ in range(4)]
-    scratch = [torch.empty((b * n * 3 * cg,), device=graph.device,
-                           dtype=torch.float32) for _ in range(2 * amp)]
+    scratch = [torch.empty((b * n * amp_operand_floats(cg),),
+                           device=graph.device, dtype=torch.float32)
+               for _ in range(2 * amp)]
     scratch += [torch.empty((b * n,), device=graph.device,
                             dtype=torch.float32)
                 for _ in range(1 + (v2 or amp))]
@@ -152,7 +188,7 @@ def _outputs(graph: torch.Tensor, co: int, k: int, v2: bool,
 
 
 def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
-               amp: bool = False, rowwarp: bool = False):
+               amp: bool = False, rowwarp: bool = False, simt: bool = False):
     """kNN over ``graph`` (B, N, Cg), then the max, min, sum and sum of
     squares over the k neighbours of ``a`` (B, N, Co).
 
@@ -170,9 +206,13 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     forms), the row-warp selection (a warp a row, its N scores in
     registers, or in shared memory above N = 4096 or Co > 128 at N >
     2048: ``csrc/knn_select.cuh``'s ``with_npl``), in every form.  All
-    give the same bits.
+    give the same bits, but for the AMP form's tiled route, whose
+    tensor-core scores sum in another order (its earlier form, ``simt``,
+    gives the row-warp route's bits).
 
-    ``amp`` runs the AMP form (module docstring)."""
+    ``amp`` runs the AMP form (module docstring): on the tiled route its
+    scores on the tensor cores (``amp_route``), or with ``simt`` its
+    earlier form (the f32 chain on the CUDA cores)."""
     variant = training_variant(amp)
     if graph.device.type == "cpu":
         if amp:
@@ -187,10 +227,13 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     name = ("dg_knn_reduce_amp" if amp else
             "dg_knn_reduce_v2" if v2 else "dg_knn_reduce")
     idx, red, scratch = _outputs(graph, co, k, v2, amp)
-    # the v1 entry picks its route from k alone; the others take rowwarp
-    forced = [rowwarp] if v2 or amp else []
+    # the v1 entry picks its route from k alone; the v2 one takes rowwarp,
+    # the AMP one rowwarp and simt as flags
+    forced = [rowwarp | simt << 1] if amp else [rowwarp] if v2 else []
     _require("knn_reduce", not rowwarp or forced,
              "the v1 form's row-warp route is its k > 64 route")
+    _require("knn_reduce", not simt or amp,
+             "simt names the AMP form's earlier form")
     fn = _fn(name, [_P] * (7 + len(scratch)) + [_I] * (5 + len(forced))
              + [_P])
     rowwarp = rowwarp or k > TILED_MAX_K
@@ -204,18 +247,22 @@ def knn_reduce(graph: torch.Tensor, a: torch.Tensor, k: int, *,
     knn_reduce.v2_launches += v2
     knn_reduce.amp_launches += amp
     knn_reduce.rowwarp_launches += rowwarp and (v2 or amp)
+    knn_reduce.tc_launches += (amp and not (rowwarp or simt)
+                           and amp_route(k, n, co, cg) == "tensor")
     knn_reduce.srow_launches += srow_count() - srow
     return (idx, *red)
 
 
 def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                  k: int, *, amp: bool = False, rowwarp: bool = False):
+                  k: int, *, amp: bool = False, rowwarp: bool = False,
+                  simt: bool = False):
     """``knn_reduce(graph, x @ w, k)`` with the projection inside the
     kernel's launch: ``x`` (B, N, Cin), ``w`` (Cin, Co).  Same outputs and
     the same rules (routes too) for CPU and CUDA tensors as
     ``knn_reduce``; ``amp``:
-    ``knn_reduce(graph, round_bf16(x) @ w, k, amp=True)``, whose rows of
-    the product are rounded to bf16 before the reductions."""
+    ``knn_reduce(graph, round_bf16(x) @ w, k, amp=True, simt=simt)``,
+    whose rows of the product are rounded to bf16 before the
+    reductions."""
     variant = training_variant(amp)
     if graph.device.type == "cpu":
         if amp:
@@ -235,9 +282,11 @@ def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     proj = [torch.empty((b * n * cin,), device=graph.device,
                         dtype=torch.float32)] * amp + [
         torch.empty((b, n, co), device=graph.device, dtype=torch.float32)]
-    forced = [rowwarp] if v2 or amp else []
+    forced = [rowwarp | simt << 1] if amp else [rowwarp] if v2 else []
     _require("knn_reduce_xw", not rowwarp or forced,
              "the v1 form's row-warp route is its k > 64 route")
+    _require("knn_reduce_xw", not simt or amp,
+             "simt names the AMP form's earlier form")
     fn = _fn(name, [_P] * (8 + len(proj) + len(scratch))
              + [_I] * (6 + len(forced)) + [_P])
     rowwarp = rowwarp or k > TILED_MAX_K
@@ -255,6 +304,8 @@ def knn_reduce_xw(graph: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     knn_reduce_xw.v2_launches += v2
     knn_reduce_xw.amp_launches += amp
     knn_reduce_xw.rowwarp_launches += rowwarp and (v2 or amp)
+    knn_reduce_xw.tc_launches += (amp and not (rowwarp or simt)
+                              and amp_route(k, n, co, cg) == "tensor")
     knn_reduce_xw.srow_launches += srow_count() - srow
     return (idx, *red)
 
@@ -290,11 +341,13 @@ def xw_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 # launches of each kernel since its count was last set to 0 (v2_launches:
 # those of its exact v2 form, amp_launches: those of its AMP form,
-# rowwarp_launches: those of either on the row-warp route; srow_launches:
-# those of any form on the row-warp route's shared row)
+# rowwarp_launches: those of either on the row-warp route; tc_launches:
+# those of the AMP form with its tensor-core scores; srow_launches: those
+# of any form on the row-warp route's shared row)
 knn_reduce.launches = knn_reduce.v2_launches = knn_reduce.amp_launches = 0
 knn_reduce_xw.launches = knn_reduce_xw.v2_launches = 0
 knn_reduce_xw.amp_launches = 0
 knn_reduce.rowwarp_launches = knn_reduce_xw.rowwarp_launches = 0
 knn_reduce.srow_launches = knn_reduce_xw.srow_launches = 0
+knn_reduce.tc_launches = knn_reduce_xw.tc_launches = 0
 xw_project.launches = 0
