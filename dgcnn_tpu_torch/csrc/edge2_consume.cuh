@@ -27,17 +27,22 @@ constexpr int XC2 = 128;  // C2 <= XC2
 constexpr int XP = 64;    // second-conv channels a pass: the row stride of y
 constexpr size_t XSMEM_CONSUME =
     sizeof(float) * (XE * XC1 + XE * XP + XC1 * XC2 + 2 * XC1 + 2 * XC2) +
-    sizeof(int) * 4 * XE;
-constexpr size_t XSMEM_BYTES = XSMEM_CONSUME > dg::TS_SMEM_BYTES
-                                   ? XSMEM_CONSUME
-                                   : dg::TS_SMEM_BYTES;
+    sizeof(int) * (4 * XE + XR);
+constexpr size_t XSMEM_SELECT = dg::TS_SMEM_BYTES > dg::TC_SMEM_BYTES
+                                    ? dg::TS_SMEM_BYTES
+                                    : dg::TC_SMEM_BYTES;
+constexpr size_t XSMEM_BYTES =
+    XSMEM_CONSUME > XSMEM_SELECT ? XSMEM_CONSUME : XSMEM_SELECT;
 
 // The score operands of the v3 form's second scoring of a row: the
-// cloud's gc / gq rows (Cs channels) and squared norms (the batch's from
-// blockIdx.y), N points, and the candidates: the cloud (starts null, W =
-// N) or the W rows from starts[i / tile].
+// cloud's gc / gq rows (Cs channels of OP: f32, or the tensor-core forms'
+// bf16) and squared norms (the batch's from blockIdx.y), N points, and the
+// candidates: the cloud (starts null, W = N) or the W rows from starts[i
+// / tile].
+template <typename OP = float>
 struct ScoreOperands {
-  const float *gc, *gq, *sq;
+  const OP *gc, *gq;
+  const float* sq;
   const int* starts;
   int N, Cs, tile, W;
 };
@@ -52,13 +57,15 @@ inline bool tiled_route(int C1, int C2, int k) {
 // ascending row order from zero and divided by the count, into the
 // class's slot of hb (lanes over channels lane and lane + 32).  A class's
 // score is its lowest member's, and its members are the candidate rows
-// of row i (so) that score the same: each score is the tiled product's
-// fmaf chain over gq's row i against gc's (Cs channels) finished by its _rn
+// of row i (so) that score the same: each score is the tile's over gq's
+// row i against gc's (Cs channels; knn_select.cuh's lane_score: the fmaf
+// chain, or the tile's mma.sync k16 steps) finished by its _rn
 // operations, the selection's bits.  One warp a row; rows without a tied
 // class return at once.
+template <typename OP>
 __device__ __forceinline__ void e2t_class_means(
     float* hb, const int* jrow, const int* ecnt, float* evl, int r, int k,
-    int i, const float* __restrict__ A, int C1, const ScoreOperands& so,
+    int i, const float* __restrict__ A, int C1, const ScoreOperands<OP>& so,
     int lane) {
   const int* cnt = ecnt + r * k;
   float* val = evl + r * k;
@@ -67,21 +74,23 @@ __device__ __forceinline__ void e2t_class_means(
   if (!__any_sync(0xffffffffu, tied)) return;
   // the cloud's operands and the row's candidates
   const int b = blockIdx.y, Cs = so.Cs;
-  const float* G = so.gc + (size_t)b * so.N * Cs;
-  const float* GQ = so.gq + (size_t)b * so.N * Cs;
+  const OP* G = so.gc + (size_t)b * so.N * Cs;
+  const OP* GQ = so.gq + (size_t)b * so.N * Cs;
   const float* SQ = so.sq + (size_t)b * so.N;
   const int start = so.starts ? so.starts[i / so.tile] : 0;
   const int end = start + so.W;
-  const float* qrow = GQ + (size_t)i * Cs;
+  const OP* qrow = GQ + (size_t)i * Cs;
   const float qq = SQ[i];
+  // every lane scores (the tensor-core form's is the warp's product)
   auto score = [&](int j) {
-    const float* grow = G + (size_t)j * Cs;
-    float acc = 0.f;
-    for (int c = 0; c < Cs; ++c) acc = fmaf(qrow[c], grow[c], acc);
-    return __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc), qq), SQ[j]);
+    return dg::lane_score<OP>(qrow, G, Cs, SQ, qq, j, lane);
   };
-  for (int t = lane; t < k; t += 32)
-    if (cnt[t] > 1) val[t] = score(-2 - jrow[r * k + t]);
+  for (int t0 = 0; t0 < k; t0 += 32) {
+    const int t = t0 + lane;
+    const bool tied = t < k && cnt[t] > 1;
+    const float s = score(tied ? -2 - jrow[r * k + t] : start);
+    if (tied) val[t] = s;
+  }
   for (int t = 0; t < k; ++t)
     if (cnt[t] > 1) {
       hb[(r * k + t) * XC1 + lane] = 0.f;
@@ -126,13 +135,13 @@ __device__ __forceinline__ void e2t_class_means(
 // would keep them in registers through the consumer: e2t_class_means
 // scores a tied class's lowest member again.  OUT: float, or bf16 rounded
 // from the f32 max (AMP).
-template <int KL, bool V3, typename OUT>
+template <int KL, bool V3, typename OUT, typename OP>
 __device__ __forceinline__ void e2t_consume(
     float* tsm, const int (&li)[dg::TS_WR][KL], const float* __restrict__ A,
     const float* __restrict__ b1b, int C1, const float* __restrict__ w2,
     int C2, const float* __restrict__ s1, const float* __restrict__ t1,
     const float* __restrict__ s2, const float* __restrict__ t2, float slope,
-    int r0, int k, OUT* __restrict__ outb, const ScoreOperands& so) {
+    int r0, int k, OUT* __restrict__ outb, const ScoreOperands<OP>& so) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* hb = tsm;              // h1 of the tile's edges (XE, XC1)
   float* yb = hb + XE * XC1;    // h2 of one pass (XE, XP)
@@ -145,6 +154,8 @@ __device__ __forceinline__ void e2t_consume(
   int* eloc = jrow + XE;                          // its row in the tile
   int* ecnt = eloc + XE;  // v3: its class's count (0: no class)
   float* evl = reinterpret_cast<float*>(ecnt + XE);  // v3: a tied class's score
+  int* ncls = reinterpret_cast<int*>(evl + XE);  // v3: a tile row's classes
+  constexpr bool TC = std::is_same_v<OP, __nv_bfloat16>;
   const int C1p = (C1 + 3) & ~3, ldw = (C2 + 3) & ~3;
   __syncthreads();  // every warp is done with the selection's shared memory
   for (int e = tid; e < C1p * ldw; e += dg::TS_THREADS) {
@@ -169,9 +180,11 @@ __device__ __forceinline__ void e2t_consume(
     const int nr = min(R, dg::TS_R - rt);  // rows r0 + rt .. of this tile
     // each warp writes the lists of its rows that fall in the tile; the
     // previous tile read jrow and eloc before two barriers, and its max
-    // read ecnt after them
-    if constexpr (V3)
+    // read ecnt after them (the tensor-core forms' max reads ncls, written
+    // after the next barrier)
+    if constexpr (V3 && !TC)
       if (rt > 0) __syncthreads();
+    [[maybe_unused]] bool tied = false;  // the tensor-core v3: a tied slot
 #pragma unroll
     for (int rr = 0; rr < dg::TS_WR; ++rr) {
       const int r = dg::TS_WR * warp + rr - rt;
@@ -186,6 +199,7 @@ __device__ __forceinline__ void e2t_consume(
               const int low = wstart + dg::class_low(li[rr][q]);
               jrow[r * k + t] = cnt == 1 ? low : (cnt > 1 ? -2 - low : -1);
               ecnt[r * k + t] = cnt;
+              if constexpr (TC) tied |= cnt > 1;
             } else {
               jrow[r * k + t] = li[rr][q];
             }
@@ -195,12 +209,27 @@ __device__ __forceinline__ void e2t_consume(
       }
     }
     for (int e = nr * k + tid; e < XE; e += dg::TS_THREADS) jrow[e] = -1;
-    __syncthreads();
-    if constexpr (V3) {
-      if (warp < nr)
-        e2t_class_means(hb, jrow, ecnt, evl, warp, k, r0 + rt + warp, A, C1,
-                        so, lane);
+    // the tensor-core v3 finds a tile's class means only where one of its
+    // rows holds a tied class
+    bool means = V3;
+    if constexpr (V3 && TC)
+      means = __syncthreads_or(tied);
+    else
       __syncthreads();
+    if constexpr (V3) {
+      if (warp < nr) {
+        if constexpr (TC) {  // the row's classes: its list's present prefix
+          int n = 0;
+          for (int t0 = 0; t0 < k; t0 += 32)
+            n += __popc(__ballot_sync(
+                0xffffffffu, t0 + lane < k && ecnt[warp * k + t0 + lane] > 0));
+          if (lane == 0) ncls[warp] = n;
+        }
+        if (means)
+          e2t_class_means(hb, jrow, ecnt, evl, warp, k, r0 + rt + warp, A,
+                          C1, so, lane);
+      }
+      if (means) __syncthreads();
     }
     // h1 of every edge (e2_h1_row's operations); empty slots hold zeros
     dg::e2t_stage_h1<V3>(A, b1b + (size_t)(r0 + rt) * C1, C1, jrow, eloc,
@@ -236,9 +265,15 @@ __device__ __forceinline__ void e2t_consume(
         const int r = q / XP, c = q - r * XP;
         if (p0 + c < C2) {
           float mx = -INFINITY;
-          for (int t = 0; t < k; ++t)
-            if (!V3 || ecnt[r * k + t] > 0)
+          if constexpr (V3 && TC) {  // the present slots only
+            const int kr = ncls[r];
+            for (int t = 0; t < kr; ++t)
               mx = fmaxf(mx, yb[(r * k + t) * XP + c]);
+          } else {
+            for (int t = 0; t < k; ++t)
+              if (!V3 || ecnt[r * k + t] > 0)
+                mx = fmaxf(mx, yb[(r * k + t) * XP + c]);
+          }
           dg::store_out(outb + (size_t)(r0 + rt + r) * C2 + p0 + c, mx);
         }
       }

@@ -16,10 +16,15 @@
 //   scores    _scores(exact=False): bf16 inputs give one product of bf16
 //             values (exact products, f32 sums); f32 inputs split into
 //             bf16 hi and lo parts and the inner product is hi.hi + hi.lo
-//             + lo.hi.  amp_graph_kernel writes the operands of one chain
-//             that gives it (knn_select.cuh's modes: [hi | hi | lo]
-//             against [hi | lo | hi], 3 Cg channels), or the bf16 graph
-//             as f32.  The squared norms are of the f32 values.
+//             + lo.hi.  The tensor-core forms (below) take the bf16
+//             operands [hi | hi | lo | 0..] against [hi | lo | hi | 0..],
+//             3 Cg padded to Kp, a multiple of 16 (knn_reduce.cu's
+//             launch_amp_operands), or the bf16 graph itself (Cg padded
+//             to Kp where it is not a multiple of 16); the earlier form
+//             amp_graph_kernel's f32 operands of one chain that gives it
+//             (knn_select.cuh's modes: [hi | hi | lo] against [hi | lo |
+//             hi], 3 Cg channels), or the bf16 graph as f32.  The squared
+//             norms are of the f32 values.
 //   payload   select_x_plan (:244): 3->64 and 64->64 project-first with
 //             v3, 64->128 project-first with v2, 128->256 select-x with
 //             v2.  Project-first selects a = x @ W_nbr rounded to bf16,
@@ -42,22 +47,35 @@
 //             row; a tied class (duplicate points, or equal f32 scores) is
 //             the mean of its members' rows, summed in ascending column
 //             order from zero and divided by the count: the warp scores
-//             its row against the cloud again, with the tiled product's
-//             fmaf chain (the same bits), to find the members.  Slots
+//             its row against the cloud again as the tile did
+//             (knn_select.cuh's lane_score: the fmaf chain, or the tile's
+//             mma.sync k16 steps; the same bits), to find the members.
+//             Slots
 //             past the row's last class are skipped (the walk consumes
 //             that class again, which max and min ignore).
 //   epilogue  the f32 affine and LeakyReLU of the exact route, rounded to
 //             bf16 (to nearest even) on the store.
-// Routes, from k before the launch: at k <= TS_LIST (every model's k) the
-// tiled selection (edge_conv_amp_kernel, above: v2 a TS_MIN pass, then
-// TS_KEYS); above it, or asked for (the oracle of the tiled route), the
-// row-warp selection in the same modes (edge_conv_amp_rowwarp_kernel:
-// knn_select.cuh's row_keys and pop_class on a warp's row of scores, one
-// scoring pass, no tied-class rescan), the same neighbours and the same
-// bits.
-// Bound: as the exact stage at CUDA-core rates (the products are f32
-// FMAs; bf16 mma would change the sums' order); the tiled v2 stages score
-// the cloud twice.
+// Routes, from k and the caller's flags before the launch (the Python
+// wrapper's amp_route): at k <= TS_LIST (every model's k) the tiled
+// selection (edge_conv_amp_kernel, above: v2 a TS_MIN pass, then
+// TS_KEYS).  On the cloud, with the tensor flag (Kp <= TC_MAX_KP: every
+// model's stages), its AMP forms score on the tensor cores: each 64 x 128
+// tile's scores are bf16 mma.sync m16n8k16 products with f32 sums
+// (tiled_topk over __nv_bfloat16), the v2 grid is knn_reduce.cu's
+// knn_rowmin_tc_kernel over the same operands (the keys' bits), and v3's
+// first tile fills each row's class list by the sorting network.  A bf16
+// x bf16 product is exact in f32; the sums' order and the tensor core's
+// truncating adds differ from the fmaf chain, as the TPU's MXU differs,
+// within the AMP contract (ROADMAP B).  Without the flag (simt, the
+// windows of kernel 12, the exact v2 form) the earlier form: the fmaf
+// chain over f32 operands on the CUDA cores.  Above k = TS_LIST, or asked
+// for, the row-warp selection in the same modes
+// (edge_conv_amp_rowwarp_kernel: knn_select.cuh's row_keys and pop_class
+// on a warp's row of scores, one scoring pass, no tied-class rescan): the
+// earlier tiled form's neighbours and bits, its oracle.
+// Bound: the tensor-core forms' products at the bf16 tensor-core rate; the
+// earlier form's at CUDA-core rates, its tiled v2 stages scoring the cloud
+// twice.
 #include "edge_conv_amp.cuh"
 
 namespace {
@@ -89,6 +107,19 @@ __global__ void amp_graph_kernel(const void* __restrict__ graph, int rows,
     gc[o + Cg] = l;
     gc[o + 2 * Cg] = h;
   }
+}
+
+__global__ void sqnorm_bf16_kernel(const __nv_bfloat16* __restrict__ g,
+                                   int rows, int C, float* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= rows) return;
+  const __nv_bfloat16* p = g + (size_t)r * C;
+  float acc = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float v = __bfloat162float(p[c]);
+    acc = fmaf(v, v, acc);
+  }
+  out[r] = acc;
 }
 
 __global__ void upcast_kernel(const __nv_bfloat16* __restrict__ x, size_t n,
@@ -229,7 +260,8 @@ cudaError_t launch_var_rowwarp(const dg::AmpVarArgs& a, cudaStream_t st) {
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kern<<<dim3(a.N / QB, a.B), QB * 32, smem, st>>>(
-        a.gc, a.gq, a.Cs, a.sq, a.lim, a.ac, a.Co, a.scale, a.bias, a.slope,
+        static_cast<const float*>(a.gc), static_cast<const float*>(a.gq),
+        a.Cs, a.sq, a.lim, a.ac, a.Co, a.scale, a.bias, a.slope,
         a.N, a.k, a.starts, a.tile, a.W, reinterpret_cast<OUT*>(a.out));
     return cudaGetLastError();
   });
@@ -253,6 +285,26 @@ cudaError_t launch_rowmin_kernel(const float* gc, const float* gq, int Cs,
 }  // namespace
 
 namespace dg {
+
+cudaError_t launch_tc_operands(const void* graph, bool bf16, int rows,
+                               int Cg, __nv_bfloat16* gq, __nv_bfloat16* gc,
+                               float* sq, const __nv_bfloat16** tc,
+                               const __nv_bfloat16** tq, cudaStream_t st) {
+  const int Kp = tc_channels(Cg, bf16);
+  *tc = *tq = static_cast<const __nv_bfloat16*>(graph);
+  if (!(bf16 && Kp == Cg)) {
+    const cudaError_t e =
+        launch_amp_operands(graph, bf16, rows, Cg, Kp, gq, gc, st);
+    if (e != cudaSuccess) return e;
+    *tc = gc;
+    *tq = bf16 ? gc : gq;
+  }
+  if (!bf16)
+    return launch_sqnorm(static_cast<const float*>(graph), rows, Cg, sq, st);
+  sqnorm_bf16_kernel<<<(rows + 255) / 256, 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(graph), rows, Cg, sq);
+  return cudaGetLastError();
+}
 
 cudaError_t launch_amp_graph(const void* graph, bool bf16, int rows, int Cg,
                              float* gq, float* gc, cudaStream_t st) {
@@ -284,9 +336,12 @@ cudaError_t launch_rowmin(const float* gc, const float* gq, int Cs,
 // bf16), f32 in the exact form (bit 4); wcat (Cin, 2 Co) f32 = [W_nbr |
 // W_ctr] as the stage projects with them (rounded to bf16 where the plan
 // says); scale/bias (Co,) f32; bit 2: select-x (AMP v2), bit 3: v3
-// (AMP).  Scratch: gq and gc (AMP only: B * N * Cs f32, Cs = Cg for
-// a bf16 graph, when gq is unread, 3 Cg for an f32 one), xf (B * N * Cin
-// f32, a bf16 x only); sq and rmin (B * N f32), ac (B * N * 2 Co f32);
+// (AMP); bit 6: the tensor-core scores (AMP on the cloud's tiled route,
+// Kp = tc_channels(Cg) <= TC_MAX_KP).  Scratch: gq and gc (AMP only: B * N
+// * Cs f32, Cs = Cg for a bf16 graph, when gq is unread, 3 Cg for an f32
+// one; with bit 6 B * N * Kp bf16, gq unread for a bf16 graph and neither
+// for one whose Cg is a multiple of 16), xf (B * N * Cin f32, a bf16 x
+// only); sq and rmin (B * N f32), ac (B * N * 2 Co f32);
 // out (B, N, Co), bf16 (AMP) or f32 (exact).  starts null: the candidates
 // are the cloud (tile and W = N); else kernel 12's windows: the W rows
 // from starts[r / tile] of a sorted cloud.  N a multiple of 128, N (the
@@ -304,27 +359,41 @@ extern "C" int dg_edge_conv_eval_variant(
   const bool gbf = flags & 1, xbf = flags & 2, sx = flags & 4, v3 = flags & 8;
   const bool exact = flags & 16, banded = starts != nullptr;
   const bool rowwarp = (flags & 32) || k > dg::TS_LIST;
+  const bool tensor = flags & 64;
+  const int Kp = dg::tc_channels(Cg, gbf);
   if (B < 1 || N % 128 != 0 || (banded ? W : N) > MAX_N || Co < 1 ||
       Co > dg::MAX_CO || Cg < 1 || Cin < 1 || k < 1 || k > W ||
       W % 128 != 0 || W < 128 || W > N ||
       (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0
               : W != N) ||
-      (sx && v3) || (exact && (gbf || xbf || sx || v3)))
+      (sx && v3) || (exact && (gbf || xbf || sx || v3)) ||
+      (tensor && (exact || banded || rowwarp || Kp > dg::TC_MAX_KP)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * N;
+  using bf16 = __nv_bfloat16;
   const float* gf = reinterpret_cast<const float*>(graph);
-  const float *gcp = gf, *gqp = gf;
+  const void *gcp = gf, *gqp = gf;
   int Cs = Cg;
   cudaError_t e;
-  if (!exact) {
-    e = dg::launch_amp_graph(graph, gbf, rows, Cg, gq, gc, st);
-    if (e != cudaSuccess) return (int)e;
-    gcp = gc;
-    gqp = gbf ? gc : gq;
-    Cs = gbf ? Cg : 3 * Cg;
+  if (tensor) {  // the bf16 operands, the graph itself where it is one
+    const bf16 *tc, *tq;
+    e = dg::launch_tc_operands(graph, gbf, rows, Cg,
+                               reinterpret_cast<bf16*>(gq),
+                               reinterpret_cast<bf16*>(gc), sq, &tc, &tq, st);
+    gcp = tc;
+    gqp = tq;
+    Cs = Kp;
+  } else {
+    if (!exact) {
+      e = dg::launch_amp_graph(graph, gbf, rows, Cg, gq, gc, st);
+      if (e != cudaSuccess) return (int)e;
+      gcp = gc;
+      gqp = gbf ? gc : gq;
+      Cs = gbf ? Cg : 3 * Cg;
+    }
+    e = dg::launch_sqnorm(gbf ? gc : gf, rows, Cg, sq, st);
   }
-  e = dg::launch_sqnorm(gbf ? gc : gf, rows, Cg, sq, st);
   if (e != cudaSuccess) return (int)e;
   const float* xp = reinterpret_cast<const float*>(x);
   if (xbf) {
@@ -338,7 +407,15 @@ extern "C" int dg_edge_conv_eval_variant(
   const dg::AmpVarArgs a{gcp,    gqp, sq, ac, scale, bias, rmin,
                          out,    starts, B, N, Cs, Co, k,
                          tile,   W,   dg::keys_lim(W), slope};
-  using bf16 = __nv_bfloat16;
+  if (tensor) {
+    if (!v3) {
+      e = dg::launch_rowmin_tc(static_cast<const bf16*>(gcp),
+                               static_cast<const bf16*>(gqp), Kp, sq, B, N,
+                               rmin, st);
+      if (e != cudaSuccess) return (int)e;
+    }
+    return (int)dg::launch_amp_tc(a, v3, !sx, st);
+  }
   if (rowwarp) {  // one launch: the row's grid comes from its scores
     if (v3) return (int)launch_var_rowwarp<true, true, bf16>(a, st);
     if (exact) return (int)launch_var_rowwarp<false, false, float>(a, st);
@@ -348,7 +425,9 @@ extern "C" int dg_edge_conv_eval_variant(
   if (v3)
     return (int)(banded ? dg::launch_amp_banded(a, true, true, false, st)
                         : launch_var_shape<true, true, false, bf16>(a, st));
-  e = dg::launch_rowmin(gcp, gqp, Cs, sq, B, N, starts, tile, W, rmin, st);
+  e = dg::launch_rowmin(static_cast<const float*>(gcp),
+                        static_cast<const float*>(gqp), Cs, sq, B, N, starts,
+                        tile, W, rmin, st);
   if (e != cudaSuccess) return (int)e;
   if (banded) return (int)dg::launch_amp_banded(a, false, !sx && !exact,
                                                  exact, st);

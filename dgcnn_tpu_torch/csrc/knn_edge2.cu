@@ -184,7 +184,7 @@ __global__ void __launch_bounds__(dg::TS_THREADS, 2)
   e2t_consume<KL, false>(tsm, li, a1 + (size_t)b * N * C1,
                          b1 + (size_t)b * N * C1, C1, w2, C2, s1, t1, s2, t2,
                          slope, r0, k, out + (size_t)b * N * C2,
-                         ScoreOperands{});
+                         ScoreOperands<>{});
 }
 
 template <int KL, bool BANDED>

@@ -7,11 +7,20 @@
 // mode (_train_exact() false: pallas_knn.py:981-1027, the bf16 output at
 // :1096), and in the exact mode under DGCNN_TPU_EXTRACT=v2 (the semseg
 // CLI's pin; _extract_version, :225):
-//   scores    AMP: _scores(exact=False), bf16x3 for an f32 graph (one
-//             chain over [hi | hi | lo] against [hi | lo | hi], 3 Cg
-//             channels), one product of bf16 values for a bf16 graph
-//             (edge_conv_amp.cu's amp_graph_kernel writes the operands);
-//             exact v2: the f32 graph itself.
+//   scores    AMP: _scores(exact=False), bf16x3 for an f32 graph, one
+//             product of bf16 values for a bf16 graph.  The tensor-core
+//             forms (the tensor flag: the cloud's tiled route, Kp <=
+//             TC_MAX_KP, every model's blocks) take bf16 operands, [hi |
+//             hi | lo | 0..] against [hi | lo | hi | 0..] (Kp = 3 Cg
+//             padded to 16; knn_reduce.cu's launch_amp_operands) or the
+//             bf16 graph itself, each tile's scores bf16 mma.sync
+//             products with f32 sums (tiled_topk over __nv_bfloat16), the
+//             v2 grid knn_reduce.cu's knn_rowmin_tc_kernel, v3's first
+//             tile filled by the sorting network; the earlier form (simt,
+//             the windows of kernel 13) one fmaf chain over f32 operands
+//             ([hi | hi | lo] against [hi | lo | hi], 3 Cg channels;
+//             edge_conv_amp.cu's amp_graph_kernel writes them); exact v2:
+//             the f32 graph itself.
 //   v2        a TS_MIN pass of the tiled selection writes each row's least
 //             score over its candidates; the TS_KEYS pass lists the k
 //             largest quantized scores (knn_select.cuh), lowest row first
@@ -28,20 +37,22 @@
 //             output bf16 (AMP, rounded to nearest even from the f32 max)
 //             or f32 (exact v2).
 // Tied classes (duplicate points) need their members: a row that has one
-// scores its candidates once more with the tiled product's chain (the
+// scores its candidates once more as the tile did (knn_select.cuh's
+// lane_score: the fmaf chain, or the tile's mma.sync k16 steps; the
 // selection's bits) and adds each member's a1 row to its class's slot of
 // the consumer's h1 tile.  The tiled route at k <= 64, C1 <= 64 and C2 <=
-// 128 (every model); the class walk at k > 32 runs one block an SM
-// (VARIANT_BLOCKS), the other instances two.  Other shapes (k > 64, as the
+// 128 (every model); the earlier form's class walk at k > 32 runs one
+// block an SM (VARIANT_BLOCKS), the other instances two.  Other shapes (k > 64, as the
 // JAX kernel takes any k), or the oracle's call, take the row-warp route
 // (knn_edge2_variant_rowwarp_kernel): knn_select.cuh's row_keys and
 // pop_class on a warp's row of scores, whose class members come from the
 // ballots of the row's scores (registers, or the shared row above 4096
-// points), with no second scoring; the same neighbours, classes and bits.
+// points), with no second scoring; the earlier tiled form's neighbours,
+// classes and bits (its oracle).
 //
-// Bound on an H100 SXM: operations.  The scores' products run on the CUDA
-// cores in f32 FMAs on bf16 values (bf16 mma would change the sums'
-// order); at the DGCNNSemSeg shapes (B=16, N=4096, k=20) a block's bf16x3
+// Bound on an H100 SXM: operations, the tensor-core forms' scores at the
+// bf16 tensor-core rate (the earlier form's at the f32 CUDA-core rate); at
+// the DGCNNSemSeg shapes (B=16, N=4096, k=20) a block's bf16x3
 // scores are 3 * 2*B*N^2*Cg flops at Cg = 3, one product at Cg = 64, the
 // per-edge second conv 2*B*N*k*C1*C2.  The v2 forms score the candidates
 // twice; v3 rows with tied classes three times.
@@ -61,18 +72,36 @@ using namespace dg::e2c;
 // score operands gc / gq (Cs channels; the graph itself in the exact v2
 // form), then e2t_consume.  BANDED: the candidates are the W rows from
 // starts[r0 / tile]; else the whole cloud.  OUT: bf16 (AMP) or float
-// (exact v2).
-// One block an SM for the class walk at two-slot lists (k > 32: partseg's
-// k = 40): its consumer needs more than the 128 registers that two blocks
-// leave a thread, and spilled 20-32 bytes at that cap (PERF.md §7: the
-// spilling form at two blocks an SM measured faster).
-template <int KL, bool V3>
-constexpr int VARIANT_BLOCKS = V3 && KL == 2 ? 1 : 2;
+// (exact v2).  OP: the score operands' type, float or (the tensor-core
+// forms) bf16.
+// One block an SM for the earlier form's class walk at two-slot lists (k >
+// 32: partseg's k = 40): its consumer needs more than the 128 registers
+// that two blocks leave a thread, and spilled 20-32 bytes at that cap
+// (PERF.md §7: the spilling form at two blocks an SM measured faster).
+// The tensor-core forms run two blocks an SM.
+template <int KL, bool V3, typename OP>
+constexpr int VARIANT_BLOCKS =
+    V3 && KL == 2 && std::is_same_v<OP, float> ? 1 : 2;
 
-template <int KL, bool V3, bool BANDED, typename OUT>
-__global__ void __launch_bounds__(dg::TS_THREADS, VARIANT_BLOCKS<KL, V3>)
-    knn_edge2_variant_kernel(const float* __restrict__ gc,
-                             const float* __restrict__ gq, int Cs,
+// The consumer of the tensor-core forms' v3 class walk as a call of its
+// own: its lists pass through the thread's stack frame, so that their
+// registers are not held through the consumer beside the class means'
+// scoring (two blocks an SM without spills).
+template <int KL, typename OUT>
+__device__ __noinline__ void consume_classes(
+    float* tsm, const int (&li)[dg::TS_WR][KL], const float* A,
+    const float* b1b, int C1, const float* w2, int C2, const float* s1,
+    const float* t1, const float* s2, const float* t2, float slope, int r0,
+    int k, OUT* outb, const ScoreOperands<__nv_bfloat16>& so) {
+  e2t_consume<KL, true>(tsm, li, A, b1b, C1, w2, C2, s1, t1, s2, t2, slope,
+                        r0, k, outb, so);
+}
+
+template <int KL, bool V3, bool BANDED, typename OUT, typename OP>
+__global__ void __launch_bounds__(dg::TS_THREADS,
+                                  VARIANT_BLOCKS<KL, V3, OP>)
+    knn_edge2_variant_kernel(const OP* __restrict__ gc,
+                             const OP* __restrict__ gq, int Cs,
                              const float* __restrict__ sq, float* rmin,
                              float lim, const float* __restrict__ a1,
                              const float* __restrict__ b1, int C1,
@@ -85,21 +114,26 @@ __global__ void __launch_bounds__(dg::TS_THREADS, VARIANT_BLOCKS<KL, V3>)
                              int W, OUT* __restrict__ out) {
   extern __shared__ __align__(16) float tsm[];
   const int b = blockIdx.y, r0 = blockIdx.x * dg::TS_R;
-  const float* G = gc + (size_t)b * N * Cs;
-  const float* GQ = gq + (size_t)b * N * Cs;
+  const OP* G = gc + (size_t)b * N * Cs;
+  const OP* GQ = gq + (size_t)b * N * Cs;
   const float* SQ = sq + (size_t)b * N;
   const int start = BANDED ? starts[r0 / tile] : 0;
   const int end = start + (BANDED ? W : N);
   float ls[dg::TS_WR][KL];
   int li[dg::TS_WR][KL];
-  dg::tiled_topk<KL, BANDED, V3 ? dg::TS_CLASSES : dg::TS_KEYS>(
+  dg::tiled_topk<KL, BANDED, V3 ? dg::TS_CLASSES : dg::TS_KEYS, OP>(
       G, Cs, SQ, start, end - start, r0, k, tsm, ls, li, GQ,
       rmin + (size_t)b * N, lim);
-  e2t_consume<KL, V3>(tsm, li, a1 + (size_t)b * N * C1,
-                      b1 + (size_t)b * N * C1, C1, w2, C2, s1, t1, s2, t2,
-                      slope, r0, k, out + (size_t)b * N * C2,
-                      ScoreOperands{gc, gq, sq, BANDED ? starts : nullptr, N,
-                                    Cs, tile, end - start});
+  const ScoreOperands<OP> so{gc, gq, sq, BANDED ? starts : nullptr, N, Cs,
+                             tile, end - start};
+  if constexpr (V3 && std::is_same_v<OP, __nv_bfloat16>)
+    consume_classes<KL>(tsm, li, a1 + (size_t)b * N * C1,
+                        b1 + (size_t)b * N * C1, C1, w2, C2, s1, t1, s2, t2,
+                        slope, r0, k, out + (size_t)b * N * C2, so);
+  else
+    e2t_consume<KL, V3>(tsm, li, a1 + (size_t)b * N * C1,
+                        b1 + (size_t)b * N * C1, C1, w2, C2, s1, t1, s2, t2,
+                        slope, r0, k, out + (size_t)b * N * C2, so);
 }
 
 // The row-warp route's query rows a block: RowBlock's, but 8 warps from
@@ -241,8 +275,8 @@ cudaError_t launch_variant_rowwarp(const float* gc, const float* gq, int Cs,
   });
 }
 
-template <int KL, bool V3, bool BANDED, typename OUT>
-cudaError_t launch_variant_kernel(const float* gc, const float* gq, int Cs,
+template <int KL, bool V3, bool BANDED, typename OUT, typename OP = float>
+cudaError_t launch_variant_kernel(const void* gc, const void* gq, int Cs,
                                   const float* sq, float* rmin, float lim,
                                   const float* a1, const float* b1,
                                   const float* w2, const float* s1,
@@ -251,12 +285,12 @@ cudaError_t launch_variant_kernel(const float* gc, const float* gq, int Cs,
                                   int C1, int C2, int k, float slope,
                                   const int* starts, int tile, int W,
                                   cudaStream_t st) {
-  auto kern = knn_edge2_variant_kernel<KL, V3, BANDED, OUT>;
+  auto kern = knn_edge2_variant_kernel<KL, V3, BANDED, OUT, OP>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)XSMEM_BYTES);
   if (err != cudaSuccess) return err;
   kern<<<dim3(N / dg::TS_R, B), dg::TS_THREADS, XSMEM_BYTES, st>>>(
-      gc, gq, Cs, sq, rmin, lim, a1, b1, C1, w2, C2, s1, t1, s2, t2, slope,
+      static_cast<const OP*>(gc), static_cast<const OP*>(gq), Cs, sq, rmin, lim, a1, b1, C1, w2, C2, s1, t1, s2, t2, slope,
       N, k, starts, tile, W, reinterpret_cast<OUT*>(out));
   return cudaGetLastError();
 }
@@ -273,7 +307,10 @@ cudaError_t launch_variant_kernel(const float* gc, const float* gq, int Cs,
 // f32 (exact).  starts null: the candidates are the cloud (tile and W = N);
 // else kernel 13's windows: the W rows from starts[r / tile] of a sorted
 // cloud.  The tiled route at k <= 64, C1 <= 64 and C2 <= 128, the row-warp
-// route otherwise (C1, C2 <= 128).  Returns the first CUDA error.
+// route otherwise (C1, C2 <= 128).  Bit 4: the tensor-core scores (AMP on
+// the cloud's tiled route, Kp = tc_channels(Cg) <= TC_MAX_KP); gq and gc
+// then hold B * N * Kp bf16 (gq unread for a bf16 graph, neither for one
+// whose Cg is a multiple of 16).  Returns the first CUDA error.
 extern "C" int dg_knn_edge2_variant(
     const void* graph, const float* a1, const float* b1, const float* w2,
     const float* s1, const float* t1, const float* s2, const float* t2,
@@ -281,6 +318,8 @@ extern "C" int dg_knn_edge2_variant(
     void* out, int B, int N, int Cg, int C1, int C2, int k, int tile, int W,
     float slope, int flags, void* stream) {
   const bool gbf = flags & 1, v3 = flags & 2, exact = flags & 4;
+  const bool tensor = flags & 16;
+  const int Kp = dg::tc_channels(Cg, gbf);
   const bool rowwarp = (flags & 8) || !dg::e2c::tiled_route(C1, C2, k);
   const bool banded = starts != nullptr;
   if (B < 1 || N % 128 != 0 || (banded ? W : N) > dg::MAX_N || Cg < 1 ||
@@ -289,10 +328,35 @@ extern "C" int dg_knn_edge2_variant(
       W % 128 != 0 || W < 128 || W > N ||
       (banded ? tile % 128 != 0 || tile < 128 || tile > W || N % tile != 0
               : W != N) ||
-      (exact && (gbf || v3)))
+      (exact && (gbf || v3)) ||
+      (tensor && (exact || banded || rowwarp || Kp > dg::TC_MAX_KP)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int rows = B * N;
+  using bf16 = __nv_bfloat16;
+  if (tensor) {  // the bf16 operands, the graph itself where it is one
+    const bf16 *tc, *tq;
+    cudaError_t e = dg::launch_tc_operands(
+        graph, gbf, rows, Cg, reinterpret_cast<bf16*>(gq),
+        reinterpret_cast<bf16*>(gc), sq, &tc, &tq, st);
+    if (e != cudaSuccess) return (int)e;
+    if (!v3) {
+      e = dg::launch_rowmin_tc(tc, tq, Kp, sq, B, N, rmin, st);
+      if (e != cudaSuccess) return (int)e;
+    }
+    const float lim = dg::keys_lim(N);
+    auto go = [&](auto kl) {
+      constexpr int KL = decltype(kl)::value;
+      return v3 ? launch_variant_kernel<KL, true, false, bf16, bf16>(
+                      tc, tq, Kp, sq, rmin, lim, a1, b1, w2, s1, t1, s2, t2,
+                      out, B, N, C1, C2, k, slope, nullptr, N, N, st)
+                : launch_variant_kernel<KL, false, false, bf16, bf16>(
+                      tc, tq, Kp, sq, rmin, lim, a1, b1, w2, s1, t1, s2, t2,
+                      out, B, N, C1, C2, k, slope, nullptr, N, N, st);
+    };
+    if (k <= 32) return (int)go(std::integral_constant<int, 1>{});
+    return (int)go(std::integral_constant<int, 2>{});
+  }
   const float* gf = reinterpret_cast<const float*>(graph);
   const float *gcp = gf, *gqp = gf;
   int Cs = Cg;

@@ -358,28 +358,38 @@ bool bad_shape(int B, int N, int Cg, int Co, int k) {
 }
 
 // The tensor-core operands' channels: 3 Cg padded to a multiple of 16.
-int amp_tc_channels(int Cg) { return (3 * Cg + 15) / 16 * 16; }
+int amp_tc_channels(int Cg) { return dg::tc_channels(Cg, false); }
 
-// The AMP form's tensor-core operands of an f32 graph (rows x Cg): [hi |
-// hi | lo | 0..] into gq and [hi | lo | hi | 0..] into gc, Kp bf16
-// channels a row (hi = bf16(v), lo = bf16(v - hi), to nearest even).
-__global__ void amp_operands_kernel(const float* __restrict__ graph,
+// The AMP forms' tensor-core operands of a graph (rows x Cg), Kp bf16
+// channels a row: of an f32 graph [hi | hi | lo | 0..] into gq and [hi |
+// lo | hi | 0..] into gc (hi = bf16(v), lo = bf16(v - hi), to nearest
+// even); of a bf16 graph (BF16: kernels 1 and 6 at a stage past the
+// first) its values and zeros into gc alone.
+template <bool BF16>
+__global__ void amp_operands_kernel(const void* __restrict__ graph,
                                     int rows, int Cg, int Kp,
                                     __nv_bfloat16* __restrict__ gq,
                                     __nv_bfloat16* __restrict__ gc) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (size_t)rows * Kp) return;
   const size_t r = e / Kp;
-  const int c = (int)(e - r * Kp), part = c / Cg, ch = c - part * Cg;
-  float q = 0.f, x = 0.f;
-  if (part < 3) {
-    const float v = graph[r * Cg + ch];
-    const float h = round_bf16(v), l = round_bf16(__fsub_rn(v, h));
-    q = part < 2 ? h : l;
-    x = part == 1 ? l : h;
+  const int c = (int)(e - r * Kp);
+  if constexpr (BF16) {
+    gc[e] = c < Cg ? reinterpret_cast<const __nv_bfloat16*>(
+                         graph)[r * Cg + c]
+                   : __float2bfloat16_rn(0.f);
+  } else {
+    const int part = c / Cg, ch = c - part * Cg;
+    float q = 0.f, x = 0.f;
+    if (part < 3) {
+      const float v = reinterpret_cast<const float*>(graph)[r * Cg + ch];
+      const float h = round_bf16(v), l = round_bf16(__fsub_rn(v, h));
+      q = part < 2 ? h : l;
+      x = part == 1 ? l : h;
+    }
+    gq[e] = __float2bfloat16_rn(q);
+    gc[e] = __float2bfloat16_rn(x);
   }
-  gq[e] = __float2bfloat16_rn(q);
-  gc[e] = __float2bfloat16_rn(x);
 }
 
 // The v2 grid of the tensor-core scores, each row's least score over the
@@ -395,7 +405,7 @@ __global__ void amp_operands_kernel(const float* __restrict__ graph,
 // lanes fold those.  Kp <= RM_MAX_KP (Cg <= 128, every model's): larger
 // graphs take the earlier form (reduce_amp).
 constexpr int RM_R = 128;
-constexpr int RM_MAX_KP = 384;
+constexpr int RM_MAX_KP = dg::TC_MAX_KP;
 size_t rowmin_smem_bytes(int Kp) {
   return sizeof(__nv_bfloat16) *
          ((size_t)RM_R * (Kp + 8) + 2 * (size_t)dg::TS_J * dg::TC_LD);
@@ -520,19 +530,9 @@ cudaError_t reduce_amp(const float* graph, const float* a, float* gq,
   const int Kp = amp_tc_channels(Cg);
   bf16* oq = reinterpret_cast<bf16*>(gq);
   bf16* oc = reinterpret_cast<bf16*>(gc);
-  const size_t n = (size_t)B * N * Kp;
-  amp_operands_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      graph, B * N, Cg, Kp, oq, oc);
-  e = cudaGetLastError();
+  e = dg::launch_amp_operands(graph, false, B * N, Cg, Kp, oq, oc, st);
   if (e != cudaSuccess) return e;
-  const size_t smem = rowmin_smem_bytes(Kp);
-  e = cudaFuncSetAttribute(knn_rowmin_tc_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  knn_rowmin_tc_kernel<<<dim3(N / RM_R, B), dg::TS_THREADS, smem, st>>>(
-      oc, oq, Kp, sq, N, rmin);
-  e = cudaGetLastError();
+  e = dg::launch_rowmin_tc(oc, oq, Kp, sq, B, N, rmin, st);
   if (e != cudaSuccess) return e;
   const TiledArgs t{gc,   gq, a, sq, idx, amax, amin, asum, asumsq,
                     rmin, B,  N, Kp, Co,  k};
@@ -549,6 +549,39 @@ __global__ void xw_round_kernel(const float* __restrict__ x, size_t n,
 }
 
 }  // namespace
+
+namespace dg {
+
+cudaError_t launch_amp_operands(const void* graph, bool bf16, int rows,
+                                int Cg, int Kp, __nv_bfloat16* gq,
+                                __nv_bfloat16* gc, cudaStream_t st) {
+  const size_t n = (size_t)rows * Kp;
+  const unsigned blocks = (unsigned)((n + 255) / 256);
+  if (bf16)
+    amp_operands_kernel<true><<<blocks, 256, 0, st>>>(graph, rows, Cg, Kp,
+                                                      gq, gc);
+  else
+    amp_operands_kernel<false><<<blocks, 256, 0, st>>>(graph, rows, Cg, Kp,
+                                                       gq, gc);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_rowmin_tc(const __nv_bfloat16* gc,
+                             const __nv_bfloat16* gq, int Kp, const float* sq,
+                             int B, int N, float* rmin, cudaStream_t st) {
+  if (Kp > RM_MAX_KP || Kp % 16 != 0 || N % RM_R != 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = rowmin_smem_bytes(Kp);
+  cudaError_t e = cudaFuncSetAttribute(
+      knn_rowmin_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  knn_rowmin_tc_kernel<<<dim3(N / RM_R, B), dg::TS_THREADS, smem, st>>>(
+      gc, gq, Kp, sq, N, rmin);
+  return cudaGetLastError();
+}
+
+}  // namespace dg
 
 // graph (B, N, Cg), a (B, N, Co), scratch sq (B*N,); out idx (B, N, k)
 // int32 and amax/amin/asum/asumsq (B, N, Co); f32 otherwise, contiguous,

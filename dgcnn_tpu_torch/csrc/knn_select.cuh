@@ -631,6 +631,71 @@ constexpr int TC_LST = TS_J + 4;      // row stride (floats) of the tile
 constexpr size_t TC_SMEM_BYTES =
     sizeof(float) * TS_R * TC_LST +
     sizeof(__nv_bfloat16) * 2 * (TS_R + TS_J) * TC_LD;
+// The operands' channels: Kp = 3 Cg (an f32 graph's [hi | hi | lo] against
+// [hi | lo | hi]) or Cg (a bf16 graph), padded with zeros to a multiple of
+// 16; the v2 grid's kernel (knn_reduce.cu) holds 128 query rows of Kp <=
+// TC_MAX_KP channels in shared memory, and the routes of the tensor-core
+// forms end there.
+constexpr int TC_MAX_KP = 384;
+inline int tc_channels(int Cg, bool bf16) {
+  return ((bf16 ? Cg : 3 * Cg) + 15) / 16 * 16;
+}
+
+// The tile's inner product of the query row q (Kp bf16 channels, Kp a
+// multiple of 16, 4-byte aligned rows) with row j of G, each lane its own
+// j; every lane of the warp calls it.  The same mma.sync k16 steps as the
+// tile, in its order from a zero accumulator, on the same operand values
+// (an MMA's output element depends on its row of A, its column of B and
+// its accumulator alone): the tile's bits, so that a v3 consumer that
+// scores a row again finds every member of a class.  A holds q in all 16
+// rows; the warp's 32 columns go 8 at a time (n-tile n: lanes 8 n ..
+// 8 n + 7's candidates, one accumulator of 4 registers live), and lane L
+// takes its product from the lane (L / 2) % 4 that holds column L % 8 of
+// n-tile L / 8.
+__device__ __forceinline__ float tc_dot(const __nv_bfloat16* __restrict__ q,
+                                        const __nv_bfloat16* __restrict__ G,
+                                        int Kp, int j, int lane) {
+  auto pair = [](const __nv_bfloat16* p) {
+    return *reinterpret_cast<const unsigned*>(p);
+  };
+  const int t2 = 2 * (lane & 3);
+  float v = 0.f;
+#pragma unroll 1
+  for (int n = 0; n < 4; ++n) {
+    const __nv_bfloat16* col =
+        G + (size_t)__shfl_sync(0xffffffffu, j, 8 * n + (lane >> 2)) * Kp +
+        t2;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k0 = 0; k0 < Kp; k0 += 16) {
+      const unsigned lo = pair(q + k0 + t2), hi = pair(q + k0 + 8 + t2);
+      const unsigned a[4] = {lo, lo, hi, hi};
+      dg_bf16::mma(acc, a, pair(col + k0), pair(col + k0 + 8));
+    }
+    const float x0 = __shfl_sync(0xffffffffu, acc[0], (lane >> 1) & 3);
+    const float x1 = __shfl_sync(0xffffffffu, acc[1], (lane >> 1) & 3);
+    if (n == lane >> 3) v = lane & 1 ? x1 : x0;
+  }
+  return v;
+}
+
+// The score of row i (its operands q, its squared norm qq) against
+// candidate j of the operands G (Cs channels a row), each lane its own j,
+// as tiled_topk forms it over OP: float, the fmaf chain over the channels;
+// __nv_bfloat16, tc_dot (every lane of the warp calls it).
+template <typename OP>
+__device__ __forceinline__ float lane_score(const OP* __restrict__ q,
+                                            const OP* __restrict__ G, int Cs,
+                                            const float* __restrict__ SQ,
+                                            float qq, int j, int lane) {
+  float acc = 0.f;
+  if constexpr (std::is_same_v<OP, __nv_bfloat16>) {
+    acc = tc_dot(q, G, Cs, j, lane);
+  } else {
+    const float* g = G + (size_t)j * Cs;
+    for (int c = 0; c < Cs; ++c) acc = fmaf(q[c], g[c], acc);
+  }
+  return __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc), qq), SQ[j]);
+}
 
 // Starts the copies of channels [c0, c0 + nch) (nch = min(TC_KC, Cg -
 // c0), a multiple of 8) of the query rows r0.. of Q into qb and of the
@@ -792,7 +857,14 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 //               class_low, and the consumers add start back), the count
 //               read unsigned (class_count: 32768 members of one class
 //               set the sign bit).
-//               Every tile inserts: a column whose score is in the list
+//               SORTED (the tensor-core forms' default): the first tile
+//               fills the list as TS_TOPK does, by ts_sort128; its runs
+//               of equal scores are the tile's classes (a run's first
+//               element, in (score desc, position asc) order, its lowest
+//               member; the count the distance to the next run's start,
+//               from ballots over the sorted elements), the first k of
+//               them the list.  Else the first tile inserts too.
+//               Every later tile inserts: a column whose score is in the list
 //               adds one to its count (ANY: and lowers its lowest member
 //               if it is lower, since tiles come out of order); one that
 //               is larger than the k-th distinct score (or the list is not
@@ -800,6 +872,9 @@ __device__ __forceinline__ T ts_kth(const T (&ls)[KL], int k) {
 //               list holds the same classes in any tile order: a class of
 //               the final list is larger than the k-th of every earlier
 //               list, so its first member enters and none is dropped.
+//               So the sorted fill gives the insertions' bits: the
+//               first tile's k largest distinct scores, each with its
+//               count in the tile and its lowest member.
 // Over a window the v2 grid is the row's least score over the window, and
 // the keys' index bits those of the band (the caller's lim).
 // No buffer or register grows with W, and the v3 list's words hold a count
@@ -819,7 +894,9 @@ __device__ __forceinline__ int class_low(int w) { return w & 0xffff; }
 
 // OP: the operands' type; __nv_bfloat16 takes each tile's scores from the
 // tensor cores (TC_KC above; Cg a multiple of 16, sm TC_SMEM_BYTES).
-template <int KL, bool ANY = false, int MODE = TS_TOPK, typename OP = float>
+// SORTED: TS_CLASSES's first tile by the sorting network (above).
+template <int KL, bool ANY = false, int MODE = TS_TOPK, typename OP = float,
+          bool SORTED = std::is_same_v<OP, __nv_bfloat16>>
 __device__ __forceinline__ void tiled_topk(const OP* __restrict__ G,
                                            int Cg,
                                            const float* __restrict__ SQ,
@@ -879,7 +956,7 @@ __device__ __forceinline__ void tiled_topk(const OP* __restrict__ G,
       }
   }
   float acc[4][8], sqj[8];
-  float tacc[8][4], tsq[16];  // TC: the warp's 16 x 64 accumulators
+  float tacc[8][4];  // TC: the warp's 16 x 64 accumulators
 
   auto load_step = [&](int step, int buf) {
     const int tn = step / chunks, cn = step - tn * chunks;
@@ -902,11 +979,6 @@ __device__ __forceinline__ void tiled_topk(const OP* __restrict__ G,
         for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) tacc[j][e] = 0.f;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = j0 + ncol + 8 * (j >> 1) + (j & 1);
-          tsq[j] = col < W ? SQ[start + col] : 0.f;
-        }
       } else {
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -952,7 +1024,8 @@ __device__ __forceinline__ void tiled_topk(const OP* __restrict__ G,
       }
       if (c + 1 < chunks) continue;
       // the tile is done: finish its scores into st (rows mrow, mrow + 8;
-      // columns ncol + 8 j, + 1)
+      // columns ncol + 8 j, + 1; their squared norms read here, not held
+      // through the products)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -965,7 +1038,7 @@ __device__ __forceinline__ void tiled_topk(const OP* __restrict__ G,
                         ? __fsub_rn(__fsub_rn(__fmul_rn(2.f,
                                                         tacc[j][2 * h + cc]),
                                               qq[h]),
-                                    tsq[2 * j + cc])
+                                    SQ[start + col])
                         : (MODE == TS_MIN ? INFINITY : -INFINITY);
             if constexpr (MODE == TS_KEYS)
               if (col < W) v[cc] = fmaxf(rintf(__fmul_rn(v[cc], rs[h])), -lim);
@@ -1034,7 +1107,76 @@ __device__ __forceinline__ void tiled_topk(const OP* __restrict__ G,
       }
       continue;
     }
-    if constexpr (MODE == TS_CLASSES) {  // every tile inserts
+    if constexpr (MODE == TS_CLASSES && SORTED) {
+      if (t == 0) {  // the first tile: sorted, its runs the classes
+#pragma unroll 1
+        for (int rr = 0; rr < TS_WR; ++rr) {
+          float* srow = st + (TS_WR * warp + rr) * LST;
+          float v[4];
+          int ix[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            v[u] = srow[32 * u + lane];
+            ix[u] = j0 + 32 * u + lane;  // the column's window position
+          }
+          ts_sort128(v, ix, lane);
+          // element e = lane + 32 u starts a run where it is the first or
+          // its predecessor's score differs (a -inf run, past the window,
+          // is last and no class)
+          unsigned first[4];
+          bool real[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float prev = __shfl_up_sync(0xffffffffu, v[u], 1);
+            const float carry =
+                __shfl_sync(0xffffffffu, v[u > 0 ? u - 1 : 0], 31);
+            if (lane == 0) prev = carry;
+            const bool start = (lane == 0 && u == 0) || prev != v[u];
+            first[u] = __ballot_sync(0xffffffffu, start);
+            real[u] = start && v[u] > -INFINITY;
+          }
+          __syncwarp();
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {  // the slots past the classes
+            srow[32 * q + lane] = -INFINITY;
+            srow[64 + 32 * q + lane] = __int_as_float(0);
+          }
+          __syncwarp();
+          int before = 0;  // the run starts in the words below u
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const unsigned above = first[u] & ~((2u << lane) - 1u);
+            int next = 128;  // the next run's start
+            if (above) {
+              next = 32 * u + __ffs(above) - 1;
+            } else {
+#pragma unroll
+              for (int w = 3; w > u; --w)
+                if (first[w]) next = 32 * w + __ffs(first[w]) - 1;
+            }
+            const int rank = before + __popc(first[u] & ((1u << lane) - 1u));
+            if (real[u] && rank < k) {
+              srow[rank] = v[u];
+              srow[64 + rank] =
+                  __int_as_float((next - lane - 32 * u) << 16 | ix[u]);
+            }
+            before += __popc(first[u]);
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int rr = 0; rr < TS_WR; ++rr) {
+          const float* srow = st + (TS_WR * warp + rr) * LST;
+#pragma unroll
+          for (int q = 0; q < KL; ++q) {
+            ls[rr][q] = srow[32 * q + lane];
+            li[rr][q] = __float_as_int(srow[64 + 32 * q + lane]);
+          }
+        }
+        continue;
+      }
+    }
+    if constexpr (MODE == TS_CLASSES) {  // every (later) tile inserts
 #pragma unroll
       for (int rr = 0; rr < TS_WR; ++rr) {
         const float* srow = st + (TS_WR * warp + rr) * LST;
@@ -1180,6 +1322,28 @@ cudaError_t launch_project(const float* x, int M, int K, const float* w,
 // lo | hi] into gc (3 Cg channels a row):
 cudaError_t launch_amp_graph(const void* graph, bool bf16, int rows, int Cg,
                              float* gq, float* gc, cudaStream_t st);
+// The tensor-core forms' operands (knn_reduce.cu), Kp = tc_channels(Cg,
+// bf16) bf16 channels a row, zeros past the function's: an f32 graph's [hi
+// | hi | lo | 0..] into gq and [hi | lo | hi | 0..] into gc, or (bf16) the
+// graph's values into gc alone (gc is then both operands):
+cudaError_t launch_amp_operands(const void* graph, bool bf16, int rows,
+                                int Cg, int Kp, __nv_bfloat16* gq,
+                                __nv_bfloat16* gc, cudaStream_t st);
+// The tensor-core forms' operands and squared norms of a graph (rows x Cg,
+// bf16 with bf16; edge_conv_amp.cu): the operands of launch_amp_operands
+// into gq and gc, or the graph itself where it is bf16 of Kp =
+// tc_channels(Cg) channels, *tc and *tq the operands to score with; sq the
+// squared norms of its f32 values (of a bf16 graph the bits of
+// launch_sqnorm over it widened):
+cudaError_t launch_tc_operands(const void* graph, bool bf16, int rows,
+                               int Cg, __nv_bfloat16* gq, __nv_bfloat16* gc,
+                               float* sq, const __nv_bfloat16** tc,
+                               const __nv_bfloat16** tq, cudaStream_t st);
+// The v2 grid of the tensor-core scores over the whole cloud (knn_reduce.cu,
+// Kp <= TC_MAX_KP): rmin[b * N + r] = the least of row r's tile scores:
+cudaError_t launch_rowmin_tc(const __nv_bfloat16* gc,
+                             const __nv_bfloat16* gq, int Kp, const float* sq,
+                             int B, int N, float* rmin, cudaStream_t st);
 // The v2 grid (TS_MIN): rmin[b * N + r] = the least score of row r over
 // the whole cloud (starts null, W = N) or its query tile's window of W
 // rows from starts[r / tile] (edge_conv_eval.cu):

@@ -42,6 +42,17 @@ is set:
 - ``select_rows``: the k selected payload rows of each row under v1, v2
   or v3 (v3: the class means, and which slots hold a class), which every
   eval kernel's plain version folds in its own way.
+- ``tc_operands_plain`` and ``tc_scores_plain``: the tensor-core forms'
+  bf16 operands (an f32 input's ``[hi | hi | lo | 0..]`` against ``[hi |
+  lo | hi | 0..]``, a bf16 input padded with zeros, Kp = ``tc_channels``
+  channels) and their scores, f32 sums of the exact products k16 step by
+  k16 step as the tensor cores take them (``csrc/knn_select.cuh``'s score
+  tile).
+- ``v3_class_lists``, ``class_insert_plain``: the v3 selection's class
+  lists (the k largest distinct scores, each with its count and lowest
+  member), and the insertion of columns one at a time into such a list,
+  the earlier fill of the tiled selection; its first tile is now filled
+  by sorting, which ``v3_class_lists`` over the tile's columns is.
 
 The CUDA kernels of the AMP mode (the AMP instances of
 ``csrc/edge_conv_eval.cu``, ``edge_conv_amp.cu``, ``knn_edge2_variant.cu``
@@ -273,3 +284,103 @@ def max_min(rows: torch.Tensor, present: torch.Tensor):
     p = present[..., None]
     return (torch.where(p, rows, -torch.inf).amax(2),
             torch.where(p, rows, torch.inf).amin(2))
+
+
+# the tensor-core forms' widest operands: Kp bf16 channels a point (the v2
+# grid's kernel holds 128 query rows of them in shared memory,
+# csrc/knn_select.cuh's TC_MAX_KP)
+TC_MAX_KP = 384
+
+
+def tc_channels(cg: int, bf16: bool) -> int:
+    """Kp, the tensor-core operands' channels: 3 Cg (an f32 graph's hi and
+    lo parts) or Cg (a bf16 graph), padded to a multiple of 16."""
+    return -(-(cg if bf16 else 3 * cg) // 16) * 16
+
+
+def tc_operands_plain(graph: torch.Tensor):
+    """(gq, gc), each (B, N, Kp) bf16: an f32 graph's ``[hi | hi | lo |
+    0..]`` and ``[hi | lo | hi | 0..]`` (hi = bf16(v), lo = bf16(v - hi)),
+    so that one product is hi.hi + hi.lo + lo.hi; a bf16 graph's values
+    and zeros, both operands."""
+    b, n, cg = graph.shape
+    bf = graph.dtype == torch.bfloat16
+    pad = torch.zeros((b, n, tc_channels(cg, bf) - (cg if bf else 3 * cg)),
+                      dtype=torch.bfloat16, device=graph.device)
+    if bf:
+        gc = torch.cat([graph, pad], dim=-1)
+        return gc, gc
+    f = graph.float()
+    hi = f.to(torch.bfloat16)
+    lo = (f - hi.float()).to(torch.bfloat16)
+    return (torch.cat([hi, hi, lo, pad], dim=-1),
+            torch.cat([hi, lo, hi, pad], dim=-1))
+
+
+def tc_scores_plain(graph: torch.Tensor) -> torch.Tensor:
+    """(B, N, Cg) f32 or bf16 -> (B, N, N) f32: the tensor-core forms'
+    scores, ``2 inner - |g_i|^2 - |g_j|^2`` with the squared norms of the
+    f32 values.  The inner product of the bf16 operands: each product exact
+    in f32, summed 16 channels at a time into an f32 accumulator from zero,
+    the steps in channel order (the tensor cores' k16 steps; the sum within
+    a step in torch's order, not the hardware's).  Every element is the
+    same operations on its own operands: equal points score bit-equal."""
+    gq, gc = tc_operands_plain(graph)
+    q, x = gq.float(), gc.float()
+    acc = torch.zeros(q.shape[:2] + (x.shape[1],), dtype=torch.float32,
+                      device=graph.device)
+    for k0 in range(0, q.shape[-1], 16):
+        acc = acc + (q[:, :, None, k0:k0 + 16]
+                     * x[:, None, :, k0:k0 + 16]).sum(-1)
+    sq = (graph.float() ** 2).sum(-1)
+    return 2.0 * acc - sq[:, :, None] - sq[:, None, :]
+
+
+def v3_class_lists(scores: torch.Tensor, k: int):
+    """The v3 selection's lists of (B, M, N) scores: (values (B, M, k) f32,
+    -inf past a row's last class; counts (B, M, k) int32, 0 past it; lows
+    (B, M, k) int32, the lowest member, 0 past it).  Class c of a row is
+    its (c + 1)-th largest distinct score; its members are the columns
+    that score it.  Over one tile's columns this is the sorted fill
+    (``csrc/knn_select.cuh``: sorted by (score desc, column asc), a run's
+    first element its lowest member)."""
+    sv, order = torch.sort(scores, dim=-1, descending=True, stable=True)
+    new = torch.ones_like(sv, dtype=torch.bool)
+    new[..., 1:] = sv[..., 1:] != sv[..., :-1]
+    cid = torch.cumsum(new, dim=-1) - 1
+    member = (cid < k) & (sv > -torch.inf)
+    dump = torch.full_like(cid, k)
+    slot = torch.where(member, cid, dump)
+    first = torch.where(member & new, cid, dump)
+    shape = scores.shape[:2] + (k + 1,)
+    vals = torch.full(shape, -torch.inf, dtype=torch.float32,
+                      device=scores.device)
+    cnt = torch.zeros(shape, dtype=torch.int64, device=scores.device)
+    low = torch.zeros(shape, dtype=torch.int64, device=scores.device)
+    cnt.scatter_add_(2, slot, torch.ones_like(slot))
+    vals.scatter_(2, first, sv.float())
+    low.scatter_(2, first, order)
+    return (vals[..., :k], cnt[..., :k].int(), low[..., :k].int())
+
+
+def class_insert_plain(lists, scores, cols, k: int):
+    """The earlier fill of one row's v3 list: each column (its score and
+    index, in the order given) inserted in turn into ``lists`` (a list of
+    [score, count, lowest] entries, largest score first, at most k): a
+    column whose score is in the list adds one to its count and lowers its
+    lowest member if it is lower; one larger than the k-th score (or while
+    the list is not full) enters with count 1, the k-th dropping out.
+    Returns ``lists``."""
+    for s, j in zip(scores, cols):
+        s, j = float(s), int(j)
+        if s == -float("inf"):
+            continue
+        hit = [e for e in lists if e[0] == s]
+        if hit:
+            hit[0][1] += 1
+            hit[0][2] = min(hit[0][2], j)
+        elif len(lists) < k or s > lists[-1][0]:
+            lists.append([s, 1, j])
+            lists.sort(key=lambda e: -e[0])
+            del lists[k:]
+    return lists

@@ -27,7 +27,15 @@ C1 <= 64 and C2 <= 128, the row-warp one otherwise:
 ``csrc/knn_edge2_variant.cu``); ``launch_variant`` launches the forms but
 the exact v1, for the whole cloud or (kernel 13) each query tile's window,
 and ``rowwarp=True`` forces their row-warp route (the oracle of the tiled
-one).
+route's earlier form).
+
+On the cloud's tiled route (``amp_route``: "tensor" at k <= 64, C1 <= 64,
+C2 <= 128 and Kp <= 384, every model's blocks) the AMP forms' scores come
+from the tensor cores in both v2 passes and in v3's
+(``csrc/knn_edge2_variant.cu``; kernel 1's operands, ``mma.sync`` and the
+sorting network's fill of v3's first tile); ``simt=True`` keeps the
+earlier form, the f32 fmaf chain on the CUDA cores, callable, as do
+kernel 13's windows.
 """
 from __future__ import annotations
 
@@ -37,10 +45,12 @@ import torch
 
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.amp_select import (
+    TC_MAX_KP,
     amp_scores,
     require_ported,
     select_rows,
     stage_variant,
+    tc_channels,
 )
 from dgcnn_tpu_torch.ops.graph import gather_neighbors
 from dgcnn_tpu_torch.ops.knn import (
@@ -61,6 +71,36 @@ def tiled_route(c1: int, c2: int, k: int) -> bool:
     k (``csrc/edge2_consume.cuh``, ``tiled_route``); else the row-warp
     route."""
     return k <= TILED_MAX_K and c1 <= TILED_C1 and c2 <= TILED_C2
+
+
+def amp_route(k: int, n: int, c1: int, c2: int, cg: int,
+              bf16_graph: bool = False) -> str:
+    """The route of kernel 6's AMP form on the card over a cloud at (k, N,
+    C1, C2, Cg; a bf16 graph or an f32 one): "tensor" (the tiled
+    selection, its scores on the tensor cores) on ``tiled_route``'s shapes
+    with Kp = ``tc_channels(Cg)`` <= ``TC_MAX_KP`` (every model's blocks),
+    "simt" (the tiled selection's earlier form, f32 scores on the CUDA
+    cores) at a wider graph, "rowwarp" (the row-warp selection) off the
+    tiled route's shapes (k > 64, C1 > 64 or C2 > 128), "none" where the
+    kernel raises.  ``simt=True`` sends the tiled route to its earlier
+    form, ``rowwarp=True`` to the row-warp route."""
+    if (n % 128 or n > MAX_N or not 1 <= k <= n or not 1 <= c1 <= MAX_C
+            or not 1 <= c2 <= MAX_C or cg < 1):
+        return "none"
+    if not tiled_route(c1, c2, k):
+        return "rowwarp"
+    return "tensor" if tc_channels(cg, bf16_graph) <= TC_MAX_KP else "simt"
+
+
+def _tensor(graph, w2, k: int, amp: bool, starts, rowwarp: bool,
+            simt: bool) -> bool:
+    """Whether a launch of the AMP form takes the tensor-core scores: over
+    the cloud (not kernel 13's windows) on ``amp_route``'s "tensor" route,
+    unless ``rowwarp`` or ``simt`` ask for another."""
+    b, n, cg = graph.shape
+    return (amp and starts is None and not (rowwarp or simt)
+            and amp_route(k, n, *w2.shape, cg,
+                          graph.dtype == torch.bfloat16) == "tensor")
 
 
 def edge2_variant(c1: int) -> str:
@@ -122,7 +162,7 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
               s1: torch.Tensor, t1: torch.Tensor, w2: torch.Tensor,
               s2: torch.Tensor, t2: torch.Tensor, k: int,
               slope: float = 0.2, *, amp: bool = False,
-              rowwarp: bool = False) -> torch.Tensor:
+              rowwarp: bool = False, simt: bool = False) -> torch.Tensor:
     """kNN over ``graph`` (B, N, Cg), then for each of the k neighbours j
     of point i ``LReLU((LReLU((a1[j] + b1[i]) * s1 + t1) @ w2) * s2 + t2)``
     and its max over the neighbours -> (B, N, C2).  ``a1``/``b1`` (B, N,
@@ -138,20 +178,24 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
     bf16 graph, a bf16 output.  The extraction variant is
     ``stage_variant``'s; every form takes the exact v1's shapes.
     ``rowwarp`` launches the row-warp route of the forms but the exact v1
-    at any shape (the exact v1's is the banded entry's at band = N)."""
+    at any shape (the exact v1's is the banded entry's at band = N);
+    ``simt`` the AMP form's earlier tiled form (``amp_route``)."""
     variant = stage_variant(amp, edge2_variant(w2.shape[0]))
     if graph.device.type == "cpu":
         fn = knn_edge2_amp_plain if amp else knn_edge2_plain
         return fn(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
                   variant=variant)
     require_ported("knn_edge2", amp, variant)
+    _require(not simt or amp, "simt names the AMP form's earlier form")
     if amp or variant != "v1":
         rowwarp = rowwarp or not tiled_route(*w2.shape, k)
         srow = srow_count()
         out = launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k, slope,
-                             amp, variant, rowwarp=rowwarp)
+                             amp, variant, rowwarp=rowwarp, simt=simt)
         knn_edge2.launches += 1
         knn_edge2.amp_launches += amp
+        knn_edge2.tc_launches += _tensor(graph, w2, k, amp, None, rowwarp,
+                                         simt)
         knn_edge2.v2_launches += not amp
         knn_edge2.rowwarp_launches += rowwarp
         knn_edge2.srow_launches += srow_count() - srow
@@ -203,13 +247,16 @@ def knn_edge2(graph: torch.Tensor, a1: torch.Tensor, b1: torch.Tensor,
 
 def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
                    amp: bool, variant: str, starts=None, tile: int = 0,
-                   band: int = 0, rowwarp: bool = False) -> torch.Tensor:
+                   band: int = 0, rowwarp: bool = False,
+                   simt: bool = False) -> torch.Tensor:
     """Launches the AMP v2 / v3 form or the exact v2 form of the block on
     CUDA tensors: over the whole cloud, or with ``starts`` (the window
     starts of each query tile of ``tile`` rows) over windows of ``band``
     rows of a sorted cloud (kernel 13).  The kernel takes its row-warp
-    route off ``tiled_route``'s shapes or with ``rowwarp``.  Checks the
-    tensors and raises on what the kernel does not take."""
+    route off ``tiled_route``'s shapes or with ``rowwarp``, the AMP form's
+    tiled route over the cloud the tensor-core scores unless ``simt``
+    (``_tensor``).  Checks the tensors and raises on what the kernel does
+    not take."""
     name = "banded_knn_edge2" if starts is not None else "knn_edge2"
 
     def need(cond, msg):
@@ -253,18 +300,24 @@ def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
     # queued after it on that stream
     dev = graph.device
     gbf = graph.dtype == torch.bfloat16
-    cs = cg if gbf or not amp else 3 * cg
+    tensor = _tensor(graph, w2, k, amp, starts, rowwarp, simt)
+    # the score operands: f32, Cg (a bf16 graph) or 3 Cg a point, or with
+    # the tensor cores Kp bf16 (none for a bf16 graph of Kp channels)
+    kp = tc_channels(cg, gbf)
+    cs = kp // 2 if tensor else cg if gbf or not amp else 3 * cg
+    own = amp and not (tensor and gbf and kp == cg)
 
     def scratch(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    gc = scratch(b * n * cs) if amp else None
-    gq = scratch(b * n * cs) if amp and not gbf else None
+    gc = scratch(b * n * cs) if own else None
+    gq = scratch(b * n * cs) if own and not gbf else None
     sq, rmin = scratch(b * n), scratch(b * n)
     small = [t.contiguous() for t in (w2, s1, t1, s2, t2)]
     out = torch.empty((b, n, c2), device=dev,
                       dtype=torch.bfloat16 if amp else torch.float32)
-    flags = gbf | (variant == "v3") << 1 | (not amp) << 2 | rowwarp << 3
+    flags = (gbf | (variant == "v3") << 1 | (not amp) << 2 | rowwarp << 3
+             | tensor << 4)
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(p(graph), p(a1), p(b1), *map(p, small), p(starts), p(gq),
@@ -275,11 +328,13 @@ def launch_variant(graph, a1, b1, s1, t1, w2, s2, t2, k: int, slope: float,
 
 
 # launches of the kernel since the count was last set to 0 (amp_launches:
-# those of its AMP form; v2_launches: those of its exact v2 form;
+# those of its AMP form; tc_launches: those of its AMP form with the
+# tensor-core scores; v2_launches: those of its exact v2 form;
 # rowwarp_launches: those of either on the row-warp route; srow_launches:
 # those of any form on the row-warp route's shared row)
 knn_edge2.launches = 0
 knn_edge2.amp_launches = 0
+knn_edge2.tc_launches = 0
 knn_edge2.v2_launches = 0
 knn_edge2.rowwarp_launches = 0
 knn_edge2.srow_launches = 0

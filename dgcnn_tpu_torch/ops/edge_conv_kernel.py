@@ -27,8 +27,19 @@ raise on the others; the plain versions take every variant.
 whole cloud or (kernel 12, ``ops/banded.py``) each query tile's window, at
 any k <= N as the JAX kernel takes it: the tiled selection at k <= 64, the
 row-warp selection in the same mode above (``csrc/edge_conv_amp.cu``;
-``rowwarp=True`` forces it at any k, the oracle that holds the tiled route
-to its bits).
+``rowwarp=True`` forces it at any k, the oracle that holds the tiled
+route's earlier form to its bits).
+
+On the cloud's tiled route (``amp_route``: "tensor" at k <= 64 and Kp <=
+384, every model's stages) the AMP forms' scores come from the tensor
+cores in both v2 passes and in v3's (``csrc/edge_conv_amp_tc.cu``): bf16
+operands, the f32 graph's hi and lo parts or the bf16 graph itself,
+``mma.sync`` products with f32 sums, and v3's first tile fills each row's
+class list by the sorting network.  ``simt=True`` keeps the earlier form
+callable, the f32 fmaf chain on the CUDA cores (the A/B's other side; the
+row-warp route's bits), as do kernel 12's windows.  ``class_lists``
+shows the v3 lists of the tensor-core scores, from either fill, with
+each class recounted (the checks' view of the selection).
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import torch
 
 from dgcnn_tpu_torch.ops import _build
 from dgcnn_tpu_torch.ops.amp_select import (
+    TC_MAX_KP,
     amp_scores,
     max_min,
     require_ported,
@@ -45,8 +57,11 @@ from dgcnn_tpu_torch.ops.amp_select import (
     select_rows,
     select_x_plan,
     stage_variant,
+    tc_channels,
+    tc_scores_plain,
     v1_indices,
     v2_indices,
+    v3_class_lists,
     v3_class_means,
 )
 from dgcnn_tpu_torch.ops.edge_conv import _project, edge_conv_fused
@@ -120,6 +135,24 @@ def edge_conv_eval_amp_plain(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     return torch.where(y >= 0, y, slope * y).to(torch.bfloat16)
 
 
+def amp_route(k: int, n: int, co: int, cg: int,
+              bf16_graph: bool = False) -> str:
+    """The route of kernel 1's AMP form on the card over a cloud at (k,
+    N, Co, Cg; a bf16 graph or an f32 one): "tensor" (the tiled selection,
+    its scores on the tensor cores) at k <= ``TILED_MAX_K`` and Kp =
+    ``tc_channels(Cg)`` <= ``TC_MAX_KP`` (every model's stages), "simt"
+    (the tiled selection, f32 scores on the CUDA cores: the earlier form)
+    at a wider graph, "rowwarp" (the row-warp selection) above k = 64,
+    "none" where the kernel raises.  ``simt=True`` sends the tiled route
+    to its earlier form, ``rowwarp=True`` to the row-warp route."""
+    if (n % 128 or n > MAX_N or not 1 <= k <= n or not 1 <= co <= MAX_CO
+            or cg < 1):
+        return "none"
+    if k > TILED_MAX_K:
+        return "rowwarp"
+    return "tensor" if tc_channels(cg, bf16_graph) <= TC_MAX_KP else "simt"
+
+
 def _lib():
     lib = _build.load_library()
     fn = lib.dg_edge_conv_eval
@@ -139,7 +172,8 @@ def _require(cond: bool, msg: str) -> None:
 def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
                    w_ctr: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, k: int, slope: float = 0.2, *,
-                   amp: bool = False, rowwarp: bool = False) -> torch.Tensor:
+                   amp: bool = False, rowwarp: bool = False,
+                   simt: bool = False) -> torch.Tensor:
     """kNN over ``graph`` (B, N, Cg), factorized conv of ``x`` (B, N, Cin)
     with ``w_nbr``/``w_ctr`` (Cin, Co), max/min over the k neighbours,
     folded-BN affine ``scale``/``bias`` (Co,) and LeakyReLU -> (B, N, Co).
@@ -152,20 +186,24 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     N, and returns bf16.  The extraction variant is ``stage_variant``'s; the
     exact v2 form takes the AMP form's shapes and returns f32.
     ``rowwarp`` launches those forms' row-warp route at any k (the exact
-    v1's is the banded entry's at band = N)."""
+    v1's is the banded entry's at band = N); ``simt`` the AMP form's
+    earlier tiled form (``amp_route``)."""
     variant = stage_variant(amp, select_x_plan(*w_nbr.shape)[1])
     if graph.device.type == "cpu":
         fn = edge_conv_eval_amp_plain if amp else edge_conv_eval_plain
         return fn(graph, x, w_nbr, w_ctr, scale, bias, k, slope,
                   variant=variant)
     require_ported("edge_conv_eval", amp, variant)
+    _require(not simt or amp, "simt names the AMP form's earlier form")
     if amp or variant != "v1":
         rowwarp = rowwarp or k > TILED_MAX_K
         srow = srow_count()
         out = launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k, slope,
-                             amp, variant, rowwarp=rowwarp)
+                             amp, variant, rowwarp=rowwarp, simt=simt)
         edge_conv_eval.launches += 1
         edge_conv_eval.amp_launches += amp
+        edge_conv_eval.tc_launches += _tensor(graph, w_nbr.shape[1], k, amp,
+                                              None, rowwarp, simt)
         edge_conv_eval.v2_launches += not amp
         edge_conv_eval.rowwarp_launches += rowwarp
         edge_conv_eval.srow_launches += srow_count() - srow
@@ -213,16 +251,29 @@ def edge_conv_eval(graph: torch.Tensor, x: torch.Tensor, w_nbr: torch.Tensor,
     return out
 
 
+def _tensor(graph, co: int, k: int, amp: bool, starts, rowwarp: bool,
+            simt: bool) -> bool:
+    """Whether a launch of the AMP form takes the tensor-core scores: over
+    the cloud (not kernel 12's windows) on ``amp_route``'s "tensor" route,
+    unless ``rowwarp`` or ``simt`` ask for another."""
+    b, n, cg = graph.shape
+    return (amp and starts is None and not (rowwarp or simt)
+            and amp_route(k, n, co, cg,
+                          graph.dtype == torch.bfloat16) == "tensor")
+
+
 def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
                    slope: float, amp: bool, variant: str, starts=None,
-                   tile: int = 0, band: int = 0,
-                   rowwarp: bool = False) -> torch.Tensor:
+                   tile: int = 0, band: int = 0, rowwarp: bool = False,
+                   simt: bool = False) -> torch.Tensor:
     """Launches the AMP v2 / v3 form or the exact v2 form of the stage on
     CUDA tensors: over the whole cloud, or with ``starts`` (the window
     starts of each query tile of ``tile`` rows) over windows of ``band``
     rows of a sorted cloud (kernel 12).  The kernel takes its row-warp
-    route at k > 64 or with ``rowwarp``, its tiled route otherwise.  Checks
-    the tensors and raises on what the kernel does not take."""
+    route at k > 64 or with ``rowwarp``, its tiled route otherwise, the
+    AMP form's over the cloud with the tensor-core scores unless ``simt``
+    (``_tensor``).  Checks the tensors and raises on what the kernel does
+    not take."""
     name = "banded_edge_conv_eval" if starts is not None else "edge_conv_eval"
 
     def need(cond, msg):
@@ -273,19 +324,24 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     else:
         wn, wc = w_nbr, w_ctr
     wcat = torch.cat([wn, wc], dim=1).contiguous()
-    cs = cg if gbf or not amp else 3 * cg
+    tensor = _tensor(graph, co, k, amp, starts, rowwarp, simt)
+    # the score operands: f32, Cg (a bf16 graph) or 3 Cg a point, or with
+    # the tensor cores Kp bf16 (none for a bf16 graph of Kp channels)
+    kp = tc_channels(cg, gbf)
+    cs = kp // 2 if tensor else cg if gbf or not amp else 3 * cg
+    own = amp and not (tensor and gbf and kp == cg)
 
     def scratch(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    gc = scratch(b * n * cs) if amp else None
-    gq = scratch(b * n * cs) if amp and not gbf else None
+    gc = scratch(b * n * cs) if own else None
+    gq = scratch(b * n * cs) if own and not gbf else None
     xf = scratch(b * n * cin) if xbf else None
     sq, rmin, ac = scratch(b * n), scratch(b * n), scratch(b * n * 2 * co)
     out = torch.empty((b, n, co), device=dev,
                       dtype=torch.bfloat16 if amp else torch.float32)
     flags = (gbf | xbf << 1 | select_x << 2 | (variant == "v3") << 3
-             | (not amp) << 4 | rowwarp << 5)
+             | (not amp) << 4 | rowwarp << 5 | tensor << 6)
     p = _build.ptr
     with torch.cuda.device(dev):
         rc = fn(p(graph), p(x), p(wcat), p(scale.contiguous()),
@@ -296,12 +352,65 @@ def launch_variant(graph, x, w_nbr, w_ctr, scale, bias, k: int,
     return out
 
 
+def class_lists(graph: torch.Tensor, k: int, *,
+                serial: bool = False) -> dict:
+    """The v3 selection's class lists of ``graph`` (B, N, Cg; f32 or
+    bf16) over the tensor-core scores, as the tiled route's AMP v3 forms
+    of kernels 1 and 6 build them: {"values" (B, N, k) f32, -inf past a
+    row's last class; "counts", "lows" (B, N, k) int32, each class's
+    member count and lowest member (the list's words); "recount",
+    "relow": the members that a consumer's second scoring of the row
+    finds, and the lowest of them}.  ``serial``: the first tile inserted
+    column by column (the earlier fill) instead of sorted; the lists are
+    the same bits.  CPU tensors take the plain version
+    (``v3_class_lists`` over ``tc_scores_plain``, the recount over the
+    same scores).  k <= 64."""
+    b, n, cg = graph.shape
+    if graph.device.type == "cpu":
+        scores = tc_scores_plain(graph)
+        vals, cnt, low = v3_class_lists(scores, k)
+        hit = scores[:, :, None, :] == vals[..., None]
+        first = torch.where(hit.any(-1), hit.int().argmax(-1), -1)
+        return {"values": vals, "counts": cnt, "lows": low,
+                "recount": hit.sum(-1).int(), "relow": first.int()}
+    _require(graph.is_cuda and graph.is_contiguous()
+             and graph.dtype in (torch.float32, torch.bfloat16),
+             "class_lists takes a contiguous f32 or bf16 CUDA graph")
+    _require(n % 128 == 0 and n <= MAX_N and 1 <= k <= min(TILED_MAX_K, n),
+             f"class_lists takes N a multiple of 128 <= {MAX_N} and k <= "
+             f"{TILED_MAX_K} (N={n}, k={k})")
+    gbf = graph.dtype == torch.bfloat16
+    fn = getattr(_build.load_library(), "dg_knn_class_lists")
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 4 + [i] * 5 + [p] * 5
+        fn.restype = i
+    dev = graph.device
+    ops = [torch.empty(b * n * tc_channels(cg, gbf), device=dev,
+                       dtype=torch.bfloat16) for _ in range(2)]
+    sq = torch.empty(b * n, device=dev, dtype=torch.float32)
+    vals = torch.empty((b, n, k), device=dev, dtype=torch.float32)
+    words, cnt, low = (torch.empty((b, n, k), device=dev, dtype=torch.int32)
+                       for _ in range(3))
+    p = _build.ptr
+    with torch.cuda.device(dev):
+        rc = fn(p(graph), p(ops[0]), p(ops[1]), p(sq), b, n, cg, k,
+                gbf | serial << 1, p(vals), p(words), p(cnt), p(low),
+                _build.stream_of(graph))
+    _build.check(rc, "class_lists")
+    return {"values": vals,
+            "counts": torch.bitwise_right_shift(words, 16) & 0xffff,
+            "lows": words & 0xffff, "recount": cnt, "relow": low}
+
+
 # launches of the kernel since the count was last set to 0 (amp_launches:
-# those of its AMP form; v2_launches: those of its exact v2 form;
+# those of its AMP form; tc_launches: those of its AMP form with the
+# tensor-core scores; v2_launches: those of its exact v2 form;
 # rowwarp_launches: those of either on the row-warp route; srow_launches:
 # those of any form on the row-warp route's shared row)
 edge_conv_eval.launches = 0
 edge_conv_eval.amp_launches = 0
+edge_conv_eval.tc_launches = 0
 edge_conv_eval.v2_launches = 0
 edge_conv_eval.rowwarp_launches = 0
 edge_conv_eval.srow_launches = 0
