@@ -75,11 +75,17 @@
 // edge2_reduce.cu's AMP rounding, so z2 and the ties are its bits; each
 // edge's dsel is rounded to bf16 before it is stored for the da1 sum
 // (:1282-1283, the bf16 operand of the scatter product); db1, dW2, ds1 and
-// dt1 are the f32 sums of the exact form, on the rounded sel.
+// dt1 are the f32 sums of the exact form, on the rounded sel.  At the
+// tiled route's shapes the AMP form runs on the tensor cores by default
+// (dg_edge2_bwd_pull_amp_tc, edge2_bwd_tc_kernel below: its three products
+// in 3xTF32, its dsel stored as bf16 and pulled by reverse_lists.cu's bf16
+// instance); the tiled instance of dg_edge2_bwd_pull_amp is its earlier
+// form (the wrapper's simt=True).
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "edge2.cuh"
+#include "edge2_tc.cuh"
 #include "edge2_tile.cuh"
 #include "reverse_lists.cuh"
 
@@ -518,6 +524,374 @@ __global__ void partial_sum_kernel(const float* __restrict__ part, int G,
   out[e] = acc;
 }
 
+// --------------------------------------------------------- tensor cores
+// The AMP form on the tensor cores (dg_edge2_bwd_pull_amp_tc): the tiled
+// kernel's phases with its three products in edge2_tc.cuh's 3xTF32 (z2 =
+// h1 w2 is z2_tile() on the h1 rows edge2_reduce_tc.cu forms; dW2 and dh1
+// in k8 steps).  One thread a (row, second-conv channel) finds the ties of
+// kernel 7's max and min (edge2_tc.cuh's rule: the edges of the row within
+// twice its bound of them, and at a near tie those whose f32 chain z2 is
+// the extreme, as the plain f32 version's ties), divides the cotangents by
+// their counts and writes the row's dz2 over its z2, its cotangents in
+// registers.  dW2 += h1^T dz2 (A = h1 read across its rows, warp w:
+// first-conv channels 16 (w / 2), second-conv channels 32 (w % 2)) in
+// registers across the block's tiles; dh1 = dz2 w2^T (B = w2 read along
+// its rows) in registers, an m16 tile of edges at a time, from which each
+// lane forms its edges' dsel, ds1 and dt1.  Each edge's dsel is stored as
+// bf16.  The tile's a1 rows arrive by cp.async, and their bf16 values stay
+// beside h1 for dsel.  Shared memory 100 KB: two blocks an SM.
+namespace tc {
+using dg_e2tc::at;
+constexpr int C = dg_e2tc::C;
+constexpr int EDGES = dg_e2tc::EDGES;
+constexpr int ROWS = dg_e2tc::ROWS;
+constexpr int THREADS = 256;
+constexpr size_t SMEM = sizeof(float) * (C * C + 2 * EDGES * C + ROWS * C +
+                                         3 * C + EDGES + ROWS) +
+                        sizeof(int) * 2 * EDGES + 2 * EDGES * C;
+
+// Offset of channels (c, c + 1) (c even) of edge e in the bf16 rows of a1:
+// the pair's word XORed with the row's last three bits (times four), so
+// that an MMA fragment's eight rows read 32 different banks.
+__device__ __forceinline__ int pair_at(int e, int c) {
+  return e * C + 2 * ((c >> 1) ^ ((e & 7) << 2));
+}
+
+// Where a row's max (min) cotangent goes: one edge t (the common case), or
+// every edge within lim of v whose chain z2 equals best (a tie of the
+// chain's values: a point and its copy, say).
+struct Ties {
+  int t;       // -1: by the chain
+  float best;  // the chain's extreme
+  float count;
+};
+
+// The ties of extreme v among a row's candidates (n of them, the last four
+// packed a byte each in pk): side 0 the max, 1 the min.
+__device__ __forceinline__ Ties find_ties(int side, int n, unsigned pk,
+                                          float v, float lim, const float* zb,
+                                          const float* hb, const float* w2s,
+                                          int r, int k, int C1, int c) {
+  if (n == 1) return {int(pk & 255), 0.f, 1.f};
+  // a near tie: the chain on the candidates, side by side across the
+  // warp's lanes (up to four; beyond, one t at a time)
+  float best = side ? INFINITY : -INFINITY, count = 0.f;
+  int tb = 0;
+  if (n <= 4) {
+    for (int i = 0; i < 4; ++i) {
+      if (i >= n) continue;
+      const int t = (pk >> (8 * i)) & 255;
+      const float zc = dg_e2tc::chain_z2(hb, r * k + t, w2s, C1, c);
+      if (side ? zc < best : zc > best) {
+        best = zc;
+        count = 1.f;
+        tb = t;
+      } else if (zc == best) {
+        count += 1.f;
+      }
+    }
+    if (count == 1.f) return {tb, best, 1.f};
+    return {-1, best, count};
+  }
+  for (int t = 0; t < k; ++t) {
+    const float z = zb[at(r * k + t, c)];
+    if (side ? z > v + lim : z < v - lim) continue;
+    const float zc = dg_e2tc::chain_z2(hb, r * k + t, w2s, C1, c);
+    if (side ? zc < best : zc > best) {
+      best = zc;
+      count = 1.f;
+    } else if (zc == best) {
+      count += 1.f;
+    }
+  }
+  return {-1, best, count};
+}
+
+// Whether edge t (tile z2 z) holds the extreme of ties.
+__device__ __forceinline__ bool is_tie(const Ties& ties, int side, int t,
+                                       float z, float v, float lim,
+                                       const float* hb, const float* w2s,
+                                       int e, int C1, int c) {
+  if (ties.t >= 0) return t == ties.t;
+  if (side ? z > v + lim : z < v - lim) return false;
+  return dg_e2tc::chain_z2(hb, e, w2s, C1, c) == ties.best;
+}
+}  // namespace tc
+
+__global__ void __launch_bounds__(tc::THREADS, 2)
+    edge2_bwd_tc_kernel(const int* __restrict__ idx,
+                        const float* __restrict__ a1,
+                        const float* __restrict__ b1, int C1,
+                        const float* __restrict__ s1,
+                        const float* __restrict__ t1,
+                        const float* __restrict__ w2, int C2, float slope,
+                        const float* __restrict__ amax,
+                        const float* __restrict__ amin,
+                        const float* __restrict__ ct_max,
+                        const float* __restrict__ ct_min,
+                        const float* __restrict__ ct_sum,
+                        const float* __restrict__ ct_sumsq, int rows, int N,
+                        int k, float* __restrict__ db1,
+                        float* __restrict__ part,
+                        __nv_bfloat16* __restrict__ dsel_e) {
+  using tc::at;
+  using tc::C;
+  using tc::EDGES;
+  using tc::ROWS;
+  using tc::THREADS;
+  extern __shared__ __align__(16) float tsm[];
+  float* w2s = tsm;             // w2, swizzled
+  float* hb = w2s + C * C;      // h1 of the tile's edges, then dsel
+  float* zb = hb + EDGES * C;   // z2 of the tile's edges, then dz2
+  float* b1s = zb + EDGES * C;  // (ROWS, C): the rows' b1
+  float* s1s = b1s + ROWS * C;  // s1, t1 (zeros past C1)
+  float* t1s = s1s + C;
+  float* wn = t1s + C;          // w2's column norms
+  float* hn = wn + C;           // the tile's h1 row norms
+  float* rowh = hn + EDGES;     // their largest a centre row
+  int* jrow = reinterpret_cast<int*>(rowh + ROWS);  // a1 row of an edge, or -1
+  int* eloc = jrow + EDGES;                        // its row in the tile
+  // the tile's a1 rows rounded to bf16 (tc::pair_at)
+  __nv_bfloat16* abf = reinterpret_cast<__nv_bfloat16*>(eloc + EDGES);
+
+  const int tid = threadIdx.x, w = tid >> 5;
+  const int lg = dg_mma::lane_g(), lt = dg_mma::lane_t();
+  const int cq = (tid & 15) * 4;  // h1: a quad of channels
+  dg_e2tc::stage_w2(w2, C1, C2, w2s, wn);
+  if (tid < C) {
+    s1s[tid] = tid < C1 ? s1[tid] : 0.f;
+    t1s[tid] = tid < C1 ? t1[tid] : 0.f;
+  }
+  const dg_e2tc::WarpTile wt = dg_e2tc::warp_tile<2>();
+  const int mc = 16 * (w >> 1), nc = 32 * (w & 1);  // this warp's dW2 block
+  const int R = dg::e2t_rows(k), E = R * k;
+  const int tiles = (rows + R - 1) / R;
+  // dW2 of first-conv channels mc + {g, g + 8}, second-conv nc + 8 j +
+  // {2t, 2t + 1}; ds1, dt1 of first-conv channels wt.n0 + 8 j + 2t + p
+  float pw[4][4], ds1p[4][2], dt1p[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pw[j][e] = 0.f;
+    ds1p[j][0] = ds1p[j][1] = dt1p[j][0] = dt1p[j][1] = 0.f;
+  }
+
+  for (int g = blockIdx.x; g < tiles; g += gridDim.x) {
+    const int row0 = g * R;
+    __syncthreads();  // the previous tile's reads of hb, zb and jrow are done
+    for (int e = tid; e < EDGES; e += THREADS) {
+      const int r = e / k, row = row0 + r;
+      const bool in = e < E && row < rows;
+      jrow[e] = in ? (row / N) * N + idx[(size_t)row * k + e - r * k] : -1;
+      eloc[e] = r < ROWS ? r : 0;
+    }
+    for (int q = tid; q < R * C; q += THREADS) {
+      const int r = q >> 6, c = q & (C - 1), row = row0 + r;
+      b1s[q] = row < rows && c < C1 ? b1[(size_t)row * C1 + c] : 0.f;
+    }
+    __syncthreads();
+    // the tile's a1 rows, every copy of a thread in flight at once (each
+    // thread then reads only what it copied); then h1 in their place
+    // (e2_h1_row<true>'s operations) and its norm, zeros on empty slots
+    // and past C1, and the rows rounded to bf16 beside (dsel's sel)
+    for (int e = tid >> 4; e < EDGES; e += THREADS / 16) {
+      const int j = jrow[e];
+      const bool in = j >= 0 && cq < C1;
+      dg_attn::copy16(hb + at(e, cq), in ? a1 + (size_t)j * C1 + cq : a1,
+                      in);
+    }
+    dg_attn::commit();
+    dg_attn::wait_groups<0>();
+    for (int e = tid >> 4; e < EDGES; e += THREADS / 16) {
+      float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (jrow[e] >= 0 && cq < C1) {
+        const float4 a = dg::ld4(hb + at(e, cq));
+        h = dg_e2tc::h1_quad(a, b1s + eloc[e] * C, s1s, t1s, cq, slope);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(a.z, a.w);
+        *reinterpret_cast<uint2*>(abf + tc::pair_at(e, cq)) =
+            make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                       *reinterpret_cast<const unsigned*>(&hi));
+      }
+      *reinterpret_cast<float4*>(hb + at(e, cq)) = h;
+      const float n = dg_e2tc::row_norm16(h);
+      if ((tid & 15) == 0) hn[e] = n;
+    }
+    __syncthreads();
+    if (tid < R) {
+      float m = 0.f;
+      for (int t = 0; t < k; ++t) m = fmaxf(m, hn[tid * k + t]);
+      rowh[tid] = m;
+    }
+    // an m16 tile of edges at a time: the same bits as one call on both
+    // (an element depends on its own row alone), half the registers
+#pragma unroll 1
+    for (int i = 0; i < 2; ++i) {
+      const dg_e2tc::WarpTile half = {wt.m0 + 16 * i, wt.n0};
+      float acc[1][4][4];
+      dg_e2tc::z2_tile<1>(
+          hb,
+          [&](int n0, int k0) {
+            return dg_mma::load_b_cols<C>(w2s, n0, k0);
+          },
+          C1, half, acc);
+      dg_e2tc::store_tile<1>(zb, half, acc);
+    }
+    __syncthreads();
+    // a thread a (row, channel): the ties of the max and the min, then the
+    // row's dz2 in place of its z2; empty slots, rows past the end and
+    // channels past C2 keep z2's zeros
+    for (int q = tid; q < R * C; q += THREADS) {
+      const int r = q >> 6, c = q & (C - 1), row = row0 + r;
+      if (c >= C2 || row >= rows) continue;
+      const size_t o = (size_t)row * C2 + c;
+      const float vx = amax[o], vn = amin[o];
+      const float lim = 2.f * dg_e2tc::bound(rowh[r], wn[c]);
+      // the candidates' t, a byte each, the last four kept
+      int nx = 0, nn = 0;
+      unsigned px = 0u, pn = 0u;
+      for (int t = 0; t < k; ++t) {
+        const float z = zb[at(r * k + t, c)];
+        if (z >= vx - lim) {
+          px = (px << 8) | t;
+          ++nx;
+        }
+        if (z <= vn + lim) {
+          pn = (pn << 8) | t;
+          ++nn;
+        }
+      }
+      const tc::Ties tx =
+          tc::find_ties(0, nx, px, vx, lim, zb, hb, w2s, r, k, C1, c);
+      const tc::Ties tn =
+          tc::find_ties(1, nn, pn, vn, lim, zb, hb, w2s, r, k, C1, c);
+      const float gmax = __fdiv_rn(ct_max[o], tx.count);
+      const float gmin = __fdiv_rn(ct_min[o], tn.count);
+      const float gsum = ct_sum[o], gsq2 = __fmul_rn(2.f, ct_sumsq[o]);
+      for (int t = 0; t < k; ++t) {
+        const int e = r * k + t;
+        const float z = zb[at(e, c)];
+        const bool fx = tc::is_tie(tx, 0, t, z, vx, lim, hb, w2s, e, C1, c);
+        const bool fn = tc::is_tie(tn, 1, t, z, vn, lim, hb, w2s, e, C1, c);
+        zb[at(e, c)] = __fadd_rn(
+            __fadd_rn(__fadd_rn(fx ? gmax : 0.f, fn ? gmin : 0.f), gsum),
+            __fmul_rn(z, gsq2));
+      }
+    }
+    __syncthreads();
+    // dW2 += h1^T dz2 over the tile's edges, k8 step by k8 step
+    for (int s = 0; s < dg_e2tc::ksteps(E); ++s) {
+      const dg_mma::FragA a = dg_mma::load_a_cols<C>(hb, mc, 8 * s);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dg_e2tc::step3(pw[j], a,
+                       dg_mma::load_b_cols<C>(zb, nc + 8 * j, 8 * s));
+    }
+    __syncthreads();  // every read of h1 is done: dsel takes its place
+    // dh1 = dz2 w2^T, an m16 tile of edges at a time (edges wt.m0 + 16 i +
+    // .., first-conv channels wt.n0 + 8 j + ..), then each lane's dsel,
+    // ds1 and dt1 of its fragments
+#pragma unroll 1
+    for (int i = 0; i < 2; ++i) {
+      float dh[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        dh[j][0] = dh[j][1] = dh[j][2] = dh[j][3] = 0.f;
+      for (int s = 0; s < dg_e2tc::ksteps(C2); ++s) {
+        const dg_mma::FragA a =
+            dg_mma::load_a_rows<C>(zb, wt.m0 + 16 * i, 8 * s);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dg_e2tc::step3(dh[j], a,
+                         dg_e2tc::load_b_rows<C>(w2s, wt.n0 + 8 * j, 8 * s));
+      }
+#pragma unroll 1
+      for (int hh = 0; hh < 2; ++hh) {
+        const int e = wt.m0 + 16 * i + lg + 8 * hh;
+        const int j1 = jrow[e];
+        const float* brow = b1s + eloc[e] * C;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = wt.n0 + 8 * j + 2 * lt;
+          float2 out = make_float2(0.f, 0.f);
+          if (j1 >= 0 && c < C1) {
+            const float2 av = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(abf +
+                                                         tc::pair_at(e, c)));
+            float o[2];
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              const float sel = __fadd_rn(p ? av.y : av.x, brow[c + p]);
+              const float z1 = __fadd_rn(__fmul_rn(sel, s1s[c + p]),
+                                         t1s[c + p]);
+              const float d = dh[j][2 * hh + p];
+              const float dz1 = z1 >= 0.f ? d : __fmul_rn(d, slope);
+              ds1p[j][p] = __fadd_rn(ds1p[j][p], __fmul_rn(dz1, sel));
+              dt1p[j][p] = __fadd_rn(dt1p[j][p], dz1);
+              o[p] = __fmul_rn(dz1, s1s[c + p]);
+            }
+            out = make_float2(o[0], o[1]);
+          }
+          *reinterpret_cast<float2*>(hb + at(e, c)) = out;
+        }
+      }
+    }
+    __syncthreads();
+    // db1: each row's dsel summed over t ascending from 0
+    for (int q = tid; q < R * C; q += THREADS) {
+      const int r = q >> 6, c = q & (C - 1), row = row0 + r;
+      if (row >= rows || c >= C1) continue;
+      float acc = 0.f;
+      for (int t = 0; t < k; ++t) acc = __fadd_rn(acc, hb[at(r * k + t, c)]);
+      db1[(size_t)row * C1 + c] = acc;
+    }
+    // each edge's dsel as bf16, 8 bytes a store: edge (row0 + e / k, e % k)
+    // has id row0 k + e
+    for (int e = tid >> 4; e < EDGES; e += THREADS / 16) {
+      if (jrow[e] < 0 || cq >= C1) continue;
+      const float4 v = dg::ld4(hb + at(e, cq));
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(dsel_e + ((size_t)row0 * k + e) * C1 + cq) =
+          make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                     *reinterpret_cast<const unsigned*>(&hi));
+    }
+  }
+
+  // the block's partials: dW2 from the registers; ds1 and dt1 of each
+  // channel summed over its 32 lanes (warp row w / 2, lane row g) in
+  // ascending order
+  const int width = C1 * C2 + 2 * C1;
+  float* prow = part + (size_t)blockIdx.x * width;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const int r = mc + lg + 8 * hh, c = nc + 8 * j + 2 * lt + p;
+        if (r < C1 && c < C2) prow[r * C2 + c] = pw[j][2 * hh + p];
+      }
+  __syncthreads();  // the last tile's reads of hb are done
+  float* red = hb;  // (32, 2 C): a lane row's ds1 | dt1
+  const int y = (w >> 1) * 8 + lg;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int c = wt.n0 + 8 * j + 2 * lt + p;
+      red[y * 2 * C + c] = ds1p[j][p];
+      red[y * 2 * C + C + c] = dt1p[j][p];
+    }
+  __syncthreads();
+  for (int e = tid; e < 2 * C1; e += THREADS) {
+    const int col = e < C1 ? e : C + e - C1;
+    float acc = 0.f;
+    for (int q = 0; q < 32; ++q) acc = __fadd_rn(acc, red[q * 2 * C + col]);
+    prow[C1 * C2 + e] = acc;
+  }
+}
+
 }  // namespace
 
 // The blocks of a launch: 1 <= G <= the tiles (B*N / tile_rows(k) on the
@@ -652,4 +1026,42 @@ extern "C" int dg_edge2_bwd_pull_amp(
                     ct_sum, ct_sumsq, da1, db1, part, dflat, dsel_e,
                     iscratch, B, N, C1, C2, k, G, slope,
                     (cudaStream_t)stream);
+}
+
+// The AMP form of dg_edge2_bwd_pull on the tensor cores (the kernel's
+// note, edge2_bwd_tc_kernel): the same arguments but dsel_e, B * N * k *
+// C1 bf16 values of scratch; a1 16-byte aligned.  Only the tiled route's
+// shapes (C1, C2 <= 64 and multiples of 4, k <= 128).  da1 sums each
+// point's bf16 addends in f32, in ascending edge id from zero.
+extern "C" int dg_edge2_bwd_pull_amp_tc(
+    const int* idx, const float* a1, const float* b1, const float* s1,
+    const float* t1, const float* w2, const float* amax, const float* amin,
+    const float* ct_max, const float* ct_min, const float* ct_sum,
+    const float* ct_sumsq, float* da1, float* db1, float* part, float* dflat,
+    void* dsel_e, int* iscratch, int B, int N, int C1, int C2, int k, int G,
+    float slope, void* stream) {
+  if (!valid_bwd(B, N, C1, C2, k, G) || !dg::e2t_train_route(C1, C2, k) ||
+      (size_t)a1 % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int *off, *lst;
+  cudaError_t e = dg::build_reverse_lists(idx, B, N, k, iscratch, &off,
+                                          &lst, st);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(edge2_bwd_tc_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)tc::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  __nv_bfloat16* dsel = static_cast<__nv_bfloat16*>(dsel_e);
+  edge2_bwd_tc_kernel<<<G, tc::THREADS, tc::SMEM, st>>>(
+      idx, a1, b1, C1, s1, t1, w2, C2, slope, amax, amin, ct_max, ct_min,
+      ct_sum, ct_sumsq, B * N, N, k, db1, part, dsel);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int width = C1 * C2 + 2 * C1;
+  partial_sum_kernel<<<(width + 255) / 256, 256, 0, st>>>(part, G, width,
+                                                          dflat);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)dg::launch_pull_sum_bf16(off, lst, dsel, B * N, C1, da1, st);
 }

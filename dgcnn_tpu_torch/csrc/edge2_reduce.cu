@@ -55,7 +55,10 @@
 // with the same rounding, so its z2 and the ties it finds are the same
 // bits.  Both routes, as the exact form takes them: the tiled one at
 // e2t_train_route's shapes (every model's), the row-warp one (h1 rounded
-// the same way, e2_h1_row<true>) at the others, k > 128 among them.
+// the same way, e2_h1_row<true>) at the others, k > 128 among them.  At
+// the tiled route's shapes the AMP form runs on the tensor cores by
+// default (edge2_reduce_tc.cu); the tiled instance here is its earlier
+// form (the wrapper's simt=True).
 #include <cuda_runtime.h>
 #include <math.h>
 

@@ -10,6 +10,7 @@
 // sorted by edge id.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
@@ -20,7 +21,8 @@ namespace dg {
 // and k neighbours a point.
 inline size_t reverse_list_ints(int B, int N, int k) {
   const size_t rows = (size_t)B * N;
-  return 2 * rows + 1 + 2 * rows * k;
+  const size_t chunks = (rows + 4095) / 4096;  // the scan's, of 4096 rows
+  return 2 * rows + 1 + 2 * rows * k + 2 * chunks + 1;
 }
 
 // Builds the lists of idx (B, N, k) int32 (neighbours within each cloud)
@@ -37,5 +39,12 @@ cudaError_t build_reverse_lists(const int* idx, int B, int N, int k,
 cudaError_t launch_pull_sum(const int* off, const int* lst,
                             const float* add, int rows, int C, float* out,
                             cudaStream_t st);
+
+// As launch_pull_sum over bf16 addends (C <= 64), each widened to f32 and
+// added in the same order with the same _rn adds: the f32 pull's bits on
+// the widened values.
+cudaError_t launch_pull_sum_bf16(const int* off, const int* lst,
+                                 const __nv_bfloat16* add, int rows, int C,
+                                 float* out, cudaStream_t st);
 
 }  // namespace dg

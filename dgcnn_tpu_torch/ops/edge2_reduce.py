@@ -5,13 +5,21 @@ AMP one).
 
 The forward is kernel 7 (``edge2_fwd``), the backward kernel 8
 (``edge2_bwd``); for CPU tensors each wrapper runs its plain version.  The
-indices take no gradient.
+indices take no gradient.  In the AMP mode the forward's route
+(``amp_route``) is saved and handed to the backward, which takes the same
+one: its tie tests compare its z2 with the forward's max and min, bit for
+bit, and raise if the two routes' z2 come from other arithmetic.
 """
 from __future__ import annotations
 
 import torch
 
-from dgcnn_tpu_torch.ops.edge2_reduce_kernel import edge2_bwd, edge2_fwd
+from dgcnn_tpu_torch.ops.edge2_reduce_kernel import (
+    SIMT,
+    amp_route,
+    edge2_bwd,
+    edge2_fwd,
+)
 
 
 class Edge2Reduce(torch.autograd.Function):
@@ -27,13 +35,16 @@ class Edge2Reduce(torch.autograd.Function):
         ctx.save_for_backward(a1, b1, s1, t1, w2, idx, out[0], out[1])
         ctx.slope = slope
         ctx.amp = amp
+        ctx.route = (amp_route(a1.shape[-1], w2.shape[-1], idx.shape[-1])
+                     if amp else None)
         return out
 
     @staticmethod
     def backward(ctx, *grads):
         cts = tuple(g.contiguous() for g in grads)
         grads_in = edge2_bwd(*ctx.saved_tensors, *cts, ctx.slope,
-                             amp=ctx.amp)
+                             amp=ctx.amp, simt=ctx.route == SIMT,
+                             fwd_route=ctx.route)
         return (*grads_in, None, None, None)
 
 

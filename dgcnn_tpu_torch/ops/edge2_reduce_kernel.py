@@ -24,14 +24,22 @@ their cotangent evenly): the wrappers run them for CPU tensors and launch
 the kernels for CUDA tensors.
 
 ``amp=True`` is the AMP form of either kernel, the JAX package's default
-in training (``exact=False``, ``pallas_knn.py:1120-1161, 1200-1285``), on
-the exact form's two routes (the row-warp one at k > 128 among the shapes
-off the tiled one): a1's selected rows rounded to bf16, z1, h1, z2 and the
-reductions f32; in the backward each edge's dsel rounded to bf16 before
-the da1 sum over a point's in-edges (the pull form), db1, dW2, ds1 and dt1
-f32.
+in training (``exact=False``, ``pallas_knn.py:1120-1161, 1200-1285``):
+a1's selected rows rounded to bf16, z1, h1, z2 and the reductions f32; in
+the backward each edge's dsel rounded to bf16 before the da1 sum over a
+point's in-edges (the pull form), db1, dW2, ds1 and dt1 f32.
 ``edge2_fwd_amp_plain`` and ``edge2_bwd_amp_plain`` are their plain
-versions.
+versions.  Its route (``amp_route``): at the tiled route's shapes the
+tensor-core form (``csrc/edge2_reduce_tc.cu``, ``csrc/edge2_bwd.cu``'s
+``edge2_bwd_tc_kernel``: z2, and the backward's dh1 and dW2, in three
+TF32 terms, ``csrc/edge2_tc.cuh``; each edge's dsel stored as bf16), with
+``simt=True`` the earlier tiled form (the f32 fmaf chain), and the
+row-warp route at the other shapes or with ``rowwarp``.  The backward's
+tie tests compare its z2 with the forward's max and min, so both must
+take z2 from the same arithmetic: the tensor cores, or the fmaf chain that
+the earlier tiled form and the row-warp route share.  ``Edge2Reduce``
+hands the forward's route to the backward (``fwd_route``), which raises
+when its own z2 would come from the other arithmetic.
 """
 from __future__ import annotations
 
@@ -57,6 +65,50 @@ def tiled_route(c1: int, c2: int, k: int) -> bool:
     (``e2t_train_route``); else the row-warp route."""
     return (c1 <= TILED_C and c2 <= TILED_C and c1 % 4 == 0 and c2 % 4 == 0
             and k <= TILED_K)
+
+
+TENSOR_CORE, SIMT, ROWWARP = "tensor_core", "simt", "rowwarp"
+
+
+def amp_route(c1: int, c2: int, k: int, *, simt: bool = False,
+              rowwarp: bool = False) -> str:
+    """The route of kernels 7 and 8's AMP forms at these shapes:
+    ``"tensor_core"`` at the tiled route's shapes, ``"simt"`` (the earlier
+    tiled form) there if ``simt`` asks, ``"rowwarp"`` at any other shape or
+    if ``rowwarp`` asks (``edge2_fwd`` alone takes it)."""
+    if rowwarp or not tiled_route(c1, c2, k):
+        return ROWWARP
+    return SIMT if simt else TENSOR_CORE
+
+
+def fwd_entry(route: str, amp: bool) -> str:
+    """The C entry that ``edge2_fwd`` calls on ``route`` (``simt``: the
+    earlier tiled form, edge2_reduce.cu's ``dg_edge2_fwd_amp``)."""
+    if route == TENSOR_CORE:
+        return "dg_edge2_fwd_amp_tc"
+    return (("dg_edge2_fwd_amp" if amp else "dg_edge2_fwd")
+            + ("_rowwarp" if route == ROWWARP else ""))
+
+
+def bwd_entry(route: str, amp: bool, atomic: bool = False) -> str:
+    """The C entry that ``edge2_bwd`` calls on ``route`` (the row-warp and
+    the earlier tiled form share edge2_bwd.cu's, which picks between them
+    from the shape)."""
+    if route == TENSOR_CORE:
+        return "dg_edge2_bwd_pull_amp_tc"
+    if atomic:
+        return "dg_edge2_bwd"
+    return "dg_edge2_bwd_pull_amp" if amp else "dg_edge2_bwd_pull"
+
+
+def _check_z2_route(fwd_route: str, route: str) -> None:
+    """Raise unless the forward's and the backward's z2 come from the same
+    arithmetic: the tensor cores, or the fmaf chain of the other two."""
+    if (fwd_route == TENSOR_CORE) != (route == TENSOR_CORE):
+        raise ValueError(
+            f"edge2_bwd: the forward took the {fwd_route} route and this "
+            f"backward the {route} one: their z2 differ in the last bits, "
+            "and the tie tests would miss the forward's max and min")
 
 
 def edge2_fwd_plain(a1, b1, s1, t1, w2, idx, slope: float = 0.2):
@@ -152,6 +204,12 @@ def _check(name: str, a1, b1, s1, t1, w2, idx, feats=()) -> tuple:
     return b, n, c1, c2, k
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its data is not 16-byte aligned (the tensor-core
+    forms gather its rows 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fn(name: str, argtypes):
     fn = getattr(_build.load_library(), name)
     if fn.argtypes is None:
@@ -166,7 +224,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
               t1: torch.Tensor, w2: torch.Tensor, idx: torch.Tensor,
               slope: float = 0.2, *, rowwarp: bool = False,
-              amp: bool = False):
+              amp: bool = False, simt: bool = False):
     """Max, min, sum and sum of squares over the k neighbours ``idx`` (B,
     N, k) of ``z2 = LReLU((a1[idx] + b1) * s1 + t1) @ w2`` -> four (B, N,
     C2) tensors.  ``a1``/``b1`` (B, N, C1), ``s1``/``t1`` (C1,), ``w2``
@@ -178,16 +236,22 @@ def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     of 4 up to 64 and k <= 128 (every model's shapes) take the tiled
     route, other shapes the row-warp route; ``rowwarp`` launches the
     row-warp route at any shape (the checks hold the tiled route bit-equal
-    to it).  ``amp`` runs the AMP form (module docstring) on the same
-    routes."""
+    to it).  ``amp`` runs the AMP form (module docstring) on the route
+    ``amp_route(C1, C2, k, simt=simt, rowwarp=rowwarp)``: the tensor-core
+    form at the tiled route's shapes, the earlier tiled form with
+    ``simt``."""
+    _require("edge2_fwd", amp or not simt,
+             "simt names the AMP form's earlier form")
     if a1.device.type == "cpu":
         plain = edge2_fwd_amp_plain if amp else edge2_fwd_plain
         return plain(a1, b1, s1, t1, w2, idx, slope)
     b, n, c1, c2, k = _check("edge2_fwd", a1, b1, s1, t1, w2, idx)
-    rowwarp = rowwarp or not tiled_route(c1, c2, k)
-    fn = _fn(("dg_edge2_fwd_amp" if amp else "dg_edge2_fwd")
-             + ("_rowwarp" if rowwarp else ""),
-             [_P] * 10 + [_I] * 5 + [_F, _P])
+    route = (amp_route(c1, c2, k, simt=simt, rowwarp=rowwarp) if amp else
+             ROWWARP if rowwarp or not tiled_route(c1, c2, k) else SIMT)
+    rowwarp = route == ROWWARP
+    fn = _fn(fwd_entry(route, amp), [_P] * 10 + [_I] * 5 + [_F, _P])
+    if route == TENSOR_CORE:
+        a1, b1 = _aligned(a1), _aligned(b1)
     small = [t.contiguous() for t in (s1, t1, w2)]
     red = [torch.empty((b, n, c2), device=a1.device, dtype=torch.float32)
            for _ in range(4)]
@@ -199,6 +263,7 @@ def edge2_fwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     edge2_fwd.launches += 1
     edge2_fwd.amp_launches += amp
     edge2_fwd.rowwarp_launches += amp and rowwarp
+    edge2_fwd.tc_launches += route == TENSOR_CORE
     return tuple(red)
 
 
@@ -207,7 +272,8 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
               amax: torch.Tensor, amin: torch.Tensor, ct_max: torch.Tensor,
               ct_min: torch.Tensor, ct_sum: torch.Tensor,
               ct_sumsq: torch.Tensor, slope: float = 0.2, *,
-              atomic: bool = False, amp: bool = False):
+              atomic: bool = False, amp: bool = False, simt: bool = False,
+              fwd_route: str | None = None):
     """The gradients (da1, db1, ds1, dt1, dw2) of ``edge2_fwd``'s four
     reductions given their cotangents and its ``amax``/``amin``.
 
@@ -223,7 +289,17 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     call on either route: da1 is summed over each point's in-edges in
     ascending edge id from a stored addend a edge (B * N * k * C1 floats
     of scratch), unless ``atomic`` adds the addends by f32 atomics.
-    ``amp`` runs the AMP form (module docstring), in the pull form."""
+    ``amp`` runs the AMP form (module docstring), in the pull form, on the
+    route ``amp_route(C1, C2, k, simt=simt)``: the tensor-core form at the
+    tiled route's shapes (each addend stored as bf16, B * N * k * C1 of
+    them), the earlier tiled form with ``simt``.  ``fwd_route``: the
+    route of the AMP forward whose max and min these are; a backward whose
+    z2 would come from the other arithmetic raises, on the CPU too."""
+    _require("edge2_bwd", amp or not simt,
+             "simt names the AMP form's earlier form")
+    if amp and fwd_route is not None:
+        _check_z2_route(fwd_route, amp_route(a1.shape[-1], w2.shape[-1],
+                                             idx.shape[-1], simt=simt))
     if a1.device.type == "cpu":
         plain = edge2_bwd_amp_plain if amp else edge2_bwd_plain
         return plain(a1, b1, s1, t1, w2, idx, amax, amin, ct_max, ct_min,
@@ -232,9 +308,12 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     b, n, c1, c2, k = _check("edge2_bwd", a1, b1, s1, t1, w2, idx, feats)
     _require("edge2_bwd", not (amp and atomic),
              "the AMP form has the pull form only")
-    fn = (_fn("dg_edge2_bwd", [_P] * 16 + [_I] * 6 + [_F, _P]) if atomic
-          else _fn("dg_edge2_bwd_pull_amp" if amp else "dg_edge2_bwd_pull",
-                   [_P] * 18 + [_I] * 6 + [_F, _P]))
+    route = amp_route(c1, c2, k, simt=simt) if amp else None
+    tc = route == TENSOR_CORE
+    fn = _fn(bwd_entry(route, amp, atomic),
+             [_P] * (16 if atomic else 18) + [_I] * 6 + [_F, _P])
+    if tc:
+        a1 = _aligned(a1)
     small = [t.contiguous() for t in (s1, t1, w2)]
     # a few blocks per SM stride over the tiles (whole rows) or row groups;
     # each leaves one row of partial dW2/ds1/dt1 sums, which a second launch
@@ -253,7 +332,7 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     else:
         da1 = torch.empty_like(a1)  # every element written
         dsel_e = torch.empty((b * n * k * c1,), device=a1.device,
-                             dtype=torch.float32)
+                             dtype=torch.bfloat16 if tc else torch.float32)
         iscratch = torch.empty((reverse_list_ints(b, n, k),),
                                device=a1.device, dtype=torch.int32)
         scratch = [p(dsel_e), p(iscratch)]
@@ -265,12 +344,14 @@ def edge2_bwd(a1: torch.Tensor, b1: torch.Tensor, s1: torch.Tensor,
     edge2_bwd.launches += 1
     edge2_bwd.amp_launches += amp
     edge2_bwd.rowwarp_launches += amp and not tiled_route(c1, c2, k)
+    edge2_bwd.tc_launches += tc
     dw2 = dflat[:c1 * c2].view(c1, c2)
     return da1, db1, dflat[c1 * c2:c1 * c2 + c1], dflat[c1 * c2 + c1:], dw2
 
 
 # launches of each kernel since its count was last set to 0 (amp_launches:
 # those of its AMP form; rowwarp_launches: those of its AMP form on the
-# row-warp route)
+# row-warp route; tc_launches: those of its AMP form on the tensor cores)
 edge2_fwd.launches = edge2_fwd.amp_launches = edge2_fwd.rowwarp_launches = 0
 edge2_bwd.launches = edge2_bwd.amp_launches = edge2_bwd.rowwarp_launches = 0
+edge2_fwd.tc_launches = edge2_bwd.tc_launches = 0

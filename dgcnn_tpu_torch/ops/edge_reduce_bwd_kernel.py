@@ -164,6 +164,48 @@ def reverse_lists(idx: torch.Tensor):
 reverse_lists.launches = 0
 
 
+def pull_sum_plain(idx: torch.Tensor, addends: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of ``pull_sum``: ``scatter_edges`` of the
+    addends widened to f32."""
+    return scatter_edges(addends.float(), idx)
+
+
+def pull_sum(idx: torch.Tensor, addends: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) f32: each point's row summed from zero over its in-edges'
+    rows of ``addends`` (B, N, k, C) in ascending edge id, the pull routes'
+    sum of kernels 5 and 8 (``csrc/reverse_lists.cu``) on its own.  f32
+    addends (C <= 256) or bf16 ones (C <= 64, kernel 8 AMP's tensor-core
+    form), widened to f32 as they are read: the f32 sum's bits of the
+    widened values.  CPU tensors take ``pull_sum_plain``."""
+    if idx.device.type == "cpu":
+        return pull_sum_plain(idx, addends)
+    _require(idx.is_cuda and addends.device == idx.device,
+             "idx and the addends must be on one CUDA device")
+    _require(idx.dtype == torch.int32 and idx.is_contiguous()
+             and idx.dim() == 3, "idx must be a contiguous (B, N, k) int32")
+    b, n, k = idx.shape
+    bf16 = addends.dtype == torch.bfloat16
+    c = addends.shape[-1]
+    _require(addends.shape == (b, n, k, c) and addends.is_contiguous()
+             and (bf16 or addends.dtype == torch.float32)
+             and c <= (64 if bf16 else 256),
+             "addends must be a contiguous (B, N, k, C) f32 (C <= 256) or "
+             "bf16 (C <= 64)")
+    fn = _build.load_library().dg_pull_sum
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p] + [i] * 5 + [p, p, p]
+        fn.restype = i
+    out = torch.empty((b, n, c), device=idx.device, dtype=torch.float32)
+    scratch = torch.empty((reverse_list_ints(b, n, k),), device=idx.device,
+                          dtype=torch.int32)
+    with torch.cuda.device(idx.device):
+        rc = fn(_build.ptr(idx), _build.ptr(addends), int(bf16), b, n, k, c,
+                _build.ptr(out), _build.ptr(scratch), _build.stream_of(idx))
+    _build.check(rc, "pull_sum")
+    return out
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"edge_reduce_bwd: {msg}")
